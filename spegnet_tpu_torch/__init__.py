@@ -1,0 +1,15 @@
+"""spegnet_tpu_torch: the PyTorch / CUDA port of spegnet_tpu for NVIDIA Hopper.
+
+The JAX package ``spegnet_tpu`` is the reference this package is held
+against.  This package imports ``torch`` and never ``jax``.  Module names
+mirror the JAX package; the TPU's Pallas kernels are replaced by
+hand-written CUDA kernels for ``sm_90a`` (``csrc/``, built and loaded by
+``kernels.py`` on first use).  Every kernel wrapper runs its plain PyTorch
+version for a tensor on the CPU and launches its kernel (or raises) for a
+CUDA tensor.
+
+Entry point: ``python -m spegnet_tpu_torch predict --model <.pth> --input
+<image|dir>`` (same arguments and output tree as ``main.py predict``).
+"""
+
+__version__ = "0.1.0"

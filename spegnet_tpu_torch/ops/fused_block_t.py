@@ -1,0 +1,234 @@
+"""Whole Hiera block and Q-pool transition front (port of spegnet_tpu/ops/fused_block_t.py).
+
+The trunk's kernel path runs token-major ``[B, N, C]`` in Morton (Z) order:
+:func:`to_z` is the JAX package's ``to_z`` (:570) transposed.  In that order
+every attention window of every stage is L consecutive rows and every 2x2
+pool group is 4 consecutive rows, so one layout serves the whole trunk.
+
+Each operator comes in two forms:
+
+* a plain PyTorch version (:func:`block_plain`, :func:`qpool_front_plain`),
+  the same math as ``block_t_reference`` (:1070) and
+  ``qpool_front_reference`` (:737) with unpadded nn.Linear weights;
+* a wrapper (:func:`fused_block_t`, :func:`qpool_front`) that runs the plain
+  version for a CPU tensor and, for a CUDA tensor, the hand-written kernels
+  of ``csrc/hiera_block.cu`` / ``csrc/qpool_front.cu`` (see there for what
+  each replaces and what bounds it) -- or raises on what they do not cover.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from spegnet_tpu_torch import kernels
+from spegnet_tpu_torch.ops.attention import attention_reference
+
+
+class BlockWeights(NamedTuple):
+    """One non-pooling block's parameters in nn.Linear layout ([out, in]).
+    LayerNorm parameters are f32; the rest are in the compute dtype."""
+
+    ln1_w: torch.Tensor
+    ln1_b: torch.Tensor
+    wqkv: torch.Tensor     # [3*H*d, C]
+    bqkv: torch.Tensor
+    wproj: torch.Tensor    # [C, H*d]
+    bproj: torch.Tensor
+    ln2_w: torch.Tensor
+    ln2_b: torch.Tensor
+    wfc1: torch.Tensor     # [hidden, C]
+    bfc1: torch.Tensor
+    wfc2: torch.Tensor     # [C, hidden]
+    bfc2: torch.Tensor
+
+
+class QPoolWeights(NamedTuple):
+    """Front half of a Q-pooling transition block (Cin -> Cout)."""
+
+    ln_w: torch.Tensor
+    ln_b: torch.Tensor
+    wqkv: torch.Tensor     # [3*H*d, Cin]
+    bqkv: torch.Tensor
+    wsc: torch.Tensor      # [Cout, Cin] shortcut projection
+    bsc: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Morton layout
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _morton_index(h: int, w: int) -> np.ndarray:
+    """raster index of each Morton position (y bit above x bit per level)."""
+    k = h.bit_length() - 1
+    if h != w or (1 << k) != h:
+        raise ValueError(f"Morton order needs H == W == 2^k, got {(h, w)}")
+    perm = []
+    for i in range(k):
+        perm += [i, k + i]
+    return np.arange(h * w).reshape((2,) * (2 * k)).transpose(perm).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _index(h: int, w: int, device: torch.device, inverse: bool) -> torch.Tensor:
+    idx = _morton_index(h, w)
+    if inverse:
+        idx = np.argsort(idx)
+    return torch.from_numpy(idx).to(device)
+
+
+def to_z(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, N, C] in Morton order (H == W == 2^k)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h * w, c).index_select(1, _index(h, w, x.device, False))
+
+
+def from_z(xz: torch.Tensor, hw) -> torch.Tensor:
+    """Inverse of :func:`to_z`: [B, N, C] -> [B, H, W, C]."""
+    b, n, c = xz.shape
+    h, w = hw
+    if h * w != n:
+        raise ValueError(f"from_z: {n} tokens vs {(h, w)}")
+    return xz.index_select(1, _index(h, w, xz.device, True)).reshape(b, h, w, c)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last dim, statistics and affine in f32, result in
+    x.dtype (the JAX package's ``_LayerNormParams``)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    xc = x32 - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
+
+
+def _window_attention_plain(qkv: torch.Tensor, heads: int, l: int,
+                            scale: float) -> torch.Tensor:
+    b, n, f = qkv.shape
+    d = f // (3 * heads)
+    t = qkv.reshape(b * (n // l), l, 3, heads, d)
+    o = attention_reference(t[:, :, 0], t[:, :, 1], t[:, :, 2], scale)
+    return o.reshape(b, n, heads * d)
+
+
+def block_plain(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
+                scale: float, eps: float = 1e-6,
+                approx_gelu: bool = True) -> torch.Tensor:
+    """One non-pooling Hiera block on [B, N, C], attention over windows of l
+    consecutive tokens."""
+    if x.shape[1] % l:
+        raise ValueError(f"{x.shape[1]} tokens do not split into windows of {l}")
+    h1 = layer_norm(x, wts.ln1_w, wts.ln1_b, eps)
+    qkv = F.linear(h1, wts.wqkv, wts.bqkv)
+    o = _window_attention_plain(qkv, heads, l, scale)
+    u = x + F.linear(o, wts.wproj, wts.bproj)
+    h2 = layer_norm(u, wts.ln2_w, wts.ln2_b, eps)
+    z = F.gelu(F.linear(h2, wts.wfc1, wts.bfc1),
+               approximate="tanh" if approx_gelu else "none")
+    return u + F.linear(z, wts.wfc2, wts.bfc2)
+
+
+def qpool_front_plain(x: torch.Tensor, wts: QPoolWeights, heads: int, l: int,
+                      scale: float, eps: float = 1e-6):
+    """[B, N, Cin] (Morton) -> (attention out [B, N/4, H*d], pooled shortcut
+    [B, N/4, Cout]), both Morton at the pooled grid.  q and the shortcut are
+    max-pooled over each 4 consecutive tokens after their dtype cast."""
+    b, n, _ = x.shape
+    if n % l or l % 4:
+        raise ValueError(f"{n} tokens vs pooled windows of {l}")
+    h1 = layer_norm(x, wts.ln_w, wts.ln_b, eps)
+    qkv = F.linear(h1, wts.wqkv, wts.bqkv)
+    sc = F.linear(h1, wts.wsc, wts.bsc)
+    sc_p = sc.reshape(b, n // 4, 4, -1).amax(2)
+    d = qkv.shape[-1] // (3 * heads)
+    t = qkv.reshape(b * (n // l), l, 3, heads, d)
+    qp = t[:, :, 0].reshape(b * (n // l), l // 4, 4, heads, d).amax(2)
+    o = attention_reference(qp, t[:, :, 1], t[:, :, 2], scale)
+    return o.reshape(b, n // 4, heads * d), sc_p
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _head_dim(w: torch.Tensor, heads: int) -> int:
+    f = w.shape[0]
+    if f % (3 * heads):
+        raise ValueError(f"qkv rows {f} do not split into 3 x {heads} heads")
+    return f // (3 * heads)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.float().contiguous()
+
+
+def block_cuda(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
+               scale: float, eps: float) -> torch.Tensor:
+    """The kernel chain of csrc/hiera_block.cu on [B, N, C] (bf16, CUDA)."""
+    b, n, c = x.shape
+    if n % l:
+        raise ValueError(f"{n} tokens do not split into windows of {l}")
+    d = _head_dim(wts.wqkv, heads)
+    x2 = x.reshape(b * n, c)
+    h1 = kernels.layernorm(x2, _f32(wts.ln1_w), _f32(wts.ln1_b), eps)
+    qkv = kernels.gemm(h1, wts.wqkv, wts.bqkv)
+    a = kernels.window_attention(qkv, heads, d, l, scale)
+    u = kernels.gemm(a, wts.wproj, wts.bproj, residual=x2)
+    h2 = kernels.layernorm(u, _f32(wts.ln2_w), _f32(wts.ln2_b), eps)
+    z = kernels.gemm(h2, wts.wfc1, wts.bfc1, gelu=True)
+    return kernels.gemm(z, wts.wfc2, wts.bfc2, residual=u).reshape(b, n, c)
+
+
+def _cuda_gate(x: torch.Tensor, approx_gelu: bool = True) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the Hopper kernels take bf16, got {x.dtype}")
+    if not approx_gelu:
+        raise ValueError("the Hopper block kernel implements the tanh GELU")
+
+
+def fused_block_t(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
+                  scale: float, eps: float = 1e-6,
+                  approx_gelu: bool = True) -> torch.Tensor:
+    """One non-pooling block on [B, N, C] (stages 1-3, global blocks
+    included).  CPU: :func:`block_plain`.  CUDA: csrc/hiera_block.cu, which
+    replaces spegnet_tpu/ops/fused_block_t.py ``_kernel`` (:349)."""
+    if x.device.type == "cpu":
+        return block_plain(x, wts, heads, l, scale, eps, approx_gelu)
+    _cuda_gate(x, approx_gelu)
+    kernels.launches["fused_block_t"] += 1
+    return block_cuda(x.contiguous(), wts, heads, l, scale, eps)
+
+
+def qpool_front(x: torch.Tensor, wts: QPoolWeights, heads: int, l: int,
+                scale: float, eps: float = 1e-6):
+    """Q-pool transition front on [B, N, Cin].  CPU:
+    :func:`qpool_front_plain`.  CUDA: csrc/qpool_front.cu, which replaces
+    spegnet_tpu/ops/fused_block_t.py ``_qpool_kernel`` (:634)."""
+    if x.device.type == "cpu":
+        return qpool_front_plain(x, wts, heads, l, scale, eps)
+    _cuda_gate(x)
+    kernels.launches["qpool_front"] += 1
+    b, n, cin = x.shape
+    if n % l:
+        raise ValueError(f"{n} tokens vs pooled windows of {l}")
+    d = _head_dim(wts.wqkv, heads)
+    cout = wts.wsc.shape[0]
+    x2 = x.contiguous().reshape(b * n, cin)
+    h1 = kernels.layernorm(x2, _f32(wts.ln_w), _f32(wts.ln_b), eps)
+    y = kernels.gemm(h1, torch.cat([wts.wqkv, wts.wsc]),
+                     torch.cat([wts.bqkv, wts.bsc]))
+    o = kernels.qpool_attention(y, heads, d, l, scale)
+    sc = kernels.pool4_rows(y, 3 * heads * d, cout)
+    return o.reshape(b, n // 4, heads * d), sc.reshape(b, n // 4, cout)

@@ -1,0 +1,64 @@
+"""Device-time breakdown of one SPEGNet forward on the GPU.
+
+    python -m spegnet_tpu_torch.utils.profiling [--batch 8] [--variant large]
+        [--plain] [--trace trace.json]
+
+Builds seeded random weights, runs two warm-up forwards at 512^2 in bf16,
+then profiles one forward with torch.profiler (CPU + CUDA activities) and
+prints the kernels sorted by device time, the device-busy total and the
+forward's wall time.  ``--plain`` profiles the kernels=False path instead.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m spegnet_tpu_torch.utils.profiling")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--variant", default="large")
+    ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--plain", action="store_true", help="profile kernels=False")
+    ap.add_argument("--trace", help="write a chrome trace here")
+    ap.add_argument("--rows", type=int, default=25)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.utils.weights import init_weights
+
+    cfg = SPEGNetConfig(variant=args.variant, compute_dtype="bfloat16")
+    model = init_weights(SPEGNet(cfg, kernels=not args.plain),
+                         torch.Generator().manual_seed(0)).eval().to_compute("cuda")
+    x = torch.randn(args.batch, args.size, args.size, 3,
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"forward wall {wall:.3f} ms at batch {args.batch}; device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}% of wall)")
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in events[: args.rows]:
+        print(f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:110]}")
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

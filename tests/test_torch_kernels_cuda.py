@@ -1,0 +1,48 @@
+"""The Hopper kernels against their plain PyTorch versions, in bf16, at every
+main-path geometry of Hiera-L 512^2 inference (batch 1).  These need an
+NVIDIA card with nvcc; elsewhere they skip."""
+
+import pytest
+import torch
+
+from spegnet_tpu_torch import kernel_check, kernels
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.all_cases()))
+def test_kernel_matches_plain(cuda, name):
+    g = torch.Generator().manual_seed(0)
+    case = kernel_check.all_cases()[name](name, 1, g, cuda)
+    before = kernels.launches[case.wrapper]
+    err, rel = kernel_check.compare(case)
+    torch.cuda.synchronize()
+    assert kernels.launches[case.wrapper] == before + 1
+    assert rel <= kernel_check.REL_LIMIT, (name, err, rel)
+
+
+def test_decoder_kernel_partial_tiles(cuda):
+    """A 2S grid that is not a multiple of the kernel's 128-pixel tile: the
+    halo, the tail columns and the stores are all guarded."""
+    case = kernel_check.decoder_case_at(20, 64, 64, 2, torch.Generator().manual_seed(0), cuda)
+    err, rel = kernel_check.compare(case)
+    assert rel <= kernel_check.REL_LIMIT, (err, rel)
+
+
+def test_kernel_path_refuses_f32(cuda):
+    from spegnet_tpu_torch.ops import fused_block_t as fbt
+
+    g = torch.Generator().manual_seed(0)
+    wts = kernel_check.block_weights(64, 2, g, cuda)
+    x = torch.randn(1, 256, 64, device=cuda)
+    with pytest.raises(ValueError):
+        fbt.fused_block_t(x, wts, 2, 64, 32 ** -0.5)
