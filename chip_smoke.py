@@ -6,19 +6,43 @@
 1. Requires CUDA (exits non-zero without it) and prints the card's name and
    power limit as nvidia-smi reports them.
 2. Builds the Hopper kernels from spegnet_tpu_torch/csrc into build/kernels/
-   and prints the build seconds.
+   (one nvcc per source, all started together) and prints the build seconds.
 3. Compares every kernel with its plain PyTorch version in bf16 at every
-   main-path geometry of Hiera-L 512^2 inference, batch 2 (stages 1-4, the
-   global blocks, the t12/t23/t34 transitions, decoder block 2), against
-   kernel_check.REL_LIMIT.
+   main-path geometry of Hiera-L 512^2 inference and training, batch 2: the
+   forward kernels (stages 1-4, the global blocks, the t12/t23/t34
+   transitions, decoder block 2) against kernel_check.REL_LIMIT, and the
+   backward kernels (every block and transition geometry plus a t23 case
+   with forced pool ties) against bf16 autograd of the plain version, dx and
+   every weight gradient, against kernel_check.BWD_REL_LIMIT.
 4. Runs the Predictor on 4 seeded synthetic 512^2 u8 images with seeded
    random Hiera-L weights in bf16, with every launch counter zeroed just
-   before: each kernel must have launched, outputs must be finite and of the
-   expected shapes, and the mask MAE against the plain f32 path
+   before: each forward kernel must have launched, outputs must be finite
+   and of the expected shapes, and the mask MAE against the plain f32 path
    (kernels=False, TF32 off) on the same weights must be <= 1e-3.
 5. Times the kernel path against the plain bf16 path (kernels=False) in
-   ms/image at batch 8, and each kernel against its plain version at batch 8,
-   with CUDA events.
+   ms/image at batch 8, and each kernel -- forward and backward -- against
+   its plain version at batch 8 with CUDA events, beside its roofline bound
+   (kernel_check.work / bound_ms); then each sub-kernel of the stage-1 and
+   global geometries against the one PyTorch call that computes the same
+   function (F.linear, scaled_dot_product_attention and its backward,
+   F.layer_norm and its backward, a transposed matmul), as yardsticks the
+   port never calls.
+6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
+   TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
+   a 640 canvas; edges their morphological boundary):
+   (a) batch 2, same weights and batch: the gradient through the kernel
+       path, the plain bf16 path and the plain f32 path (TF32 off); the
+       cosine of each bf16 gradient to the f32 one, overall and for the
+       encoder group, and the kernel path no worse than the plain bf16 path
+       by more than 0.01;
+   (b) batch 8: three Trainer steps on the kernel path with every launch
+       counter zeroed just before (losses finite, all six forward and
+       backward kernels launched, parameters and BN running statistics
+       changed), then four more; ms/step of the six steps after the first
+       (CUDA events, each and their median) and peak memory, for the kernel
+       and the plain bf16 path.
+7. No module of JAX, flax, optax or the JAX package was imported by any of
+   the above.
 
 Any failed check raises.  The last lines are the kernel table (JSON), the
 nvidia-smi line and {"ok": true, "device": {...}}.
@@ -36,8 +60,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 MASK_MAE_LIMIT = 1e-3   # BASELINE.md:41 drift budget
+COSINE_MARGIN = 0.01
+TIMED_STEPS = 6   # train steps timed after the warm-up step
 KERNELS = {
-    # wrapper: (source, TPU kernel it replaces)
+    # wrapper (launch counter): (source, TPU kernel it replaces)
     "fused_block_t": ("spegnet_tpu_torch/csrc/hiera_block.cu",
                       "spegnet_tpu/ops/fused_block_t.py:349"),
     "fused_block": ("spegnet_tpu_torch/csrc/hiera_block.cu",
@@ -46,7 +72,15 @@ KERNELS = {
                     "spegnet_tpu/ops/fused_block_t.py:634"),
     "fused_decoder_block": ("spegnet_tpu_torch/csrc/decoder_block.cu",
                             "spegnet_tpu/ops/fused_decoder.py:338"),
+    "fused_block_t_bwd": ("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
+                          "spegnet_tpu/ops/fused_block_t.py:1165"),
+    "fused_block_bwd": ("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
+                        "spegnet_tpu/ops/fused_block.py:274"),
+    "qpool_front_bwd": ("spegnet_tpu_torch/csrc/qpool_front_bwd.cu",
+                        "spegnet_tpu/ops/fused_block_t.py:833"),
 }
+TRAIN_COUNTERS = ("fused_block_t", "fused_block", "qpool_front", "fused_block_t_bwd",
+                  "fused_block_bwd", "qpool_front_bwd")
 
 
 def log(msg: str) -> None:
@@ -58,8 +92,18 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def train_config(batch: int):
+    return {"model": {"encoder": {"variant": "large", "checkpoint_path": None},
+                      "compute_dtype": "bfloat16", "image_processing": {"target_size": 512}},
+            "training": {"batch_size": batch, "num_epochs": 1, "val_ratio": 0,
+                         "gradient_clip": 1, "canvas_buckets": [512, 640, 768],
+                         "optimizer": {"learning_rate": 1e-4, "weight_decay": 1e-5,
+                                       "encoder_lr_ratio": 0.05}}}
+
+
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -67,7 +111,9 @@ def main() -> int:
         return 2
     from spegnet_tpu_torch import kernel_check as kc
     from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.data.pipeline import synthetic_train_batch
     from spegnet_tpu_torch.engine.predictor import Predictor
+    from spegnet_tpu_torch.engine.trainer import Trainer
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
     from spegnet_tpu_torch.utils.weights import init_weights
 
@@ -88,14 +134,23 @@ def main() -> int:
     cases = kc.all_cases()
     max_err = {w: 0.0 for w in KERNELS}
     for name, make in cases.items():
-        g = torch.Generator().manual_seed(1)
-        case = make(name, 2, g, dev)
+        case = make(name, 2, torch.Generator().manual_seed(1), dev)
         err, rel = kc.compare(case)
         torch.cuda.synchronize()
         max_err[case.wrapper] = max(max_err[case.wrapper], err)
-        log(f"check {name:7s} {case.wrapper:20s} max_abs {err:.4e} rel {rel:.4e} "
+        log(f"check {name:8s} {case.wrapper:20s} max_abs {err:.4e} rel {rel:.4e} "
             f"(limit {kc.REL_LIMIT})")
         check(rel <= kc.REL_LIMIT, f"{name}: kernel disagrees with plain ({rel:.3e})")
+    for name in kc.GRAD_CASES:
+        case = kc.grad_case(name, 2, torch.Generator().manual_seed(1), dev)
+        errs = kc.compare_grads(case)
+        torch.cuda.synchronize()
+        worst = max(errs, key=lambda k: errs[k][1])
+        max_err[case.wrapper] = max(max_err[case.wrapper], max(e for e, _ in errs.values()))
+        log(f"check {name:8s} {case.wrapper:20s} rel " + " ".join(
+            f"{k} {r:.2e}" for k, (_, r) in errs.items()) + f" (limit {kc.BWD_REL_LIMIT})")
+        check(errs[worst][1] <= kc.BWD_REL_LIMIT,
+              f"{name}: backward {worst} disagrees with plain autograd ({errs[worst][1]:.3e})")
 
     # -- 4. the Predictor on the main path -----------------------------------
     cfg = SPEGNetConfig(variant="large", compute_dtype="bfloat16")
@@ -110,15 +165,13 @@ def main() -> int:
     kernels.reset_launches()
     seg, edge = predictor.predict_arrays(images)
     torch.cuda.synchronize()
-    launches = dict(kernels.launches)
-    log(f"predict: launches {launches}")
-    for w, n in launches.items():
-        check(n > 0, f"{w} was not launched on the main path")
+    launches = {"predict": dict(kernels.launches)}
+    log(f"predict: launches {launches['predict']}")
+    for w in ("fused_block_t", "fused_block", "qpool_front", "fused_decoder_block"):
+        check(launches["predict"][w] > 0, f"{w} was not launched on the predict path")
     check(seg.shape == (4, 512, 512) and edge.shape == (4, 64, 64),
           f"output shapes {seg.shape} {edge.shape}")
     check(bool(np.isfinite(seg).all() and np.isfinite(edge).all()), "non-finite output")
-    jax_side = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "spegnet_tpu"))
-    check(not jax_side, f"the port imported JAX or the JAX package: {jax_side}")
 
     anchor = SPEGNet(SPEGNetConfig(variant="large"), kernels=False)
     anchor.load_state_dict(state)
@@ -146,27 +199,190 @@ def main() -> int:
             run.setdefault(mode, []).append(ms)
     model.kernels = True
     log(f"e2e ms/img at batch 8: kernel path {run['kernel']}, plain bf16 path {run['plain']}")
+    del model, predictor
+    torch.cuda.empty_cache()
 
-    per = {w: [0.0, 0.0] for w in KERNELS}
+    per = {w: {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0} for w in KERNELS}
+
+    def account(wrapper, name, k_ms, p_ms, backward=False):
+        n = kc.BLOCK_COUNT[name.replace("_ties", "")]
+        flops, nbytes = kc.work(name.replace("_ties", ""), 8, backward)
+        b_ms, by = kc.bound_ms(flops, nbytes)
+        log(f"time {name:8s} {wrapper:20s} batch 8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({by}) (x{n} per step)")
+        p = per[wrapper]
+        p["ms"] += k_ms * n
+        p["plain_ms"] += p_ms * n
+        p["ops_ms" if by == "operations" else "bytes_ms"] += b_ms * n
+
     with torch.inference_mode():
         for name, make in cases.items():
             case = make(name, 8, torch.Generator().manual_seed(2), dev)
-            k_ms, p_ms = kc.time_ms(case.kernel), kc.time_ms(case.plain)
-            log(f"time {name:7s} batch 8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-                f"(x{kc.BLOCK_COUNT[name]} per forward)")
-            per[case.wrapper][0] += k_ms * kc.BLOCK_COUNT[name]
-            per[case.wrapper][1] += p_ms * kc.BLOCK_COUNT[name]
+            account(case.wrapper, name, kc.time_ms(case.kernel), kc.time_ms(case.plain))
+    for name in kc.GRAD_CASES:
+        if name.endswith("_ties"):
+            continue
+        case = kc.grad_case(name, 8, torch.Generator().manual_seed(2), dev)
+        account(case.wrapper, name, kc.time_ms(case.kernel_bwd), kc.time_ms(case.plain_bwd),
+                backward=True)
+        del case
+        torch.cuda.empty_cache()
+    yardsticks(kc, kernels, F, torch, dev)
 
-    table = [{"name": w, "route": "cuda", "source": src, "replaces": rep,
-              "launches": launches[w], "max_abs_err": max_err[w],
-              "ms": per[w][0], "plain_ms": per[w][1]}
-             for w, (src, rep) in KERNELS.items()]
+    # -- 6. training ------------------------------------------------------------
+    master = init_weights(SPEGNet(SPEGNetConfig(variant="large")),
+                          torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(11)
+    b2 = synthetic_train_batch(2, rng)
+    log(f"train: batch 2 canvas {b2.masks.shape[1:]}, mask sizes {b2.mask_hw.tolist()}")
+
+    def make_trainer(batch, kernels_on, dtype="bfloat16"):
+        conf = train_config(batch)
+        conf["model"]["compute_dtype"] = dtype
+        m = SPEGNet(SPEGNetConfig(variant="large", compute_dtype=dtype), kernels=kernels_on)
+        m.load_state_dict(master)
+        return Trainer(conf, None, device="cuda", model=m)
+
+    grads, losses = {}, {}
+    for path, (kern, dtype) in {"kernel": (True, "bfloat16"), "plain": (False, "bfloat16"),
+                                "f32": (False, "float32")}.items():
+        tr = make_trainer(2, kern, dtype)
+        ld = tr.forward_loss(*tr.to_device(b2))
+        ld["loss"].backward()
+        losses[path] = ld["loss"].item()
+        grads[path] = {n: p.grad.detach().float() for n, p in tr.model.named_parameters()}
+        check(all(torch.isfinite(g).all().item() for g in grads[path].values()),
+              f"{path} gradient not finite")
+        del tr, ld
+        torch.cuda.empty_cache()
+
+    def cosine(a, b, prefix=""):
+        dot = na = nb = 0.0
+        for n in a:
+            if n.startswith(prefix):
+                dot += float((a[n].double() * b[n].double()).sum())
+                na += float((a[n].double() ** 2).sum())
+                nb += float((b[n].double() ** 2).sum())
+        return dot / max(np.sqrt(na * nb), 1e-300)
+
+    cos = {(p, grp): cosine(grads[p], grads["f32"], pre) for p in ("kernel", "plain")
+           for grp, pre in (("all", ""), ("encoder", "encoder."))}
+    log(f"train grad (batch 2): loss kernel {losses['kernel']:.6f} plain bf16 "
+        f"{losses['plain']:.6f} f32 {losses['f32']:.6f}")
+    for grp in ("all", "encoder"):
+        log(f"train grad cosine to f32 ({grp}): kernel {cos[('kernel', grp)]:.6f}, "
+            f"plain bf16 {cos[('plain', grp)]:.6f}")
+        check(cos[("kernel", grp)] >= cos[("plain", grp)] - COSINE_MARGIN,
+              f"kernel-path gradient ({grp}) cosine {cos[('kernel', grp)]:.4f} < plain "
+              f"{cos[('plain', grp)]:.4f} - {COSINE_MARGIN}")
+    del grads
+    torch.cuda.empty_cache()
+
+    b8 = synthetic_train_batch(8, rng)
+    step_ms, mem = {}, {}
+    for path in ("kernel", "plain"):
+        tr = make_trainer(8, path == "kernel")
+        before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+        stats0 = {n: b.clone() for n, b in tr.model.named_buffers() if "running" in n}
+        torch.cuda.reset_peak_memory_stats()
+        if path == "kernel":
+            kernels.reset_launches()
+        res = [tr.train_step(b8) for _ in range(3)]
+        torch.cuda.synchronize()
+        if path == "kernel":
+            launches["train"] = dict(kernels.launches)
+            log(f"train: launches {launches['train']}")
+            for w in TRAIN_COUNTERS:
+                check(launches["train"][w] > 0, f"{w} was not launched on the train path")
+        mem[path] = torch.cuda.max_memory_allocated() / 2 ** 30
+        lossv = [r["metrics"]["loss"] for r in res]
+        check(all(np.isfinite(lossv)), f"{path}: non-finite losses {lossv}")
+        moved = sum(int(not torch.equal(before[n], p)) for n, p in tr.model.named_parameters())
+        bn_moved = sum(int(not torch.equal(stats0[n], b)) for n, b in tr.model.named_buffers()
+                       if n in stats0)
+        # conv biases feeding a batch-statistics BatchNorm have a gradient of
+        # 0 in exact arithmetic and may stay put
+        check(moved >= 0.9 * len(before) and bn_moved == len(stats0),
+              f"{path}: {moved}/{len(before)} params, {bn_moved}/{len(stats0)} BN stats moved")
+        res += [tr.train_step(b8) for _ in range(TIMED_STEPS - 2)]
+        ms = [1e3 * (r["timing"]["forward_time"] + r["timing"]["backward_time"])
+              for r in res[1:]]
+        step_ms[path] = ms
+        log(f"train {path} batch 8: {moved}/{len(before)} params moved, losses {lossv}, "
+            f"ms/step after warm-up {[round(v, 3) for v in ms]} (median "
+            f"{float(np.median(ms)):.3f}; forward "
+            f"{[round(1e3 * r['timing']['forward_time'], 3) for r in res[1:]]}), "
+            f"peak memory {mem[path]:.2f} GiB")
+        del tr, before, res
+        torch.cuda.empty_cache()
+
+    jax_side = sorted(k for k in sys.modules
+                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spegnet_tpu"))
+    check(not jax_side, f"the port imported JAX-package modules: {jax_side[:5]}")
+
+    table = []
+    for w, (src, rep) in KERNELS.items():
+        p = per[w]
+        bound = p["ops_ms"] + p["bytes_ms"]
+        table.append({"name": w, "route": "cuda", "source": src, "replaces": rep,
+                      "launches": sum(run_l.get(w, 0) for run_l in launches.values()),
+                      "max_abs_err": max_err[w], "ms": p["ms"], "plain_ms": p["plain_ms"],
+                      "bound_ms": bound,
+                      "bound_by": "operations" if p["ops_ms"] >= p["bytes_ms"] else "bytes",
+                      "library_ms": None})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def yardsticks(kc, kernels, F, torch, dev) -> None:
+    """Each sub-kernel of the stage-1 and global block geometries at batch 8
+    beside the one PyTorch call that computes the same function (timed
+    here, never called by the port)."""
+    Cols = kernels.Cols
+    for name in ("stage1", "global"):
+        _, c, heads, l, n = kc.BLOCKS[name]
+        g = torch.Generator().manual_seed(3)
+        wts = kc.block_weights(c, heads, g, dev)
+        d = c // heads
+        m = 8 * n
+        x = torch.randn((m, c), generator=g).to(dev, torch.bfloat16)
+        qkv = kernels.gemm(x, wts.wqkv, wts.bqkv)
+        a, lse = kernels.window_attention(qkv, heads, d, l, d ** -0.5, with_lse=True)
+        da = torch.randn_like(a)
+        dqkv = torch.empty_like(qkv)
+        q4 = qkv.reshape(m // l, l, 3, heads, d).permute(2, 0, 3, 1, 4)
+        q4 = [t.contiguous().requires_grad_() for t in q4]
+        sdpa_out = F.scaled_dot_product_attention(*q4)
+        g4 = da.reshape(m // l, l, heads, d).permute(0, 2, 1, 3).contiguous()
+        lnw, lnb = wts.ln1_w, wts.ln1_b
+        xg = x.detach().requires_grad_()
+        ln_out = F.layer_norm(xg, (c,), lnw.to(torch.bfloat16), lnb.to(torch.bfloat16), 1e-6)
+        pairs = {
+            "gemm qkv": (lambda: kernels.gemm(x, wts.wqkv, wts.bqkv),
+                         lambda: F.linear(x, wts.wqkv, wts.bqkv)),
+            "attention": (lambda: kernels.window_attention(qkv, heads, d, l, d ** -0.5),
+                          lambda: F.scaled_dot_product_attention(*[t.detach() for t in q4])),
+            "attention bwd": (lambda: kernels.attention_bwd(
+                Cols(qkv, 0), Cols(qkv, c), Cols(qkv, 2 * c), Cols(a), Cols(da), lse,
+                Cols(dqkv, 0), Cols(dqkv, c), Cols(dqkv, 2 * c), heads, d, l, l, d ** -0.5),
+                lambda: torch.autograd.grad(sdpa_out, q4, g4, retain_graph=True)),
+            "layernorm": (lambda: kernels.layernorm(x, lnw, lnb, 1e-6),
+                          lambda: F.layer_norm(x, (c,), lnw.to(torch.bfloat16),
+                                               lnb.to(torch.bfloat16), 1e-6)),
+            "layernorm bwd": (lambda: kernels.layernorm_bwd(x, lnw, x, 1e-6),
+                              lambda: torch.autograd.grad(ln_out, xg, x, retain_graph=True)),
+            "weight grad": (lambda: kernels.gemm_tn(qkv, x),
+                            lambda: torch.mm(qkv.t(), x)),
+        }
+        for what, (k, lib) in pairs.items():
+            log(f"yardstick {name:7s} {what:14s} batch 8: kernel {kc.time_ms(k):.4f} ms, "
+                f"library {kc.time_ms(lib):.4f} ms")
+        del q4, sdpa_out, ln_out, xg
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

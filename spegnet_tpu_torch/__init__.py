@@ -8,8 +8,10 @@ hand-written CUDA kernels for ``sm_90a`` (``csrc/``, built and loaded by
 version for a tensor on the CPU and launches its kernel (or raises) for a
 CUDA tensor.
 
-Entry point: ``python -m spegnet_tpu_torch predict --model <.pth> --input
-<image|dir>`` (same arguments and output tree as ``main.py predict``).
+Entry points: ``python -m spegnet_tpu_torch predict --model <.pth> --input
+<image|dir>`` and ``python -m spegnet_tpu_torch train [--config <yaml>]``
+(same arguments and output trees as ``main.py``); both run on the card
+unless ``--device cpu`` is given.
 """
 
 __version__ = "0.1.0"

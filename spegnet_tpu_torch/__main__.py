@@ -1,11 +1,16 @@
-"""Command line of the PyTorch port: ``predict`` with the arguments and output
-tree of ``main.py predict``::
+"""Command line of the PyTorch port, with the arguments and output trees of
+``main.py``::
 
+    python -m spegnet_tpu_torch train [--config configs/default.yaml] [--device cuda]
     python -m spegnet_tpu_torch predict --input path/to/image_or_dir \\
-        [--model checkpoints/model.pth] [--config configs/default.yaml]
+        [--model checkpoints/model.pth] [--config configs/default.yaml] [--device cuda]
 
-The checkpoint's embedded model config overlays the YAML's ``model``
-section, as in ``main.py``.  ``train`` and ``evaluate`` are not ported yet.
+Both run on the card (``--device cuda``, the default; they fail without
+one) unless ``--device cpu`` asks for the CPU.  ``train`` resumes from the
+config's ``training.resume_from`` when it is set and needs
+``training.val_ratio: 0`` (validation is not ported yet).  For predict the
+checkpoint's embedded model config overlays the YAML's ``model`` section.
+``evaluate`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,30 +20,44 @@ import logging
 import sys
 from pathlib import Path
 
+from spegnet_tpu_torch.config import DEFAULT_MODEL_PATH
+
 
 def parse_args(argv=None) -> argparse.Namespace:
-    from spegnet_tpu.config import DEFAULT_MODEL_PATH
-
     parser = argparse.ArgumentParser(
         prog="python -m spegnet_tpu_torch",
         description="SPEGNet camouflaged object detection (PyTorch / CUDA port)")
     parser.add_argument("mode", choices=["train", "evaluate", "predict"],
-                        help="Operation mode (only predict is ported)")
+                        help="Operation mode (train and predict are ported)")
     parser.add_argument("--config", type=Path,
                         help="Path to config file (default: configs/default.yaml)")
     parser.add_argument("--model", type=Path,
                         help=f"Path to a .pth checkpoint (default: {DEFAULT_MODEL_PATH})")
     parser.add_argument("--input", type=Path, help="Input image or directory")
-    parser.add_argument("--device", help="torch device (default: cuda if available)")
+    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    if args.mode != "predict":
-        parser.error(f"{args.mode} is not ported to PyTorch yet; use main.py")
-    if not args.input:
+    if args.mode == "evaluate":
+        parser.error("evaluate is not ported to PyTorch yet; use main.py")
+    if args.mode == "predict" and not args.input:
         parser.error("predict mode requires --input argument")
     return args
 
 
-def predict(config, model_path: Path, input_path: Path, dir_manager, device=None) -> None:
+def train(config, dir_manager, device: str) -> None:
+    from spegnet_tpu_torch.engine.trainer import Trainer
+
+    dataset_paths = config["training"]["datasets"]
+    if not dataset_paths:
+        raise ValueError("No dataset paths provided in config")
+    logging.info(f"Training on datasets: {dataset_paths}")
+    trainer = Trainer(config, dir_manager, device=device)
+    resume_path = config["training"].get("resume_from")
+    if resume_path:
+        trainer.load_checkpoint(resume_path, resume=True)
+    trainer.train(dataset_paths)
+
+
+def predict(config, model_path: Path, input_path: Path, dir_manager, device: str) -> None:
     from spegnet_tpu_torch.engine.predictor import Predictor
 
     predictor = Predictor(model_path=str(model_path), model_config=config["model"],
@@ -58,19 +77,23 @@ def main(argv=None) -> None:
     try:
         import yaml
 
-        from spegnet_tpu.config import DEFAULT_MODEL_PATH, load_config, overlay_checkpoint_config
-        from spegnet_tpu.utils.run_manager import DirectoryManager, setup_logging
+        from spegnet_tpu_torch.config import load_config, overlay_checkpoint_config
         from spegnet_tpu_torch.engine.model_loader import load_checkpoint_config
+        from spegnet_tpu_torch.utils.run_manager import DirectoryManager, setup_logging
 
         args = parse_args(argv)
         dir_manager = DirectoryManager(args.mode)
         setup_logging(dir_manager)
         config = load_config(args.config)
-        model_path = args.model or DEFAULT_MODEL_PATH
-        config = overlay_checkpoint_config(config, load_checkpoint_config(str(model_path)))
-        logging.info("Running in predict mode (PyTorch port)")
+        if args.mode == "predict":
+            model_path = args.model or DEFAULT_MODEL_PATH
+            config = overlay_checkpoint_config(config, load_checkpoint_config(str(model_path)))
+        logging.info(f"Running in {args.mode} mode (PyTorch port)")
         logging.info("Configuration:\n" + yaml.dump(config, default_flow_style=False))
-        predict(config, model_path, args.input, dir_manager, args.device)
+        if args.mode == "train":
+            train(config, dir_manager, args.device)
+        else:
+            predict(config, model_path, args.input, dir_manager, args.device)
         logging.info("Process completed successfully")
     except Exception as e:
         logging.error(f"Error occurred: {e}", exc_info=True)

@@ -17,7 +17,9 @@
 // re-packed in place as the A operand of P.V), so the [L, L] scores never
 // leave the chip at any L (global blocks run L = 1024).  head_dim is
 // zero-padded to DP (a multiple of 16, the k of a bf16 mma) in shared
-// memory only.
+// memory only.  With `lse` set, each query row's log-sum-exp of its scaled
+// scores (log2 units, [q_rows, heads] f32) is written too: the backward
+// (hiera_block_bwd.cu) rebuilds P = exp2(s * scale * log2 e - lse) from it.
 #pragma once
 
 #include "common.cuh"
@@ -38,8 +40,8 @@ struct AttnSmem {
 template <int DP, bool POOL>
 __global__ void __launch_bounds__(ATTN_WARPS * 32)
 attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                 int q_rows, int ld, int heads, int D, int Lq, int Lk,
-                 float scale) {
+                 float* __restrict__ lse, int q_rows, int ld, int heads, int D,
+                 int Lq, int Lk, float scale) {
   constexpr int P = AttnSmem<DP>::kPitch;
   constexpr int KT = ATTN_KT;
   constexpr int NV = DP / 8;   // 16-byte vectors per padded row
@@ -221,6 +223,10 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if (lse && t == 0) {
+    lse[(qr0 + g) * heads + h] = m0 + log2f(l0);
+    lse[(qr0 + g + 8) * heads + h] = m1 + log2f(l1);
+  }
   const long stride = (long)heads * D;
   bf16* d0 = out + (qr0 + g) * stride + h * D;
   bf16* d1 = d0 + 8 * stride;
@@ -239,7 +245,7 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 // Launches attention_kernel for a runtime head_dim D (a multiple of 8, at
 // most 128), padding it to the next multiple of 16.
 template <bool POOL>
-cudaError_t launch_attention(const bf16* qkv, bf16* out, int q_rows, int ld,
+cudaError_t launch_attention(const bf16* qkv, bf16* out, float* lse, int q_rows, int ld,
                              int heads, int D, int Lq, int Lk, float scale,
                              cudaStream_t stream) {
   const dim3 grid((q_rows + ATTN_WARPS * 16 - 1) / (ATTN_WARPS * 16), heads);
@@ -250,7 +256,7 @@ cudaError_t launch_attention(const bf16* qkv, bf16* out, int q_rows, int ld,
     cudaFuncSetAttribute(attention_kernel<DPV, POOL>,                           \
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);    \
     attention_kernel<DPV, POOL><<<grid, block, smem, stream>>>(                 \
-        qkv, out, q_rows, ld, heads, D, Lq, Lk, scale);                         \
+        qkv, out, lse, q_rows, ld, heads, D, Lq, Lk, scale);                         \
     break;                                                                      \
   }
   switch ((D + 15) / 16 * 16) {

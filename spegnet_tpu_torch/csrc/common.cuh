@@ -243,4 +243,11 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
 }
 
+// d/dx of gelu_tanh.
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float k0 = 0.7978845608028654f;
+  const float th = tanhf(k0 * (x + 0.044715f * x * x * x));
+  return 0.5f * (1.0f + th) + 0.5f * x * (1.0f - th * th) * k0 * (1.0f + 0.134145f * x * x);
+}
+
 }  // namespace spk

@@ -53,6 +53,7 @@ layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
 }
 
 constexpr int WG_BM = 128, WG_BK = 64;
+enum { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_PRE = 2, ACT_GELU_GRAD = 3 };
 constexpr int GEMM_STAGES = 4;
 
 template <int NACC>
@@ -61,7 +62,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[NACC]) {
   for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// C[M, N] = A[M, K] W[N, K]^T (+ bias[N]) (-> gelu_tanh) (+ residual[M, N]).
+// C[M, N] = A[M, K] W[N, K]^T (+ bias[N]), then by ACT:
+//   ACT_NONE:      (+ residual[M, N])
+//   ACT_GELU:      gelu_tanh of the f32 sum (+ residual)
+//   ACT_GELU_PRE:  C = the pre-activation, aux = gelu_tanh(it), both rounded
+//                  from the same f32 sum (the backward's recompute of fc1;
+//                  C is stored from the accumulators, uncoalesced)
+//   ACT_GELU_GRAD: C = bf16(sum) * gelu_tanh'(res), res holding the
+//                  pre-activation (dz = dg * gelu'(z) of the block backward)
 // Rounding follows the TPU kernel: the f32 sum (+ bias, -> GELU) is rounded
 // to bf16, and the residual add is a bf16 + bf16 sum rounded once more.
 //
@@ -73,11 +81,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[NACC]) {
 // stage once the MMAs that read it have completed.  No block-wide barrier
 // runs in the main loop.  TMA zero-fills the M, N and K tails.  Requires
 // K % 8 == 0 and N % 8 == 0 (16-byte rows).
-template <int BN, int STAGES>
+template <int BN, int STAGES, int ACT>
 __global__ void __launch_bounds__(384, 1)
 gemm_tma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
                 const bf16* __restrict__ bias, const bf16* __restrict__ res,
-                bf16* __restrict__ C, int M, int N, int K, int act) {
+                bf16* __restrict__ C, bf16* __restrict__ aux, int M, int N, int K) {
   constexpr int NACC = BN / 2;
   constexpr int TILE_A = WG_BM * WG_BK, STAGE = (WG_BM + BN) * WG_BK;
   constexpr uint32_t STAGE_BYTES = STAGE * 2;
@@ -139,10 +147,29 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__
   fence_regs(d);
 
   // Epilogue: bias (+ GELU) rounded into this warpgroup's own staging tile,
-  // then the residual add and the store on coalesced 16-byte rows.
+  // then the residual add (or the GELU-gradient product) and the store on
+  // coalesced 16-byte rows.  ACT_GELU_PRE first stores the pre-activation
+  // straight from the accumulators into C, then stages its GELU for aux.
+  const int rl = w * 16 + g;
+  if (ACT == ACT_GELU_PRE) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * t;
+      if (col >= N) continue;
+      const float b0 = bias ? bf(bias[col]) : 0.f, b1 = bias ? bf(bias[col + 1]) : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long row = m0 + cw * 64 + rl + 8 * hh;
+        if (row < M)
+          *reinterpret_cast<__nv_bfloat162*>(C + row * N + col) =
+              __floats2bfloat162_rn(d[4 * j + 2 * hh] + b0, d[4 * j + 2 * hh + 1] + b1);
+      }
+    }
+  }
+  constexpr bool gelu = ACT == ACT_GELU || ACT == ACT_GELU_PRE;
+  bf16* dst = ACT == ACT_GELU_PRE ? aux : C;
   constexpr int P = BN + 8;  // staging pitch (elements), 16-byte rows
   bf16* Cs = reinterpret_cast<bf16*>(empty + STAGES) + cw * 64 * P;
-  const int rl = w * 16 + g;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int cl = j * 8 + 2 * t;
@@ -152,7 +179,7 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float v0 = d[4 * j + 2 * hh] + b0, v1 = d[4 * j + 2 * hh + 1] + b1;
-      if (act == 1) {
+      if (gelu) {
         v0 = gelu_tanh(v0);
         v1 = gelu_tanh(v1);
       }
@@ -170,10 +197,16 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__
     uint4 v = *reinterpret_cast<const uint4*>(Cs + r * P + c * 8);
     if (res) {
       uint4 rv = *reinterpret_cast<const uint4*>(res + row * N + col);
+      if (ACT == ACT_GELU_GRAD) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) lanes(v)[e] = to_bf(bf(lanes(rv)[e]) + bf(lanes(v)[e]));
+        for (int e = 0; e < 8; ++e)
+          lanes(v)[e] = to_bf(bf(lanes(v)[e]) * gelu_tanh_grad(bf(lanes(rv)[e])));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) lanes(v)[e] = to_bf(bf(lanes(rv)[e]) + bf(lanes(v)[e]));
+      }
     }
-    *reinterpret_cast<uint4*>(C + row * N + col) = v;
+    *reinterpret_cast<uint4*>(dst + row * N + col) = v;
   }
 }
 
@@ -205,21 +238,40 @@ cudaError_t make_tmap(CUtensorMap* map, const void* ptr, int rows, int K, int bo
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, int STAGES>
+template <int BN, int STAGES, int ACT>
 cudaError_t launch_tma_gemm(const void* a, const void* w, const void* bias, const void* res,
-                            void* c, int M, int N, int K, int act, cudaStream_t stream) {
+                            void* c, void* aux, int M, int N, int K, cudaStream_t stream) {
   CUtensorMap ta, tb;
   cudaError_t e = make_tmap(&ta, a, M, K, WG_BM);
   if (e == cudaSuccess) e = make_tmap(&tb, w, N, K, BN);
   if (e != cudaSuccess) return e;
   const int smem = STAGES * (WG_BM + BN) * WG_BK * 2 + 2 * STAGES * 8 + WG_BM * (BN + 8) * 2 +
                    1024;
-  cudaFuncSetAttribute(gemm_tma_kernel<BN, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
+  cudaFuncSetAttribute(gemm_tma_kernel<BN, STAGES, ACT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((N + BN - 1) / BN, (M + WG_BM - 1) / WG_BM);
-  gemm_tma_kernel<BN, STAGES><<<grid, 384, smem, stream>>>(
-      ta, tb, (const bf16*)bias, (const bf16*)res, (bf16*)c, M, N, K, act);
+  gemm_tma_kernel<BN, STAGES, ACT><<<grid, 384, smem, stream>>>(
+      ta, tb, (const bf16*)bias, (const bf16*)res, (bf16*)c, (bf16*)aux, M, N, K);
   return cudaGetLastError();
+}
+
+template <int BN>
+int gemm_act(const void* a, const void* w, const void* bias, const void* res, void* c,
+             void* aux, int M, int N, int K, int act, cudaStream_t st) {
+  switch (act) {
+    case ACT_NONE:
+      return (int)launch_tma_gemm<BN, GEMM_STAGES, ACT_NONE>(a, w, bias, res, c, aux, M, N, K, st);
+    case ACT_GELU:
+      return (int)launch_tma_gemm<BN, GEMM_STAGES, ACT_GELU>(a, w, bias, res, c, aux, M, N, K, st);
+    case ACT_GELU_PRE:
+      return (int)launch_tma_gemm<BN, GEMM_STAGES, ACT_GELU_PRE>(a, w, bias, res, c, aux, M, N,
+                                                                 K, st);
+    case ACT_GELU_GRAD:
+      return (int)launch_tma_gemm<BN, GEMM_STAGES, ACT_GELU_GRAD>(a, w, bias, res, c, aux, M, N,
+                                                                  K, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -240,23 +292,20 @@ int sp_layernorm(const void* x, const void* w, const void* b, void* y, long rows
 }
 
 // The N tile (128 or 192) is the one that pads N least; ties go to 192.
+// `act` as gemm_tma_kernel's ACT; aux is written only by ACT_GELU_PRE.
 int sp_gemm(const void* a, const void* w, const void* bias, const void* res, void* c,
-            int M, int N, int K, int act, void* stream) {
+            void* aux, int M, int N, int K, int act, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int pad128 = (N + 127) / 128 * 128, pad192 = (N + 191) / 192 * 192;
-  if (pad128 < pad192)
-    return (int)spk::launch_tma_gemm<128, spk::GEMM_STAGES>(a, w, bias, res, c, M, N, K, act,
-                                                             st);
-  return (int)spk::launch_tma_gemm<192, spk::GEMM_STAGES>(a, w, bias, res, c, M, N, K, act,
-                                                           st);
+  if (pad128 < pad192) return spk::gemm_act<128>(a, w, bias, res, c, aux, M, N, K, act, st);
+  return spk::gemm_act<192>(a, w, bias, res, c, aux, M, N, K, act, st);
 }
 
-// qkv [rows, ld] -> out [rows, heads * D]; windows of L consecutive rows
-// (L = rows per image for a global block).
-int sp_window_attention(const void* qkv, void* out, int rows, int ld, int heads, int D,
-                        int L, float scale, void* stream) {
-  return (int)spk::launch_attention<false>((const bf16*)qkv, (bf16*)out, rows, ld, heads,
-                                            D, L, L, scale, (cudaStream_t)stream);
+// lse (nullable): [rows, heads] f32 log-sum-exp of each row's scores.
+int sp_window_attention(const void* qkv, void* out, void* lse, int rows, int ld, int heads,
+                        int D, int L, float scale, void* stream) {
+  return (int)spk::launch_attention<false>((const bf16*)qkv, (bf16*)out, (float*)lse, rows,
+                                            ld, heads, D, L, L, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

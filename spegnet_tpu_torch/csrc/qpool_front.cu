@@ -49,10 +49,12 @@ extern "C" {
 
 // y [rows_in, ld] (q/k/v columns first) -> out [rows_in / 4, heads * D];
 // key windows of L consecutive input rows, query windows of L / 4 pooled rows.
-int sp_qpool_attention(const void* y, void* out, int rows_in, int ld, int heads, int D,
-                       int L, float scale, void* stream) {
-  return (int)spk::launch_attention<true>((const bf16*)y, (bf16*)out, rows_in / 4, ld,
-                                           heads, D, L / 4, L, scale, (cudaStream_t)stream);
+// lse (nullable): [rows_in / 4, heads] f32 log-sum-exp of each pooled row.
+int sp_qpool_attention(const void* y, void* out, void* lse, int rows_in, int ld, int heads,
+                       int D, int L, float scale, void* stream) {
+  return (int)spk::launch_attention<true>((const bf16*)y, (bf16*)out, (float*)lse,
+                                           rows_in / 4, ld, heads, D, L / 4, L, scale,
+                                           (cudaStream_t)stream);
 }
 
 int sp_pool4_rows(const void* src, void* dst, long rows_out, int ld, int col0, int ncols,

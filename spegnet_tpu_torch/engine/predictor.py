@@ -3,9 +3,9 @@
 Single-image and batched directory inference with the reference's output
 tree: 6 PNGs per image (segmentation and edge maps, each as binary /
 heatmap / overlay) and ``prediction_summary.json``.  The model runs on
-``device`` (CUDA when available) in the config's compute dtype through the
-kernel path; OpenCV and Pillow are imported only where files are written or
-decoded.
+``device`` (the card unless the caller asks for the CPU) in the config's
+compute dtype through the kernel path; OpenCV and Pillow are imported only
+where files are written or decoded.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from spegnet_tpu_torch.data.pipeline import ImageProcessor
 from spegnet_tpu_torch.engine.model_loader import load_checkpoint
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 from spegnet_tpu_torch.ops.resize import resize_bilinear
+from spegnet_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -48,7 +49,7 @@ class PredictionResultManager:
 
     def save_prediction(self, filename: str, seg_pred: np.ndarray,
                         edge_pred: np.ndarray, original_image: np.ndarray):
-        from spegnet_tpu.utils.visualization import (
+        from spegnet_tpu_torch.utils.visualization import (
             save_binary_visualization,
             save_heatmap_visualization,
             save_overlay_visualization,
@@ -92,13 +93,14 @@ class Predictor:
     """``model``: an already-built SPEGNet to use instead of loading
     ``model_path`` (it is moved to ``device`` and cast for compute).
     ``dir_manager`` None keeps results in memory: :meth:`predict_arrays`
-    only, no output tree."""
+    only, no output tree.  ``device`` None is the card (raises without
+    one); pass "cpu" to run on the CPU."""
 
     def __init__(self, model_path: Optional[str], model_config: Dict, dir_manager,
                  batch_size: int = 1, device: Optional[str] = None,
                  model: Optional[SPEGNet] = None):
         self.batch_size = batch_size or 1
-        self.device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         img_cfg = model_config.get("image_processing", {})
         self.target_size = img_cfg.get("target_size", 512)
         self.processor = ImageProcessor(

@@ -9,7 +9,8 @@ imports on machines without CUDA.
 Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream and raises if
 the C entry returns a CUDA error.  ``launches`` counts the calls of each
-model-level wrapper (ops/*) that went through a kernel; ``reset_launches``
+model-level wrapper (ops/*) that went through a kernel, and under
+``<wrapper>_bwd`` the calls of its kernel backward; ``reset_launches``
 clears it.
 """
 
@@ -21,18 +22,23 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
-SOURCES = ("hiera_block.cu", "qpool_front.cu", "decoder_block.cu")
+SOURCES = ("hiera_block.cu", "hiera_block_bwd.cu", "qpool_front.cu",
+           "qpool_front_bwd.cu", "decoder_block.cu")
 
 launches = {
     "fused_block_t": 0,
     "fused_block": 0,
     "qpool_front": 0,
     "fused_decoder_block": 0,
+    "fused_block_t_bwd": 0,
+    "fused_block_bwd": 0,
+    "qpool_front_bwd": 0,
 }
 
 _lib = None
@@ -64,23 +70,42 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into build/kernels/libspegnet_kernels_<hash>.so
-    (skipped when that file exists) and return its path.  ``verbose`` adds
-    ``-Xptxas -v`` and prints the compiler's register/shared-memory report."""
-    so = BUILD_DIR / f"libspegnet_kernels_{_digest()}.so"
+    (skipped when that file exists) and return its path.  Each source is
+    compiled to an object by its own nvcc process, all started together,
+    then linked.  ``verbose`` adds ``-Xptxas -v`` and prints the compiler's
+    register/shared-memory report."""
+    digest = _digest()
+    so = BUILD_DIR / f"libspegnet_kernels_{digest}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    base = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-Xcompiler", "-fPIC"]
+    if verbose:
+        base += ["-Xptxas", "-v"]
+    objs = [BUILD_DIR / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+    procs = [subprocess.Popen(base + ["-c", str(CSRC / src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    errors, report = [], []
+    for src, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            errors.append(f"{src} ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp)]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [str(CSRC / s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                           "-o", str(tmp)] + [str(o) for o in objs],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     if verbose:
-        print(proc.stderr, flush=True)
+        print("".join(report), flush=True)
     os.replace(tmp, so)
     return so
 
@@ -93,10 +118,15 @@ def load():
     p, i, f, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
     sigs = {
         "sp_layernorm": [p, p, p, p, l, i, f, p],
-        "sp_gemm": [p, p, p, p, p, i, i, i, i, p],
-        "sp_window_attention": [p, p, i, i, i, i, i, f, p],
-        "sp_qpool_attention": [p, p, i, i, i, i, i, f, p],
+        "sp_gemm": [p, p, p, p, p, p, i, i, i, i, p],
+        "sp_window_attention": [p, p, p, i, i, i, i, i, f, p],
+        "sp_qpool_attention": [p, p, p, i, i, i, i, i, f, p],
         "sp_pool4_rows": [p, p, l, i, i, i, p],
+        "sp_attention_bwd": [p, l, p, l, p, l, p, l, p, l, p, p, p, l, p, l, p, l,
+                             i, i, i, i, i, f, p],
+        "sp_gemm_tn": [p, l, p, l, l, i, i, l, i, p, p, p, p, p],
+        "sp_layernorm_bwd": [p, p, p, p, p, p, p, l, i, p, l, i, f, p],
+        "sp_pool4_scatter": [p, l, i, p, l, p, l, i, l, i, p],
         "sp_upconv3x3_bn_relu": [p, p, p, p, p, i, i, i, p],
         "sp_conv3x3_bn_relu_head": [p, p, p, p, p, p, p, i, i, i, p],
     }
@@ -155,10 +185,10 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y
 
 
-def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
-         gelu: bool = False) -> torch.Tensor:
-    """a [M, K] @ w[N, K]^T (+ bias) (-> tanh GELU) (+ residual), bf16
-    (TMA + wgmma, csrc/hiera_block.cu)."""
+_ACT = {"none": 0, "gelu": 1, "gelu_pre": 2, "gelu_grad": 3}
+
+
+def _gemm(a, w, bias, residual, act, aux=None):
     _need(a, "gemm a", ndim=2)
     _need(w, "gemm weight", ndim=2)
     m, k = a.shape
@@ -178,10 +208,29 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
         if tuple(residual.shape) != (m, n):
             raise ValueError("gemm: residual shape != [M, N]")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    _check(load().sp_gemm(a.data_ptr(), w.data_ptr(), _ptr(bias),
-                           _ptr(residual), c.data_ptr(), m, n, k,
-                           1 if gelu else 0, _stream(a)), "sp_gemm")
+    _check(load().sp_gemm(a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
+                           c.data_ptr(), _ptr(aux), m, n, k, _ACT[act], _stream(a)),
+           "sp_gemm")
     return c
+
+
+def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
+         gelu: bool = False) -> torch.Tensor:
+    """a [M, K] @ w[N, K]^T (+ bias) (-> tanh GELU) (+ residual), bf16
+    (TMA + wgmma, csrc/hiera_block.cu)."""
+    return _gemm(a, w, bias, residual, "gelu" if gelu else "none")
+
+
+def gemm_gelu_pre(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """(z, gelu_tanh(z)) for z = a @ w^T + bias, both rounded from the same
+    f32 sum (the forward's GELU epilogue plus its pre-activation)."""
+    g = torch.empty((a.shape[0], w.shape[0]), dtype=a.dtype, device=a.device)
+    return _gemm(a, w, bias, None, "gelu_pre", aux=g), g
+
+
+def gemm_gelu_grad(a: torch.Tensor, w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """bf16(a @ w^T) * gelu_tanh'(z): the fc1 gradient dz of the block backward."""
+    return _gemm(a, w, None, z, "gelu_grad")
 
 
 def _attn_checks(qkv, heads, d, l, name):
@@ -197,16 +246,24 @@ def _attn_checks(qkv, heads, d, l, name):
     return rows, ld
 
 
+def _lse(rows: int, heads: int, like: torch.Tensor, with_lse: bool):
+    if not with_lse:
+        return None
+    return torch.empty((rows, heads), dtype=torch.float32, device=like.device)
+
+
 def window_attention(qkv: torch.Tensor, heads: int, d: int, l: int,
-                     scale: float) -> torch.Tensor:
+                     scale: float, with_lse: bool = False):
     """qkv [rows, >=3*H*d] -> softmax(q k^T * scale) v per window of l
-    consecutive rows, [rows, H*d]."""
+    consecutive rows, [rows, H*d] (and, with ``with_lse``, each row's
+    log-sum-exp of its scaled scores in log2 units, [rows, H] f32)."""
     rows, ld = _attn_checks(qkv, heads, d, l, "window_attention")
     out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
-    _check(load().sp_window_attention(qkv.data_ptr(), out.data_ptr(), rows,
+    lse = _lse(rows, heads, qkv, with_lse)
+    _check(load().sp_window_attention(qkv.data_ptr(), out.data_ptr(), _ptr(lse), rows,
                                        ld, heads, d, l, scale, _stream(qkv)),
            "sp_window_attention")
-    return out
+    return (out, lse) if with_lse else out
 
 
 # ---------------------------------------------------------------------------
@@ -214,18 +271,20 @@ def window_attention(qkv: torch.Tensor, heads: int, d: int, l: int,
 # ---------------------------------------------------------------------------
 
 def qpool_attention(y: torch.Tensor, heads: int, d: int, l: int,
-                    scale: float) -> torch.Tensor:
+                    scale: float, with_lse: bool = False):
     """y [rows, >=3*H*d]: q max-pooled over 4 consecutive rows, attending to
-    the l rows of its window -> [rows/4, H*d]."""
+    the l rows of its window -> [rows/4, H*d] (and the log-sum-exp, as
+    :func:`window_attention`)."""
     rows, ld = _attn_checks(y, heads, d, l, "qpool_attention")
     if rows % 64:
         raise ValueError(f"qpool_attention: {rows} rows must pool to a "
                          "multiple of 16")
     out = torch.empty((rows // 4, heads * d), dtype=y.dtype, device=y.device)
-    _check(load().sp_qpool_attention(y.data_ptr(), out.data_ptr(), rows, ld,
+    lse = _lse(rows // 4, heads, y, with_lse)
+    _check(load().sp_qpool_attention(y.data_ptr(), out.data_ptr(), _ptr(lse), rows, ld,
                                       heads, d, l, scale, _stream(y)),
            "sp_qpool_attention")
-    return out
+    return (out, lse) if with_lse else out
 
 
 def pool4_rows(y: torch.Tensor, col0: int, ncols: int) -> torch.Tensor:
@@ -239,6 +298,127 @@ def pool4_rows(y: torch.Tensor, col0: int, ncols: int) -> torch.Tensor:
     _check(load().sp_pool4_rows(y.data_ptr(), out.data_ptr(), rows // 4, ld,
                                  col0, ncols, _stream(y)), "sp_pool4_rows")
     return out
+
+
+# ---------------------------------------------------------------------------
+# launchers (csrc/hiera_block_bwd.cu, csrc/qpool_front_bwd.cu)
+# ---------------------------------------------------------------------------
+
+class Cols(NamedTuple):
+    """Columns [col, col + heads * d) of a row-major bf16 matrix."""
+
+    t: torch.Tensor
+    col: int = 0
+
+    def ptr(self) -> int:
+        return self.t.data_ptr() + 2 * self.col
+
+    @property
+    def ld(self) -> int:
+        return self.t.shape[1]
+
+
+def attention_bwd(q: Cols, k: Cols, v: Cols, o: Cols, dout: Cols, lse: torch.Tensor,
+                  dq: Cols, dk: Cols, dv: Cols, heads: int, d: int, lq: int, lk: int,
+                  scale: float) -> None:
+    """Gradients of softmax(q k^T * scale) v for query windows of lq rows
+    against key windows of lk rows, written into dq / dk / dv.  ``o`` is the
+    forward output and ``lse`` its log-sum-exp ([q rows, heads] f32)."""
+    for c, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (dout, "dout"), (dq, "dq"),
+                    (dk, "dk"), (dv, "dv")):
+        _need(c.t, f"attention_bwd {name}", ndim=2)
+        if c.col % 8 or c.ld % 8 or c.col + heads * d > c.ld:
+            raise ValueError(f"attention_bwd {name}: columns [{c.col}, "
+                             f"{c.col + heads * d}) of {c.ld}")
+    q_rows = q.t.shape[0]
+    if d % 8 or d > 128 or lk % 16 or q_rows % 16 or q_rows % lq:
+        raise ValueError(f"attention_bwd: d={d}, lq={lq}, lk={lk}, {q_rows} query rows")
+    k_rows = q_rows // lq * lk
+    for c, rows, name in ((o, q_rows, "o"), (dout, q_rows, "dout"), (dq, q_rows, "dq"),
+                          (k, k_rows, "k"), (v, k_rows, "v"), (dk, k_rows, "dk"),
+                          (dv, k_rows, "dv")):
+        if c.t.shape[0] != rows:
+            raise ValueError(f"attention_bwd {name}: {c.t.shape[0]} rows, expected {rows}")
+    _need(lse, "attention_bwd lse", torch.float32)
+    if tuple(lse.shape) != (q_rows, heads):
+        raise ValueError(f"attention_bwd: lse {tuple(lse.shape)}")
+    dd = torch.empty_like(lse)
+    _check(load().sp_attention_bwd(
+        q.ptr(), q.ld, k.ptr(), k.ld, v.ptr(), v.ld, o.ptr(), o.ld, dout.ptr(), dout.ld,
+        lse.data_ptr(), dd.data_ptr(), dq.ptr(), dq.ld, dk.ptr(), dk.ld, dv.ptr(), dv.ld,
+        q_rows, heads, d, lq, lk, scale, _stream(lse)), "sp_attention_bwd")
+
+
+def gemm_tn(a: torch.Tensor, b: torch.Tensor):
+    """(a^T b [N, K] f32, column sums of a [N] f32) for a [M, N], b [M, K]
+    bf16: a weight gradient and its bias gradient.  M is split to fill the
+    card; the per-split partials are summed in a fixed order."""
+    _need(a, "gemm_tn a", ndim=2)
+    _need(b, "gemm_tn b", ndim=2)
+    m, n = a.shape
+    k = b.shape[1]
+    if b.shape[0] != m or n % 8 or k % 8:
+        raise ValueError(f"gemm_tn: a {tuple(a.shape)}, b {tuple(b.shape)}")
+    tiles = -(-n // 64) * -(-k // 64)
+    # Four 128-thread blocks on each of the card's SMs.
+    target = 4 * torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits = max(1, min(-(-target // tiles), -(-m // 256), 4096))
+    m_split = -(-m // (32 * splits)) * 32
+    splits = -(-m // m_split)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    part = torch.empty((splits, n, k), **f32)
+    cspart = torch.empty((splits, n), **f32)
+    out = torch.empty((n, k), **f32)
+    cs = torch.empty((n,), **f32)
+    _check(load().sp_gemm_tn(a.data_ptr(), n, b.data_ptr(), k, m, n, k, m_split, splits,
+                              part.data_ptr(), cspart.data_ptr(), out.data_ptr(),
+                              cs.data_ptr(), _stream(a)), "sp_gemm_tn")
+    return out, cs
+
+
+def layernorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float,
+                  dres=None):
+    """LayerNorm backward on [rows, C] bf16 with f32 weight: (dx bf16, plus
+    ``dres`` when given; dweight f32; dbias f32)."""
+    _need(x, "layernorm_bwd x", ndim=2)
+    _need(dy, "layernorm_bwd dy", ndim=2)
+    _need(w, "layernorm_bwd weight", torch.float32, 1)
+    rows, c = x.shape
+    if tuple(dy.shape) != (rows, c) or w.numel() != c:
+        raise ValueError(f"layernorm_bwd: x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    if dres is not None:
+        _need(dres, "layernorm_bwd dres", ndim=2)
+        if tuple(dres.shape) != (rows, c):
+            raise ValueError("layernorm_bwd: dres shape")
+    r_split = max(64, -(-rows // 1024))
+    splits = -(-rows // r_split)
+    dx = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    stats = torch.empty((rows, 2), **f32)
+    part = torch.empty((splits, 2 * c), **f32)
+    dwb = torch.empty((2 * c,), **f32)
+    _check(load().sp_layernorm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), _ptr(dres),
+                                    dx.data_ptr(), stats.data_ptr(), part.data_ptr(),
+                                    r_split, splits, dwb.data_ptr(), rows, c, eps,
+                                    _stream(x)), "sp_layernorm_bwd")
+    return dx, dwb[:c], dwb[c:]
+
+
+def pool4_scatter(y: Cols, g: torch.Tensor, out: Cols) -> None:
+    """out rows 4r..4r+3 (g's columns) = g[r] / #ties at the rows where the
+    y group of 4 rows takes its max, else 0 (the 2x2 max-pool backward)."""
+    _need(y.t, "pool4_scatter y", ndim=2)
+    _need(g, "pool4_scatter g", ndim=2)
+    _need(out.t, "pool4_scatter out", ndim=2)
+    rows_out, ncols = g.shape
+    for c, name in ((y, "y"), (out, "out")):
+        if (c.t.shape[0] != 4 * rows_out or c.col % 8 or c.ld % 8 or ncols % 8
+                or c.col + ncols > c.ld):
+            raise ValueError(f"pool4_scatter {name}: {tuple(c.t.shape)} col {c.col} "
+                             f"vs g {tuple(g.shape)}")
+    _check(load().sp_pool4_scatter(y.t.data_ptr(), y.ld, y.col, g.data_ptr(), ncols,
+                                    out.t.data_ptr(), out.ld, out.col, rows_out, ncols,
+                                    _stream(g)), "sp_pool4_scatter")
 
 
 # ---------------------------------------------------------------------------

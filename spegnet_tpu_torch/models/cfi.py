@@ -7,8 +7,10 @@ reference state_dict keys (``conv1x1``, ``bn``, ``se_block.fc.{0,2}``,
 * SE hidden width is ``max(C // 16, 32)``.
 * The e-ASPP fusion conv is a grouped 1x1 (groups = reduced channels) over
   the branch-major concatenation, run as a native ``groups=`` convolution.
-* BatchNorm is inference-only and normalizes in f32, returning the input
-  dtype (flax BatchNorm under a bf16 compute dtype).
+* BatchNorm (:class:`BatchNorm2d`) normalizes with the running statistics
+  in eval and with the batch statistics in training (see there).
+* Convolution and Linear weights are cast to the input's dtype at use
+  (models/layers.py), so training keeps them f32.
 """
 
 from __future__ import annotations
@@ -19,23 +21,45 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from spegnet_tpu_torch.models.layers import Conv2d, Linear, cast
+from spegnet_tpu_torch.ops import wide
+
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d parameters and running statistics (kept in f32);
-    inference normalization in f32, result in the input dtype."""
+    """nn.BatchNorm2d parameters and running statistics (kept in f32).
+
+    Eval: normalization with the running statistics in f32, result in the
+    input dtype.  Training (the JAX package's ``_BNParams``,
+    spegnet_tpu/models/ped.py:112-129, and flax BatchNorm): batch mean and
+    the *biased* variance mean(x^2) - mean^2 in f32 over N, H, W; the
+    normalization in the input dtype, cast where the JAX package casts;
+    running statistics updated with momentum 0.1 (flax's 0.9) from that
+    biased variance -- torch's own BatchNorm would use the unbiased one."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        t = self.bias.float() - self.running_mean.float() * s
-        return torch.addcmul(t[:, None, None], x, s[:, None, None]).to(x.dtype)
+        if not self.training:
+            s = wide(self.weight) * torch.rsqrt(wide(self.running_var) + self.eps)
+            t = wide(self.bias) - wide(self.running_mean) * s
+            return torch.addcmul(t[:, None, None], x, s[:, None, None]).to(x.dtype)
+        x32 = wide(x)
+        mean = x32.mean((0, 2, 3))
+        var = (x32 * x32).mean((0, 2, 3)) - mean * mean
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        dt = x.dtype
+        mul = (torch.rsqrt(var + self.eps) * wide(self.weight)).to(dt)
+        y = x - mean.to(dt)[:, None, None]
+        return y * mul[:, None, None] + self.bias.to(dt)[:, None, None]
 
 
 def conv_bn_relu(cin: int, cout: int, kernel: int = 1, dilation: int = 1,
                  groups: int = 1) -> nn.Sequential:
     pad = dilation * (kernel // 2)
     return nn.Sequential(
-        nn.Conv2d(cin, cout, kernel, padding=pad, dilation=dilation, groups=groups,
-                  bias=False),
+        Conv2d(cin, cout, kernel, padding=pad, dilation=dilation, groups=groups,
+               bias=False),
         BatchNorm2d(cout), nn.ReLU())
 
 
@@ -49,11 +73,11 @@ class SqueezeExcitation(nn.Module):
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
         hidden = max(channels // reduction, 32)
-        self.fc = nn.Sequential(nn.Linear(channels, hidden, bias=False), nn.ReLU(),
-                                nn.Linear(hidden, channels, bias=False), nn.Sigmoid())
+        self.fc = nn.Sequential(Linear(channels, hidden, bias=False), nn.ReLU(),
+                                Linear(hidden, channels, bias=False), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.float().mean((2, 3)).to(x.dtype)
+        y = wide(x).mean((2, 3)).to(x.dtype)
         y = torch.sigmoid(self.fc[2](torch.relu(self.fc[0](y))))
         return x * y[:, :, None, None]
 
@@ -67,7 +91,7 @@ class AdaptiveAttentionFusion(nn.Module):
     def __init__(self, in_channels: Sequence[int], out_channels: int = 512):
         super().__init__()
         self.in_channels = tuple(in_channels)
-        self.conv1x1 = nn.Conv2d(sum(in_channels), out_channels, 1, bias=False)
+        self.conv1x1 = Conv2d(sum(in_channels), out_channels, 1, bias=False)
         self.bn = BatchNorm2d(out_channels)
         self.se_block = SqueezeExcitation(out_channels)
 
@@ -76,7 +100,7 @@ class AdaptiveAttentionFusion(nn.Module):
         x, off = None, 0
         for f in features:
             c = f.shape[1]
-            y = F.conv2d(f, self.conv1x1.weight[:, off:off + c])
+            y = F.conv2d(f, cast(self.conv1x1.weight[:, off:off + c], f.dtype))
             if y.shape[2:] != target:
                 y = F.interpolate(y, size=tuple(target), mode="bilinear",
                                   align_corners=False)
@@ -101,7 +125,7 @@ class EfficientASPP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _cbr(self.reduce, x)
         branches = [_cbr(b, x) for b in self.branches]
-        g = x.float().mean((2, 3), keepdim=True).to(x.dtype)
+        g = wide(x).mean((2, 3), keepdim=True).to(x.dtype)
         g = _cbr(self.global_branch, g)
         branches.append(g.expand(-1, -1, x.shape[2], x.shape[3]))
         # The broadcast branch would make cat fall back to NCHW; keep the

@@ -28,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from spegnet_tpu_torch.models.layers import Conv2d, Linear, cast
+from spegnet_tpu_torch.ops import wide
 from spegnet_tpu_torch.ops.attention import attention_reference
 from spegnet_tpu_torch.ops.fused_block import fused_block
 from spegnet_tpu_torch.ops.fused_block_t import (
@@ -150,8 +152,8 @@ class MultiScaleAttention(nn.Module):
     def __init__(self, dim: int, dim_out: int, num_heads: int, q_pool: bool = False):
         super().__init__()
         self.dim_out, self.num_heads, self.q_pool = dim_out, num_heads, q_pool
-        self.qkv = nn.Linear(dim, 3 * dim_out)
-        self.proj = nn.Linear(dim_out, dim_out)
+        self.qkv = Linear(dim, 3 * dim_out)
+        self.proj = Linear(dim_out, dim_out)
 
     @property
     def head_dim(self) -> int:
@@ -173,7 +175,7 @@ class MultiScaleAttention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, dim: int, hidden: int, out: int):
         super().__init__()
-        self.layers = nn.ModuleList([nn.Linear(dim, hidden), nn.Linear(hidden, out)])
+        self.layers = nn.ModuleList([Linear(dim, hidden), Linear(hidden, out)])
 
     def forward(self, x: torch.Tensor, approx_gelu: bool) -> torch.Tensor:
         y = F.gelu(self.layers[0](x), approximate="tanh" if approx_gelu else "none")
@@ -189,7 +191,7 @@ class MultiScaleBlock(nn.Module):
         self.norm2 = LayerNorm(spec.dim_out, eps=1e-6)
         self.mlp = MLP(spec.dim_out, int(spec.dim_out * mlp_ratio), spec.dim_out)
         if spec.dim != spec.dim_out:
-            self.proj = nn.Linear(spec.dim, spec.dim_out)
+            self.proj = Linear(spec.dim, spec.dim_out)
 
     # -- decomposed NHWC path ------------------------------------------------
     def forward(self, x: torch.Tensor, approx_gelu: bool) -> torch.Tensor:
@@ -215,11 +217,13 @@ class MultiScaleBlock(nn.Module):
         return x + self.mlp(self.norm2(x), approx_gelu)
 
     # -- Morton kernel path --------------------------------------------------
-    def block_weights(self) -> BlockWeights:
+    def block_weights(self, dt: torch.dtype) -> BlockWeights:
+        """Matmul weights cast to the compute dtype ``dt``; norms stay f32."""
         a, m = self.attn, self.mlp.layers
-        return BlockWeights(self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
-                            a.proj.weight, a.proj.bias, self.norm2.weight, self.norm2.bias,
-                            m[0].weight, m[0].bias, m[1].weight, m[1].bias)
+        return BlockWeights(self.norm1.weight, self.norm1.bias, *(
+            cast(p, dt) for p in (a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias)),
+            self.norm2.weight, self.norm2.bias, *(
+            cast(p, dt) for p in (m[0].weight, m[0].bias, m[1].weight, m[1].bias)))
 
     def forward_z(self, x: torch.Tensor, l: int, last_stage: bool,
                   approx_gelu: bool) -> torch.Tensor:
@@ -227,19 +231,20 @@ class MultiScaleBlock(nn.Module):
         scale = self.attn.head_dim ** -0.5
         if last_stage:
             b, n, c = x.shape
-            y = fused_block(x.reshape(b * n // l, l, c), self.block_weights(),
+            y = fused_block(x.reshape(b * n // l, l, c), self.block_weights(x.dtype),
                             self.spec.heads, scale, 1e-6, approx_gelu)
             return y.reshape(b, n, c)
-        return fused_block_t(x, self.block_weights(), self.spec.heads, l, scale,
+        return fused_block_t(x, self.block_weights(x.dtype), self.spec.heads, l, scale,
                              1e-6, approx_gelu)
 
     def forward_qpool_z(self, x: torch.Tensor, l: int, approx_gelu: bool) -> torch.Tensor:
         """Transition on Morton [B, N, Cin] -> [B, N/4, Cout]: the kernel
         front, then proj + LN2 + MLP in plain PyTorch (outside the TPU
         kernel too, spegnet_tpu/models/hiera.py:422-443)."""
-        a = self.attn
-        wts = QPoolWeights(self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
-                           self.proj.weight, self.proj.bias)
+        a, dt = self.attn, x.dtype
+        wts = QPoolWeights(self.norm1.weight, self.norm1.bias, cast(a.qkv.weight, dt),
+                           cast(a.qkv.bias, dt), cast(self.proj.weight, dt),
+                           cast(self.proj.bias, dt))
         o, sc = qpool_front(x, wts, self.spec.heads, l, a.head_dim ** -0.5, 1e-6)
         out1 = sc + a.proj(o)
         return out1 + self.mlp(self.norm2(out1), approx_gelu)
@@ -248,7 +253,7 @@ class MultiScaleBlock(nn.Module):
 class PatchEmbed(nn.Module):
     def __init__(self, embed_dim: int):
         super().__init__()
-        self.proj = nn.Conv2d(3, embed_dim, kernel_size=7, stride=4, padding=3)
+        self.proj = Conv2d(3, embed_dim, kernel_size=7, stride=4, padding=3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] -> [B, H/4, W/4, C]."""
@@ -259,8 +264,8 @@ def compute_pos_embed(bkg: torch.Tensor, win: torch.Tensor, hw) -> torch.Tensor:
     """Bicubic-resized background embed [1, C, Hb, Wb] plus the tiled window
     embed [1, C, ws, ws] -> [1, h, w, C] in f32 (SAM2's ``_get_pos_embed``)."""
     h, w = hw
-    pe = resize_bicubic(bkg.float().permute(0, 2, 3, 1), (h, w))
-    win = win.float().permute(0, 2, 3, 1)
+    pe = resize_bicubic(wide(bkg).permute(0, 2, 3, 1), (h, w))
+    win = wide(win).permute(0, 2, 3, 1)
     return pe + win.repeat(1, h // win.shape[1], w // win.shape[2], 1)
 
 

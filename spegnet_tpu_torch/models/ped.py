@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from spegnet_tpu_torch.models.cfi import BatchNorm2d
+from spegnet_tpu_torch.models.layers import Conv2d
 from spegnet_tpu_torch.ops.fused_decoder import DecoderParams, fused_decoder_block
 from spegnet_tpu_torch.ops.fused_upsample_conv import upsample2x
 
@@ -27,9 +28,9 @@ class EdgeDetectionModule(nn.Module):
 
     def __init__(self, in_channels: int = 256, out_channels: int = 64):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
         self.bn1 = BatchNorm2d(out_channels)
-        self.edge_conv = nn.Conv2d(out_channels, 1, 1)
+        self.edge_conv = Conv2d(out_channels, 1, 1)
 
     def forward(self, x: torch.Tensor):
         f = torch.relu(self.bn1(self.conv1(x)))
@@ -46,9 +47,9 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, edge_channels: int = 0):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels + edge_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels + edge_channels, out_channels, 3, padding=1)
         self.bn1 = BatchNorm2d(out_channels)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         self.bn2 = BatchNorm2d(out_channels)
 
     def forward(self, x: torch.Tensor, edge_features: Optional[torch.Tensor] = None):
@@ -80,7 +81,7 @@ class BoundaryAwareDecoder(nn.Module):
         cin = in_channels
         for out_ch, ec in zip(decoder_channels, edge_channels_list):
             self.decoder_blocks.append(DecoderBlock(cin, out_ch, ec or 0))
-            self.pred_heads.append(nn.Conv2d(out_ch, n_classes, 1))
+            self.pred_heads.append(Conv2d(out_ch, n_classes, 1))
             cin = out_ch
         self.edge_used = [ec is not None for ec in edge_channels_list]
         self.n_classes = n_classes

@@ -9,8 +9,11 @@ channels-last, in the same dict as the JAX model:
 Parameters keep the reference state_dict keys, so ``load_state_dict``
 takes a reference ``.pth``'s ``model_state_dict`` or
 utils/weights.state_dict_from_jax(...) directly.  Matmul and conv weights
-run in the compute dtype (:meth:`SPEGNet.to_compute`); LayerNorm, BatchNorm
-and the position embeddings stay in f32, as in the JAX package.
+run in the compute dtype: cast at use from f32 master weights in training
+(models/layers.py), or cast once by :meth:`SPEGNet.to_compute` for
+predict; LayerNorm, BatchNorm and the position embeddings stay in f32, as
+in the JAX package.  ``model.train()`` switches BatchNorm to batch
+statistics and decoder block 2 to the decomposed path.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ class SPEGNetConfig:
 
     @property
     def dtype(self) -> torch.dtype:
-        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[self.compute_dtype]
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float64": torch.float64}[self.compute_dtype]
 
 
 class HieraEncoder(nn.Module):

@@ -2,10 +2,12 @@
 
 On the TPU, Hiera-L's stage 4 (C 1152, 16 heads, window 8) ran a separate
 token-major kernel (``_kernel`` :99) because the transposed kernel lost at
-more than 8 heads.  On Hopper both are one function: this wrapper takes the
-gen-1 layout ``[windows, L, C]`` and runs the same csrc/hiera_block.cu chain
-as :func:`spegnet_tpu_torch.ops.fused_block_t.fused_block_t`, with its own
-launch counter.
+more than 8 heads; its backward was XLA autodiff of ``block_reference``
+(:274-284).  On Hopper both are one function: this wrapper takes the gen-1
+layout ``[windows, L, C]`` and runs the same csrc/hiera_block.cu chain, and
+in the backward the csrc/hiera_block_bwd.cu chain, as
+:func:`spegnet_tpu_torch.ops.fused_block_t.fused_block_t`, with its own
+launch counters.
 """
 
 from __future__ import annotations
@@ -14,9 +16,9 @@ import torch
 
 from spegnet_tpu_torch import kernels
 from spegnet_tpu_torch.ops.fused_block_t import (
+    BlockFunction,
     BlockWeights,
     _cuda_gate,
-    block_cuda,
     block_plain,
 )
 
@@ -40,5 +42,6 @@ def fused_block(x: torch.Tensor, wts: BlockWeights, heads: int, scale: float,
     _cuda_gate(x, approx_gelu)
     kernels.launches["fused_block"] += 1
     nw, l, c = x.shape
-    return block_cuda(x.contiguous().reshape(1, nw * l, c), wts, heads, l,
-                      scale, eps).reshape(nw, l, c)
+    y = BlockFunction.apply(x.contiguous().reshape(1, nw * l, c), heads, l, scale, eps,
+                            "fused_block", *wts)
+    return y.reshape(nw, l, c)

@@ -11,9 +11,15 @@ Each operator comes in two forms:
   the same math as ``block_t_reference`` (:1070) and
   ``qpool_front_reference`` (:737) with unpadded nn.Linear weights;
 * a wrapper (:func:`fused_block_t`, :func:`qpool_front`) that runs the plain
-  version for a CPU tensor and, for a CUDA tensor, the hand-written kernels
-  of ``csrc/hiera_block.cu`` / ``csrc/qpool_front.cu`` (see there for what
-  each replaces and what bounds it) -- or raises on what they do not cover.
+  version for a CPU tensor (autograd differentiates it) and, for a CUDA
+  tensor, the hand-written kernels of ``csrc/hiera_block.cu`` /
+  ``csrc/qpool_front.cu`` inside a ``torch.autograd.Function`` whose
+  backward is the kernel chain of ``csrc/hiera_block_bwd.cu`` /
+  ``csrc/qpool_front_bwd.cu`` (see there for what each replaces and what
+  bounds it) -- or raises on what they do not cover.  Like the JAX
+  package's custom_vjp with residuals off, the Function saves only the
+  input and the weights and recomputes the forward in its backward; weight
+  gradients are summed in f32 and returned in each weight's dtype.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from spegnet_tpu_torch import kernels
+from spegnet_tpu_torch.ops import wide
 from spegnet_tpu_torch.ops.attention import attention_reference
 
 
@@ -79,7 +86,10 @@ def _index(h: int, w: int, device: torch.device, inverse: bool) -> torch.Tensor:
     idx = _morton_index(h, w)
     if inverse:
         idx = np.argsort(idx)
-    return torch.from_numpy(idx).to(device)
+    # a normal tensor even when first made under inference_mode (predict),
+    # so that a later training forward may save it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(idx).to(device)
 
 
 def to_z(x: torch.Tensor) -> torch.Tensor:
@@ -105,11 +115,11 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float) -> torch.Tensor:
     """LayerNorm over the last dim, statistics and affine in f32, result in
     x.dtype (the JAX package's ``_LayerNormParams``)."""
-    x32 = x.float()
+    x32 = wide(x)
     mu = x32.mean(-1, keepdim=True)
     xc = x32 - mu
     var = (xc * xc).mean(-1, keepdim=True)
-    return (xc * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
+    return (xc * torch.rsqrt(var + eps) * wide(w) + wide(b)).to(x.dtype)
 
 
 def _window_attention_plain(qkv: torch.Tensor, heads: int, l: int,
@@ -189,6 +199,142 @@ def block_cuda(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
     return kernels.gemm(z, wts.wfc2, wts.bfc2, residual=u).reshape(b, n, c)
 
 
+def _t(w: torch.Tensor) -> torch.Tensor:
+    """[N, K] weight -> contiguous [K, N], for dX = dY W through kernels.gemm."""
+    return w.t().contiguous()
+
+
+def block_cuda_bwd(x: torch.Tensor, wts: BlockWeights, dy: torch.Tensor, heads: int,
+                   l: int, scale: float, eps: float):
+    """Gradients of :func:`block_cuda` (dx, BlockWeights of f32 gradients):
+    recompute, then the chain of csrc/hiera_block_bwd.cu."""
+    b, n, c = x.shape
+    d = _head_dim(wts.wqkv, heads)
+    hd = heads * d
+    x2, dy2 = x.reshape(b * n, c), dy.reshape(b * n, c)
+    ln1_w, ln2_w = _f32(wts.ln1_w), _f32(wts.ln2_w)
+    h1 = kernels.layernorm(x2, ln1_w, _f32(wts.ln1_b), eps)
+    qkv = kernels.gemm(h1, wts.wqkv, wts.bqkv)
+    a, lse = kernels.window_attention(qkv, heads, d, l, scale, with_lse=True)
+    u = kernels.gemm(a, wts.wproj, wts.bproj, residual=x2)
+    h2 = kernels.layernorm(u, ln2_w, _f32(wts.ln2_b), eps)
+    z, g = kernels.gemm_gelu_pre(h2, wts.wfc1, wts.bfc1)
+
+    dwfc2, dbfc2 = kernels.gemm_tn(dy2, g)
+    dz = kernels.gemm_gelu_grad(dy2, _t(wts.wfc2), z)
+    dwfc1, dbfc1 = kernels.gemm_tn(dz, h2)
+    dh2 = kernels.gemm(dz, _t(wts.wfc1))
+    du, dln2_w, dln2_b = kernels.layernorm_bwd(u, ln2_w, dh2, eps, dres=dy2)
+    dwproj, dbproj = kernels.gemm_tn(du, a)
+    da = kernels.gemm(du, _t(wts.wproj))
+    dqkv = torch.empty_like(qkv)
+    Cols = kernels.Cols
+    kernels.attention_bwd(Cols(qkv, 0), Cols(qkv, hd), Cols(qkv, 2 * hd), Cols(a), Cols(da),
+                          lse, Cols(dqkv, 0), Cols(dqkv, hd), Cols(dqkv, 2 * hd),
+                          heads, d, l, l, scale)
+    dwqkv, dbqkv = kernels.gemm_tn(dqkv, h1)
+    dh1 = kernels.gemm(dqkv, _t(wts.wqkv))
+    dx, dln1_w, dln1_b = kernels.layernorm_bwd(x2, ln1_w, dh1, eps, dres=du)
+    return dx.reshape(b, n, c), BlockWeights(dln1_w, dln1_b, dwqkv, dbqkv, dwproj, dbproj,
+                                             dln2_w, dln2_b, dwfc1, dbfc1, dwfc2, dbfc2)
+
+
+def qpool_front_cuda(x: torch.Tensor, wts: QPoolWeights, heads: int, l: int,
+                     scale: float, eps: float):
+    """The kernel chain of csrc/qpool_front.cu on [B, N, Cin] (bf16, CUDA)."""
+    b, n, cin = x.shape
+    if n % l:
+        raise ValueError(f"{n} tokens vs pooled windows of {l}")
+    d = _head_dim(wts.wqkv, heads)
+    cout = wts.wsc.shape[0]
+    x2 = x.reshape(b * n, cin)
+    h1 = kernels.layernorm(x2, _f32(wts.ln_w), _f32(wts.ln_b), eps)
+    y = kernels.gemm(h1, torch.cat([wts.wqkv, wts.wsc]), torch.cat([wts.bqkv, wts.bsc]))
+    o = kernels.qpool_attention(y, heads, d, l, scale)
+    sc = kernels.pool4_rows(y, 3 * heads * d, cout)
+    return o.reshape(b, n // 4, heads * d), sc.reshape(b, n // 4, cout)
+
+
+def qpool_front_cuda_bwd(x: torch.Tensor, wts: QPoolWeights, go: torch.Tensor,
+                         gsc: torch.Tensor, heads: int, l: int, scale: float, eps: float):
+    """Gradients of :func:`qpool_front_cuda` (dx, QPoolWeights of f32
+    gradients): recompute, then the chain of csrc/qpool_front_bwd.cu."""
+    b, n, cin = x.shape
+    d = _head_dim(wts.wqkv, heads)
+    hd, f = heads * d, 3 * heads * d
+    x2 = x.reshape(b * n, cin)
+    ln_w = _f32(wts.ln_w)
+    h1 = kernels.layernorm(x2, ln_w, _f32(wts.ln_b), eps)
+    wcat = torch.cat([wts.wqkv, wts.wsc])
+    y = kernels.gemm(h1, wcat, torch.cat([wts.bqkv, wts.bsc]))
+    o, lse = kernels.qpool_attention(y, heads, d, l, scale, with_lse=True)
+    qp = kernels.pool4_rows(y, 0, hd)
+
+    Cols = kernels.Cols
+    dy = torch.empty_like(y)
+    dqp = torch.empty_like(qp)
+    go2 = go.reshape(b * n // 4, hd)
+    kernels.attention_bwd(Cols(qp), Cols(y, hd), Cols(y, 2 * hd), Cols(o), Cols(go2), lse,
+                          Cols(dqp), Cols(dy, hd), Cols(dy, 2 * hd), heads, d, l // 4, l,
+                          scale)
+    kernels.pool4_scatter(Cols(y, 0), dqp, Cols(dy, 0))
+    kernels.pool4_scatter(Cols(y, f), gsc.reshape(b * n // 4, -1), Cols(dy, f))
+    dw, db = kernels.gemm_tn(dy, h1)
+    dh1 = kernels.gemm(dy, _t(wcat))
+    dx, dln_w, dln_b = kernels.layernorm_bwd(x2, ln_w, dh1, eps)
+    return dx.reshape(b, n, cin), QPoolWeights(dln_w, dln_b, dw[:f], db[:f], dw[f:], db[f:])
+
+
+def _as_dtypes(grads, like):
+    return [g.to(w.dtype) for g, w in zip(grads, like)]
+
+
+class BlockFunction(torch.autograd.Function):
+    """One non-pooling block on [B, N, C] through the Hopper kernels, with
+    the kernel backward.  ``counter`` names the wrapper whose backward
+    launches are counted (``<counter>_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, heads, l, scale, eps, counter, *w):
+        ctx.save_for_backward(x, *w)
+        ctx.cfg = (heads, l, scale, eps, counter)
+        return block_cuda(x, BlockWeights(*w), heads, l, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *w = ctx.saved_tensors
+        heads, l, scale, eps, counter = ctx.cfg
+        kernels.launches[counter + "_bwd"] += 1
+        dx, dws = block_cuda_bwd(x, BlockWeights(*w), dy.contiguous(), heads, l, scale, eps)
+        return (dx, None, None, None, None, None, *_as_dtypes(dws, w))
+
+
+class QPoolFunction(torch.autograd.Function):
+    """The Q-pool transition front through the Hopper kernels, with the
+    kernel backward."""
+
+    @staticmethod
+    def forward(ctx, x, heads, l, scale, eps, *w):
+        ctx.save_for_backward(x, *w)
+        ctx.cfg = (heads, l, scale, eps)
+        return qpool_front_cuda(x, QPoolWeights(*w), heads, l, scale, eps)
+
+    @staticmethod
+    def backward(ctx, go, gsc):
+        x, *w = ctx.saved_tensors
+        heads, l, scale, eps = ctx.cfg
+        kernels.launches["qpool_front_bwd"] += 1
+        wts = QPoolWeights(*w)
+        b, n, _ = x.shape
+        if go is None:
+            go = x.new_zeros((b, n // 4, heads * _head_dim(wts.wqkv, heads)))
+        if gsc is None:
+            gsc = x.new_zeros((b, n // 4, wts.wsc.shape[0]))
+        dx, dws = qpool_front_cuda_bwd(x, wts, go.contiguous(), gsc.contiguous(), heads, l,
+                                       scale, eps)
+        return (dx, None, None, None, None, *_as_dtypes(dws, w))
+
+
 def _cuda_gate(x: torch.Tensor, approx_gelu: bool = True) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
@@ -203,32 +349,24 @@ def fused_block_t(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
                   approx_gelu: bool = True) -> torch.Tensor:
     """One non-pooling block on [B, N, C] (stages 1-3, global blocks
     included).  CPU: :func:`block_plain`.  CUDA: csrc/hiera_block.cu, which
-    replaces spegnet_tpu/ops/fused_block_t.py ``_kernel`` (:349)."""
+    replaces spegnet_tpu/ops/fused_block_t.py ``_kernel`` (:349), and in the
+    backward csrc/hiera_block_bwd.cu, which replaces ``_bwd_kernel`` (:1165)."""
     if x.device.type == "cpu":
         return block_plain(x, wts, heads, l, scale, eps, approx_gelu)
     _cuda_gate(x, approx_gelu)
     kernels.launches["fused_block_t"] += 1
-    return block_cuda(x.contiguous(), wts, heads, l, scale, eps)
+    return BlockFunction.apply(x.contiguous(), heads, l, scale, eps, "fused_block_t", *wts)
 
 
 def qpool_front(x: torch.Tensor, wts: QPoolWeights, heads: int, l: int,
                 scale: float, eps: float = 1e-6):
     """Q-pool transition front on [B, N, Cin].  CPU:
     :func:`qpool_front_plain`.  CUDA: csrc/qpool_front.cu, which replaces
-    spegnet_tpu/ops/fused_block_t.py ``_qpool_kernel`` (:634)."""
+    spegnet_tpu/ops/fused_block_t.py ``_qpool_kernel`` (:634), and in the
+    backward csrc/qpool_front_bwd.cu, which replaces ``_qpool_bwd_kernel``
+    (:833)."""
     if x.device.type == "cpu":
         return qpool_front_plain(x, wts, heads, l, scale, eps)
     _cuda_gate(x)
     kernels.launches["qpool_front"] += 1
-    b, n, cin = x.shape
-    if n % l:
-        raise ValueError(f"{n} tokens vs pooled windows of {l}")
-    d = _head_dim(wts.wqkv, heads)
-    cout = wts.wsc.shape[0]
-    x2 = x.contiguous().reshape(b * n, cin)
-    h1 = kernels.layernorm(x2, _f32(wts.ln_w), _f32(wts.ln_b), eps)
-    y = kernels.gemm(h1, torch.cat([wts.wqkv, wts.wsc]),
-                     torch.cat([wts.bqkv, wts.bsc]))
-    o = kernels.qpool_attention(y, heads, d, l, scale)
-    sc = kernels.pool4_rows(y, 3 * heads * d, cout)
-    return o.reshape(b, n // 4, heads * d), sc.reshape(b, n // 4, cout)
+    return QPoolFunction.apply(x.contiguous(), heads, l, scale, eps, *wts)

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from spegnet_tpu_torch.ops import wide
+
 
 def resize_matrix_np(in_size: int, out_size: int,
                      antialias: bool = False) -> np.ndarray:
@@ -87,3 +89,50 @@ def resize_bilinear(x: torch.Tensor, out_hw, antialias: bool = False) -> torch.T
 def resize_bicubic(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Bicubic resize of [..., H, W, C] (torch semantics, a = -0.75)."""
     return _interp_channels_last(x, out_hw, "bicubic", False)
+
+
+def _dynamic_axis_matrix(in_size: int, canvas: int, out_size: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[B, canvas, in_size] lerp matrices for per-sample target lengths
+    ``out_size`` [B] (spegnet_tpu/ops/resize.py:198): torch bilinear
+    (align_corners=False) onto an ``out_size``-long axis placed at the
+    start of a ``canvas``-long one; rows at and beyond ``out_size`` are 0."""
+    kw = dict(dtype=dtype, device=out_size.device)
+    dst = torch.arange(canvas, **kw)
+    out = out_size.to(dtype)[:, None]
+    scale = in_size / out
+    src = ((dst + 0.5) * scale - 0.5).clamp(0.0, in_size - 1)
+    i0 = torch.floor(src)
+    frac = src - i0
+    i1 = torch.clamp(i0 + 1.0, max=in_size - 1)
+    cols = torch.arange(in_size, **kw)
+    w0 = torch.where(cols == i0[..., None], 1.0 - frac[..., None], 0.0)
+    w1 = torch.where(cols == i1[..., None], frac[..., None], 0.0)
+    return (w0 + w1) * (dst < out)[..., None]
+
+
+def resize_bilinear_dynamic(x: torch.Tensor, out_h: torch.Tensor, out_w: torch.Tensor,
+                            canvas_hw) -> tuple:
+    """Resize each sample of ``x`` ([B, H, W] or [B, H, W, C]) to its own
+    (out_h[b], out_w[b]) inside a fixed ``canvas_hw`` buffer
+    (spegnet_tpu/ops/resize.py:220, batched over B).
+
+    Returns ``(canvas, valid)``: canvas [B, Hc, Wc(, C)] f32 (f64 for an
+    f64 ``x``) with the resized sample top-left and zeros elsewhere, and the
+    validity mask [B, Hc, Wc] in the same dtype.  Inside the valid region
+    the values are
+    ``F.interpolate(x, (out_h, out_w), mode="bilinear", align_corners=False)``."""
+    hc, wc = canvas_hw
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[..., None]
+    x = wide(x)
+    a_h = _dynamic_axis_matrix(x.shape[1], hc, out_h, x.dtype)
+    a_w = _dynamic_axis_matrix(x.shape[2], wc, out_w, x.dtype)
+    y = torch.einsum("bhi,biwc->bhwc", a_h, x)
+    y = torch.einsum("bwj,bhjc->bhwc", a_w, y)
+    rows = torch.arange(hc, device=x.device)[None, :] < out_h[:, None]
+    cols = torch.arange(wc, device=x.device)[None, :] < out_w[:, None]
+    valid = (rows[:, :, None] & cols[:, None, :]).to(x.dtype)
+    y = y * valid[..., None]
+    return (y[..., 0] if squeeze else y), valid

@@ -30,7 +30,8 @@ _BN_STAT = {"mean": "running_mean", "var": "running_var"}
 def _np(tree):
     if isinstance(tree, dict):
         return {k: _np(v) for k, v in tree.items()}
-    return np.asarray(tree, dtype=np.float32)
+    a = np.asarray(tree)
+    return a if a.dtype == np.float64 else a.astype(np.float32)
 
 
 def _conv(w: np.ndarray) -> np.ndarray:

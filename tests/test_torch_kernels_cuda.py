@@ -1,6 +1,8 @@
 """The Hopper kernels against their plain PyTorch versions, in bf16, at every
-main-path geometry of Hiera-L 512^2 inference (batch 1).  These need an
-NVIDIA card with nvcc; elsewhere they skip."""
+main-path geometry of Hiera-L 512^2 inference and training (batch 1): the
+forward kernels against the plain forward, the backward kernels against
+bf16 autograd of the plain forward, for dx and every weight gradient.
+These need an NVIDIA card with nvcc; elsewhere they skip."""
 
 import pytest
 import torch
@@ -28,6 +30,17 @@ def test_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert kernels.launches[case.wrapper] == before + 1
     assert rel <= kernel_check.REL_LIMIT, (name, err, rel)
+
+
+@pytest.mark.parametrize("name", kernel_check.GRAD_CASES)
+def test_backward_kernels_match_plain_autograd(cuda, name):
+    case = kernel_check.grad_case(name, 1, torch.Generator().manual_seed(0), cuda)
+    before = kernels.launches[case.wrapper]
+    errs = kernel_check.compare_grads(case)
+    torch.cuda.synchronize()
+    assert kernels.launches[case.wrapper] == before + 1
+    worst = max(errs, key=lambda k: errs[k][1])
+    assert errs[worst][1] <= kernel_check.BWD_REL_LIMIT, (name, worst, errs[worst])
 
 
 def test_decoder_kernel_partial_tiles(cuda):

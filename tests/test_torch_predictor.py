@@ -100,24 +100,34 @@ def test_cli_predict_matches_jax_predictor(workspace):
 
 
 def test_port_runs_without_jax(workspace, tmp_path):
-    """Import every module of the port and run a CPU predict through the CLI
-    in a fresh interpreter: JAX must never be imported."""
+    """Import every module of the port and run a CPU predict and a CPU
+    train through the CLI in a fresh interpreter: neither JAX nor any module
+    of the JAX package (``spegnet_tpu``) may be imported."""
+    import yaml
+    from test_torch_train import train_config, write_dataset
+
     root, _, imgs = workspace
+    data = write_dataset(tmp_path / "ds")
+    (tmp_path / "train.yaml").write_text(yaml.safe_dump(train_config([data])))
     code = f"""
 import sys, torch
 import spegnet_tpu_torch.kernels, spegnet_tpu_torch.kernel_check
+import spegnet_tpu_torch.engine.trainer, spegnet_tpu_torch.utils.profiling
 from spegnet_tpu_torch.__main__ import main
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 from spegnet_tpu_torch.utils.weights import init_weights
 m = init_weights(SPEGNet(SPEGNetConfig(variant="test")), torch.Generator().manual_seed(0))
 torch.save({{"model_state_dict": m.state_dict(), "config": {{"model": {MODEL_CONFIG!r}}}}},
            "m.pth")
-try:
-    main(["predict", "--model", "m.pth", "--input", {str(imgs / "a.png")!r},
-          "--config", {str(CONFIG)!r}, "--device", "cpu"])
-except SystemExit as e:
-    assert not e.code, e.code
-bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+for argv in (["predict", "--model", "m.pth", "--input", {str(imgs / "a.png")!r},
+              "--config", {str(CONFIG)!r}, "--device", "cpu"],
+             ["train", "--config", "train.yaml", "--device", "cpu"]):
+    try:
+        main(argv)
+    except SystemExit as e:
+        assert not e.code, (argv[0], e.code)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spegnet_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
 """
@@ -125,7 +135,21 @@ print("NO_JAX_OK")
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
-    assert len(list((tmp_path / "results").rglob("*.png"))) == 6
+    assert len(list((tmp_path / "results" / "prediction").rglob("*.png"))) == 6
+    assert len(list((tmp_path / "results" / "training").rglob("checkpoint_000.pth"))) == 1
+
+
+def test_predictor_defaults_to_the_card(workspace):
+    """device=None means CUDA: without a card the Predictor raises instead
+    of falling back to the CPU."""
+    from spegnet_tpu_torch.engine.predictor import Predictor
+
+    _, ckpt, _ = workspace
+    if torch.cuda.is_available():
+        assert Predictor(str(ckpt), MODEL_CONFIG, None).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Predictor(str(ckpt), MODEL_CONFIG, None, device=None)
 
 
 def test_orbax_directory_is_refused(tmp_path):
