@@ -45,10 +45,18 @@ def _apply_defaults(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return cfg
 
 
+# Inference-mode switches of the model section: how to run the weights, not
+# what they are, so the user's YAML keeps them over a checkpoint's.
+INFERENCE_KEYS = ("int8_encoder", "int8_decoder")
+
+
 def overlay_checkpoint_config(cfg: Dict[str, Any],
                               ckpt_config: Optional[Dict[str, Any]]) -> Dict[str, Any]:
-    """Apply the checkpoint-embedded model config on top of the user config."""
+    """Apply the checkpoint-embedded model config on top of the user config,
+    except the user's :data:`INFERENCE_KEYS`."""
     if ckpt_config and "model" in ckpt_config:
         cfg = copy.deepcopy(cfg)
+        keep = {k: cfg["model"][k] for k in INFERENCE_KEYS if k in cfg["model"]}
         cfg["model"].update(ckpt_config["model"])
+        cfg["model"].update(keep)
     return cfg

@@ -76,6 +76,19 @@ def concat_train_datasets(dataset_dirs: Sequence[str]) -> CODDataset:
     return CODDataset(all_samples, name="train")
 
 
+def get_test_datasets(dataset_dirs: Sequence[str]) -> dict:
+    """One test dataset per root that has a ``test`` split, keyed by the
+    root's basename (``get_test_datasets`` of the JAX package, :92)."""
+    out = {}
+    for d in dataset_dirs:
+        test_path = Path(d) / "test"
+        if test_path.exists():
+            out[Path(d).name] = discover_samples(str(test_path), is_train=False)
+    if not out:
+        raise ValueError("No valid test datasets found")
+    return out
+
+
 def train_val_split(dataset: CODDataset, val_ratio: float,
                     seed: int = 42) -> Tuple[CODDataset, Optional[CODDataset]]:
     """random_split(generator=manual_seed(seed)): a seeded randperm, the

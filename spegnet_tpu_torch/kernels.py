@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("hiera_block.cu", "hiera_block_bwd.cu", "qpool_front.cu",
-           "qpool_front_bwd.cu", "decoder_block.cu")
+           "qpool_front_bwd.cu", "decoder_block.cu", "int8_gemm.cu")
 
 launches = {
     "fused_block_t": 0,
@@ -39,6 +39,9 @@ launches = {
     "fused_block_t_bwd": 0,
     "fused_block_bwd": 0,
     "qpool_front_bwd": 0,
+    "fused_block_t_i8": 0,
+    "qpool_front_i8": 0,
+    "fused_block_i8": 0,
 }
 
 _lib = None
@@ -129,6 +132,9 @@ def load():
         "sp_pool4_scatter": [p, l, i, p, l, p, l, i, l, i, p],
         "sp_upconv3x3_bn_relu": [p, p, p, p, p, i, i, i, p],
         "sp_conv3x3_bn_relu_head": [p, p, p, p, p, p, p, i, i, i, p],
+        "sp_layernorm_q8": [p, p, p, p, p, l, i, f, p],
+        "sp_quant_rows": [p, p, p, l, i, p],
+        "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, p],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -466,3 +472,69 @@ def conv3x3_bn_relu_head(y: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
         head_w.data_ptr(), head_b.data_ptr(), pred.data_ptr(), b, h, w_,
         _stream(y)), "sp_conv3x3_bn_relu_head")
     return pred
+
+
+# ---------------------------------------------------------------------------
+# launchers (csrc/int8_gemm.cu)
+# ---------------------------------------------------------------------------
+
+def _codes(rows: int, k: int, like: torch.Tensor):
+    return (torch.empty((rows, k), dtype=torch.int8, device=like.device),
+            torch.empty((rows,), dtype=torch.float32, device=like.device))
+
+
+def layernorm_q8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
+    """[rows, C] bf16 -> LayerNorm (f32 weight/bias, rounded to bf16) ->
+    (int8 codes [rows, C], f32 row scales [rows])."""
+    _need(x, "layernorm_q8 x", ndim=2)
+    _need(w, "layernorm_q8 weight", torch.float32, 1)
+    _need(b, "layernorm_q8 bias", torch.float32, 1)
+    rows, c = x.shape
+    if w.numel() != c or b.numel() != c or c % 8:
+        raise ValueError(f"layernorm_q8: weight {tuple(w.shape)} vs C={c} (C % 8 == 0)")
+    q, s = _codes(rows, c, x)
+    _check(load().sp_layernorm_q8(x.data_ptr(), w.data_ptr(), b.data_ptr(), q.data_ptr(),
+                                   s.data_ptr(), rows, c, eps, _stream(x)), "sp_layernorm_q8")
+    return q, s
+
+
+def quant_rows(x: torch.Tensor):
+    """[rows, K] bf16 -> (int8 codes [rows, K], f32 row scales [rows])."""
+    _need(x, "quant_rows x", ndim=2)
+    rows, k = x.shape
+    if k % 8:
+        raise ValueError(f"quant_rows: K={k} must be a multiple of 8")
+    q, s = _codes(rows, k, x)
+    _check(load().sp_quant_rows(x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, k,
+                                 _stream(x)), "sp_quant_rows")
+    return q, s
+
+
+def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor,
+            bias: torch.Tensor, residual=None, gelu: bool = False,
+            sw_first: bool = True) -> torch.Tensor:
+    """a [M, K] int8 (row scales sa [M]) . w [N, K]^T int8 (row scales sw [N])
+    -> int32, dequantized (acc * sw * sa with ``sw_first``, else acc * sa *
+    sw) + bias [N] f32 (-> tanh GELU) -> bf16 (+ residual [M, N] bf16)."""
+    _need(a, "gemm_i8 a", torch.int8, 2)
+    _need(w, "gemm_i8 weight", torch.int8, 2)
+    m, k = a.shape
+    n = w.shape[0]
+    if w.shape[1] != k or k % 32 or n % 8:
+        raise ValueError(f"gemm_i8: a {tuple(a.shape)} vs weight {tuple(w.shape)} "
+                         "(K % 32 == 0, N % 8 == 0)")
+    if a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("gemm_i8: cp.async needs 16-byte aligned operands")
+    for t, name, size in ((sa, "row scales", m), (sw, "weight scales", n), (bias, "bias", n)):
+        _need(t, f"gemm_i8 {name}", torch.float32, 1)
+        if t.numel() != size:
+            raise ValueError(f"gemm_i8: {name} length {t.numel()} != {size}")
+    if residual is not None:
+        _need(residual, "gemm_i8 residual", ndim=2)
+        if tuple(residual.shape) != (m, n):
+            raise ValueError("gemm_i8: residual shape != [M, N]")
+    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    _check(load().sp_gemm_i8(a.data_ptr(), sa.data_ptr(), w.data_ptr(), sw.data_ptr(),
+                              bias.data_ptr(), _ptr(residual), c.data_ptr(), m, n, k,
+                              int(gelu), int(sw_first), _stream(a)), "sp_gemm_i8")
+    return c

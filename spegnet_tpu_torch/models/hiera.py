@@ -17,6 +17,12 @@ Two compositions of the same blocks:
   grid and windows no larger than the grid.
 * ``kernels=False``: the decomposed NHWC path (window partition with zero
   padding, plain attention), the numerics anchor.
+
+``int8=True`` (the flagged W8A8 encoder, inference only) sends the blocks
+the JAX package sends to its int8 kernels to the port's int8 wrappers
+(:func:`block_route`); their quantized weights are packed once per block
+and kept until the block's parameters are reloaded, it changes mode, or the
+compute dtype or device changes.  The decomposed path has no int8 form.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from spegnet_tpu_torch.models.layers import Conv2d, Linear, cast
+from spegnet_tpu_torch.ops import fused_block_i8 as fb_i8
+from spegnet_tpu_torch.ops import fused_block_t_i8 as fbt_i8
 from spegnet_tpu_torch.ops import wide
 from spegnet_tpu_torch.ops.attention import attention_reference
 from spegnet_tpu_torch.ops.fused_block import fused_block
@@ -116,6 +124,41 @@ def block_specs(cfg: HieraConfig) -> List[BlockSpec]:
     return specs
 
 
+def block_route(spec: BlockSpec, l: int, n_tok: int, last_stage: bool, dtype: torch.dtype,
+                int8: bool) -> str:
+    """The wrapper (and launch counter) that one block of the Morton trunk
+    runs, with windows of l tokens over n_tok tokens per image.  Under
+    ``int8`` it follows spegnet_tpu/models/hiera.py: transitions take the
+    int8 front where the bf16 front's gate and C % 32 allow (:409-421, bf16
+    only); other blocks that pass the bf16 T-kernel's gate (bf16 only,
+    :854-870) take the int8 T-block where C % 32 == 0 (:488-497, :916-935),
+    and the rest the int8 gen-1 block where its gate allows (:597-609)."""
+    if spec.q_pool:
+        if (int8 and dtype == torch.bfloat16
+                and fbt_i8.qpool_supported_i8(spec.dim, spec.heads, l, n_tok)):
+            return "qpool_front_i8"
+        return "qpool_front"
+    if int8:
+        if dtype == torch.bfloat16 and fbt_i8.supported(spec.dim, spec.heads, l, n_tok):
+            if fbt_i8.supported_i8(spec.dim, spec.heads, l, n_tok):
+                return "fused_block_t_i8"
+        elif fb_i8.supported_i8(n_tok // l, l, spec.dim):
+            return "fused_block_i8"
+    return "fused_block" if last_stage else "fused_block_t"
+
+
+def trunk_routes(cfg: HieraConfig, hw: int, dtype: torch.dtype, int8: bool) -> List[str]:
+    """:func:`block_route` of every block of the trunk for a square hw x hw
+    patch grid (a shape computation: nothing is allocated)."""
+    out, last = [], len(cfg.stages)
+    for sp in block_specs(cfg):
+        l = sp.window * sp.window if sp.window else hw * hw
+        out.append(block_route(sp, l, hw * hw, sp.stage == last, dtype, int8))
+        if sp.q_pool:
+            hw //= 2
+    return out
+
+
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm parameters (kept in f32); statistics and affine in f32,
     result in the input dtype."""
@@ -192,6 +235,15 @@ class MultiScaleBlock(nn.Module):
         self.mlp = MLP(spec.dim_out, int(spec.dim_out * mlp_ratio), spec.dim_out)
         if spec.dim != spec.dim_out:
             self.proj = Linear(spec.dim, spec.dim_out)
+        self._i8_cache = None   # ((dtype, device), packed int8 weights)
+
+    def train(self, mode: bool = True):
+        self._i8_cache = None
+        return super().train(mode)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._i8_cache = None
+        super()._load_from_state_dict(*args, **kwargs)
 
     # -- decomposed NHWC path ------------------------------------------------
     def forward(self, x: torch.Tensor, approx_gelu: bool) -> torch.Tensor:
@@ -225,27 +277,58 @@ class MultiScaleBlock(nn.Module):
             self.norm2.weight, self.norm2.bias, *(
             cast(p, dt) for p in (m[0].weight, m[0].bias, m[1].weight, m[1].bias)))
 
-    def forward_z(self, x: torch.Tensor, l: int, last_stage: bool,
-                  approx_gelu: bool) -> torch.Tensor:
-        """Non-pooling block on Morton [B, N, C] with windows of l tokens."""
-        scale = self.attn.head_dim ** -0.5
-        if last_stage:
-            b, n, c = x.shape
-            y = fused_block(x.reshape(b * n // l, l, c), self.block_weights(x.dtype),
-                            self.spec.heads, scale, 1e-6, approx_gelu)
-            return y.reshape(b, n, c)
-        return fused_block_t(x, self.block_weights(x.dtype), self.spec.heads, l, scale,
-                             1e-6, approx_gelu)
+    def qpool_weights(self, dt: torch.dtype) -> QPoolWeights:
+        a = self.attn
+        return QPoolWeights(self.norm1.weight, self.norm1.bias, *(
+            cast(p, dt) for p in (a.qkv.weight, a.qkv.bias, self.proj.weight, self.proj.bias)))
 
-    def forward_qpool_z(self, x: torch.Tensor, l: int, approx_gelu: bool) -> torch.Tensor:
+    def i8_weights(self, dt: torch.dtype):
+        """The block's W8A8 weights, packed from its ``dt`` weights on first
+        use and cached (outside inference mode, so a later forward with
+        autograd on may read them)."""
+        key = (dt, self.norm1.weight.device)
+        if self._i8_cache is None or self._i8_cache[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                w = (fbt_i8.pack_qpool_i8(self.qpool_weights(dt)) if self.spec.q_pool
+                     else fbt_i8.pack_i8(self.block_weights(dt)))
+            self._i8_cache = (key, w)
+        return self._i8_cache[1]
+
+    def forward_z(self, x: torch.Tensor, l: int, route: str,
+                  approx_gelu: bool) -> torch.Tensor:
+        """Non-pooling block on Morton [B, N, C] with windows of l tokens,
+        through the wrapper ``route`` (:func:`block_route`)."""
+        scale = self.attn.head_dim ** -0.5
+        heads = self.spec.heads
+        b, n, c = x.shape
+        if route == "fused_block_t_i8":
+            return fbt_i8.fused_block_t_i8(x, self.i8_weights(x.dtype), heads, l, scale,
+                                           1e-6, approx_gelu)
+        if route in ("fused_block", "fused_block_i8"):
+            xw = x.reshape(b * n // l, l, c)
+            if route == "fused_block":
+                y = fused_block(xw, self.block_weights(x.dtype), heads, scale, 1e-6,
+                                approx_gelu)
+            else:
+                y = fb_i8.fused_block_i8(xw, self.i8_weights(x.dtype), heads, scale, 1e-6,
+                                         approx_gelu)
+            return y.reshape(b, n, c)
+        return fused_block_t(x, self.block_weights(x.dtype), heads, l, scale, 1e-6,
+                             approx_gelu)
+
+    def forward_qpool_z(self, x: torch.Tensor, l: int, route: str,
+                        approx_gelu: bool) -> torch.Tensor:
         """Transition on Morton [B, N, Cin] -> [B, N/4, Cout]: the kernel
-        front, then proj + LN2 + MLP in plain PyTorch (outside the TPU
-        kernel too, spegnet_tpu/models/hiera.py:422-443)."""
+        front (int8 for ``route`` "qpool_front_i8"), then proj + LN2 + MLP in
+        plain PyTorch (outside the TPU kernel too,
+        spegnet_tpu/models/hiera.py:422-443)."""
         a, dt = self.attn, x.dtype
-        wts = QPoolWeights(self.norm1.weight, self.norm1.bias, cast(a.qkv.weight, dt),
-                           cast(a.qkv.bias, dt), cast(self.proj.weight, dt),
-                           cast(self.proj.bias, dt))
-        o, sc = qpool_front(x, wts, self.spec.heads, l, a.head_dim ** -0.5, 1e-6)
+        scale = a.head_dim ** -0.5
+        if route == "qpool_front_i8":
+            o, sc = fbt_i8.qpool_front_i8(x, self.i8_weights(dt), self.spec.heads, l, scale,
+                                          1e-6)
+        else:
+            o, sc = qpool_front(x, self.qpool_weights(dt), self.spec.heads, l, scale, 1e-6)
         out1 = sc + a.proj(o)
         return out1 + self.mlp(self.norm2(out1), approx_gelu)
 
@@ -290,7 +373,7 @@ class Hiera(nn.Module):
         self.blocks = nn.ModuleList(MultiScaleBlock(s, cfg.mlp_ratio) for s in self.specs)
 
     def forward(self, x: torch.Tensor, kernels: bool = True,
-                dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+                dtype: torch.dtype = torch.float32, int8: bool = False) -> List[torch.Tensor]:
         if x.shape[1] % 32 or x.shape[2] % 32:
             raise ValueError("Input spatial dims must be divisible by 32")
         approx_gelu = dtype == torch.bfloat16
@@ -304,26 +387,27 @@ class Hiera(nn.Module):
                 if blk.spec.stage_end:
                     outputs.append(x)
             return outputs
-        return self._forward_z(x, approx_gelu)
+        return self._forward_z(x, approx_gelu, int8)
 
-    def _forward_z(self, x: torch.Tensor, approx_gelu: bool) -> List[torch.Tensor]:
+    def _forward_z(self, x: torch.Tensor, approx_gelu: bool,
+                   int8: bool = False) -> List[torch.Tensor]:
         _, h, w, _ = x.shape
         if h != w or not _pow2(h):
             raise ValueError(f"the kernel path needs a square 2^k patch grid, got {(h, w)}")
-        last = len(self.config.stages)
+        routes = trunk_routes(self.config, h, x.dtype, int8)
         x = to_z(x)
         outputs = []
-        for i, blk in enumerate(self.blocks):
+        for i, (blk, route) in enumerate(zip(self.blocks, routes)):
             sp = blk.spec
             if sp.window > h:
                 raise ValueError(f"window {sp.window} exceeds the {h}x{w} grid of block "
                                  f"{i}; use kernels=False")
             l = sp.window * sp.window if sp.window else h * w
             if sp.q_pool:
-                x = blk.forward_qpool_z(x, l, approx_gelu)
+                x = blk.forward_qpool_z(x, l, route, approx_gelu)
                 h, w = h // 2, w // 2
             else:
-                x = blk.forward_z(x, l, sp.stage == last, approx_gelu)
+                x = blk.forward_z(x, l, route, approx_gelu)
             if sp.stage_end:
                 outputs.append(from_z(x, (h, w)))
         return outputs

@@ -40,12 +40,19 @@ class SPEGNetConfig:
     decoder_channels: Sequence[int] = (256, 128, 64)
     n_classes: int = 1
     compute_dtype: str = "float32"
+    # The flagged W8A8 encoder (ops/fused_block_t_i8.py, ops/fused_block_i8.py),
+    # honoured in eval mode only, as the JAX package's ``int8_encoder and not
+    # train``.  The W8A8 decoder block (``int8_decoder``) is not ported.
+    int8_encoder: bool = False
+    int8_decoder: bool = False
 
     @classmethod
     def from_dict(cls, model_config: Dict[str, Any]) -> "SPEGNetConfig":
         enc = model_config.get("encoder", {})
         return cls(variant=enc.get("variant", "large"),
-                   compute_dtype=model_config.get("compute_dtype", "float32"))
+                   compute_dtype=model_config.get("compute_dtype", "float32"),
+                   int8_encoder=bool(model_config.get("int8_encoder", False)),
+                   int8_decoder=bool(model_config.get("int8_decoder", False)))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -64,10 +71,16 @@ class HieraEncoder(nn.Module):
 class SPEGNet(nn.Module):
     """``kernels=True`` runs the Morton trunk and decoder block 2 through the
     kernel wrappers (plain versions on the CPU, Hopper kernels on CUDA);
-    ``kernels=False`` runs the decomposed plain path everywhere."""
+    ``kernels=False`` runs the decomposed plain path everywhere.  With
+    ``config.int8_encoder`` an eval-mode forward on the kernel path runs the
+    W8A8 encoder blocks (models/hiera.py ``block_route``)."""
 
     def __init__(self, config: SPEGNetConfig = SPEGNetConfig(), kernels: bool = True):
         super().__init__()
+        if config.int8_decoder:
+            raise NotImplementedError(
+                "model.int8_decoder (the W8A8 decoder block) is not ported to PyTorch yet; "
+                "see ROADMAP.md")
         self.config = config
         self.kernels = kernels
         self.encoder = HieraEncoder(config.variant)
@@ -93,7 +106,8 @@ class SPEGNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, Any]:
         dt = self.config.dtype
-        feats = self.encoder.encoder(x, kernels=self.kernels, dtype=dt)
+        feats = self.encoder.encoder(x, kernels=self.kernels, dtype=dt,
+                                     int8=self.config.int8_encoder and not self.training)
         s2, s3, s4 = (f.permute(0, 3, 1, 2) for f in feats[1:4])
         fused = self.fusion([s2, s3, s4])
         context = self.context(fused)

@@ -153,12 +153,17 @@ def qpool_front_plain(x: torch.Tensor, wts: QPoolWeights, heads: int, l: int,
     """[B, N, Cin] (Morton) -> (attention out [B, N/4, H*d], pooled shortcut
     [B, N/4, Cout]), both Morton at the pooled grid.  q and the shortcut are
     max-pooled over each 4 consecutive tokens after their dtype cast."""
-    b, n, _ = x.shape
+    h1 = layer_norm(x, wts.ln_w, wts.ln_b, eps)
+    return _qpool_attend(F.linear(h1, wts.wqkv, wts.bqkv), F.linear(h1, wts.wsc, wts.bsc),
+                         heads, l, scale)
+
+
+def _qpool_attend(qkv: torch.Tensor, sc: torch.Tensor, heads: int, l: int, scale: float):
+    """The pooling and attention of the transition front on its projections
+    qkv [B, N, 3*H*d] and sc [B, N, Cout]."""
+    b, n, _ = qkv.shape
     if n % l or l % 4:
         raise ValueError(f"{n} tokens vs pooled windows of {l}")
-    h1 = layer_norm(x, wts.ln_w, wts.ln_b, eps)
-    qkv = F.linear(h1, wts.wqkv, wts.bqkv)
-    sc = F.linear(h1, wts.wsc, wts.bsc)
     sc_p = sc.reshape(b, n // 4, 4, -1).amax(2)
     d = qkv.shape[-1] // (3 * heads)
     t = qkv.reshape(b * (n // l), l, 3, heads, d)

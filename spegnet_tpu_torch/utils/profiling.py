@@ -1,7 +1,7 @@
 """Device-time breakdown of one SPEGNet forward, or one training step, on the GPU.
 
     python -m spegnet_tpu_torch.utils.profiling [--batch 8] [--variant large]
-        [--plain] [--train] [--trace trace.json]
+        [--plain | --int8] [--train] [--trace trace.json]
 
 Builds seeded random weights, runs two warm-up calls at 512^2 in bf16,
 then profiles one call with torch.profiler (CPU + CUDA activities) and
@@ -9,7 +9,8 @@ prints the kernels sorted by device time, the device-busy total and the
 call's wall time.  The call is an inference forward, or with ``--train``
 one Trainer step (forward, loss, backward, clip, AdamW) on a synthetic
 batch (data/pipeline.synthetic_train_batch).  ``--plain`` profiles the
-kernels=False path instead.  Needs a CUDA device.
+kernels=False path instead, ``--int8`` the forward with
+``int8_encoder`` (the W8A8 encoder blocks).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ def main(argv=None) -> None:
     ap.add_argument("--variant", default="large")
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--plain", action="store_true", help="profile kernels=False")
+    ap.add_argument("--int8", action="store_true", help="forward with int8_encoder")
     ap.add_argument("--train", action="store_true", help="profile a training step")
     ap.add_argument("--trace", help="write a chrome trace here")
     ap.add_argument("--rows", type=int, default=25)
@@ -38,7 +40,9 @@ def main(argv=None) -> None:
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
     from spegnet_tpu_torch.utils.weights import init_weights
 
-    cfg = SPEGNetConfig(variant=args.variant, compute_dtype="bfloat16")
+    if args.int8 and (args.train or args.plain):
+        raise SystemExit("--int8 profiles the kernel path's forward only")
+    cfg = SPEGNetConfig(variant=args.variant, compute_dtype="bfloat16", int8_encoder=args.int8)
     model = init_weights(SPEGNet(cfg, kernels=not args.plain), torch.Generator().manual_seed(0))
     if args.train:
         import numpy as np
@@ -73,7 +77,7 @@ def main(argv=None) -> None:
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    what = "train step" if args.train else "forward"
+    what = "train step" if args.train else ("int8 forward" if args.int8 else "forward")
     print(f"{what} wall {wall:.3f} ms at batch {args.batch}; device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}% of wall)")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)

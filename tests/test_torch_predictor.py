@@ -100,7 +100,8 @@ def test_cli_predict_matches_jax_predictor(workspace):
 
 
 def test_port_runs_without_jax(workspace, tmp_path):
-    """Import every module of the port and run a CPU predict and a CPU
+    """Import every module of the port (evaluator, metrics and the int8 ops
+    included) and run a CPU predict and a CPU
     train through the CLI in a fresh interpreter: neither JAX nor any module
     of the JAX package (``spegnet_tpu``) may be imported."""
     import yaml
@@ -110,9 +111,10 @@ def test_port_runs_without_jax(workspace, tmp_path):
     data = write_dataset(tmp_path / "ds")
     (tmp_path / "train.yaml").write_text(yaml.safe_dump(train_config([data])))
     code = f"""
-import sys, torch
-import spegnet_tpu_torch.kernels, spegnet_tpu_torch.kernel_check
-import spegnet_tpu_torch.engine.trainer, spegnet_tpu_torch.utils.profiling
+import importlib, pkgutil, sys, torch
+import spegnet_tpu_torch
+for mod in pkgutil.walk_packages(spegnet_tpu_torch.__path__, "spegnet_tpu_torch."):
+    importlib.import_module(mod.name)
 from spegnet_tpu_torch.__main__ import main
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 from spegnet_tpu_torch.utils.weights import init_weights
