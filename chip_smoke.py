@@ -8,12 +8,15 @@
 2. Builds the Hopper kernels from spegnet_tpu_torch/csrc into build/kernels/
    (one nvcc per source, all started together) and prints the build seconds.
 3. Compares every kernel with its plain PyTorch version in bf16 at every
-   main-path geometry of Hiera-L 512^2 inference and training, batch 2: the
-   forward kernels (stages 1-4, the global blocks, the t12/t23/t34
-   transitions, decoder block 2) against kernel_check.REL_LIMIT, and the
-   backward kernels (every block and transition geometry plus a t23 case
-   with forced pool ties) against bf16 autograd of the plain version, dx and
-   every weight gradient, against kernel_check.BWD_REL_LIMIT.
+   main-path geometry of Hiera-L inference and training, batch 2: the
+   forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
+   transitions, decoder block 2; at 352^2 / 384^2 stage 1 on the T-block
+   and on the gen-1 block, stage 2 on the gen-1 block, t12 and decoder
+   block 2; fused_attention_lanes and fused_attention at L 64, 256, 484,
+   576, 1600 and 2304) against kernel_check.REL_LIMIT, and the backward
+   kernels (every block and transition geometry plus a t23 case with forced
+   pool ties) against bf16 autograd of the plain version, dx and every
+   weight gradient, against kernel_check.BWD_REL_LIMIT.
    Then each int8 kernel of the flagged int8 encoder (model.int8_encoder)
    against its plain int8 version at every int8 geometry of Hiera-L 512^2
    (stages 2-4, the global blocks, t23, t34), batch 2: the whole block by
@@ -23,24 +26,33 @@
    within one code / one bf16 step by kernel_check.i8_parts_ok.
 4. Runs the Predictor on 4 seeded synthetic 512^2 u8 images with seeded
    random Hiera-L weights in bf16, with every launch counter zeroed just
-   before: each forward kernel must have launched, outputs must be finite
-   and of the expected shapes, and the mask MAE against the plain f32 path
-   (kernels=False, TF32 off) on the same weights must be <= 1e-3.
+   before: every launch counter must equal the per-forward count of
+   models/hiera.trunk_routes (42 T-blocks, 3 fronts, 3 gen-1 blocks) and
+   decoder block 2, outputs must be finite and of the expected shapes, and
+   the mask MAE against the plain f32 path (kernels=False, TF32 off) on the
+   same weights must be <= 1e-3.
    4b. The same with int8_encoder: every launch counter must equal the
    per-forward count of models/hiera.trunk_routes (JAX's gates: 40 int8
    T-blocks, 2 int8 fronts, 3 int8 gen-1 blocks, 2 bf16 blocks, 1 bf16
    front, 1 decoder block), and the int8 mask MAE against the f32 plain
    path must be <= MASK_MAE_I8_LIMIT (also printed against the bf16 kernel
    path).
+   4c. The same (bf16) at 384^2, 352^2 and 640^2, whose patch grids are not
+   2^k: the launch counters equal trunk_routes (at 384^2: 2 T-blocks, 1
+   front, 5 gen-1 blocks, 38 fused_attention_lanes, 1 decoder block), the
+   mask MAE against the f32 plain path <= 1e-3.
 5. Times the kernel path against the plain bf16 path (kernels=False) and
-   the int8 kernel path in ms/image at batch 8, and each kernel -- forward
+   the int8 kernel path in ms/image at batch 8 (at 384^2 the kernel and
+   the plain bf16 path), and each kernel -- forward
    and backward, and the int8 ones -- against its plain version at batch 8
    with CUDA events, beside its roofline bound (kernel_check.work /
    i8_work / bound_ms); then each sub-kernel of the stage-1 and global
    geometries against the one PyTorch call that computes the same function
    (F.linear, scaled_dot_product_attention and its backward, F.layer_norm
-   and its backward, a transposed matmul), and the int8 GEMM of stage 3's
-   fc1 against torch._int_mm, as yardsticks the port never calls.
+   and its backward, a transposed matmul), the int8 GEMM of stage 3's fc1
+   against torch._int_mm, and each attention geometry against
+   F.scaled_dot_product_attention on the same q / k / v, as yardsticks the
+   port never calls.
 6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
    TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
    a 640 canvas; edges their morphological boundary):
@@ -55,11 +67,15 @@
        changed), then four more; ms/step of the six steps after the first
        (CUDA events, each and their median) and peak memory, for the kernel
        and the plain bf16 path.
+   (c) the same at 384^2: gradient cosines at batch 2, then three Trainer
+       steps at batch 8 on the kernel path and on the plain bf16 path,
+       every forward and backward counter equal to three times the routes'.
 7. Evaluate: the Evaluator in memory on 8 synthetic eval samples (ellipse
    ground truths at original sizes 384-640 on a 640 canvas, their distance
    transforms from scipy) for the bf16 and the int8 config: metrics finite
    and in [0, 1], the card's metrics equal to the port's CPU metrics on the
-   same quantized predictions within 1e-5, forward and metrics ms/image.
+   same quantized predictions within 1e-5, forward and metrics ms/image;
+   then the bf16 config at 384^2.
 8. No module of JAX, flax, optax or the JAX package was imported by any of
    the above.
 
@@ -86,7 +102,8 @@ MASK_MAE_LIMIT = 1e-3   # BASELINE.md:41 drift budget
 MASK_MAE_I8_LIMIT = 1.24e-3
 METRIC_TOL = 1e-5
 COSINE_MARGIN = 0.01
-TIMED_STEPS = 6   # train steps timed after the warm-up step
+TIMED_STEPS = 6   # train steps timed after the warm-up step (512^2)
+GRID_SIZES = (384, 352, 640)   # inputs whose patch grid is not 2^k
 KERNELS = {
     # wrapper (launch counter): (source, TPU kernel it replaces)
     "fused_block_t": ("spegnet_tpu_torch/csrc/hiera_block.cu",
@@ -109,7 +126,13 @@ KERNELS = {
                        "spegnet_tpu/ops/fused_block_t_i8.py:294"),
     "fused_block_i8": ("spegnet_tpu_torch/csrc/int8_gemm.cu",
                        "spegnet_tpu/ops/fused_block_i8.py:128"),
+    "fused_attention_lanes": ("spegnet_tpu_torch/csrc/attention_lanes.cu",
+                              "spegnet_tpu/ops/pallas_attention.py:199"),
+    "fused_attention": ("spegnet_tpu_torch/csrc/attention_lanes.cu",
+                        "spegnet_tpu/ops/pallas_attention.py:43"),
 }
+# rows whose per-forward numbers are those of a 384^2 forward
+AT_384 = ("fused_attention_lanes", "fused_attention")
 TRAIN_COUNTERS = ("fused_block_t", "fused_block", "qpool_front", "fused_block_t_bwd",
                   "fused_block_bwd", "qpool_front_bwd")
 
@@ -123,9 +146,9 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def train_config(batch: int):
+def train_config(batch: int, size: int = 512):
     return {"model": {"encoder": {"variant": "large", "checkpoint_path": None},
-                      "compute_dtype": "bfloat16", "image_processing": {"target_size": 512}},
+                      "compute_dtype": "bfloat16", "image_processing": {"target_size": size}},
             "training": {"batch_size": batch, "num_epochs": 1, "val_ratio": 0,
                          "gradient_clip": 1, "canvas_buckets": [512, 640, 768],
                          "optimizer": {"learning_rate": 1e-4, "weight_decay": 1e-5,
@@ -209,32 +232,15 @@ def main() -> int:
                     "image_processing": {"target_size": 512}}
     predictor = Predictor(None, model_config, None, batch_size=4, device="cuda",
                           model=model)
-    kernels.reset_launches()
-    seg, edge = predictor.predict_arrays(images)
-    torch.cuda.synchronize()
-    launches = {"predict": dict(kernels.launches)}
-    log(f"predict: launches {launches['predict']}")
-    for w in ("fused_block_t", "fused_block", "qpool_front", "fused_decoder_block"):
-        check(launches["predict"][w] > 0, f"{w} was not launched on the predict path")
-    check(seg.shape == (4, 512, 512) and edge.shape == (4, 64, 64),
-          f"output shapes {seg.shape} {edge.shape}")
-    check(bool(np.isfinite(seg).all() and np.isfinite(edge).all()), "non-finite output")
-
-    anchor = SPEGNet(SPEGNetConfig(variant="large"), kernels=False)
-    anchor.load_state_dict(state)
-    anchor.eval().to_compute(dev)
+    launches = {}
+    seg, edge, launches["predict"] = predict_checked(predictor, images, 512, False, torch)
     x = torch.from_numpy(np.stack([predictor.processor.process_array(a)
                                    for a in images])).to(dev)
-    with torch.inference_mode():
-        out = anchor(x)
-        seg32 = torch.sigmoid(out["predictions"][-1].float())[..., 0].cpu().numpy()
-        edge32 = torch.sigmoid(out["edge"].float())[..., 0].cpu().numpy()
+    seg32, edge32 = f32_masks(state, x, torch, dev)
     mae = float(np.abs(seg - seg32).mean())
     log(f"predict: mask MAE vs f32 plain {mae:.4e} (limit {MASK_MAE_LIMIT}), "
         f"max {np.abs(seg - seg32).max():.4e}; edge MAE {np.abs(edge - edge32).mean():.4e}")
     check(mae <= MASK_MAE_LIMIT, f"mask MAE {mae:.3e} > {MASK_MAE_LIMIT}")
-    del anchor, out
-    torch.cuda.empty_cache()
 
     # -- 4b. the Predictor with the int8 encoder -------------------------------
     cfg_i8 = SPEGNetConfig(variant="large", compute_dtype="bfloat16", int8_encoder=True)
@@ -242,23 +248,33 @@ def main() -> int:
     model_i8.load_state_dict(state)
     pred_i8 = Predictor(None, {**model_config, "int8_encoder": True}, None, batch_size=4,
                         device="cuda", model=model_i8)
-    kernels.reset_launches()
-    seg_i8, edge_i8 = pred_i8.predict_arrays(images)
-    torch.cuda.synchronize()
-    launches["predict_int8"] = dict(kernels.launches)
-    want = {w: 0 for w in kernels.launches}
-    want.update(Counter(trunk_routes(HIERA_VARIANTS["large"], 128, torch.bfloat16, True)))
-    want["fused_decoder_block"] = 1
-    log(f"predict int8: launches {launches['predict_int8']} (expected {want})")
-    check(launches["predict_int8"] == want, "int8 predict launches differ from the routes")
-    check(bool(np.isfinite(seg_i8).all() and np.isfinite(edge_i8).all()),
-          "non-finite int8 output")
+    seg_i8, edge_i8, launches["predict_int8"] = predict_checked(pred_i8, images, 512, True,
+                                                                torch)
     mae_i8 = float(np.abs(seg_i8 - seg32).mean())
     log(f"predict int8: mask MAE vs f32 plain {mae_i8:.4e} (limit {MASK_MAE_I8_LIMIT}), "
         f"max {np.abs(seg_i8 - seg32).max():.4e}; vs bf16 kernel path "
         f"{np.abs(seg_i8 - seg).mean():.4e}; edge MAE vs f32 plain "
         f"{np.abs(edge_i8 - edge32).mean():.4e}")
     check(mae_i8 <= MASK_MAE_I8_LIMIT, f"int8 mask MAE {mae_i8:.3e} > {MASK_MAE_I8_LIMIT}")
+
+    # -- 4c. the Predictor on grids that are not 2^k ---------------------------
+    x384 = None
+    for size in GRID_SIZES:
+        mc = {**model_config, "image_processing": {"target_size": size}}
+        pred_s = Predictor(None, mc, None, batch_size=4, device="cuda", model=model)
+        imgs = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(4)]
+        seg_s, _, launches[f"predict_{size}"] = predict_checked(pred_s, imgs, size, False,
+                                                                 torch)
+        xs = torch.from_numpy(np.stack([pred_s.processor.process_array(a)
+                                        for a in imgs])).to(dev)
+        seg_s32, _ = f32_masks(state, xs, torch, dev)
+        mae_s = float(np.abs(seg_s - seg_s32).mean())
+        log(f"predict {size}: mask MAE vs f32 plain {mae_s:.4e} (limit {MASK_MAE_LIMIT}), "
+            f"max {np.abs(seg_s - seg_s32).max():.4e}")
+        check(mae_s <= MASK_MAE_LIMIT, f"{size}: mask MAE {mae_s:.3e} > {MASK_MAE_LIMIT}")
+        if size == 384:
+            x384 = xs
+        del pred_s
 
     # -- 5. timings at batch 8 ------------------------------------------------
     x8 = torch.cat([x, x]).to(torch.float32)
@@ -269,33 +285,51 @@ def main() -> int:
             model.kernels = mode != "plain"
             ms = kc.time_ms(lambda: m(x8), iters=5, warmup=2) / 8
             run.setdefault(mode, []).append(ms)
+        x384_8 = torch.cat([x384, x384]).to(torch.float32)
+        for mode in ("kernel_384", "plain_384", "plain_384", "kernel_384"):
+            model.kernels = mode == "kernel_384"
+            run.setdefault(mode, []).append(
+                kc.time_ms(lambda: model(x384_8), iters=10, warmup=2) / 8)
     model.kernels = True
     log(f"e2e ms/img at batch 8: kernel path {run['kernel']}, int8 kernel path {run['int8']}, "
-        f"plain bf16 path {run['plain']}")
+        f"plain bf16 path {run['plain']}; at 384^2: kernel path {run['kernel_384']}, plain "
+        f"bf16 path {run['plain_384']}")
     del model, predictor, model_i8, pred_i8
     torch.cuda.empty_cache()
 
-    per = {w: {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0} for w in KERNELS}
+    per = {w: {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
+           for w in KERNELS}
 
-    def account(wrapper, name, k_ms, p_ms, backward=False):
-        n = kc.BLOCK_COUNT[name.replace("_ties", "")]
+    def account(wrapper, name, k_ms, p_ms, backward=False, lib_ms=None):
+        # per-forward totals: 512^2 counts, 384^2 counts for the AT_384 rows
+        counts = kc.COUNT_384 if wrapper in AT_384 else kc.BLOCK_COUNT
+        n = counts.get(name.replace("_ties", ""), 0)
         if name in kc.I8:
             int8_ops, flops, nbytes = kc.i8_work(name, 8)
         else:
             int8_ops = 0.0
             flops, nbytes = kc.work(name.replace("_ties", ""), 8, backward)
         b_ms, by = kc.bound_ms(flops, nbytes, int8_ops)
-        log(f"time {name:8s} {wrapper:20s} batch 8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({by}) (x{n} per step)")
+        lib = "" if lib_ms is None else f", library sdpa {lib_ms:.4f} ms"
+        log(f"time {name:10s} {wrapper:21s} batch 8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+            f"ms{lib}, bound {b_ms:.4f} ms ({by}) (x{n} per forward"
+            f"{' at 384^2' if wrapper in AT_384 else ''})")
         p = per[wrapper]
         p["ms"] += k_ms * n
         p["plain_ms"] += p_ms * n
         p["ops_ms" if by == "operations" else "bytes_ms"] += b_ms * n
+        if lib_ms is not None:
+            p["library_ms"] += lib_ms * n
 
     with torch.inference_mode():
         for name, make in cases.items():
             case = make(name, 8, torch.Generator().manual_seed(2), dev)
-            account(case.wrapper, name, kc.time_ms(case.kernel), kc.time_ms(case.plain))
+            lib_ms = None
+            if name in kc.ATTN_CASES:
+                lib_ms = kc.time_ms(sdpa_call(name, kc, torch, F, dev))
+            account(case.wrapper, name, kc.time_ms(case.kernel), kc.time_ms(case.plain),
+                    lib_ms=lib_ms)
+            del case
     for name in kc.GRAD_CASES:
         if name.endswith("_ties"):
             continue
@@ -319,47 +353,14 @@ def main() -> int:
     b2 = synthetic_train_batch(2, rng)
     log(f"train: batch 2 canvas {b2.masks.shape[1:]}, mask sizes {b2.mask_hw.tolist()}")
 
-    def make_trainer(batch, kernels_on, dtype="bfloat16"):
-        conf = train_config(batch)
+    def make_trainer(batch, kernels_on, dtype="bfloat16", size=512):
+        conf = train_config(batch, size)
         conf["model"]["compute_dtype"] = dtype
         m = SPEGNet(SPEGNetConfig(variant="large", compute_dtype=dtype), kernels=kernels_on)
         m.load_state_dict(master)
         return Trainer(conf, None, device="cuda", model=m)
 
-    grads, losses = {}, {}
-    for path, (kern, dtype) in {"kernel": (True, "bfloat16"), "plain": (False, "bfloat16"),
-                                "f32": (False, "float32")}.items():
-        tr = make_trainer(2, kern, dtype)
-        ld = tr.forward_loss(*tr.to_device(b2))
-        ld["loss"].backward()
-        losses[path] = ld["loss"].item()
-        grads[path] = {n: p.grad.detach().float() for n, p in tr.model.named_parameters()}
-        check(all(torch.isfinite(g).all().item() for g in grads[path].values()),
-              f"{path} gradient not finite")
-        del tr, ld
-        torch.cuda.empty_cache()
-
-    def cosine(a, b, prefix=""):
-        dot = na = nb = 0.0
-        for n in a:
-            if n.startswith(prefix):
-                dot += float((a[n].double() * b[n].double()).sum())
-                na += float((a[n].double() ** 2).sum())
-                nb += float((b[n].double() ** 2).sum())
-        return dot / max(np.sqrt(na * nb), 1e-300)
-
-    cos = {(p, grp): cosine(grads[p], grads["f32"], pre) for p in ("kernel", "plain")
-           for grp, pre in (("all", ""), ("encoder", "encoder."))}
-    log(f"train grad (batch 2): loss kernel {losses['kernel']:.6f} plain bf16 "
-        f"{losses['plain']:.6f} f32 {losses['f32']:.6f}")
-    for grp in ("all", "encoder"):
-        log(f"train grad cosine to f32 ({grp}): kernel {cos[('kernel', grp)]:.6f}, "
-            f"plain bf16 {cos[('plain', grp)]:.6f}")
-        check(cos[("kernel", grp)] >= cos[("plain", grp)] - COSINE_MARGIN,
-              f"kernel-path gradient ({grp}) cosine {cos[('kernel', grp)]:.4f} < plain "
-              f"{cos[('plain', grp)]:.4f} - {COSINE_MARGIN}")
-    del grads
-    torch.cuda.empty_cache()
+    grad_cosines(make_trainer, b2, 512, torch)
 
     b8 = synthetic_train_batch(8, rng)
     step_ms, mem = {}, {}
@@ -399,8 +400,39 @@ def main() -> int:
         del tr, before, res
         torch.cuda.empty_cache()
 
+    # (c) at 384^2
+    grad_cosines(make_trainer, synthetic_train_batch(2, rng, 384), 384, torch)
+    b8 = synthetic_train_batch(8, rng, 384)
+    routes = Counter(trunk_routes(HIERA_VARIANTS["large"], 96, torch.bfloat16, False))
+    want = {w: 0 for w in kernels.launches}
+    for w, n in routes.items():
+        if w != "plain":
+            want[w] = 3 * n
+            if w + "_bwd" in want:
+                want[w + "_bwd"] = 3 * n
+    for path in ("kernel", "plain"):
+        tr = make_trainer(8, path == "kernel", size=384)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        res = [tr.train_step(b8) for _ in range(3)]
+        torch.cuda.synchronize()
+        if path == "kernel":
+            launches["train_384"] = dict(kernels.launches)
+            log(f"train 384: launches {launches['train_384']} (expected {want})")
+            check(launches["train_384"] == want, "384^2 train launches differ from the routes")
+        lossv = [r["metrics"]["loss"] for r in res]
+        check(all(np.isfinite(lossv)), f"{path} 384: non-finite losses {lossv}")
+        ms = [1e3 * (r["timing"]["forward_time"] + r["timing"]["backward_time"])
+              for r in res[1:]]
+        log(f"train {path} 384^2 batch 8: losses {lossv}, ms/step after warm-up "
+            f"{[round(v, 3) for v in ms]}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del tr, res
+        torch.cuda.empty_cache()
+
     # -- 7. evaluate -------------------------------------------------------------
-    evaluate_phase(state, torch, dev)
+    evaluate_phase(state, torch, dev, 512, (False, True))
+    evaluate_phase(state, torch, dev, 384, (False,))
 
     jax_side = sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spegnet_tpu"))
@@ -415,7 +447,7 @@ def main() -> int:
                       "max_abs_err": max_err[w], "ms": p["ms"], "plain_ms": p["plain_ms"],
                       "bound_ms": bound,
                       "bound_by": "operations" if p["ops_ms"] >= p["bytes_ms"] else "bytes",
-                      "library_ms": None})
+                      "library_ms": p["library_ms"] if w in AT_384 else None})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -424,9 +456,109 @@ def main() -> int:
     return 0
 
 
-def evaluate_phase(state, torch, dev) -> None:
-    """The Evaluator in memory on 8 synthetic samples, bf16 and int8 configs;
-    the card's metrics against the CPU's on the same quantized predictions."""
+def predict_checked(predictor, images, size: int, int8: bool, torch):
+    """The Predictor on ``images`` with every launch counter zeroed just
+    before: the counters must equal the routes of one forward (and decoder
+    block 2), the outputs finite and of the expected shapes.  Returns
+    (masks, edges, counters)."""
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
+    from spegnet_tpu_torch.ops.fused_decoder import decoder_supported
+
+    tag = f"predict {size}{' int8' if int8 else ''}"
+    kernels.reset_launches()
+    seg, edge = predictor.predict_arrays(images)
+    torch.cuda.synchronize()
+    got = dict(kernels.launches)
+    want = {w: 0 for w in kernels.launches}
+    want.update(Counter(trunk_routes(HIERA_VARIANTS["large"], size // 4, torch.bfloat16,
+                                     int8)))
+    want.pop("plain", None)
+    want["fused_decoder_block"] = int(decoder_supported(size // 2))
+    log(f"{tag}: launches {got} (expected {want})")
+    check(got == want, f"{tag}: launches differ from the routes")
+    n = len(images)
+    check(seg.shape == (n, size, size) and edge.shape == (n, size // 8, size // 8),
+          f"{tag}: output shapes {seg.shape} {edge.shape}")
+    check(bool(np.isfinite(seg).all() and np.isfinite(edge).all()), f"{tag}: non-finite output")
+    return seg, edge, got
+
+
+def f32_masks(state, x, torch, dev):
+    """Mask and edge probabilities of the plain f32 path (kernels=False) on
+    the weights ``state`` for the normalized batch ``x``."""
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+
+    anchor = SPEGNet(SPEGNetConfig(variant="large"), kernels=False)
+    anchor.load_state_dict(state)
+    anchor.eval().to_compute(dev)
+    with torch.inference_mode():
+        out = anchor(x)
+        seg32 = torch.sigmoid(out["predictions"][-1].float())[..., 0].cpu().numpy()
+        edge32 = torch.sigmoid(out["edge"].float())[..., 0].cpu().numpy()
+    del anchor, out
+    torch.cuda.empty_cache()
+    return seg32, edge32
+
+
+def grad_cosines(make_trainer, batch, size: int, torch) -> None:
+    """The batch's gradient through the kernel path, the plain bf16 path and
+    the plain f32 path on the same weights; the kernel path's cosine to the
+    f32 gradient, overall and for the encoder, must be no worse than the
+    plain bf16 path's by more than COSINE_MARGIN."""
+    grads, losses = {}, {}
+    for path, (kern, dtype) in {"kernel": (True, "bfloat16"), "plain": (False, "bfloat16"),
+                                "f32": (False, "float32")}.items():
+        tr = make_trainer(2, kern, dtype, size)
+        ld = tr.forward_loss(*tr.to_device(batch))
+        ld["loss"].backward()
+        losses[path] = ld["loss"].item()
+        grads[path] = {n: p.grad.detach().float() for n, p in tr.model.named_parameters()}
+        check(all(torch.isfinite(g).all().item() for g in grads[path].values()),
+              f"{path} gradient not finite at {size}^2")
+        del tr, ld
+        torch.cuda.empty_cache()
+
+    def cosine(a, b, prefix=""):
+        dot = na = nb = 0.0
+        for n in a:
+            if n.startswith(prefix):
+                dot += float((a[n].double() * b[n].double()).sum())
+                na += float((a[n].double() ** 2).sum())
+                nb += float((b[n].double() ** 2).sum())
+        return dot / max(np.sqrt(na * nb), 1e-300)
+
+    cos = {(p, grp): cosine(grads[p], grads["f32"], pre) for p in ("kernel", "plain")
+           for grp, pre in (("all", ""), ("encoder", "encoder."))}
+    log(f"train grad {size}^2 (batch 2): loss kernel {losses['kernel']:.6f} plain bf16 "
+        f"{losses['plain']:.6f} f32 {losses['f32']:.6f}")
+    for grp in ("all", "encoder"):
+        log(f"train grad {size}^2 cosine to f32 ({grp}): kernel {cos[('kernel', grp)]:.6f}, "
+            f"plain bf16 {cos[('plain', grp)]:.6f}")
+        check(cos[("kernel", grp)] >= cos[("plain", grp)] - COSINE_MARGIN,
+              f"{size}^2 kernel-path gradient ({grp}) cosine {cos[('kernel', grp)]:.4f} < "
+              f"plain {cos[('plain', grp)]:.4f} - {COSINE_MARGIN}")
+    del grads
+    torch.cuda.empty_cache()
+
+
+def sdpa_call(name: str, kc, torch, F, dev):
+    """F.scaled_dot_product_attention on the q / k / v of attention geometry
+    ``name`` at batch 8 (heads-major views of one packed qkv)."""
+    from spegnet_tpu_torch.ops.pallas_attention import split_qkv
+
+    l = kc.ATTN_CASES[name][1]
+    per_image, heads, d = kc.ATTN[l]
+    qkv = torch.randn((8 * per_image, l, 3 * heads * d),
+                      generator=torch.Generator().manual_seed(2)).to(dev, torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in split_qkv(qkv, heads))
+    return lambda: F.scaled_dot_product_attention(q, k, v)
+
+
+def evaluate_phase(state, torch, dev, size: int, int8s) -> None:
+    """The Evaluator in memory on 8 synthetic samples at ``size``, for the
+    bf16 config and (``int8s``) the int8 one; the card's metrics against the
+    CPU's on the same quantized predictions."""
     from spegnet_tpu_torch.data.pipeline import synthetic_eval_batch
     from spegnet_tpu_torch.engine.evaluator import METRIC_KEYS, Evaluator
     from spegnet_tpu_torch.losses import resize_logits_to_canvas
@@ -436,17 +568,18 @@ def evaluate_phase(state, torch, dev) -> None:
     )
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 
-    batch = synthetic_eval_batch(8, np.random.default_rng(13))
-    log(f"evaluate: 8 samples, canvas {batch.masks.shape[1:]}, sizes {batch.mask_hw.tolist()}")
-    for int8 in (False, True):
+    batch = synthetic_eval_batch(8, np.random.default_rng(13), size)
+    log(f"evaluate {size}^2: 8 samples, canvas {batch.masks.shape[1:]}, sizes "
+        f"{batch.mask_hw.tolist()}")
+    for int8 in int8s:
         mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
-              "int8_encoder": int8, "image_processing": {"target_size": 512}}
+              "int8_encoder": int8, "image_processing": {"target_size": size}}
         model = SPEGNet(SPEGNetConfig.from_dict(mc))
         model.load_state_dict(state)
         ev = Evaluator(None, None, mc, batch_size=8, device="cuda", model=model)
         means = ev.evaluate(None, "synthetic", loader=[batch, batch])
         t = ev.summaries["synthetic"]["timing"]
-        tag = "int8" if int8 else "bf16"
+        tag = f"{size}^2 {'int8' if int8 else 'bf16'}"
         log(f"evaluate {tag}: means {means}; forward {t['forward_ms_per_image']:.3f} ms/img, "
             f"metrics {t['metrics_ms_per_image']:.3f} ms/img (batch 8, the batch twice after "
             f"one warm-up pass; per batch: forward {t['forward_ms']} ms, metrics "

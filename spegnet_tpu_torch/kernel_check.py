@@ -1,7 +1,11 @@
 """Main-path kernel geometries and kernel-vs-plain comparisons.
 
 Every geometry below is one that bf16 SPEGNet inference or training with
-the Hiera-L trunk at 512^2 hands a kernel wrapper, per image.  A case
+the Hiera-L trunk hands a kernel wrapper, per image: at 512^2 (the Morton
+path), and at the input sizes whose patch grid is not 2^k (352^2, 384^2,
+640^2, 768^2), where the T-block, the transition front and the gen-1 block
+see other token counts and the decomposed blocks' attention runs
+``fused_attention_lanes`` (and ``fused_attention`` at the same shapes).  A case
 builds seeded random inputs and weights on a device and returns the
 wrapper's call and its plain PyTorch version on the same inputs;
 :func:`compare` runs both and reports the error, :func:`time_ms` times a
@@ -26,6 +30,7 @@ from spegnet_tpu_torch.ops import fused_block_i8 as fb_i8
 from spegnet_tpu_torch.ops import fused_block_t as fbt
 from spegnet_tpu_torch.ops import fused_block_t_i8 as fbt_i8
 from spegnet_tpu_torch.ops import fused_decoder as fd
+from spegnet_tpu_torch.ops import pallas_attention as pa
 
 # name: (wrapper, C, heads, window tokens L, tokens per image); stage 4 runs
 # the gen-1 entry (fused_block), the rest fused_block_t.
@@ -35,25 +40,49 @@ BLOCKS = {
     "stage3": ("fused_block_t", 576, 8, 256, 1024),
     "global": ("fused_block_t", 576, 8, 1024, 1024),
     "stage4": ("fused_block", 1152, 16, 64, 256),
+    # grids that are not 2^k: stage 1 at 384^2 (T-block), stage 2 at 384^2
+    # (gen-1, C 288 / L 16), stage 1 at 352^2 (gen-1, C 144 / L 64)
+    "stage1_384": ("fused_block_t", 144, 2, 64, 9216),
+    "stage2_384": ("fused_block", 288, 4, 16, 2304),
+    "stage1_352": ("fused_block", 144, 2, 64, 7744),
 }
 # name: (Cin, Cout, heads, window tokens L at the input grid, input tokens)
 QPOOL = {
     "t12": (144, 288, 4, 64, 16384),
     "t23": (288, 576, 8, 16, 4096),
     "t34": (576, 1152, 16, 256, 1024),
+    "t12_384": (144, 288, 4, 64, 9216),
 }
 # name: (S, Cin, Cm): decoder block 2, x1 [B, S, S, Cin] -> pred [B, 2S, 2S, 1]
-DECODER = {"dec2": (256, 128, 64)}
+DECODER = {"dec2": (256, 128, 64), "dec2_384": (192, 128, 64)}
+# The attention of the decomposed blocks, per window length L: (windows per
+# image, heads, head_dim).  L 64: stage 4 at 352^2 / 384^2 (grid 11 / 12
+# zero-padded to 16); L 256: stage 3 there (grid 22 / 24 padded to 32);
+# L 484 / 576 / 1600 / 2304: the stage-3 global blocks at 352^2 / 384^2 /
+# 640^2 / 768^2.  Each L is a case of fused_attention_lanes ("lanes<L>",
+# on the packed qkv) and of fused_attention ("attn<L>", on strided q / k / v
+# views of the same qkv).
+ATTN = {64: (4, 16, 72), 256: (4, 8, 72), 484: (1, 8, 72), 576: (1, 8, 72),
+        1600: (1, 8, 72), 2304: (1, 8, 72)}
+ATTN_CASES = {f"{kind}{l}": (wrapper, l) for l in ATTN
+              for kind, wrapper in (("lanes", "fused_attention_lanes"),
+                                    ("attn", "fused_attention"))}
 # The int8 encoder's geometries (model.int8_encoder): each bf16 geometry the
 # int8 gates take, as (bf16 geometry, int8 wrapper).
 I8 = {"stage2_i8": ("stage2", "fused_block_t_i8"), "stage3_i8": ("stage3", "fused_block_t_i8"),
       "global_i8": ("global", "fused_block_t_i8"), "stage4_i8": ("stage4", "fused_block_i8"),
       "t23_i8": ("t23", "qpool_front_i8"), "t34_i8": ("t34", "qpool_front_i8")}
 
-# Blocks of each geometry in one Hiera-L forward (for per-forward totals).
+# Blocks of each geometry in one Hiera-L forward at 512^2 (for per-forward
+# totals), and at 384^2 (fused_attention takes the geometries of
+# fused_attention_lanes there: its time per forward is what it would take
+# in their place).
 BLOCK_COUNT = {"stage1": 2, "stage2": 5, "stage3": 32, "global": 3, "stage4": 3,
                "t12": 1, "t23": 1, "t34": 1, "dec2": 1}
 BLOCK_COUNT.update({n: BLOCK_COUNT[g] for n, (g, _) in I8.items()})
+COUNT_384 = {"stage1_384": 2, "t12_384": 1, "stage2_384": 5, "dec2_384": 1,
+             "lanes64": 3, "lanes256": 32, "lanes576": 3, "attn64": 3, "attn256": 32,
+             "attn576": 3}
 
 # Kernel-vs-plain limit on max|kernel - plain| / max|plain| in bf16: the two
 # round at different points (GELU before vs after the bf16 cast, softmax
@@ -158,6 +187,21 @@ def decoder_case_at(s: int, cin: int, cm: int, batch: int, g, device) -> Case:
     x = torch.randn((batch, s, s, cin), generator=g).to(device, torch.bfloat16)
     return Case("fused_decoder_block", lambda: fd.fused_decoder_block(x, p),
                 lambda: fd.decoder_block_plain(x, p))
+
+
+def attention_case(name: str, batch: int, g, device) -> Case:
+    """An attention geometry of :data:`ATTN_CASES` on seeded random qkv."""
+    wrapper, l = ATTN_CASES[name]
+    per_image, heads, d = ATTN[l]
+    qkv = torch.randn((batch * per_image, l, 3 * heads * d), generator=g).to(
+        device, torch.bfloat16)
+    scale = d ** -0.5
+    if wrapper == "fused_attention_lanes":
+        return Case(wrapper, lambda: pa.fused_attention_lanes(qkv, heads, scale),
+                    lambda: pa.lanes_plain(qkv, heads, scale))
+    q, k, v = pa.split_qkv(qkv, heads)
+    return Case(wrapper, lambda: pa.fused_attention(q, k, v),
+                lambda: pa.attention_reference(q, k, v))
 
 
 def i8_case(name: str, batch: int, g, device) -> Case:
@@ -411,6 +455,11 @@ def work(name: str, batch: int, backward: bool = False) -> Tuple[float, float]:
     bf = 2
     if name in I8:
         return work(I8[name][0], batch)
+    if name in ATTN_CASES:
+        l = ATTN_CASES[name][1]
+        per_image, heads, d = ATTN[l]
+        n = batch * per_image * heads
+        return 4.0 * n * l * l * d, 4 * n * l * d * bf
     if name in DECODER:
         s, cin, cm = DECODER[name]
         px = batch * (2 * s) ** 2
@@ -468,6 +517,7 @@ def all_cases() -> Dict[str, Callable]:
     cases = {n: block_case for n in BLOCKS}
     cases.update({n: qpool_case for n in QPOOL})
     cases.update({n: decoder_case for n in DECODER})
+    cases.update({n: attention_case for n in ATTN_CASES})
     return cases
 
 

@@ -10,8 +10,9 @@ Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream and raises if
 the C entry returns a CUDA error.  ``launches`` counts the calls of each
 model-level wrapper (ops/*) that went through a kernel, and under
-``<wrapper>_bwd`` the calls of its kernel backward; ``reset_launches``
-clears it.
+``<wrapper>_bwd`` the calls of its kernel backward (the attention wrappers
+of ops/pallas_attention.py have none: their backward is plain PyTorch);
+``reset_launches`` clears it.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("hiera_block.cu", "hiera_block_bwd.cu", "qpool_front.cu",
-           "qpool_front_bwd.cu", "decoder_block.cu", "int8_gemm.cu")
+           "qpool_front_bwd.cu", "decoder_block.cu", "int8_gemm.cu", "attention_lanes.cu")
 
 launches = {
     "fused_block_t": 0,
@@ -42,6 +43,8 @@ launches = {
     "fused_block_t_i8": 0,
     "qpool_front_i8": 0,
     "fused_block_i8": 0,
+    "fused_attention_lanes": 0,
+    "fused_attention": 0,
 }
 
 _lib = None
@@ -135,6 +138,8 @@ def load():
         "sp_layernorm_q8": [p, p, p, p, p, l, i, f, p],
         "sp_quant_rows": [p, p, p, l, i, p],
         "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "sp_lanes_attention": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
+                               i, i, i, i, f, p],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -538,3 +543,41 @@ def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor
                               bias.data_ptr(), _ptr(residual), c.data_ptr(), m, n, k,
                               int(gelu), int(sw_first), _stream(a)), "sp_gemm_i8")
     return c
+
+
+# ---------------------------------------------------------------------------
+# launchers (csrc/attention_lanes.cu)
+# ---------------------------------------------------------------------------
+
+def _strides(t: torch.Tensor, name: str):
+    """(problem, token, head) element strides of a [P, L, H, D] bf16 view
+    with D contiguous, each a multiple of 8 where its dim is longer than 1."""
+    if t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 4:
+        raise ValueError(f"{name}: expected a bf16 CUDA [P, L, H, D] tensor, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+            s % 8 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+        raise ValueError(f"{name}: strides {t.stride()} need D contiguous, 16-byte "
+                         "alignment and the other strides multiples of 8")
+    return t.stride()[:3]
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v of every (problem, head) over its L tokens:
+    q / k / v strided [P, L, H, D] views -> contiguous [P, L, H, D] (any L,
+    D a multiple of 8 up to 128)."""
+    qs, ks, vs = _strides(q, "attention q"), _strides(k, "attention k"), \
+        _strides(v, "attention v")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} differ")
+    p, l, h, d = q.shape
+    if d % 8 or d > 128 or h > 65535 or p * -(-l // 64) >= 2 ** 31:
+        raise ValueError(f"attention: [P, L, H, D] = {tuple(q.shape)} (D % 8 == 0, "
+                         "D <= 128)")
+    out = torch.empty((p, l, h, d), dtype=q.dtype, device=q.device)
+    _check(load().sp_lanes_attention(q.data_ptr(), *qs, k.data_ptr(), *ks, v.data_ptr(),
+                                      *vs, out.data_ptr(), *out.stride()[:3], p, h, l, d,
+                                      scale, _stream(q)), "sp_lanes_attention")
+    return out

@@ -7,14 +7,21 @@ channels-last, as in the JAX package.
 
 Two compositions of the same blocks:
 
-* ``kernels=True`` (default): after the patch embedding the trunk runs
-  token-major in Morton order (ops/fused_block_t.to_z).  Non-pooling blocks
-  go through ``fused_block_t`` (stages 1-3, global blocks included) or
-  ``fused_block`` (the last stage), transitions through ``qpool_front``
-  plus a plain proj/LN/MLP tail, and the pyramid outputs leave through
-  ``from_z``.  The same code runs on the CPU (plain versions inside the
-  wrappers) and on CUDA (the Hopper kernels).  It needs a square 2^k patch
-  grid and windows no larger than the grid.
+* ``kernels=True`` (default): each block goes through the wrapper its
+  route names (:func:`trunk_routes`).  On a square 2^k patch grid whose
+  windows fit it, the trunk runs token-major in Morton order
+  (ops/fused_block_t.to_z): non-pooling blocks go through ``fused_block_t``
+  (stages 1-3, global blocks included) or ``fused_block`` (the last stage),
+  transitions through ``qpool_front`` plus a plain proj/LN/MLP tail, and
+  the pyramid outputs leave through ``from_z``.  On any other grid the
+  blocks are routed as the JAX package routes them there (its non-Morton
+  branch, spegnet_tpu/models/hiera.py:850-947 and :499-645): the T-block,
+  the transition front and the gen-1 block where their gates allow, on the
+  window-major token layout (ops/fused_block_t.to_w); the rest on the
+  decomposed NHWC path, whose attention goes through
+  ``fused_attention_lanes`` where its gate allows (all of stages 3-4 of
+  Hiera-L at 352^2, 384^2, 640^2).  The same code runs on the CPU (plain
+  versions inside the wrappers) and on CUDA (the Hopper kernels, bf16).
 * ``kernels=False``: the decomposed NHWC path (window partition with zero
   padding, plain attention), the numerics anchor.
 
@@ -35,20 +42,25 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from spegnet_tpu_torch.models.layers import Conv2d, Linear, cast
+from spegnet_tpu_torch.ops import fused_block as fb
 from spegnet_tpu_torch.ops import fused_block_i8 as fb_i8
+from spegnet_tpu_torch.ops import fused_block_t as fbt
 from spegnet_tpu_torch.ops import fused_block_t_i8 as fbt_i8
 from spegnet_tpu_torch.ops import wide
-from spegnet_tpu_torch.ops.attention import attention_reference
+from spegnet_tpu_torch.ops.attention import attention_reference, scaled_dot_product_attention
 from spegnet_tpu_torch.ops.fused_block import fused_block
 from spegnet_tpu_torch.ops.fused_block_t import (
     BlockWeights,
     QPoolWeights,
-    from_z,
+    from_w,
     fused_block_t,
+    keeps_windows,
     layer_norm,
     qpool_front,
+    to_w,
     to_z,
 )
+from spegnet_tpu_torch.ops.pallas_attention import fused_attention_lanes, lanes_supported
 from spegnet_tpu_torch.ops.resize import resize_bicubic
 
 
@@ -124,6 +136,12 @@ def block_specs(cfg: HieraConfig) -> List[BlockSpec]:
     return specs
 
 
+# Routes that run on the token-major layouts (Morton or window-major); the
+# others ("fused_attention_lanes", "plain") run the decomposed NHWC block.
+TOKEN_ROUTES = ("fused_block_t", "fused_block", "qpool_front", "fused_block_t_i8",
+                "fused_block_i8", "qpool_front_i8")
+
+
 def block_route(spec: BlockSpec, l: int, n_tok: int, last_stage: bool, dtype: torch.dtype,
                 int8: bool) -> str:
     """The wrapper (and launch counter) that one block of the Morton trunk
@@ -139,7 +157,7 @@ def block_route(spec: BlockSpec, l: int, n_tok: int, last_stage: bool, dtype: to
             return "qpool_front_i8"
         return "qpool_front"
     if int8:
-        if dtype == torch.bfloat16 and fbt_i8.supported(spec.dim, spec.heads, l, n_tok):
+        if dtype == torch.bfloat16 and fbt.supported(spec.dim, spec.heads, l, n_tok):
             if fbt_i8.supported_i8(spec.dim, spec.heads, l, n_tok):
                 return "fused_block_t_i8"
         elif fb_i8.supported_i8(n_tok // l, l, spec.dim):
@@ -147,15 +165,72 @@ def block_route(spec: BlockSpec, l: int, n_tok: int, last_stage: bool, dtype: to
     return "fused_block" if last_stage else "fused_block_t"
 
 
-def trunk_routes(cfg: HieraConfig, hw: int, dtype: torch.dtype, int8: bool) -> List[str]:
-    """:func:`block_route` of every block of the trunk for a square hw x hw
-    patch grid (a shape computation: nothing is allocated)."""
+def grid_route(spec: BlockSpec, h: int, w: int, int8: bool) -> str:
+    """The route of one block on an h x w patch grid outside the Morton
+    path, by the JAX package's gates for bf16 compute (the dtype of the
+    Hopper kernels; other dtypes run the plain versions along the same
+    routes): the transition front where ``use_qpool_t`` holds
+    (spegnet_tpu/models/hiera.py:509-517), the T-block where ``can_t`` does
+    (:854-866), the gen-1 block on divisible windows of 16 to 64 tokens
+    (:566-574), each in its int8 form under ``int8`` where the int8 gate
+    allows (:543, :488-491, :597); else the decomposed block, whose attention
+    is ``fused_attention_lanes`` where ``lanes_supported`` holds (:296-300)
+    and "plain" otherwise (the Q-pool blocks, whose q is shorter than k)."""
+    ws = spec.window
+    l = ws * ws if ws else h * w
+    n_tok = h * w
+    divisible = ws == 0 or (h % ws == 0 and w % ws == 0)
+    if spec.q_pool:
+        if (spec.dim != spec.dim_out and ws > 1 and ws % 2 == 0 and divisible
+                and fbt.qpool_supported(spec.dim, spec.heads, l, n_tok)):
+            if int8 and fbt_i8.qpool_supported_i8(spec.dim, spec.heads, l, n_tok):
+                return "qpool_front_i8"
+            return "qpool_front"
+        return "plain"
+    if spec.dim == spec.dim_out and divisible:
+        if fbt.supported(spec.dim, spec.heads, l, n_tok):
+            if int8 and fbt_i8.supported_i8(spec.dim, spec.heads, l, n_tok):
+                return "fused_block_t_i8"
+            return "fused_block_t"
+        if fb.supported(l):
+            if int8 and fb_i8.supported_i8(n_tok // l, l, spec.dim):
+                return "fused_block_i8"
+            return "fused_block"
+    if lanes_supported(l, spec.dim_out // spec.heads):
+        return "fused_attention_lanes"
+    return "plain"
+
+
+def morton_grid(cfg: HieraConfig, h: int, w: int) -> bool:
+    """Whether an h x w patch grid takes the Morton path: square, 2^k, and
+    every block's window no larger than its grid."""
+    if h != w or not _pow2(h):
+        return False
+    for sp in block_specs(cfg):
+        if sp.window > h:
+            return False
+        if sp.q_pool:
+            h //= 2
+    return True
+
+
+def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool) -> List[str]:
+    """The route of every block of the trunk for a patch grid ``hw`` (an int
+    for a square grid, or (h, w)): :func:`block_route` on the Morton path,
+    :func:`grid_route` elsewhere (a shape computation: nothing is
+    allocated).  A route is the launch counter of its wrapper, except
+    "plain"."""
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    morton = morton_grid(cfg, h, w)
     out, last = [], len(cfg.stages)
     for sp in block_specs(cfg):
-        l = sp.window * sp.window if sp.window else hw * hw
-        out.append(block_route(sp, l, hw * hw, sp.stage == last, dtype, int8))
+        if morton:
+            l = sp.window * sp.window if sp.window else h * w
+            out.append(block_route(sp, l, h * w, sp.stage == last, dtype, int8))
+        else:
+            out.append(grid_route(sp, h, w, int8))
         if sp.q_pool:
-            hw //= 2
+            h, w = h // 2, w // 2
     return out
 
 
@@ -202,16 +277,24 @@ class MultiScaleAttention(nn.Module):
     def head_dim(self) -> int:
         return self.dim_out // self.num_heads
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernels: bool = False) -> torch.Tensor:
+        """With ``kernels`` a non-pooling attention of a supported length
+        goes through ``fused_attention_lanes`` and the rest through
+        ``scaled_dot_product_attention`` (the JAX package's
+        ``MultiScaleAttention``, :287-315); else plain attention."""
         b, h, w, _ = x.shape
         d = self.head_dim
+        if kernels and not self.q_pool and lanes_supported(h * w, d):
+            o = fused_attention_lanes(self.qkv(x.reshape(b, h * w, -1)), self.num_heads,
+                                      d ** -0.5)
+            return self.proj(o).reshape(b, h, w, self.dim_out)
         qkv = self.qkv(x).reshape(b, h * w, 3, self.num_heads, d)
         q, k, v = qkv.unbind(2)
         if self.q_pool:
             q = _max_pool_2x2(q.reshape(b, h, w, -1))
             h, w = q.shape[1:3]
             q = q.reshape(b, h * w, self.num_heads, d)
-        o = attention_reference(q, k, v)
+        o = (scaled_dot_product_attention if kernels else attention_reference)(q, k, v)
         return self.proj(o.reshape(b, h, w, self.dim_out))
 
 
@@ -246,7 +329,12 @@ class MultiScaleBlock(nn.Module):
         super()._load_from_state_dict(*args, **kwargs)
 
     # -- decomposed NHWC path ------------------------------------------------
-    def forward(self, x: torch.Tensor, approx_gelu: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, approx_gelu: bool,
+                kernels: bool = False) -> torch.Tensor:
+        """The decomposed block; ``kernels`` sends its attention through the
+        kernel wrappers (:meth:`MultiScaleAttention.forward`).  Windows that
+        do not divide the grid are zero-padded after norm1, so the padded
+        tokens take part as keys, as in the JAX package."""
         ws = self.spec.window
         shortcut = x
         x = self.norm1(x)
@@ -257,7 +345,7 @@ class MultiScaleBlock(nn.Module):
         pad_hw = hw
         if ws > 0:
             x, pad_hw = _window_partition(x, ws)
-        x = self.attn(x)
+        x = self.attn(x, kernels)
         if self.spec.q_pool:
             ws //= 2
             hw = shortcut.shape[1:3]
@@ -296,8 +384,9 @@ class MultiScaleBlock(nn.Module):
 
     def forward_z(self, x: torch.Tensor, l: int, route: str,
                   approx_gelu: bool) -> torch.Tensor:
-        """Non-pooling block on Morton [B, N, C] with windows of l tokens,
-        through the wrapper ``route`` (:func:`block_route`)."""
+        """Non-pooling block on token-major [B, N, C] (Morton or
+        window-major) with windows of l consecutive tokens, through the
+        wrapper ``route`` (:func:`trunk_routes`)."""
         scale = self.attn.head_dim ** -0.5
         heads = self.spec.heads
         b, n, c = x.shape
@@ -318,7 +407,8 @@ class MultiScaleBlock(nn.Module):
 
     def forward_qpool_z(self, x: torch.Tensor, l: int, route: str,
                         approx_gelu: bool) -> torch.Tensor:
-        """Transition on Morton [B, N, Cin] -> [B, N/4, Cout]: the kernel
+        """Transition on token-major [B, N, Cin] -> [B, N/4, Cout] (each 4
+        consecutive tokens one 2x2 pool group): the kernel
         front (int8 for ``route`` "qpool_front_i8"), then proj + LN2 + MLP in
         plain PyTorch (outside the TPU kernel too,
         spegnet_tpu/models/hiera.py:422-443)."""
@@ -387,27 +477,39 @@ class Hiera(nn.Module):
                 if blk.spec.stage_end:
                     outputs.append(x)
             return outputs
-        return self._forward_z(x, approx_gelu, int8)
+        return self._forward_kernels(x, approx_gelu, int8)
 
-    def _forward_z(self, x: torch.Tensor, approx_gelu: bool,
-                   int8: bool = False) -> List[torch.Tensor]:
+    def _forward_kernels(self, x: torch.Tensor, approx_gelu: bool,
+                         int8: bool = False) -> List[torch.Tensor]:
+        """The trunk through the wrappers of :func:`trunk_routes`.  ``lay`` is
+        the window of x's window-major token layout [B, N, C] (0: raster), or
+        None while x is NHWC.  A :func:`morton_grid` grid starts in Morton
+        order, one window of the whole grid, which keeps every window of the
+        trunk consecutive, so it never changes layout; elsewhere a block
+        changes it only when its route needs windows it does not keep."""
         _, h, w, _ = x.shape
-        if h != w or not _pow2(h):
-            raise ValueError(f"the kernel path needs a square 2^k patch grid, got {(h, w)}")
-        routes = trunk_routes(self.config, h, x.dtype, int8)
-        x = to_z(x)
+        routes = trunk_routes(self.config, (h, w), x.dtype, int8)
+        lay = None
+        if morton_grid(self.config, h, w):
+            x, lay = to_z(x), h
         outputs = []
-        for i, (blk, route) in enumerate(zip(self.blocks, routes)):
+        for blk, route in zip(self.blocks, routes):
             sp = blk.spec
-            if sp.window > h:
-                raise ValueError(f"window {sp.window} exceeds the {h}x{w} grid of block "
-                                 f"{i}; use kernels=False")
-            l = sp.window * sp.window if sp.window else h * w
-            if sp.q_pool:
-                x = blk.forward_qpool_z(x, l, route, approx_gelu)
-                h, w = h // 2, w // 2
+            if route in TOKEN_ROUTES:
+                if not keeps_windows(lay, sp.window):
+                    x = to_w(x if lay is None else from_w(x, lay, (h, w)), sp.window)
+                    lay = sp.window
+                l = sp.window * sp.window if sp.window else h * w
+                if sp.q_pool:
+                    x = blk.forward_qpool_z(x, l, route, approx_gelu)
+                    h, w, lay = h // 2, w // 2, lay // 2
+                else:
+                    x = blk.forward_z(x, l, route, approx_gelu)
             else:
-                x = blk.forward_z(x, l, route, approx_gelu)
+                if lay is not None:
+                    x, lay = from_w(x, lay, (h, w)), None
+                x = blk(x, approx_gelu, kernels=True)
+                h, w = x.shape[1:3]
             if sp.stage_end:
-                outputs.append(from_z(x, (h, w)))
+                outputs.append(x if lay is None else from_w(x, lay, (h, w)))
         return outputs

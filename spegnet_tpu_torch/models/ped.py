@@ -4,8 +4,9 @@ reference state_dict keys (``conv1``, ``bn1``, ``edge_conv``;
 ``decoder_blocks.{i}.{conv1, bn1, conv2, bn2}``, ``pred_heads.{i}``).
 
 Block 2 (the full-resolution block, no edge branch) dispatches to
-ops/fused_decoder.fused_decoder_block when ``kernels`` is set, as the JAX
-package dispatched it to its Pallas kernel (spegnet_tpu/models/ped.py:239-272);
+ops/fused_decoder.fused_decoder_block when ``kernels`` is set and its input
+is square and passes ``decoder_supported``, as the JAX package dispatched it
+to its Pallas kernel (spegnet_tpu/models/ped.py:239-272);
 that wrapper runs the plain chain on the CPU and the Hopper kernels on CUDA.
 """
 
@@ -19,7 +20,11 @@ import torch.nn.functional as F
 
 from spegnet_tpu_torch.models.cfi import BatchNorm2d
 from spegnet_tpu_torch.models.layers import Conv2d
-from spegnet_tpu_torch.ops.fused_decoder import DecoderParams, fused_decoder_block
+from spegnet_tpu_torch.ops.fused_decoder import (
+    DecoderParams,
+    decoder_supported,
+    fused_decoder_block,
+)
 from spegnet_tpu_torch.ops.fused_upsample_conv import upsample2x
 
 
@@ -93,7 +98,8 @@ class BoundaryAwareDecoder(nn.Module):
         for i, (blk, head) in enumerate(zip(self.decoder_blocks, self.pred_heads)):
             ef = edge_features if self.edge_used[i] else None
             if (kernels and i == last == 2 and ef is None and self.n_classes == 1
-                    and not self.training):
+                    and not self.training and x.shape[2] == x.shape[3]
+                    and decoder_supported(x.shape[2])):
                 pred = fused_decoder_block(x.permute(0, 2, 3, 1).contiguous(),
                                            blk.params(head))
                 preds.append(pred.permute(0, 3, 1, 2))

@@ -1,8 +1,11 @@
-"""Plain scaled dot-product attention (port of spegnet_tpu/ops/attention.py:26).
+"""Scaled dot-product attention (port of spegnet_tpu/ops/attention.py).
 
-Scores and the softmax run in f32 (f64 for f64 inputs); the
-probabilities are cast back to the input dtype before the product with v,
-as ``attention_reference`` does in the JAX package.
+:func:`attention_reference` is the plain version: scores and the softmax in
+f32 (f64 for f64 inputs), the probabilities cast back to the input dtype
+before the product with v, as ``attention_reference`` (:26) does in the JAX
+package.  :func:`scaled_dot_product_attention` is the dispatch point of the
+kernel path (:37-47): the fused kernel (ops/pallas_attention.py
+``fused_attention``) where its gate allows, else the plain version.
 """
 
 from __future__ import annotations
@@ -22,3 +25,15 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bqhd,bkhd->bhqk", wide(q), wide(k))
     p = torch.softmax(s * scale, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v through ``fused_attention`` where
+    ``is_supported`` allows (equal q / k / v shapes, 16 <= L <= 8192), else
+    :func:`attention_reference`."""
+    from spegnet_tpu_torch.ops.pallas_attention import fused_attention, is_supported
+
+    if is_supported(q, k, v):
+        return fused_attention(q, k, v)
+    return attention_reference(q, k, v)

@@ -23,6 +23,15 @@ from spegnet_tpu_torch.ops.fused_block_t import (
 )
 
 
+# spegnet_tpu/ops/fused_block.py:47: the gen-1 kernel's longest window.
+_MAX_L = 64
+
+
+def supported(l: int) -> bool:
+    """Gen-1 gate (``supported`` :71): windows of 16 to 64 tokens."""
+    return 16 <= l <= _MAX_L
+
+
 def block_reference(x: torch.Tensor, wts: BlockWeights, heads: int,
                     scale: float, eps: float = 1e-6,
                     approx_gelu: bool = True) -> torch.Tensor:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from spegnet_tpu_torch import kernels
+from spegnet_tpu_torch.ops.fused_block import supported
 from spegnet_tpu_torch.ops.fused_block_t import _cuda_gate
 from spegnet_tpu_torch.ops.fused_block_t_i8 import (
     BlockWeightsI8,
@@ -23,9 +24,6 @@ from spegnet_tpu_torch.ops.fused_block_t_i8 import (
     pack_i8,
     quantize_rows,
 )
-
-# spegnet_tpu/ops/fused_block.py:47: the longest window of the gen-1 kernel.
-_MAX_L = 64
 
 __all__ = ["block_i8_plain", "fused_block_i8", "pack_i8", "quantize_cols", "supported_i8"]
 
@@ -40,7 +38,7 @@ def quantize_cols(w: torch.Tensor):
 def supported_i8(n_windows: int, l: int, c: int) -> bool:
     """int8 gen-1 gate (``supported_i8`` :234): the gen-1 window rule
     16 <= L <= 64 (``fused_block.supported`` :71) and C % 128 == 0."""
-    return n_windows > 0 and 16 <= l <= _MAX_L and c % 128 == 0
+    return n_windows > 0 and supported(l) and c % 128 == 0
 
 
 def block_i8_plain(x: torch.Tensor, w: BlockWeightsI8, heads: int, scale: float,

@@ -1,9 +1,15 @@
 """Whole Hiera block and Q-pool transition front (port of spegnet_tpu/ops/fused_block_t.py).
 
-The trunk's kernel path runs token-major ``[B, N, C]`` in Morton (Z) order:
-:func:`to_z` is the JAX package's ``to_z`` (:570) transposed.  In that order
-every attention window of every stage is L consecutive rows and every 2x2
-pool group is 4 consecutive rows, so one layout serves the whole trunk.
+The trunk's kernel path runs token-major ``[B, N, C]`` in Morton (Z) order
+on a square 2^k patch grid: :func:`to_z` is the JAX package's ``to_z``
+(:570) transposed.  In that order every attention window of every stage is
+L consecutive rows and every 2x2 pool group is 4 consecutive rows, so one
+layout serves the whole trunk.  Morton order is the one-window case of
+the window-major layout (:func:`to_w`), which serves other grids in place
+of ``to_t`` (:235), ``from_t`` and ``to_t_micro`` (:608): windows in raster
+order, each window in the order that makes its 2x2 pool groups 4
+consecutive rows, which is again window-major at the pooled grid with half
+the window.
 
 Each operator comes in two forms:
 
@@ -66,24 +72,40 @@ class QPoolWeights(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Morton layout
+# token-major layouts
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _morton_index(h: int, w: int) -> np.ndarray:
-    """raster index of each Morton position (y bit above x bit per level)."""
-    k = h.bit_length() - 1
-    if h != w or (1 << k) != h:
-        raise ValueError(f"Morton order needs H == W == 2^k, got {(h, w)}")
-    perm = []
-    for i in range(k):
-        perm += [i, k + i]
-    return np.arange(h * w).reshape((2,) * (2 * k)).transpose(perm).reshape(-1)
+def _window_order(ws: int) -> np.ndarray:
+    """Raster position in a ws x ws window of each row of the window-major
+    layout: for even ws the 2x2 micro-windows are 4 consecutive rows (raster
+    inside) ordered as the (ws/2)^2 window is, recursively; odd ws is raster.
+    A 2^k window is in Morton order (y bit above x bit per level), so every
+    aligned 2^j x 2^j block of it is a run of consecutive rows."""
+    if ws % 2:
+        return np.arange(ws * ws)
+    half = ws // 2
+    my, mx = np.divmod(_window_order(half), half)
+    dy, dx = np.divmod(np.arange(4), 2)
+    return ((2 * my[:, None] + dy) * ws + 2 * mx[:, None] + dx).reshape(-1)
 
 
 @functools.lru_cache(maxsize=None)
-def _index(h: int, w: int, device: torch.device, inverse: bool) -> torch.Tensor:
-    idx = _morton_index(h, w)
+def _window_index(h: int, w: int, ws: int) -> np.ndarray:
+    """raster index of each row of the window-major layout of an h x w grid
+    (ws x ws windows in raster order, each in :func:`_window_order`)."""
+    if h % ws or w % ws:
+        raise ValueError(f"windows of {ws} do not tile the {(h, w)} grid")
+    oy, ox = np.divmod(_window_order(ws), ws)
+    wy = np.arange(h // ws).repeat(w // ws)[:, None] * ws
+    wx = np.tile(np.arange(w // ws), h // ws)[:, None] * ws
+    return ((wy + oy) * w + wx + ox).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _index(h: int, w: int, ws: int, device: torch.device, inverse: bool) -> torch.Tensor:
+    """Gather index of the window-major layout with windows of ``ws``."""
+    idx = _window_index(h, w, ws)
     if inverse:
         idx = np.argsort(idx)
     # a normal tensor even when first made under inference_mode (predict),
@@ -92,19 +114,90 @@ def _index(h: int, w: int, device: torch.device, inverse: bool) -> torch.Tensor:
         return torch.from_numpy(idx).to(device)
 
 
+def _check_morton(h: int, w: int) -> None:
+    if h != w or h & (h - 1):
+        raise ValueError(f"Morton order needs H == W == 2^k, got {(h, w)}")
+
+
 def to_z(x: torch.Tensor) -> torch.Tensor:
-    """[B, H, W, C] -> [B, N, C] in Morton order (H == W == 2^k)."""
-    b, h, w, c = x.shape
-    return x.reshape(b, h * w, c).index_select(1, _index(h, w, x.device, False))
+    """[B, H, W, C] -> [B, N, C] in Morton order (H == W == 2^k): the
+    window-major layout with one window of the whole grid."""
+    _check_morton(*x.shape[1:3])
+    return to_w(x, x.shape[1])
 
 
 def from_z(xz: torch.Tensor, hw) -> torch.Tensor:
     """Inverse of :func:`to_z`: [B, N, C] -> [B, H, W, C]."""
-    b, n, c = xz.shape
+    _check_morton(*hw)
+    return from_w(xz, hw[0], hw)
+
+
+def keeps_windows(lay, ws: int) -> bool:
+    """Whether every ws x ws window (ws 0: the whole grid) is a run of
+    consecutive rows of the window-major layout with windows of ``lay`` (0:
+    raster; None: no token layout).  A window of lay keeps its aligned
+    2^j x 2^j blocks consecutive (:func:`_window_order`), so a Morton layout
+    (one 2^k window) keeps every 2^j window of the trunk."""
+    if lay is None:
+        return False
+    if ws == 0:
+        return True
+    return lay != 0 and (ws == lay or (ws & (ws - 1) == 0 and lay % ws == 0))
+
+
+def to_w(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, N, C] window-major with ws x ws windows (ws | H,
+    ws | W); ws == 0 is raster order."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h * w, c)
+    return x if ws == 0 else x.index_select(1, _index(h, w, ws, x.device, False))
+
+
+def from_w(xw: torch.Tensor, ws: int, hw) -> torch.Tensor:
+    """Inverse of :func:`to_w`: [B, N, C] -> [B, H, W, C]."""
+    b, n, c = xw.shape
     h, w = hw
     if h * w != n:
-        raise ValueError(f"from_z: {n} tokens vs {(h, w)}")
-    return xz.index_select(1, _index(h, w, xz.device, True)).reshape(b, h, w, c)
+        raise ValueError(f"from_w: {n} tokens vs {(h, w)}")
+    if ws:
+        xw = xw.index_select(1, _index(h, w, ws, xw.device, True))
+    return xw.reshape(b, h, w, c)
+
+
+# ---------------------------------------------------------------------------
+# gates
+# ---------------------------------------------------------------------------
+
+# spegnet_tpu/ops/fused_block_t.py:65: the longest exact window of the T-kernel.
+_MAX_L = 1024
+
+
+def _pick_cw(l: int, n_tok: int) -> int:
+    """The TPU kernels' attention chunk width (``_pick_cw`` :189 under its
+    default policy, and ``_pick_cw_qpool`` :1030, which agree)."""
+    return l if l >= 512 else min(512, n_tok)
+
+
+def supported(c: int, heads: int, l: int, n_tok: int) -> bool:
+    """Shape rules of the T-kernel gate (``supported`` :203), windows of l
+    tokens over n_tok tokens per image: blocks with more than 8 heads, or
+    windows that do not tile its chunks, take the gen-1 kernel
+    (ops/fused_block.py) or the decomposed block in the JAX package."""
+    if c % 16 or heads > 8:
+        return False
+    ok = (l % 128 == 0 and l <= _MAX_L) if l >= 128 else 128 % l == 0
+    cw = _pick_cw(l, n_tok)
+    return ok and cw % max(l, 128) == 0 and n_tok % cw == 0
+
+
+def qpool_supported(cin: int, heads: int, l: int, n_tok: int) -> bool:
+    """Shape rules of the transition-front gate (``qpool_supported``
+    :1039)."""
+    if cin % 16 or l % 4 or l > 256:
+        return False
+    ok = l % 128 == 0 if l >= 128 else 128 % l == 0
+    cw = _pick_cw(l, n_tok)
+    return ok and cw % max(l, 128) == 0 and n_tok % cw == 0
 
 
 # ---------------------------------------------------------------------------

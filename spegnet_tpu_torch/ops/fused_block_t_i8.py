@@ -47,11 +47,9 @@ from spegnet_tpu_torch.ops.fused_block_t import (
     _qpool_attend,
     _window_attention_plain,
     layer_norm,
+    qpool_supported,
+    supported,
 )
-
-# spegnet_tpu/ops/fused_block_t.py:65: the longest exact window of the T-kernel.
-_MAX_L = 1024
-
 
 class BlockWeightsI8(NamedTuple):
     """A block's W8A8 parameters: int8 codes [out, in], f32 scales and
@@ -143,33 +141,6 @@ def pack_qpool_i8(w: QPoolWeights) -> QPoolWeightsI8:
 # ---------------------------------------------------------------------------
 # gates
 # ---------------------------------------------------------------------------
-
-def _pick_cw(l: int, n_tok: int) -> int:
-    """The TPU kernels' attention chunk width (``_pick_cw`` :189 under its
-    default policy, and ``_pick_cw_qpool`` :1030, which agree)."""
-    return l if l >= 512 else min(512, n_tok)
-
-
-def supported(c: int, heads: int, l: int, n_tok: int) -> bool:
-    """Shape rules of the bf16 T-kernel gate (``supported`` :203): blocks
-    with more than 8 heads, or windows that do not tile its chunks, run the
-    gen-1 kernel (ops/fused_block.py) in the JAX package."""
-    if c % 16 or heads > 8:
-        return False
-    ok = (l % 128 == 0 and l <= _MAX_L) if l >= 128 else 128 % l == 0
-    cw = _pick_cw(l, n_tok)
-    return ok and cw % max(l, 128) == 0 and n_tok % cw == 0
-
-
-def qpool_supported(cin: int, heads: int, l: int, n_tok: int) -> bool:
-    """Shape rules of the bf16 transition-front gate (``qpool_supported``
-    :1039)."""
-    if cin % 16 or l % 4 or l > 256:
-        return False
-    ok = l % 128 == 0 if l >= 128 else 128 % l == 0
-    cw = _pick_cw(l, n_tok)
-    return ok and cw % max(l, 128) == 0 and n_tok % cw == 0
-
 
 def supported_i8(c: int, heads: int, l: int, n_tok: int) -> bool:
     """int8 block gate (``supported_i8`` :255): :func:`supported` and

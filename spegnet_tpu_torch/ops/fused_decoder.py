@@ -72,6 +72,15 @@ def _pack_conv(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
 
 
+def decoder_supported(s: int) -> bool:
+    """Shape rule of the JAX package's decoder gate (``decoder_supported``
+    :689) for x1 [B, S, S, Cin]: S a multiple of its strip height (16 from
+    S = 256, else 8) and at least two strips (every input side that is a
+    multiple of 32 passes)."""
+    sh = 16 if s >= 256 else 8
+    return s % sh == 0 and s >= 2 * sh
+
+
 def fused_decoder_block(x: torch.Tensor, p: DecoderParams) -> torch.Tensor:
     """Decoder block 2 with its head: x [B, S, S, Cin] -> [B, 2S, 2S, 1]."""
     if x.device.type == "cpu":

@@ -1,9 +1,10 @@
 """Device-time breakdown of one SPEGNet forward, or one training step, on the GPU.
 
     python -m spegnet_tpu_torch.utils.profiling [--batch 8] [--variant large]
-        [--plain | --int8] [--train] [--trace trace.json]
+        [--size 512] [--plain | --int8] [--train] [--trace trace.json]
 
-Builds seeded random weights, runs two warm-up calls at 512^2 in bf16,
+Builds seeded random weights, runs two warm-up calls at ``--size``^2 (512
+by default; 384 for a patch grid that is not 2^k) in bf16,
 then profiles one call with torch.profiler (CPU + CUDA activities) and
 prints the kernels sorted by device time, the device-busy total and the
 call's wall time.  The call is an inference forward, or with ``--train``
@@ -25,7 +26,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m spegnet_tpu_torch.utils.profiling")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--variant", default="large")
-    ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--size", type=int, default=512, help="input side, a multiple of 32")
     ap.add_argument("--plain", action="store_true", help="profile kernels=False")
     ap.add_argument("--int8", action="store_true", help="forward with int8_encoder")
     ap.add_argument("--train", action="store_true", help="profile a training step")

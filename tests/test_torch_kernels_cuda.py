@@ -1,9 +1,12 @@
 """The Hopper kernels against their plain PyTorch versions, in bf16, at every
-main-path geometry of Hiera-L 512^2 inference and training (batch 1): the
-forward kernels against the plain forward, the backward kernels against
-bf16 autograd of the plain forward, for dx and every weight gradient, and
-the int8 encoder's kernels against their plain int8 versions
-(kernel_check.i8_ok); the int8 Predictor's launches.
+main-path geometry of Hiera-L inference and training (batch 1; 512^2, and
+the grids of 352^2 / 384^2 / 640^2 / 768^2 that are not 2^k, the attention
+kernel at L 64 to 2304, 484 included): the forward kernels against the
+plain forward, the backward kernels against bf16 autograd of the plain
+forward, for dx and every weight gradient, and the int8 encoder's kernels
+against their plain int8 versions (kernel_check.i8_ok); the attention
+kernel at lengths that are not multiples of 16 and on strided views; the
+int8 Predictor's and the 384^2 Predictor's launches.
 These need an NVIDIA card with nvcc; elsewhere they skip."""
 
 import pytest
@@ -107,3 +110,56 @@ def test_int8_wrapper_refuses_f32(cuda):
                                                     cuda))
     with pytest.raises(ValueError):
         fbt_i8.fused_block_t_i8(torch.randn(1, 256, 64, device=cuda), wts, 2, 64, 32 ** -0.5)
+
+
+@pytest.mark.parametrize("l", [1, 20, 100, 484])
+def test_attention_kernel_any_length(cuda, l):
+    """Query and key tails are masked inside the kernel: any L, and q / k / v
+    given as separate [B, L, H, D] tensors (one of them a permuted view)."""
+    from spegnet_tpu_torch.ops import pallas_attention as pa
+
+    g = torch.Generator().manual_seed(l)
+    qkv = torch.randn((3, l, 3 * 2 * 72), generator=g).to(cuda, torch.bfloat16)
+    got = pa.fused_attention_lanes(qkv, 2, 72 ** -0.5)
+    want = pa.lanes_plain(qkv, 2, 72 ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.REL_LIMIT
+    q = torch.randn((3, 2, l, 64), generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((3, l, 2, 64), generator=g).to(cuda, torch.bfloat16) for _ in "kv")
+    got = pa.fused_attention(q, k, v)
+    want = pa.attention_reference(q, k, v)
+    assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.REL_LIMIT
+
+
+def test_attention_wrappers_refuse_f32(cuda):
+    from spegnet_tpu_torch.ops import pallas_attention as pa
+
+    qkv = torch.randn((1, 64, 3 * 2 * 72), device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        pa.fused_attention_lanes(qkv, 2, 72 ** -0.5)
+
+
+def test_predictor_384_launches_follow_the_routes(cuda):
+    import collections
+
+    import numpy as np
+
+    from spegnet_tpu_torch.engine.predictor import Predictor
+    from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.utils.weights import init_weights
+
+    mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
+          "image_processing": {"target_size": 384}}
+    model = init_weights(SPEGNet(SPEGNetConfig.from_dict(mc)), torch.Generator().manual_seed(0))
+    pred = Predictor(None, mc, None, device="cuda", model=model)
+    kernels.reset_launches()
+    seg, _ = pred.predict_arrays([np.zeros((300, 400, 3), np.uint8)])
+    torch.cuda.synchronize()
+    routes = collections.Counter(trunk_routes(HIERA_VARIANTS["large"], 96, torch.bfloat16,
+                                              False))
+    assert routes["fused_attention_lanes"] == 38 and routes["fused_block"] == 5
+    routes.pop("plain")
+    routes["fused_decoder_block"] = 1
+    assert {w: n for w, n in kernels.launches.items() if n} == dict(routes)
+    assert seg.shape == (1, 384, 384) and np.isfinite(seg).all()

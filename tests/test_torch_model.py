@@ -5,7 +5,8 @@ position embeddings are non-trivial) and are carried across by
 ``state_dict_from_jax``; both models see the same numpy input.  Both port
 compositions are checked: ``kernels=True`` (the Morton trunk and decoder
 block 2 through the kernel wrappers, which take their plain versions on the
-CPU) and ``kernels=False`` (the decomposed path).
+CPU; and on a 64x96 input, the trunk of grids that are not 2^k) and
+``kernels=False`` (the decomposed path).
 
 Tolerance 1e-4 absolute + 1e-4 relative on logits of magnitude up to ~10:
 f32 throughout, differences come from summation order across ~10 layers
@@ -91,13 +92,34 @@ def test_spegnet_matches_jax(jax_case, kernels):
 
 
 def test_kernel_path_refuses_uncovered_geometry():
-    """The Morton kernel path needs a square 2^k patch grid; it raises rather
-    than quietly taking another path."""
+    """The kernel path takes any input whose sides are multiples of 32 and
+    refuses the rest, as the JAX package does, rather than quietly taking
+    another path."""
     model = SPEGNet(SPEGNetConfig(variant="test")).eval()
     init_weights(model, torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="square 2\\^k"):
+    with pytest.raises(ValueError, match="divisible by 32"):
         with torch.no_grad():
-            model(torch.zeros(1, 64, 96, 3))
+            model(torch.zeros(1, 64, 80, 3))
+
+
+def test_kernel_path_runs_grid_that_is_not_2k(jax_case):
+    """A 64x96 input (patch grid 16x24) runs on the kernel path, its blocks
+    routed by JAX's gates (a T-block and the transition front on the
+    window-major layout, then the decomposed blocks), and matches the JAX
+    model."""
+    variant, head, _, variables, _ = jax_case
+    x = np.random.default_rng(3).standard_normal((2, 64, 96, 3)).astype(np.float32)
+    want = jax.device_get(jax.jit(JaxSPEGNet(JaxConfig(variant=variant, **head)).apply)(
+        variables, jnp.asarray(x)))
+    model = SPEGNet(SPEGNetConfig(variant=variant, **head)).eval()
+    model.load_state_dict(to_torch(state_dict_from_jax(variables)), strict=True)
+    assert not thiera.morton_grid(thiera.HIERA_VARIANTS[variant], 16, 24)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    for g, w in zip(got["predictions"], want["predictions"]):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+    np.testing.assert_allclose(got["edge"].numpy(), want["edge"], **TOL)
 
 
 def test_init_weights_is_seeded():
