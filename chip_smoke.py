@@ -24,6 +24,15 @@
    elements beyond the JAX package's 5e-4 is printed), and its int8 pieces
    (LayerNorm + quant, row quant, every GEMM with its epilogue) exactly or
    within one code / one bf16 step by kernel_check.i8_parts_ok.
+   Then decoder block 2 in the int8 mode (model.int8_decoder) at S 256,
+   192, 176, 320 (512^2, 384^2, 352^2, 640^2), batch 2: its logits against
+   the plain int8 version within REL_LIMIT, and its pieces -- x codes and
+   scales, every strip's activation scale, conv1's activated map after the
+   border paste, the logits, and conv2's activated map and logits from the
+   conv2 kernel on the plain version's conv1 map and scales -- exact or
+   within one code / one bf16 step by kernel_check.dec_i8_parts_ok; and the
+   edge branch of the bf16 block (no model path) at PED block 1's geometry
+   at 512^2 and 384^2 within REL_LIMIT (with the forward kernels above).
 4. Runs the Predictor on 4 seeded synthetic 512^2 u8 images with seeded
    random Hiera-L weights in bf16, with every launch counter zeroed just
    before: every launch counter must equal the per-forward count of
@@ -37,13 +46,19 @@
    front, 1 decoder block), and the int8 mask MAE against the f32 plain
    path must be <= MASK_MAE_I8_LIMIT (also printed against the bf16 kernel
    path).
+   Then with int8_decoder alone and with both flags (the speed mode): the
+   counters equal the routes with fused_decoder_block_i8 1 per forward and
+   fused_decoder_block 0, the mask MAE against the f32 plain path <=
+   MASK_MAE_I8DEC_LIMIT.
    4c. The same (bf16) at 384^2, 352^2 and 640^2, whose patch grids are not
    2^k: the launch counters equal trunk_routes (at 384^2: 2 T-blocks, 1
    front, 5 gen-1 blocks, 38 fused_attention_lanes, 1 decoder block), the
-   mask MAE against the f32 plain path <= 1e-3.
-5. Times the kernel path against the plain bf16 path (kernels=False) and
-   the int8 kernel path in ms/image at batch 8 (at 384^2 the kernel and
-   the plain bf16 path), and each kernel -- forward
+   mask MAE against the f32 plain path <= 1e-3; and with int8_decoder
+   (fused_decoder_block_i8 1 per forward, MAE <= MASK_MAE_I8DEC_LIMIT).
+5. Times the kernel path against the plain bf16 path (kernels=False), the
+   int8 kernel path and the speed mode (both int8 flags) in ms/image at
+   batch 8 (at 384^2 the kernel path, the speed mode and the plain bf16
+   path), and each kernel -- forward
    and backward, and the int8 ones -- against its plain version at batch 8
    with CUDA events, beside its roofline bound (kernel_check.work /
    i8_work / bound_ms); then each sub-kernel of the stage-1 and global
@@ -72,7 +87,8 @@
        every forward and backward counter equal to three times the routes'.
 7. Evaluate: the Evaluator in memory on 8 synthetic eval samples (ellipse
    ground truths at original sizes 384-640 on a 640 canvas, their distance
-   transforms from scipy) for the bf16 and the int8 config: metrics finite
+   transforms from scipy) for the bf16 config, int8_encoder, and both int8
+   flags: metrics finite
    and in [0, 1], the card's metrics equal to the port's CPU metrics on the
    same quantized predictions within 1e-5, forward and metrics ms/image;
    then the bf16 config at 384^2.
@@ -100,6 +116,10 @@ MASK_MAE_LIMIT = 1e-3   # BASELINE.md:41 drift budget
 # accuracy a measured quantity; this limit is 2.5x the first value measured
 # on an H100 (4.9432e-04, PERF.md), the convention of the backward limit.
 MASK_MAE_I8_LIMIT = 1.24e-3
+# int8 decoder (alone or with the int8 encoder) mask MAE vs the f32 plain
+# path, at every size: the same convention, 2.5x the first value measured
+# on an H100 (5.0707e-04, 512^2 with int8_decoder alone, PERF.md).
+MASK_MAE_I8DEC_LIMIT = 1.27e-3
 METRIC_TOL = 1e-5
 COSINE_MARGIN = 0.01
 TIMED_STEPS = 6   # train steps timed after the warm-up step (512^2)
@@ -130,6 +150,10 @@ KERNELS = {
                               "spegnet_tpu/ops/pallas_attention.py:199"),
     "fused_attention": ("spegnet_tpu_torch/csrc/attention_lanes.cu",
                         "spegnet_tpu/ops/pallas_attention.py:43"),
+    "fused_decoder_block_i8": ("spegnet_tpu_torch/csrc/decoder_i8.cu",
+                               "spegnet_tpu/ops/fused_decoder.py:338"),
+    "fused_decoder_block_edge": ("spegnet_tpu_torch/csrc/decoder_block.cu",
+                                 "spegnet_tpu/ops/fused_decoder.py:338"),
 }
 # rows whose per-forward numbers are those of a 384^2 forward
 AT_384 = ("fused_attention_lanes", "fused_attention")
@@ -221,6 +245,19 @@ def main() -> int:
         log(f"check {name:9s} int8 pieces: {parts} (limits share {kc.I8_PART_FRAC}, one "
             f"code / one bf16 step; row quant and GEMM without GELU exact)")
         check(kc.i8_parts_ok(parts), f"{name}: an int8 piece disagrees with plain ({parts})")
+    for name in kc.DEC_I8:
+        case = kc.dec_i8_case(name, 2, torch.Generator().manual_seed(1), dev)
+        err, rel = kc.compare(case)
+        torch.cuda.synchronize()
+        max_err[case.wrapper] = max(max_err[case.wrapper], err)
+        log(f"check {name:10s} {case.wrapper:22s} max_abs {err:.4e} rel {rel:.4e} "
+            f"(limit {kc.REL_LIMIT})")
+        check(rel <= kc.REL_LIMIT, f"{name}: int8 decoder disagrees with plain int8 ({rel:.3e})")
+        parts = kc.dec_i8_parts(name, 2, torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        log(f"check {name:10s} int8 decoder pieces: {parts} (limits share {kc.I8_PART_FRAC}, "
+            f"one code / one bf16 step; scales exact)")
+        check(kc.dec_i8_parts_ok(parts), f"{name}: an int8 decoder piece disagrees ({parts})")
 
     # -- 4. the Predictor on the main path -----------------------------------
     cfg = SPEGNetConfig(variant="large", compute_dtype="bfloat16")
@@ -256,6 +293,24 @@ def main() -> int:
         f"{np.abs(seg_i8 - seg).mean():.4e}; edge MAE vs f32 plain "
         f"{np.abs(edge_i8 - edge32).mean():.4e}")
     check(mae_i8 <= MASK_MAE_I8_LIMIT, f"int8 mask MAE {mae_i8:.3e} > {MASK_MAE_I8_LIMIT}")
+    model_speed = None
+    for tag, flags in (("int8dec", {"int8_decoder": True}),
+                       ("speed", {"int8_encoder": True, "int8_decoder": True})):
+        m = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="bfloat16", **flags))
+        m.load_state_dict(state)
+        pr = Predictor(None, {**model_config, **flags}, None, batch_size=4, device="cuda",
+                       model=m)
+        seg_t, _, launches[f"predict_{tag}"] = predict_checked(
+            pr, images, 512, flags.get("int8_encoder", False), torch, int8_dec=True)
+        mae_t = float(np.abs(seg_t - seg32).mean())
+        log(f"predict {tag}: mask MAE vs f32 plain {mae_t:.4e} (limit {MASK_MAE_I8DEC_LIMIT}), "
+            f"max {np.abs(seg_t - seg32).max():.4e}; vs bf16 kernel path "
+            f"{np.abs(seg_t - seg).mean():.4e}")
+        check(mae_t <= MASK_MAE_I8DEC_LIMIT,
+              f"{tag}: mask MAE {mae_t:.3e} > {MASK_MAE_I8DEC_LIMIT}")
+        if tag == "speed":
+            model_speed = pr.model
+        del pr, m
 
     # -- 4c. the Predictor on grids that are not 2^k ---------------------------
     x384 = None
@@ -272,29 +327,44 @@ def main() -> int:
         log(f"predict {size}: mask MAE vs f32 plain {mae_s:.4e} (limit {MASK_MAE_LIMIT}), "
             f"max {np.abs(seg_s - seg_s32).max():.4e}")
         check(mae_s <= MASK_MAE_LIMIT, f"{size}: mask MAE {mae_s:.3e} > {MASK_MAE_LIMIT}")
+        m8 = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="bfloat16", int8_decoder=True))
+        m8.load_state_dict(state)
+        pred8 = Predictor(None, {**mc, "int8_decoder": True}, None, batch_size=4,
+                          device="cuda", model=m8)
+        seg8, _, launches[f"predict_{size}_int8dec"] = predict_checked(
+            pred8, imgs, size, False, torch, int8_dec=True)
+        mae8 = float(np.abs(seg8 - seg_s32).mean())
+        log(f"predict {size} int8dec: mask MAE vs f32 plain {mae8:.4e} (limit "
+            f"{MASK_MAE_I8DEC_LIMIT}), max {np.abs(seg8 - seg_s32).max():.4e}; vs bf16 kernel "
+            f"path {np.abs(seg8 - seg_s).mean():.4e}")
+        check(mae8 <= MASK_MAE_I8DEC_LIMIT,
+              f"{size} int8dec: mask MAE {mae8:.3e} > {MASK_MAE_I8DEC_LIMIT}")
         if size == 384:
             x384 = xs
-        del pred_s
+        del pred_s, pred8, m8
 
     # -- 5. timings at batch 8 ------------------------------------------------
     x8 = torch.cat([x, x]).to(torch.float32)
     run = {}
     with torch.inference_mode():
-        for mode in ("kernel", "int8", "plain", "plain", "int8", "kernel"):
-            m = pred_i8.model if mode == "int8" else model
+        for mode in ("kernel", "int8", "speed", "plain", "plain", "speed", "int8", "kernel"):
+            m = {"int8": pred_i8.model, "speed": model_speed}.get(mode, model)
             model.kernels = mode != "plain"
             ms = kc.time_ms(lambda: m(x8), iters=5, warmup=2) / 8
             run.setdefault(mode, []).append(ms)
         x384_8 = torch.cat([x384, x384]).to(torch.float32)
-        for mode in ("kernel_384", "plain_384", "plain_384", "kernel_384"):
-            model.kernels = mode == "kernel_384"
+        for mode in ("kernel_384", "speed_384", "plain_384", "plain_384", "speed_384",
+                     "kernel_384"):
+            m = model_speed if mode == "speed_384" else model
+            model.kernels = mode != "plain_384"
             run.setdefault(mode, []).append(
-                kc.time_ms(lambda: model(x384_8), iters=10, warmup=2) / 8)
+                kc.time_ms(lambda: m(x384_8), iters=10, warmup=2) / 8)
     model.kernels = True
     log(f"e2e ms/img at batch 8: kernel path {run['kernel']}, int8 kernel path {run['int8']}, "
-        f"plain bf16 path {run['plain']}; at 384^2: kernel path {run['kernel_384']}, plain "
-        f"bf16 path {run['plain_384']}")
-    del model, predictor, model_i8, pred_i8
+        f"speed mode (both int8 flags) {run['speed']}, plain bf16 path {run['plain']}; at "
+        f"384^2: kernel path {run['kernel_384']}, speed mode {run['speed_384']}, plain bf16 "
+        f"path {run['plain_384']}")
+    del model, predictor, model_i8, pred_i8, model_speed
     torch.cuda.empty_cache()
 
     per = {w: {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
@@ -304,7 +374,7 @@ def main() -> int:
         # per-forward totals: 512^2 counts, 384^2 counts for the AT_384 rows
         counts = kc.COUNT_384 if wrapper in AT_384 else kc.BLOCK_COUNT
         n = counts.get(name.replace("_ties", ""), 0)
-        if name in kc.I8:
+        if name in kc.I8 or name in kc.DEC_I8:
             int8_ops, flops, nbytes = kc.i8_work(name, 8)
         else:
             int8_ops = 0.0
@@ -342,6 +412,11 @@ def main() -> int:
         for name, make in kc.i8_cases().items():
             case = make(name, 8, torch.Generator().manual_seed(2), dev)
             account(case.wrapper, name, kc.time_ms(case.kernel), kc.time_ms(case.plain))
+            del case
+        for name in ("dec_i8", "dec_i8_384"):
+            case = kc.dec_i8_case(name, 8, torch.Generator().manual_seed(2), dev)
+            account(case.wrapper, name, kc.time_ms(case.kernel),
+                    kc.time_ms(case.plain, iters=3, warmup=1))
             del case
     torch.cuda.empty_cache()
     yardsticks(kc, kernels, F, torch, dev)
@@ -431,8 +506,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 7. evaluate -------------------------------------------------------------
-    evaluate_phase(state, torch, dev, 512, (False, True))
-    evaluate_phase(state, torch, dev, 384, (False,))
+    evaluate_phase(state, torch, dev, 512, ((False, False), (True, False), (True, True)))
+    evaluate_phase(state, torch, dev, 384, ((False, False),))
 
     jax_side = sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spegnet_tpu"))
@@ -456,16 +531,16 @@ def main() -> int:
     return 0
 
 
-def predict_checked(predictor, images, size: int, int8: bool, torch):
+def predict_checked(predictor, images, size: int, int8: bool, torch, int8_dec: bool = False):
     """The Predictor on ``images`` with every launch counter zeroed just
     before: the counters must equal the routes of one forward (and decoder
-    block 2), the outputs finite and of the expected shapes.  Returns
-    (masks, edges, counters)."""
+    block 2, in the int8 mode with ``int8_dec``), the outputs finite and of
+    the expected shapes.  Returns (masks, edges, counters)."""
     from spegnet_tpu_torch import kernels
     from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
     from spegnet_tpu_torch.ops.fused_decoder import decoder_supported
 
-    tag = f"predict {size}{' int8' if int8 else ''}"
+    tag = f"predict {size}{' int8' if int8 else ''}{' int8dec' if int8_dec else ''}"
     kernels.reset_launches()
     seg, edge = predictor.predict_arrays(images)
     torch.cuda.synchronize()
@@ -474,7 +549,8 @@ def predict_checked(predictor, images, size: int, int8: bool, torch):
     want.update(Counter(trunk_routes(HIERA_VARIANTS["large"], size // 4, torch.bfloat16,
                                      int8)))
     want.pop("plain", None)
-    want["fused_decoder_block"] = int(decoder_supported(size // 2))
+    want["fused_decoder_block_i8" if int8_dec else "fused_decoder_block"] = int(
+        decoder_supported(size // 2))
     log(f"{tag}: launches {got} (expected {want})")
     check(got == want, f"{tag}: launches differ from the routes")
     n = len(images)
@@ -555,10 +631,10 @@ def sdpa_call(name: str, kc, torch, F, dev):
     return lambda: F.scaled_dot_product_attention(q, k, v)
 
 
-def evaluate_phase(state, torch, dev, size: int, int8s) -> None:
-    """The Evaluator in memory on 8 synthetic samples at ``size``, for the
-    bf16 config and (``int8s``) the int8 one; the card's metrics against the
-    CPU's on the same quantized predictions."""
+def evaluate_phase(state, torch, dev, size: int, flags) -> None:
+    """The Evaluator in memory on 8 synthetic samples at ``size``, for each
+    (int8_encoder, int8_decoder) pair of ``flags``; the card's metrics
+    against the CPU's on the same quantized predictions."""
     from spegnet_tpu_torch.data.pipeline import synthetic_eval_batch
     from spegnet_tpu_torch.engine.evaluator import METRIC_KEYS, Evaluator
     from spegnet_tpu_torch.losses import resize_logits_to_canvas
@@ -571,15 +647,17 @@ def evaluate_phase(state, torch, dev, size: int, int8s) -> None:
     batch = synthetic_eval_batch(8, np.random.default_rng(13), size)
     log(f"evaluate {size}^2: 8 samples, canvas {batch.masks.shape[1:]}, sizes "
         f"{batch.mask_hw.tolist()}")
-    for int8 in int8s:
+    for int8, int8_dec in flags:
         mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
-              "int8_encoder": int8, "image_processing": {"target_size": size}}
+              "int8_encoder": int8, "int8_decoder": int8_dec,
+              "image_processing": {"target_size": size}}
         model = SPEGNet(SPEGNetConfig.from_dict(mc))
         model.load_state_dict(state)
         ev = Evaluator(None, None, mc, batch_size=8, device="cuda", model=model)
         means = ev.evaluate(None, "synthetic", loader=[batch, batch])
         t = ev.summaries["synthetic"]["timing"]
-        tag = f"{size}^2 {'int8' if int8 else 'bf16'}"
+        tag = f"{size}^2 " + {(False, False): "bf16", (True, False): "int8",
+                              (False, True): "int8dec", (True, True): "speed"}[(int8, int8_dec)]
         log(f"evaluate {tag}: means {means}; forward {t['forward_ms_per_image']:.3f} ms/img, "
             f"metrics {t['metrics_ms_per_image']:.3f} ms/img (batch 8, the batch twice after "
             f"one warm-up pass; per batch: forward {t['forward_ms']} ms, metrics "

@@ -22,6 +22,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ bf16 to_bf(float v) { return __float2bfloat16(v); }
@@ -76,6 +82,28 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma.m16n8k32 s8 x s8 -> s32 fragments, lane = 4g + t: A (16 x 32 row-major)
+// a0 (row g, k 4t..4t+3), a1 (g+8, 4t..), a2 (g, 16+4t..), a3 (g+8, 16+4t..);
+// B (32 x 8, "col") b0 (k 4t..4t+3, n g), b1 (k 16+4t.., n g); C as for bf16.
+// With A rows and B columns (n) stored as rows of bytes, ldmatrix_x4 (b16
+// units) loads both: A at row (lane & 7) + ((lane >> 3) & 1) * 8, byte
+// (lane >> 4) * 16; B for n8 tiles 2p, 2p+1 at row (lane & 7) + (lane >> 4) * 8,
+// byte ((lane >> 3) & 1) * 16, as {r0, r1} and {r2, r3}.
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Non-negative floats order as their bit patterns do, so an int atomicMax
+// takes their maximum (the buffer starts at 0).
+__device__ __forceinline__ void atomic_max_nonneg(float* addr, float v) {
+  atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -36,12 +36,6 @@ constexpr float INV127 = (float)(1.0 / 127.0);
 constexpr float QFLOOR = 1e-12f;
 constexpr int Q_WARPS = 8;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // Row scale from its absmax, and the reciprocal the codes are taken with.
 __device__ __forceinline__ float q_scale(float amax) { return fmaxf(amax * INV127, QFLOOR); }
 
@@ -153,18 +147,6 @@ constexpr int I8_PITCH = I8_BK + 16;  // bytes per smem row: conflict-free ldmat
 constexpr int I8_TILE = (I8_BM + I8_BN) * I8_PITCH;
 constexpr int I8_SMEM = I8_STAGES * I8_TILE;
 constexpr int I8_THREADS = 256;
-
-// mma.m16n8k32 s8 x s8 -> s32 fragments, lane = 4g + t: A (16 x 32 row-major)
-// a0 (row g, k 4t..4t+3), a1 (g+8, 4t..), a2 (g, 16+4t..), a3 (g+8, 16+4t..);
-// B (32 x 8, "col") b0 (k 4t..4t+3, n g), b1 (k 16+4t.., n g); C as for bf16.
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 enum { I8_ACT_NONE = 0, I8_ACT_GELU = 1 };
 

@@ -55,6 +55,15 @@ QPOOL = {
 }
 # name: (S, Cin, Cm): decoder block 2, x1 [B, S, S, Cin] -> pred [B, 2S, 2S, 1]
 DECODER = {"dec2": (256, 128, 64), "dec2_384": (192, 128, 64)}
+# Decoder block 2 in the int8 mode (model.int8_decoder) at 512^2, 384^2,
+# 352^2 and 640^2: (S, Cin, Cm); its strip height is the TPU kernel's
+# default (16 from S 256, else 8).
+DEC_I8 = {"dec_i8": (256, 128, 64), "dec_i8_384": (192, 128, 64),
+          "dec_i8_352": (176, 128, 64), "dec_i8_640": (320, 128, 64)}
+# The edge branch at PED block 1's geometry (no model route sends a block
+# there): (S, Cin, Ce, Cm), x0 [B, S, S, Cin], ef [B, S/2, S/2, Ce] ->
+# [B, 2S, 2S, Cm], no head (block 1's head is its own 1x1 conv).
+DEC_EDGE = {"dec_edge": (128, 256, 64, 128), "dec_edge_384": (96, 256, 64, 128)}
 # The attention of the decomposed blocks, per window length L: (windows per
 # image, heads, head_dim).  L 64: stage 4 at 352^2 / 384^2 (grid 11 / 12
 # zero-padded to 16); L 256: stage 3 there (grid 22 / 24 padded to 32);
@@ -78,9 +87,9 @@ I8 = {"stage2_i8": ("stage2", "fused_block_t_i8"), "stage3_i8": ("stage3", "fuse
 # fused_attention_lanes there: its time per forward is what it would take
 # in their place).
 BLOCK_COUNT = {"stage1": 2, "stage2": 5, "stage3": 32, "global": 3, "stage4": 3,
-               "t12": 1, "t23": 1, "t34": 1, "dec2": 1}
+               "t12": 1, "t23": 1, "t34": 1, "dec2": 1, "dec_i8": 1, "dec_edge": 1}
 BLOCK_COUNT.update({n: BLOCK_COUNT[g] for n, (g, _) in I8.items()})
-COUNT_384 = {"stage1_384": 2, "t12_384": 1, "stage2_384": 5, "dec2_384": 1,
+COUNT_384 = {"stage1_384": 2, "t12_384": 1, "stage2_384": 5, "dec2_384": 1, "dec_i8_384": 1,
              "lanes64": 3, "lanes256": 32, "lanes576": 3, "attn64": 3, "attn256": 32,
              "attn576": 3}
 
@@ -172,8 +181,9 @@ def decoder_case(name: str, batch: int, g, device) -> Case:
     return decoder_case_at(*DECODER[name], batch, g, device)
 
 
-def decoder_case_at(s: int, cin: int, cm: int, batch: int, g, device) -> Case:
-    """Decoder block 2 on x [batch, s, s, cin] with cm channels."""
+def decoder_params(cin: int, cm: int, g, device, ce: int = 0,
+                   head: bool = True) -> fd.DecoderParams:
+    """Seeded random decoder-block parameters (bf16 convs, f32 BN)."""
     f32 = torch.float32
 
     def bn():
@@ -181,12 +191,97 @@ def decoder_case_at(s: int, cin: int, cm: int, batch: int, g, device) -> Case:
                 _v((cm,), g, device, 0.1, f32), _v((cm,), g, device, 0.2, f32, 1.0).abs(),
                 1e-5)
 
-    p = fd.DecoderParams(_w((cm, cin, 3, 3), 9 * cin, g, device), _v((cm,), g, device),
+    p = fd.DecoderParams(_w((cm, cin, 3, 3), 9 * (cin + ce), g, device), _v((cm,), g, device),
                          bn(), _w((cm, cm, 3, 3), 9 * cm, g, device), _v((cm,), g, device),
                          bn(), _w((1, cm, 1, 1), cm, g, device), _v((1,), g, device))
+    if ce:
+        p = p._replace(we=_w((cm, ce, 3, 3), 9 * (cin + ce), g, device))
+    if not head:
+        p = p._replace(head_w=None, head_b=None)
+    return p
+
+
+def decoder_case_at(s: int, cin: int, cm: int, batch: int, g, device) -> Case:
+    """Decoder block 2 on x [batch, s, s, cin] with cm channels."""
+    p = decoder_params(cin, cm, g, device)
     x = torch.randn((batch, s, s, cin), generator=g).to(device, torch.bfloat16)
     return Case("fused_decoder_block", lambda: fd.fused_decoder_block(x, p),
                 lambda: fd.decoder_block_plain(x, p))
+
+
+def edge_case(name: str, batch: int, g, device, head: bool = False) -> Case:
+    """The bf16 block with its edge branch at geometry ``name`` of
+    :data:`DEC_EDGE` (or a small one passed as a tuple)."""
+    s, cin, ce, cm = DEC_EDGE[name] if isinstance(name, str) else name
+    p = decoder_params(cin, cm, g, device, ce=ce, head=head)
+    x = torch.randn((batch, s, s, cin), generator=g).to(device, torch.bfloat16)
+    ef = torch.randn((batch, s // 2, s // 2, ce), generator=g).to(device, torch.bfloat16)
+    return Case("fused_decoder_block_edge", lambda: fd.fused_decoder_block(x, p, ef),
+                lambda: fd.decoder_block_plain(x, p, ef))
+
+
+def dec_i8_inputs(name, batch: int, g, device):
+    """(x, packed int8 weights, bf16 parameters) of int8 decoder geometry
+    ``name`` of :data:`DEC_I8` (or (S, Cin, Cm) given)."""
+    s, cin, cm = DEC_I8[name] if isinstance(name, str) else name
+    p = decoder_params(cin, cm, g, device)
+    x = torch.randn((batch, s, s, cin), generator=g).to(device, torch.bfloat16)
+    return x, fd.pack_i8(p), p
+
+
+def dec_i8_case(name, batch: int, g, device) -> Case:
+    """Decoder block 2 in the int8 mode through the wrapper and through its
+    plain int8 version, on the same packed weights."""
+    x, q, p = dec_i8_inputs(name, batch, g, device)
+    return Case("fused_decoder_block_i8",
+                lambda: fd.fused_decoder_block(x, p, int8=True, q=q),
+                lambda: fd.decoder_block_i8_plain(x, q))
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float]:
+    """(share of elements that differ, largest difference in bf16 steps of
+    |want|) of two bf16-valued tensors."""
+    got, want = got.float(), want.float()
+    differ = got != want
+    _, e = torch.frexp(torch.where(want == 0, torch.ones_like(want), want))
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)
+    steps = ((got - want).abs() / ulp)[differ].max().item() if differ.any() else 0.0
+    return differ.float().mean().item(), steps
+
+
+def dec_i8_parts(name, batch: int, g, device) -> Dict[str, float]:
+    """The int8 decoder's pieces through the kernels against the plain int8
+    version on the same input and weights: the x codes (share that differ,
+    largest code difference) and scales (how many differ), the per-strip
+    scales (how many differ, all strips), conv1's activated map after the
+    border paste and the logits of the kernel chain (share of bf16 values
+    that differ, largest difference in bf16 steps), and conv2's activated
+    map and logits from the conv2 kernel run on the plain version's conv1
+    map and strip scales (the same), so that conv2 is held on its own."""
+    x, q, _ = dec_i8_inputs(name, batch, g, device)
+    got = fd.i8_parts_cuda(x, q)
+    want = fd.i8_parts_plain(x, q)
+    y2 = torch.empty_like(want["y2"])
+    pred2 = kernels.conv2_i8_head(want["y1"], want["sa"], fd.strip_height(x.shape[1]), q.w2q,
+                                  q.sw2, q.t2, q.hw, q.hb, y2=y2)
+    dq = (got["xq"].int() - want["xq"].int()).abs()
+    res = {"x_code_frac": (dq > 0).float().mean().item(), "x_code_max": dq.max().item(),
+           "sx_diff": int((got["sx"] != want["sx"]).sum().item()),
+           "sa_diff": int((got["sa"] != want["sa"]).sum().item()),
+           "sa_rel": ((got["sa"] - want["sa"]).abs() / want["sa"]).max().item()}
+    for key, a, b in (("y1", got["y1"], want["y1"]), ("pred", got["pred"], want["pred"]),
+                      ("y2", y2, want["y2"]), ("pred2", pred2, want["pred"])):
+        res[f"{key}_frac"], res[f"{key}_steps"] = bf16_steps(a, b)
+    return res
+
+
+def dec_i8_parts_ok(res: Dict[str, float]) -> bool:
+    """Each piece exact, or one code / one bf16 step apart on at most
+    I8_PART_FRAC of its elements; a scale differing at all is a fault."""
+    return (res["x_code_frac"] <= I8_PART_FRAC and res["x_code_max"] <= 1
+            and res["sx_diff"] == 0 and res["sa_diff"] == 0
+            and all(res[f"{k}_frac"] <= I8_PART_FRAC and res[f"{k}_steps"] <= 1.0
+                    for k in ("y1", "pred", "y2", "pred2")))
 
 
 def attention_case(name: str, batch: int, g, device) -> Case:
@@ -466,6 +561,12 @@ def work(name: str, batch: int, backward: bool = False) -> Tuple[float, float]:
         flops = 2.0 * px * (9 * cin * cm + 9 * cm * cm + cm)
         wbytes = bf * (9 * cin * cm + 9 * cm * cm + cm)
         return flops, batch * s * s * cin * bf + wbytes + px * bf
+    if name in DEC_EDGE:
+        s, cin, ce, cm = DEC_EDGE[name]
+        px = batch * (2 * s) ** 2
+        flops = 2.0 * px * (9 * (cin + ce) * cm + 9 * cm * cm)
+        wbytes = bf * 9 * (cin + ce + cm) * cm
+        return flops, batch * (s * s * cin + (s // 2) ** 2 * ce) * bf + wbytes + px * cm * bf
     if name in QPOOL:
         cin, cout, heads, l, n = QPOOL[name]
         m = batch * n
@@ -490,7 +591,16 @@ def work(name: str, batch: int, backward: bool = False) -> Tuple[float, float]:
 def i8_work(name: str, batch: int) -> Tuple[float, float, float]:
     """(int8 operations, bf16 FLOPs, bytes) of one call of int8 geometry
     ``name``: the projections in int8, attention in bf16; bytes as
-    :func:`work` with the weights as int8 codes and f32 scales and biases."""
+    :func:`work` with the weights as int8 codes and f32 scales and biases.
+    The int8 decoder: both convs in int8 (conv1 over the 9 Cin x 4 Cm
+    composed weights per cell), the head in bf16; bytes x (bf16) read once,
+    the weight codes and f32 vectors, pred written once."""
+    if name in DEC_I8:
+        s, cin, cm = DEC_I8[name]
+        cells, px = batch * s * s, batch * (2 * s) ** 2
+        ops = 2.0 * cells * 9 * cin * 4 * cm + 2.0 * px * 9 * cm * cm
+        wbytes = 9 * cin * 4 * cm + 9 * cm * cm + 4 * (4 * cm + 4 * cm)
+        return ops, 2.0 * px * cm, cells * cin * 2 + wbytes + px * 2
     geo = I8[name][0]
     if geo in QPOOL:
         cin, cout, heads, l, n = QPOOL[geo]
@@ -517,12 +627,14 @@ def all_cases() -> Dict[str, Callable]:
     cases = {n: block_case for n in BLOCKS}
     cases.update({n: qpool_case for n in QPOOL})
     cases.update({n: decoder_case for n in DECODER})
+    cases.update({n: edge_case for n in DEC_EDGE})
     cases.update({n: attention_case for n in ATTN_CASES})
     return cases
 
 
 def i8_cases() -> Dict[str, Callable]:
-    """int8 geometry name -> function (name, batch, generator, device) -> Case."""
+    """int8 encoder geometry name -> function (name, batch, generator,
+    device) -> Case (the int8 decoder's are :data:`DEC_I8`, :func:`dec_i8_case`)."""
     return {n: i8_case for n in I8}
 
 

@@ -23,20 +23,23 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("hiera_block.cu", "hiera_block_bwd.cu", "qpool_front.cu",
-           "qpool_front_bwd.cu", "decoder_block.cu", "int8_gemm.cu", "attention_lanes.cu")
+           "qpool_front_bwd.cu", "decoder_block.cu", "decoder_i8.cu", "int8_gemm.cu",
+           "attention_lanes.cu")
 
 launches = {
     "fused_block_t": 0,
     "fused_block": 0,
     "qpool_front": 0,
     "fused_decoder_block": 0,
+    "fused_decoder_block_i8": 0,
+    "fused_decoder_block_edge": 0,
     "fused_block_t_bwd": 0,
     "fused_block_bwd": 0,
     "qpool_front_bwd": 0,
@@ -134,7 +137,13 @@ def load():
         "sp_layernorm_bwd": [p, p, p, p, p, p, p, l, i, p, l, i, f, p],
         "sp_pool4_scatter": [p, l, i, p, l, p, l, i, l, i, p],
         "sp_upconv3x3_bn_relu": [p, p, p, p, p, i, i, i, p],
-        "sp_conv3x3_bn_relu_head": [p, p, p, p, p, p, p, i, i, i, p],
+        "sp_upconv3x3_edge_bn_relu": [p, p, p, p, p, p, p, i, i, i, i, p],
+        "sp_conv3x3_bn_relu_head": [p, p, p, p, p, p, p, i, i, i, i, p],
+        "sp_conv3x3_bn_relu": [p, p, p, p, p, i, i, i, p],
+        "sp_quant_image_i8": [p, p, p, p, i, l, p],
+        "sp_polyconv1_i8": [p, p, p, p, p, p, p, p, i, i, i, i, p],
+        "sp_strip_scales_i8": [p, p, p, i, i, i, i, p],
+        "sp_conv2_i8_head": [p, p, p, p, p, p, p, p, p, i, i, i, p],
         "sp_layernorm_q8": [p, p, p, p, p, l, i, f, p],
         "sp_quant_rows": [p, p, p, l, i, p],
         "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, p],
@@ -436,46 +445,196 @@ def pool4_scatter(y: Cols, g: torch.Tensor, out: Cols) -> None:
 # launchers (csrc/decoder_block.cu)
 # ---------------------------------------------------------------------------
 
-def _conv_params(w, s, t, cin, name):
+def _conv_params(w, s, t, cin, cm, name):
     _need(w, f"{name} weight", ndim=2)
     _need(s, f"{name} scale", torch.float32, 1)
     _need(t, f"{name} shift", torch.float32, 1)
-    if tuple(w.shape) != (9 * cin, 64) or s.numel() != 64 or t.numel() != 64:
-        raise ValueError(f"{name}: weight {tuple(w.shape)} vs [9*{cin}, 64]")
+    if tuple(w.shape) != (9 * cin, cm) or s.numel() != cm or t.numel() != cm:
+        raise ValueError(f"{name}: weight {tuple(w.shape)} vs [9*{cin}, {cm}]")
 
 
 def upsample_conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
-                             t: torch.Tensor) -> torch.Tensor:
-    """x [B, S, S, Cin] -> relu(conv3x3(up2x(x)) * s + t), [B, 2S, 2S, 64]."""
+                             t: torch.Tensor, ef=None, we=None) -> torch.Tensor:
+    """x [B, S, S, Cin] -> relu(conv3x3(up2x(x)) * s + t), [B, 2S, 2S, 64];
+    with edge features ef [B, S/2, S/2, Ce] and their weights we [9*Ce, 128]:
+    relu((conv3x3(up2x(x)) + conv3x3(up4x(ef))) * s + t), [B, 2S, 2S, 128]."""
     _need(x, "upconv x", ndim=4)
     b, h, w_, cin = x.shape
     if h != w_ or cin % 32:
         raise ValueError(f"upconv: x {tuple(x.shape)} (square, Cin % 32 == 0)")
-    _conv_params(w, s, t, cin, "upconv")
-    y = torch.empty((b, 2 * h, 2 * h, 64), dtype=x.dtype, device=x.device)
-    _check(load().sp_upconv3x3_bn_relu(x.data_ptr(), w.data_ptr(),
-                                        s.data_ptr(), t.data_ptr(), y.data_ptr(),
-                                        b, h, cin, _stream(x)),
-           "sp_upconv3x3_bn_relu")
+    if ef is None:
+        _conv_params(w, s, t, cin, 64, "upconv")
+        y = torch.empty((b, 2 * h, 2 * h, 64), dtype=x.dtype, device=x.device)
+        _check(load().sp_upconv3x3_bn_relu(x.data_ptr(), w.data_ptr(),
+                                            s.data_ptr(), t.data_ptr(), y.data_ptr(),
+                                            b, h, cin, _stream(x)),
+               "sp_upconv3x3_bn_relu")
+        return y
+    _need(ef, "upconv edge features", ndim=4)
+    ce = ef.shape[-1]
+    if tuple(ef.shape) != (b, h // 2, h // 2, ce) or h % 2 or ce % 32:
+        raise ValueError(f"upconv: ef {tuple(ef.shape)} vs x {tuple(x.shape)} "
+                         "(half the side, Ce % 32 == 0)")
+    _conv_params(w, s, t, cin, 128, "upconv")
+    _need(we, "upconv edge weight", ndim=2)
+    if tuple(we.shape) != (9 * ce, 128):
+        raise ValueError(f"upconv: edge weight {tuple(we.shape)} vs [9*{ce}, 128]")
+    y = torch.empty((b, 2 * h, 2 * h, 128), dtype=x.dtype, device=x.device)
+    _check(load().sp_upconv3x3_edge_bn_relu(x.data_ptr(), w.data_ptr(), ef.data_ptr(),
+                                             we.data_ptr(), s.data_ptr(), t.data_ptr(),
+                                             y.data_ptr(), b, h, cin, ce, _stream(x)),
+           "sp_upconv3x3_edge_bn_relu")
     return y
 
 
 def conv3x3_bn_relu_head(y: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                          t: torch.Tensor, head_w: torch.Tensor,
                          head_b: torch.Tensor) -> torch.Tensor:
-    """y [B, H, W, 64] -> relu(conv3x3(y) * s + t) . head_w + head_b, [B, H, W]."""
+    """y [B, H, W, Cm] -> relu(conv3x3(y) * s + t) . head_w + head_b, [B, H, W]
+    (Cm 64 or 128)."""
     _need(y, "conv_head y", ndim=4)
     b, h, w_, c = y.shape
-    if c != 64:
-        raise ValueError(f"conv_head: y {tuple(y.shape)} needs 64 channels")
-    _conv_params(w, s, t, 64, "conv_head")
+    if c not in (64, 128):
+        raise ValueError(f"conv_head: y {tuple(y.shape)} needs 64 or 128 channels")
+    _conv_params(w, s, t, c, c, "conv_head")
     _need(head_w, "conv_head head weight", torch.float32, 1)
     _need(head_b, "conv_head head bias", torch.float32, 1)
     pred = torch.empty((b, h, w_), dtype=y.dtype, device=y.device)
     _check(load().sp_conv3x3_bn_relu_head(
         y.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(),
-        head_w.data_ptr(), head_b.data_ptr(), pred.data_ptr(), b, h, w_,
+        head_w.data_ptr(), head_b.data_ptr(), pred.data_ptr(), b, h, w_, c,
         _stream(y)), "sp_conv3x3_bn_relu_head")
+    return pred
+
+
+def conv3x3_bn_relu(y: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+                    t: torch.Tensor) -> torch.Tensor:
+    """y [B, H, W, 128] -> relu(conv3x3(y) * s + t), [B, H, W, 128]."""
+    _need(y, "conv y", ndim=4)
+    b, h, w_, c = y.shape
+    if c != 128:
+        raise ValueError(f"conv: y {tuple(y.shape)} needs 128 channels")
+    _conv_params(w, s, t, c, c, "conv")
+    out = torch.empty_like(y)
+    _check(load().sp_conv3x3_bn_relu(y.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(),
+                                      out.data_ptr(), b, h, w_, _stream(y)),
+           "sp_conv3x3_bn_relu")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# launchers (csrc/decoder_i8.cu)
+# ---------------------------------------------------------------------------
+
+def _f32(t: torch.Tensor, n: int, name: str) -> None:
+    _need(t, name, torch.float32, 1)
+    if t.numel() != n:
+        raise ValueError(f"{name}: length {t.numel()} != {n}")
+
+
+def _images(b: int, name: str) -> None:
+    """The decoder's int8 kernels put the image index on a grid axis whose
+    limit is 65535."""
+    if b > 65535:
+        raise ValueError(f"{name}: batch {b} > 65535 (the CUDA grid's y / z limit)")
+
+
+def quant_image_i8(x: torch.Tensor):
+    """x [B, ...] bf16 -> (int8 codes of x's shape, f32 scales [B]): one
+    symmetric scale per image, codes round(x / s) by a true division."""
+    _need(x, "quant_image_i8 x")
+    b = x.shape[0]
+    _images(b, "quant_image_i8")
+    per = x.numel() // b
+    if per % 8:
+        raise ValueError(f"quant_image_i8: {per} elements per image (a multiple of 8)")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    sx = torch.empty((b,), dtype=torch.float32, device=x.device)
+    amax = torch.empty_like(sx)
+    _check(load().sp_quant_image_i8(x.data_ptr(), q.data_ptr(), sx.data_ptr(),
+                                     amax.data_ptr(), b, per, _stream(x)), "sp_quant_image_i8")
+    return q, sx
+
+
+def polyconv1_i8(xq: torch.Tensor, sx: torch.Tensor, w1t: torch.Tensor, sw1: torch.Tensor,
+                 t1: torch.Tensor, strips: torch.Tensor):
+    """The int8 decoder's conv1 in the polyphase form with the border paste:
+    xq [B, S, S, Cin] int8 (scales sx [B]), w1t [4*Cm, 9*Cin] int8 (scales
+    sw1 [4*Cm]), t1 [Cm], strips [4, B, 2S, Cm] bf16 -> (y1 [B, 2S, 2S, Cm]
+    bf16, [B, 2] f32 maxima of the unpasted rows 0 and 2S-1)."""
+    _need(xq, "polyconv1_i8 x", torch.int8, 4)
+    _need(w1t, "polyconv1_i8 weight", torch.int8, 2)
+    _need(strips, "polyconv1_i8 strips", ndim=4)
+    b, s, s_, cin = xq.shape
+    n4 = w1t.shape[0]
+    cm = n4 // 4
+    if s != s_ or cin % 32 or n4 % 128 or tuple(w1t.shape) != (n4, 9 * cin):
+        raise ValueError(f"polyconv1_i8: x {tuple(xq.shape)}, weight {tuple(w1t.shape)} "
+                         "(square, Cin % 32 == 0, 4*Cm % 128 == 0)")
+    if tuple(strips.shape) != (4, b, 2 * s, cm):
+        raise ValueError(f"polyconv1_i8: strips {tuple(strips.shape)}")
+    if b * s >= 2 ** 31:
+        raise ValueError(f"polyconv1_i8: B * S = {b * s} >= 2^31 (the CUDA grid's x limit)")
+    _f32(sx, b, "polyconv1_i8 sx")
+    _f32(sw1, n4, "polyconv1_i8 sw1")
+    _f32(t1, cm, "polyconv1_i8 t1")
+    y1 = torch.empty((b, 2 * s, 2 * s, cm), dtype=torch.bfloat16, device=xq.device)
+    edge_max = torch.empty((b, 2), dtype=torch.float32, device=xq.device)
+    _check(load().sp_polyconv1_i8(xq.data_ptr(), sx.data_ptr(), w1t.data_ptr(), sw1.data_ptr(),
+                                   t1.data_ptr(), strips.data_ptr(), y1.data_ptr(),
+                                   edge_max.data_ptr(), b, s, cin, cm, _stream(xq)),
+           "sp_polyconv1_i8")
+    return y1, edge_max
+
+
+def strip_scales_i8(y1: torch.Tensor, edge_max: torch.Tensor, sh: int) -> torch.Tensor:
+    """conv2's activation scale of each strip of ``sh`` cell rows of y1
+    [B, 2S, 2S, Cm] -> [B, S / sh] f32 (see csrc/decoder_i8.cu)."""
+    _need(y1, "strip_scales_i8 y1", ndim=4)
+    _need(edge_max, "strip_scales_i8 edge maxima", torch.float32, 2)
+    b, s2, _, cm = y1.shape
+    _images(b, "strip_scales_i8")
+    s = s2 // 2
+    if s2 % 2 or s % sh or cm % 8 or tuple(edge_max.shape) != (b, 2):
+        raise ValueError(f"strip_scales_i8: y1 {tuple(y1.shape)}, sh {sh}")
+    sa = torch.empty((b, s // sh), dtype=torch.float32, device=y1.device)
+    _check(load().sp_strip_scales_i8(y1.data_ptr(), edge_max.data_ptr(), sa.data_ptr(), b, s,
+                                      cm, sh, _stream(y1)),
+           "sp_strip_scales_i8")
+    return sa
+
+
+def conv2_i8_head(y1: torch.Tensor, sa: torch.Tensor, sh: int, w2q: torch.Tensor,
+                  sw2: torch.Tensor, t2: torch.Tensor, hw: torch.Tensor,
+                  hb: torch.Tensor, y2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 decoder's conv2 and head: y1 [B, 2S, 2S, 64] bf16 coded with
+    its strip's scale sa [B, S / sh], w2q [64, 576] int8 (columns (dy, dx,
+    ci), scales sw2 [64]), t2, hw [64], hb [1] f32 -> pred [B, 2S, 2S] bf16.
+    Given ``y2`` (bf16, y1's shape), conv2's activated output is stored
+    there too."""
+    _need(y1, "conv2_i8 y1", ndim=4)
+    _need(w2q, "conv2_i8 weight", torch.int8, 2)
+    b, s2, s2_, cm = y1.shape
+    _images(b, "conv2_i8")
+    if y2 is not None:
+        _need(y2, "conv2_i8 y2", ndim=4)
+        if y2.shape != y1.shape:
+            raise ValueError(f"conv2_i8: y2 {tuple(y2.shape)} != y1 {tuple(y1.shape)}")
+    if s2 != s2_ or cm != 64 or tuple(w2q.shape) != (64, 576) or s2 % (2 * sh):
+        raise ValueError(f"conv2_i8: y1 {tuple(y1.shape)}, weight {tuple(w2q.shape)}, "
+                         f"sh {sh} (Cm 64)")
+    _need(sa, "conv2_i8 strip scales", torch.float32, 2)
+    if tuple(sa.shape) != (b, s2 // (2 * sh)):
+        raise ValueError(f"conv2_i8: strip scales {tuple(sa.shape)}")
+    for v, n, name in ((sw2, 64, "sw2"), (t2, 64, "t2"), (hw, 64, "head weight"),
+                       (hb, 1, "head bias")):
+        _f32(v, n, f"conv2_i8 {name}")
+    pred = torch.empty((b, s2, s2), dtype=torch.bfloat16, device=y1.device)
+    _check(load().sp_conv2_i8_head(y1.data_ptr(), sa.data_ptr(), w2q.data_ptr(),
+                                    sw2.data_ptr(), t2.data_ptr(), hw.data_ptr(), hb.data_ptr(),
+                                    pred.data_ptr(), 0 if y2 is None else y2.data_ptr(), b,
+                                    s2, sh, _stream(y1)),
+           "sp_conv2_i8_head")
     return pred
 
 

@@ -6,8 +6,10 @@ reference state_dict keys (``conv1``, ``bn1``, ``edge_conv``;
 Block 2 (the full-resolution block, no edge branch) dispatches to
 ops/fused_decoder.fused_decoder_block when ``kernels`` is set and its input
 is square and passes ``decoder_supported``, as the JAX package dispatched it
-to its Pallas kernel (spegnet_tpu/models/ped.py:239-272);
-that wrapper runs the plain chain on the CPU and the Hopper kernels on CUDA.
+to its Pallas kernel (spegnet_tpu/models/ped.py:239-272), with ``int8``
+(the model's ``int8_decoder`` in eval mode, spegnet_tpu/models/spegnet.py:106)
+asking for the W8A8 block, which that wrapper takes where ``int8_supported``
+holds; it runs the plain versions on the CPU and the Hopper kernels on CUDA.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ import torch.nn.functional as F
 from spegnet_tpu_torch.models.cfi import BatchNorm2d
 from spegnet_tpu_torch.models.layers import Conv2d
 from spegnet_tpu_torch.ops.fused_decoder import (
+    DecoderI8,
     DecoderParams,
     decoder_supported,
     fused_decoder_block,
+    pack_i8,
 )
 from spegnet_tpu_torch.ops.fused_upsample_conv import upsample2x
 
@@ -56,6 +60,15 @@ class DecoderBlock(nn.Module):
         self.bn1 = BatchNorm2d(out_channels)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         self.bn2 = BatchNorm2d(out_channels)
+        self._i8_cache = None   # ((dtype, device), packed int8 weights)
+
+    def train(self, mode: bool = True):
+        self._i8_cache = None
+        return super().train(mode)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._i8_cache = None
+        super()._load_from_state_dict(*args, **kwargs)
 
     def forward(self, x: torch.Tensor, edge_features: Optional[torch.Tensor] = None):
         x = upsample2x(x)
@@ -72,6 +85,15 @@ class DecoderBlock(nn.Module):
         return DecoderParams(self.conv1.weight, self.conv1.bias, _bn_stats(self.bn1),
                              self.conv2.weight, self.conv2.bias, _bn_stats(self.bn2),
                              head.weight, head.bias)
+
+    def i8_params(self, head: nn.Conv2d, dt: torch.dtype) -> DecoderI8:
+        """The block's int8 weights, packed from its stored weights on first
+        use and cached (as the trunk's, models/hiera.py)."""
+        key = (dt, self.conv1.weight.device)
+        if self._i8_cache is None or self._i8_cache[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._i8_cache = (key, pack_i8(self.params(head), dt))
+        return self._i8_cache[1]
 
 
 class BoundaryAwareDecoder(nn.Module):
@@ -92,7 +114,8 @@ class BoundaryAwareDecoder(nn.Module):
         self.n_classes = n_classes
 
     def forward(self, x: torch.Tensor, edge_features: Optional[torch.Tensor] = None,
-                kernels: bool = True):
+                kernels: bool = True, int8: bool = False):
+        """``int8``: block 2 in the W8A8 mode (eval mode, kernel path)."""
         preds = []
         last = len(self.decoder_blocks) - 1
         for i, (blk, head) in enumerate(zip(self.decoder_blocks, self.pred_heads)):
@@ -100,8 +123,9 @@ class BoundaryAwareDecoder(nn.Module):
             if (kernels and i == last == 2 and ef is None and self.n_classes == 1
                     and not self.training and x.shape[2] == x.shape[3]
                     and decoder_supported(x.shape[2])):
-                pred = fused_decoder_block(x.permute(0, 2, 3, 1).contiguous(),
-                                           blk.params(head))
+                q = blk.i8_params(head, x.dtype) if int8 else None
+                pred = fused_decoder_block(x.permute(0, 2, 3, 1).contiguous(), blk.params(head),
+                                           int8=int8, q=q)
                 preds.append(pred.permute(0, 3, 1, 2))
                 continue
             x = blk(x, ef)

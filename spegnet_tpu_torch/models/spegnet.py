@@ -40,9 +40,10 @@ class SPEGNetConfig:
     decoder_channels: Sequence[int] = (256, 128, 64)
     n_classes: int = 1
     compute_dtype: str = "float32"
-    # The flagged W8A8 encoder (ops/fused_block_t_i8.py, ops/fused_block_i8.py),
-    # honoured in eval mode only, as the JAX package's ``int8_encoder and not
-    # train``.  The W8A8 decoder block (``int8_decoder``) is not ported.
+    # The flagged W8A8 encoder (ops/fused_block_t_i8.py, ops/fused_block_i8.py)
+    # and decoder block 2 (ops/fused_decoder.py ``int8=True``), honoured in
+    # eval mode on the kernel path only, as the JAX package's ``int8_encoder
+    # and not train`` / ``int8_decoder and not train``.
     int8_encoder: bool = False
     int8_decoder: bool = False
 
@@ -73,14 +74,12 @@ class SPEGNet(nn.Module):
     kernel wrappers (plain versions on the CPU, Hopper kernels on CUDA);
     ``kernels=False`` runs the decomposed plain path everywhere.  With
     ``config.int8_encoder`` an eval-mode forward on the kernel path runs the
-    W8A8 encoder blocks (models/hiera.py ``block_route``)."""
+    W8A8 encoder blocks (models/hiera.py ``block_route``), with
+    ``config.int8_decoder`` decoder block 2 in its W8A8 mode (bf16 compute,
+    block 2's input channels a multiple of 128, as the TPU's gates)."""
 
     def __init__(self, config: SPEGNetConfig = SPEGNetConfig(), kernels: bool = True):
         super().__init__()
-        if config.int8_decoder:
-            raise NotImplementedError(
-                "model.int8_decoder (the W8A8 decoder block) is not ported to PyTorch yet; "
-                "see ROADMAP.md")
         self.config = config
         self.kernels = kernels
         self.encoder = HieraEncoder(config.variant)
@@ -96,11 +95,19 @@ class SPEGNet(nn.Module):
 
     def to_compute(self, device: Optional[torch.device] = None) -> "SPEGNet":
         """Move to ``device`` and cast every Linear / Conv2d to the compute
-        dtype (norms and position embeddings stay f32)."""
+        dtype (norms and position embeddings stay f32).  With
+        ``int8_decoder``, decoder block 2's convs stay f32 too and are cast
+        where they are used: the int8 mode packs them from f32, composing
+        and folding BN before the one rounding to the compute dtype, as the
+        JAX package packs its f32 parameters (ops/fused_decoder.pack_params)."""
         if device is not None:
             self.to(device)
+        keep = set()
+        if self.config.int8_decoder:
+            blk = self.decoder.decoder_blocks[-1]
+            keep = {id(blk.conv1), id(blk.conv2)}
         for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
+            if isinstance(m, (nn.Linear, nn.Conv2d)) and id(m) not in keep:
                 m.to(self.config.dtype)
         return self
 
@@ -112,7 +119,8 @@ class SPEGNet(nn.Module):
         fused = self.fusion([s2, s3, s4])
         context = self.context(fused)
         edge_map, edge_features = self.edge_detector(context)
-        preds = self.decoder(context, edge_features, kernels=self.kernels)
+        preds = self.decoder(context, edge_features, kernels=self.kernels,
+                             int8=self.config.int8_decoder and not self.training)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1)

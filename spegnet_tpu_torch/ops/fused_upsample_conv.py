@@ -5,6 +5,14 @@ The JAX package composes the two linear operators into one lhs-dilated
 convolution with repaired border strips; both are only faster forms of the
 definition kept here: ``conv3x3(resize_bilinear(x, 2x))``.  NCHW, as the
 port's decoder runs.
+
+The int8 decoder block (ops/fused_decoder.py) is defined on the composed
+form, so its two pieces are ported too, as plain PyTorch (the JAX package
+computes them in XLA, outside its kernel): :func:`compose_kernel`, the 6x6
+kernel of the 2x bilinear composed with a 3x3 kernel (``_compose_kernel``
+:35), and :func:`border_strips`, the exact outermost output rows and
+columns of ``conv3x3(up2(x))`` (``_border_strips`` :57), both channels-last
+with HWIO kernels as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +21,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+_KU = (0.25, 0.75, 0.75, 0.25)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -26,3 +36,63 @@ def upsample2x_conv3x3(x: torch.Tensor, weight: torch.Tensor,
     """conv3x3(upsample2x(x), weight [Cout, Cin, 3, 3]) (+ bias), zero
     padding at the 2x grid's border."""
     return F.conv2d(upsample2x(x), weight, bias, padding=1)
+
+
+def compose_kernel(k3: torch.Tensor) -> torch.Tensor:
+    """[3, 3, Cin, Cout] -> [6, 6, Cin, Cout] f32: k3 composed with the 2x
+    bilinear transposed-conv kernel [1/4, 3/4, 3/4, 1/4] on both axes.  The
+    f32 sums are taken on the CPU by one einsum, which rounds them as the
+    JAX package's XLA einsum does (bit-equal, tests/test_torch_decoder_i8.py),
+    whatever device ``k3`` lies on."""
+    ku = torch.tensor(_KU, dtype=torch.float32)
+    idx = torch.arange(6)[:, None] - torch.arange(3)[None, :]
+    m = torch.where((idx >= 0) & (idx < 4), ku[idx.clamp(0, 3)], torch.zeros(()))
+    ke = torch.einsum("rd,se,deio->rsio", m, m, k3.detach().float().cpu())
+    return ke.to(k3.device)
+
+
+def _lerp2x_cols(rows: torch.Tensor) -> torch.Tensor:
+    """[B, r, W, C] -> [B, r, 2W, C]: the 2x bilinear along W, each output
+    its exact two-term sum rounded once to f32 and then to the input dtype
+    (the JAX package's f32 resize matmul; the clamped first and last
+    outputs are copies)."""
+    x = rows.double()
+    even = torch.cat([x[:, :, :1], 0.25 * x[:, :, :-1] + 0.75 * x[:, :, 1:]], 2)
+    odd = torch.cat([0.75 * x[:, :, :-1] + 0.25 * x[:, :, 1:], x[:, :, -1:]], 2)
+    b, r, w, c = x.shape
+    y = torch.stack([even, odd], 3).reshape(b, r, 2 * w, c)
+    return y.float().to(rows.dtype)
+
+
+def _conv_valid_rows(u: torch.Tensor, k: torch.Tensor, pad_h: int, pad_w: int,
+                     dt: torch.dtype) -> torch.Tensor:
+    """NHWC ``u`` (dt values) conv HWIO ``k`` (cast to dt) in f32, rounded
+    to dt: the JAX package's ``_conv`` with the given zero padding."""
+    w = k.to(dt).float().permute(3, 2, 0, 1)
+    y = F.conv2d(u.float().permute(0, 3, 1, 2), w, padding=(pad_h, pad_w))
+    return y.permute(0, 2, 3, 1).to(dt)
+
+
+def border_strips(x: torch.Tensor, k3: torch.Tensor):
+    """Exact outermost-output-row/col strips of conv3x3(up2(x)) for NHWC x
+    [B, H, W, C] and HWIO k3: (y_top [B, 1, 2W, Co], y_bot [B, 1, 2W, Co],
+    y_left [B, 2H, 1, Co], y_right [B, 2H, 1, Co]) in x.dtype, computed as
+    the JAX package does: the clamped border row pair in f32, rounded to
+    x.dtype, upsampled along the other axis and rounded again, then a thin
+    conv with k3 in x.dtype, f32 sums rounded to x.dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    u_top = _lerp2x_cols(torch.stack(
+        [x32[:, 0], 0.75 * x32[:, 0] + 0.25 * x32[:, 1]], 1).to(dt))
+    u_bot = _lerp2x_cols(torch.stack(
+        [0.25 * x32[:, -2] + 0.75 * x32[:, -1], x32[:, -1]], 1).to(dt))
+    u_left = _lerp2x_cols(torch.stack(
+        [x32[:, :, 0], 0.75 * x32[:, :, 0] + 0.25 * x32[:, :, 1]], 2)
+        .transpose(1, 2).to(dt)).transpose(1, 2)
+    u_right = _lerp2x_cols(torch.stack(
+        [0.25 * x32[:, :, -2] + 0.75 * x32[:, :, -1], x32[:, :, -1]], 2)
+        .transpose(1, 2).to(dt)).transpose(1, 2)
+    return (_conv_valid_rows(u_top, k3[1:3], 0, 1, dt),
+            _conv_valid_rows(u_bot, k3[0:2], 0, 1, dt),
+            _conv_valid_rows(u_left, k3[:, 1:3], 1, 0, dt),
+            _conv_valid_rows(u_right, k3[:, 0:2], 1, 0, dt))

@@ -1,7 +1,7 @@
 """Device-time breakdown of one SPEGNet forward, or one training step, on the GPU.
 
     python -m spegnet_tpu_torch.utils.profiling [--batch 8] [--variant large]
-        [--size 512] [--plain | --int8] [--train] [--trace trace.json]
+        [--size 512] [--plain | --int8] [--int8-decoder] [--train] [--trace trace.json]
 
 Builds seeded random weights, runs two warm-up calls at ``--size``^2 (512
 by default; 384 for a patch grid that is not 2^k) in bf16,
@@ -11,7 +11,9 @@ call's wall time.  The call is an inference forward, or with ``--train``
 one Trainer step (forward, loss, backward, clip, AdamW) on a synthetic
 batch (data/pipeline.synthetic_train_batch).  ``--plain`` profiles the
 kernels=False path instead, ``--int8`` the forward with
-``int8_encoder`` (the W8A8 encoder blocks).  Needs a CUDA device.
+``int8_encoder`` (the W8A8 encoder blocks), ``--int8-decoder`` with
+``int8_decoder`` (decoder block 2 in its W8A8 mode; both flags: the speed
+mode).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ def main(argv=None) -> None:
     ap.add_argument("--size", type=int, default=512, help="input side, a multiple of 32")
     ap.add_argument("--plain", action="store_true", help="profile kernels=False")
     ap.add_argument("--int8", action="store_true", help="forward with int8_encoder")
+    ap.add_argument("--int8-decoder", action="store_true", help="forward with int8_decoder")
     ap.add_argument("--train", action="store_true", help="profile a training step")
     ap.add_argument("--trace", help="write a chrome trace here")
     ap.add_argument("--rows", type=int, default=25)
@@ -41,9 +44,10 @@ def main(argv=None) -> None:
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
     from spegnet_tpu_torch.utils.weights import init_weights
 
-    if args.int8 and (args.train or args.plain):
-        raise SystemExit("--int8 profiles the kernel path's forward only")
-    cfg = SPEGNetConfig(variant=args.variant, compute_dtype="bfloat16", int8_encoder=args.int8)
+    if (args.int8 or args.int8_decoder) and (args.train or args.plain):
+        raise SystemExit("--int8 / --int8-decoder profile the kernel path's forward only")
+    cfg = SPEGNetConfig(variant=args.variant, compute_dtype="bfloat16", int8_encoder=args.int8,
+                        int8_decoder=args.int8_decoder)
     model = init_weights(SPEGNet(cfg, kernels=not args.plain), torch.Generator().manual_seed(0))
     if args.train:
         import numpy as np
@@ -78,7 +82,8 @@ def main(argv=None) -> None:
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    what = "train step" if args.train else ("int8 forward" if args.int8 else "forward")
+    what = "train step" if args.train else (
+        " ".join(["int8"] * args.int8 + ["int8-decoder"] * args.int8_decoder + ["forward"]))
     print(f"{what} wall {wall:.3f} ms at batch {args.batch}; device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}% of wall)")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)

@@ -237,7 +237,8 @@ def _count_wrappers(monkeypatch):
                             lambda *a, _fn=fn, _n=name, **k: calls.update([_n]) or _fn(*a, **k))
     fn = tped.fused_decoder_block
     monkeypatch.setattr(tped, "fused_decoder_block",
-                        lambda *a, _fn=fn: calls.update(["fused_decoder_block"]) or _fn(*a))
+                        lambda *a, _fn=fn, **k:
+                        calls.update(["fused_decoder_block"]) or _fn(*a, **k))
     return calls
 
 

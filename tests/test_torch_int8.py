@@ -365,11 +365,27 @@ def _count_calls(monkeypatch, names=I8_WRAPPERS):
 MODEL_CONFIG = {"encoder": {"variant": "_torch_i8_small"}, "compute_dtype": "bfloat16"}
 
 
-def test_int8_config_reaches_the_model():
+def test_int8_config_reaches_the_model(monkeypatch):
+    """Each flag of the config dict reaches its model: int8_decoder reaches
+    decoder block 2's dispatch in eval mode and not in train mode (its
+    arithmetic is tests/test_torch_decoder_i8.py's business)."""
+    from spegnet_tpu_torch.models.ped import BoundaryAwareDecoder
+
     cfg = SPEGNetConfig.from_dict({**MODEL_CONFIG, "int8_encoder": True})
     assert cfg.int8_encoder and not cfg.int8_decoder
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SPEGNet(SPEGNetConfig.from_dict({**MODEL_CONFIG, "int8_decoder": True}))
+    cfg = SPEGNetConfig.from_dict({**MODEL_CONFIG, "int8_decoder": True})
+    assert cfg.int8_decoder and not cfg.int8_encoder
+    seen = []
+    orig = BoundaryAwareDecoder.forward
+    monkeypatch.setattr(BoundaryAwareDecoder, "forward", lambda self, *a, **k: (
+        seen.append(k.get("int8")), orig(self, *a, **k))[1])
+    model = SPEGNet(_port_config({**MODEL_CONFIG, "int8_decoder": True}))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((1, 128, 128, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        model.eval()(x)
+        model.train()(x)
+    assert seen == [True, False]
 
 
 def test_spegnet_int8_matches_jax_int8(jax_int8_case, monkeypatch):

@@ -4,9 +4,12 @@ the grids of 352^2 / 384^2 / 640^2 / 768^2 that are not 2^k, the attention
 kernel at L 64 to 2304, 484 included): the forward kernels against the
 plain forward, the backward kernels against bf16 autograd of the plain
 forward, for dx and every weight gradient, and the int8 encoder's kernels
-against their plain int8 versions (kernel_check.i8_ok); the attention
-kernel at lengths that are not multiples of 16 and on strided views; the
-int8 Predictor's and the 384^2 Predictor's launches.
+against their plain int8 versions (kernel_check.i8_ok); the int8 decoder
+block at every main-path size and at one with a partial tile and three
+strips, its pieces exact (kernel_check.dec_i8_parts_ok); the decoder's edge
+branch with and without a head; the attention kernel at lengths that are
+not multiples of 16 and on strided views; the int8 Predictor's and the
+384^2 Predictor's launches.
 These need an NVIDIA card with nvcc; elsewhere they skip."""
 
 import pytest
@@ -54,6 +57,64 @@ def test_decoder_kernel_partial_tiles(cuda):
     case = kernel_check.decoder_case_at(20, 64, 64, 2, torch.Generator().manual_seed(0), cuda)
     err, rel = kernel_check.compare(case)
     assert rel <= kernel_check.REL_LIMIT, (err, rel)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.DEC_I8) + ["s24"])
+def test_int8_decoder_matches_plain_int8(cuda, name):
+    """``s24``: S 24, sh 8 -- one partial 128-cell tile, three strips."""
+    geo = (24, 128, 64) if name == "s24" else name
+    case = kernel_check.dec_i8_case(geo, 1, torch.Generator().manual_seed(0), cuda)
+    before = kernels.launches[case.wrapper]
+    err, rel = kernel_check.compare(case)
+    torch.cuda.synchronize()
+    assert kernels.launches[case.wrapper] == before + 1
+    assert rel <= kernel_check.REL_LIMIT, (name, err, rel)
+    parts = kernel_check.dec_i8_parts(geo, 1, torch.Generator().manual_seed(1), cuda)
+    assert kernel_check.dec_i8_parts_ok(parts), (name, parts)
+
+
+def test_int8_decoder_grid_limits(cuda):
+    """B * S past 65535 (conv1's grid runs (image, cell row) on its x axis):
+    the chain on 4097 images of S 16 gives each image what the plain version
+    gives it alone (the scales are per image and per strip); and a batch
+    past the y / z grid limit of the other kernels raises before launch."""
+    from spegnet_tpu_torch.ops import fused_decoder as fd
+
+    x, q, _ = kernel_check.dec_i8_inputs((16, 128, 64), 4097, torch.Generator().manual_seed(0),
+                                         cuda)
+    got = fd.i8_parts_cuda(x, q)
+    for i in (0, 2048, 4096):
+        want = fd.i8_parts_plain(x[i:i + 1], q)
+        assert torch.equal(got["sx"][i:i + 1], want["sx"]), i
+        assert torch.equal(got["sa"][i:i + 1], want["sa"]), i
+        dq = (got["xq"][i:i + 1].int() - want["xq"].int()).abs()
+        assert dq.max() <= 1 and (dq > 0).float().mean() <= kernel_check.I8_PART_FRAC, i
+        for key in ("y1", "pred"):
+            frac, steps = kernel_check.bf16_steps(got[key][i:i + 1], want[key])
+            assert frac <= kernel_check.I8_PART_FRAC and steps <= 1.0, (i, key, frac, steps)
+    with pytest.raises(ValueError, match="65535"):
+        kernels.quant_image_i8(torch.zeros((65536, 8), dtype=torch.bfloat16, device=cuda))
+
+
+@pytest.mark.parametrize("head", [False, True])
+def test_decoder_edge_branch_small(cuda, head):
+    case = kernel_check.edge_case((16, 64, 32, 128), 2, torch.Generator().manual_seed(0), cuda,
+                                  head=head)
+    err, rel = kernel_check.compare(case)
+    assert rel <= kernel_check.REL_LIMIT, (head, err, rel)
+
+
+def test_int8_decoder_refuses_non_bf16(cuda):
+    """An f32 block on the card has no int8 mode and no f32 kernel: the
+    wrapper raises instead of falling back to a plain version."""
+    from spegnet_tpu_torch.ops import fused_decoder as fd
+
+    x, q, p = kernel_check.dec_i8_inputs((16, 128, 64), 1, torch.Generator().manual_seed(0),
+                                         cuda)
+    with pytest.raises(ValueError):
+        fd.fused_decoder_block(x.float(), p, int8=True, q=q)
+    with pytest.raises(ValueError):
+        kernels.quant_image_i8(x.float())
 
 
 def test_kernel_path_refuses_f32(cuda):
