@@ -24,6 +24,15 @@
    elements beyond the JAX package's 5e-4 is printed), and its int8 pieces
    (LayerNorm + quant, row quant, every GEMM with its epilogue) exactly or
    within one code / one bf16 step by kernel_check.i8_parts_ok.
+   Then the T-block's saved-residual pair (training under
+   SPEGNET_SAVE_RESIDUALS) at stage 1 / 2 / 3 and the global block, batch 8:
+   through fused_block_t under autograd with SAVE_RESIDUALS "1" against "0",
+   and chain by chain (block_cuda_res against block_cuda,
+   block_cuda_bwd_res against block_cuda_bwd), y, dx and the twelve weight
+   gradients bit-equal (0 elements differ); against the plain versions
+   within REL_LIMIT (y and the residuals) and BWD_REL_LIMIT (dx and each
+   gradient).  The T-block geometries include the global blocks of a 1024^2
+   input (L 4096).
    Then decoder block 2 in the int8 mode (model.int8_decoder) at S 256,
    192, 176, 320 (512^2, 384^2, 352^2, 640^2), batch 2: its logits against
    the plain int8 version within REL_LIMIT, and its pieces -- x codes and
@@ -55,6 +64,10 @@
    front, 5 gen-1 blocks, 38 fused_attention_lanes, 1 decoder block), the
    mask MAE against the f32 plain path <= 1e-3; and with int8_decoder
    (fused_decoder_block_i8 1 per forward, MAE <= MASK_MAE_I8DEC_LIMIT).
+   Then the two routes no other phase runs: 1024^2 (batch 2; its three
+   global blocks, L 4096, on fused_block_t), mask MAE <= 1e-3, and 768^2
+   with int8_encoder (batch 4; the one grid that is not 2^k where int8
+   blocks route), mask MAE <= MASK_MAE_I8_LIMIT; launches equal the routes.
 5. Times the kernel path against the plain bf16 path (kernels=False), the
    int8 kernel path and the speed mode (both int8 flags) in ms/image at
    batch 8 (at 384^2 the kernel path, the speed mode and the plain bf16
@@ -67,7 +80,8 @@
    and its backward, a transposed matmul), the int8 GEMM of stage 3's fc1
    against torch._int_mm, and each attention geometry against
    F.scaled_dot_product_attention on the same q / k / v, as yardsticks the
-   port never calls.
+   port never calls.  The saved-residual pair's chains against their plain
+   versions at its four geometries.
 6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
    TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
    a 640 canvas; edges their morphological boundary):
@@ -77,14 +91,42 @@
        encoder group, and the kernel path no worse than the plain bf16 path
        by more than 0.01;
    (b) batch 8: three Trainer steps on the kernel path with every launch
-       counter zeroed just before (losses finite, all six forward and
-       backward kernels launched, parameters and BN running statistics
+       counter zeroed just before (losses finite, every counter equal to
+       three times the training routes under the default
+       SPEGNET_SAVE_RESIDUALS, parameters and BN running statistics
        changed), then four more; ms/step of the six steps after the first
        (CUDA events, each and their median) and peak memory, for the kernel
        and the plain bf16 path.
    (c) the same at 384^2: gradient cosines at batch 2, then three Trainer
        steps at batch 8 on the kernel path and on the plain bf16 path,
        every forward and backward counter equal to three times the routes'.
+   (d) the saved-residual pair: at batch 2 (512^2) the whole model's
+       gradient under SAVE_RESIDUALS "1" (42 blocks on the pair; "auto" is
+       the same at batch 2) and a second one under "0": the "1" gradient's
+       cosine to the f32 path no lower than the "0" path's less
+       COSINE_MARGIN, and its cosine to the "0" gradient printed beside the
+       two "0" runs'.  Those runs differ (the decoder's bilinear upsample
+       backward adds in bf16 with atomics, in no fixed order), so the pair
+       is held exactly on the trunk: its gradients for one fixed cotangent
+       on its four stage outputs, cuDNN deterministic, under "0" twice and
+       "1" -- every parameter whose two "0" gradients are equal has the same
+       gradient under "1", bit for bit; any other (the position embedding,
+       behind a bicubic upsample backward with atomics) a cosine to the "0"
+       gradient no lower than the two "0" runs' less RES_COS_SLACK.  At
+       batch 8, 3 Trainer steps under
+       "0", "1", "auto" on one Trainer: every counter equal to three times
+       the training routes (models/hiera.trunk_routes with train_batch: 0 /
+       42 / 40 blocks on the pair) and peak memory; then RES_ROUNDS rounds
+       of one step per mode in rotating order: ms/step of each, and each
+       mode's step against "0"'s of the same round (median difference,
+       rounds faster).
+   (e) validation: 12 seeded 512^2 PNG samples written to a temporary
+       directory (data/png.py, no Pillow needed), one epoch of Trainer.train
+       with val_ratio 0.25 (9 train, 3 val) at batch 8: the val metrics in
+       metrics.json finite, model_best.pth written and loadable, and the
+       metrics of the validation forward's own logits (captured from the
+       model) on the card equal to those on the CPU from the same quantized
+       predictions within METRIC_TOL, and to the logged val metrics.
 7. Evaluate: the Evaluator in memory on 8 synthetic eval samples (ellipse
    ground truths at original sizes 384-640 on a 640 canvas, their distance
    transforms from scipy) for the bf16 config, int8_encoder, and both int8
@@ -154,11 +196,18 @@ KERNELS = {
                                "spegnet_tpu/ops/fused_decoder.py:338"),
     "fused_decoder_block_edge": ("spegnet_tpu_torch/csrc/decoder_block.cu",
                                  "spegnet_tpu/ops/fused_decoder.py:338"),
+    "fused_block_t_res": ("spegnet_tpu_torch/csrc/hiera_block.cu",
+                          "spegnet_tpu/ops/fused_block_t.py:362"),
+    "fused_block_t_bwd_res": ("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
+                              "spegnet_tpu/ops/fused_block_t.py:1449"),
 }
 # rows whose per-forward numbers are those of a 384^2 forward
 AT_384 = ("fused_attention_lanes", "fused_attention")
-TRAIN_COUNTERS = ("fused_block_t", "fused_block", "qpool_front", "fused_block_t_bwd",
-                  "fused_block_bwd", "qpool_front_bwd")
+RES_MODES = ("0", "1", "auto")   # SPEGNET_SAVE_RESIDUALS values
+RES_ROUNDS = 10   # timed rounds of one train step per SAVE_RESIDUALS mode
+# Slack of a cosine between two f32 gradients that differ only by the order
+# of atomic adds (the trunk's position-embedding upsample backward).
+RES_COS_SLACK = 1e-6
 
 
 def log(msg: str) -> None:
@@ -173,7 +222,7 @@ def check(cond: bool, msg: str) -> None:
 def train_config(batch: int, size: int = 512):
     return {"model": {"encoder": {"variant": "large", "checkpoint_path": None},
                       "compute_dtype": "bfloat16", "image_processing": {"target_size": size}},
-            "training": {"batch_size": batch, "num_epochs": 1, "val_ratio": 0,
+            "training": {"batch_size": batch, "num_epochs": 1, "val_ratio": 0, "num_workers": 2,
                          "gradient_clip": 1, "canvas_buckets": [512, 640, 768],
                          "optimizer": {"learning_rate": 1e-4, "weight_decay": 1e-5,
                                        "encoder_lr_ratio": 0.05}}}
@@ -192,7 +241,6 @@ def main() -> int:
     from spegnet_tpu_torch.data.pipeline import synthetic_train_batch
     from spegnet_tpu_torch.engine.predictor import Predictor
     from spegnet_tpu_torch.engine.trainer import Trainer
-    from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
     from spegnet_tpu_torch.utils.weights import init_weights
 
@@ -230,6 +278,18 @@ def main() -> int:
             f"{k} {r:.2e}" for k, (_, r) in errs.items()) + f" (limit {kc.BWD_REL_LIMIT})")
         check(errs[worst][1] <= kc.BWD_REL_LIMIT,
               f"{name}: backward {worst} disagrees with plain autograd ({errs[worst][1]:.3e})")
+    for name in kc.RES:
+        res = kc.compare_res(kc.res_case(name, 8, torch.Generator().manual_seed(1), dev))
+        torch.cuda.synchronize()
+        max_err["fused_block_t_res"] = max(max_err["fused_block_t_res"], res["fwd_abs"])
+        max_err["fused_block_t_bwd_res"] = max(max_err["fused_block_t_bwd_res"], res["bwd_abs"])
+        log(f"check {name:8s} saved-residual pair batch 8: elements that differ from the "
+            f"recompute pair: wrapper (y, dx, 12 grads) {res['wrap_differ']}, forward chain "
+            f"{res['fwd_differ']}, backward chain {res['bwd_differ']}; vs plain: forward rel "
+            f"{res['fwd_rel']:.2e} (limit {kc.REL_LIMIT}), backward rel {res['bwd_rel']:.2e} "
+            f"(limit {kc.BWD_REL_LIMIT})")
+        check(kc.res_ok(res), f"{name}: the saved-residual pair disagrees ({res})")
+        torch.cuda.empty_cache()
     for name, make in kc.i8_cases().items():
         case = make(name, 2, torch.Generator().manual_seed(1), dev)
         res = kc.compare_i8(case)
@@ -342,6 +402,7 @@ def main() -> int:
         if size == 384:
             x384 = xs
         del pred_s, pred8, m8
+    untried_routes(model, state, torch, dev, launches)
 
     # -- 5. timings at batch 8 ------------------------------------------------
     x8 = torch.cat([x, x]).to(torch.float32)
@@ -378,7 +439,8 @@ def main() -> int:
             int8_ops, flops, nbytes = kc.i8_work(name, 8)
         else:
             int8_ops = 0.0
-            flops, nbytes = kc.work(name.replace("_ties", ""), 8, backward)
+            flops, nbytes = kc.work(name.replace("_ties", ""), 8, backward,
+                                    res=wrapper.endswith("_res"))
         b_ms, by = kc.bound_ms(flops, nbytes, int8_ops)
         lib = "" if lib_ms is None else f", library sdpa {lib_ms:.4f} ms"
         log(f"time {name:10s} {wrapper:21s} batch 8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
@@ -408,6 +470,15 @@ def main() -> int:
                 backward=True)
         del case
         torch.cuda.empty_cache()
+    for name in kc.RES:
+        calls = kc.res_calls(kc.res_case(name, 8, torch.Generator().manual_seed(2), dev))
+        with torch.no_grad():
+            account("fused_block_t_res", name, kc.time_ms(calls["fwd"]),
+                    kc.time_ms(calls["fwd_plain"]))
+            account("fused_block_t_bwd_res", name, kc.time_ms(calls["bwd"]),
+                    kc.time_ms(calls["bwd_plain"]), backward=True)
+        del calls
+        torch.cuda.empty_cache()
     with torch.inference_mode():
         for name, make in kc.i8_cases().items():
             case = make(name, 8, torch.Generator().manual_seed(2), dev)
@@ -435,7 +506,8 @@ def main() -> int:
         m.load_state_dict(master)
         return Trainer(conf, None, device="cuda", model=m)
 
-    grad_cosines(make_trainer, b2, 512, torch)
+    grad_cosines(make_trainer, b2, 512, torch, residual_ab=True)
+    residual_trunk_grads(master, b2, torch, dev)
 
     b8 = synthetic_train_batch(8, rng)
     step_ms, mem = {}, {}
@@ -450,9 +522,9 @@ def main() -> int:
         torch.cuda.synchronize()
         if path == "kernel":
             launches["train"] = dict(kernels.launches)
-            log(f"train: launches {launches['train']}")
-            for w in TRAIN_COUNTERS:
-                check(launches["train"][w] > 0, f"{w} was not launched on the train path")
+            want = train_launches(512, 8)
+            log(f"train: launches {launches['train']} (expected {want})")
+            check(launches["train"] == want, "512^2 train launches differ from the routes")
         mem[path] = torch.cuda.max_memory_allocated() / 2 ** 30
         lossv = [r["metrics"]["loss"] for r in res]
         check(all(np.isfinite(lossv)), f"{path}: non-finite losses {lossv}")
@@ -475,16 +547,12 @@ def main() -> int:
         del tr, before, res
         torch.cuda.empty_cache()
 
+    residual_steps(make_trainer, b8, torch, launches)
+
     # (c) at 384^2
     grad_cosines(make_trainer, synthetic_train_batch(2, rng, 384), 384, torch)
     b8 = synthetic_train_batch(8, rng, 384)
-    routes = Counter(trunk_routes(HIERA_VARIANTS["large"], 96, torch.bfloat16, False))
-    want = {w: 0 for w in kernels.launches}
-    for w, n in routes.items():
-        if w != "plain":
-            want[w] = 3 * n
-            if w + "_bwd" in want:
-                want[w + "_bwd"] = 3 * n
+    want = train_launches(384, 8)
     for path in ("kernel", "plain"):
         tr = make_trainer(8, path == "kernel", size=384)
         torch.cuda.reset_peak_memory_stats()
@@ -504,6 +572,8 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         del tr, res
         torch.cuda.empty_cache()
+
+    validation_phase(master, torch)
 
     # -- 7. evaluate -------------------------------------------------------------
     evaluate_phase(state, torch, dev, 512, ((False, False), (True, False), (True, True)))
@@ -577,17 +647,25 @@ def f32_masks(state, x, torch, dev):
     return seg32, edge32
 
 
-def grad_cosines(make_trainer, batch, size: int, torch) -> None:
+def grad_cosines(make_trainer, batch, size: int, torch, residual_ab: bool = False) -> None:
     """The batch's gradient through the kernel path, the plain bf16 path and
     the plain f32 path on the same weights; the kernel path's cosine to the
     f32 gradient, overall and for the encoder, must be no worse than the
-    plain bf16 path's by more than COSINE_MARGIN."""
+    plain bf16 path's by more than COSINE_MARGIN.  With ``residual_ab``, also
+    the kernel path under SAVE_RESIDUALS "1" and the kernel path again under
+    "0", held as phase 6(d) of the module docstring says."""
+    from spegnet_tpu_torch.ops import fused_block_t as fbt
+
+    paths = {"kernel": (True, "bfloat16", "0"), "plain": (False, "bfloat16", "0"),
+             "f32": (False, "float32", "0")}
+    if residual_ab:
+        paths.update(kernel_again=(True, "bfloat16", "0"), kernel_res=(True, "bfloat16", "1"))
     grads, losses = {}, {}
-    for path, (kern, dtype) in {"kernel": (True, "bfloat16"), "plain": (False, "bfloat16"),
-                                "f32": (False, "float32")}.items():
+    for path, (kern, dtype, mode) in paths.items():
         tr = make_trainer(2, kern, dtype, size)
-        ld = tr.forward_loss(*tr.to_device(batch))
-        ld["loss"].backward()
+        with fbt.residuals_mode(mode):
+            ld = tr.forward_loss(*tr.to_device(batch))
+            ld["loss"].backward()
         losses[path] = ld["loss"].item()
         grads[path] = {n: p.grad.detach().float() for n, p in tr.model.named_parameters()}
         check(all(torch.isfinite(g).all().item() for g in grads[path].values()),
@@ -614,8 +692,278 @@ def grad_cosines(make_trainer, batch, size: int, torch) -> None:
         check(cos[("kernel", grp)] >= cos[("plain", grp)] - COSINE_MARGIN,
               f"{size}^2 kernel-path gradient ({grp}) cosine {cos[('kernel', grp)]:.4f} < "
               f"plain {cos[('plain', grp)]:.4f} - {COSINE_MARGIN}")
+    if residual_ab:
+        to32 = {p: cosine(grads[p], grads["f32"]) for p in ("kernel", "kernel_again",
+                                                             "kernel_res")}
+        spread = abs(to32["kernel"] - to32["kernel_again"])
+        same = cosine(grads["kernel_again"], grads["kernel"])
+        res_to0 = cosine(grads["kernel_res"], grads["kernel"])
+        log(f"train grad {size}^2 saved-residual pair (batch 2): loss \"1\" "
+            f"{losses['kernel_res']:.6f}; cosine to f32: \"1\" {to32['kernel_res']:.9f}, "
+            f"\"0\" {to32['kernel']:.9f} / {to32['kernel_again']:.9f}; cosine \"1\" to \"0\" "
+            f"{res_to0:.12f}, \"0\" to \"0\" {same:.12f}")
+        log(f"train grad {size}^2: the two \"0\" runs' cosines to f32 differ by {spread:.3e}")
+        check(to32["kernel_res"] >= to32["kernel"] - COSINE_MARGIN,
+              f"the saved-residual gradient's cosine to f32 {to32['kernel_res']:.9f} < the "
+              f"recompute path's {to32['kernel']:.9f} - {COSINE_MARGIN}")
     del grads
     torch.cuda.empty_cache()
+
+
+def residual_trunk_grads(master, batch, torch, dev) -> None:
+    """The trunk's gradients under SAVE_RESIDUALS "0" twice and "1", held
+    as phase 6(d) of the module docstring says."""
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.data.pipeline import ImageProcessor
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.ops import fused_block_t as fbt
+
+    model = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="bfloat16"))
+    model.load_state_dict(master)
+    model.to(dev).train()
+    trunk = model.encoder.encoder
+    names, params = zip(*trunk.named_parameters())
+    proc = ImageProcessor(batch.images.shape[1])
+    x = ((torch.from_numpy(batch.images).to(dev).float() / 255.0
+          - torch.as_tensor(proc.mean, device=dev)) / torch.as_tensor(proc.std, device=dev))
+    g = torch.Generator().manual_seed(23)
+    cot, grads = None, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for run, mode in (("0a", "0"), ("0b", "0"), ("1", "1")):
+            kernels.reset_launches()
+            with fbt.residuals_mode(mode):
+                feats = trunk(x, kernels=True, dtype=torch.bfloat16)
+                if cot is None:
+                    cot = [torch.randn(f.shape, generator=g).to(dev, f.dtype) for f in feats]
+                grads[run] = [t.float() for t in torch.autograd.grad(feats, params, cot)]
+            torch.cuda.synchronize()
+            pair = kernels.launches["fused_block_t_bwd_res"]
+            check(pair == (42 if mode == "1" else 0),
+                  f"trunk under SAVE_RESIDUALS={mode}: {pair} blocks on the pair")
+            del feats
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def cos(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(a @ b / max(float(a.norm() * b.norm()), 1e-300))
+
+    varies, differ = [], []
+    for name, g0, g0b, g1 in zip(names, grads["0a"], grads["0b"], grads["1"]):
+        if torch.equal(g0, g0b):
+            if not torch.equal(g1, g0):
+                differ.append((name, int((g1 != g0).sum())))
+        else:
+            varies.append((name, cos(g1, g0), cos(g0b, g0)))
+    log(f"train trunk grads 512^2 (batch 2, one cotangent, cuDNN deterministic): "
+        f"{len(names) - len(varies)} of {len(names)} parameters equal across two \"0\" runs, "
+        f"of them {len(differ)} differ under \"1\" {differ[:5]}; the others (cosine \"1\" "
+        f"to \"0\", \"0\" to \"0\"): {varies}")
+    check(not differ, f"the saved-residual pair changed trunk gradients: {differ[:5]}")
+    check(all(c1 >= c0 - RES_COS_SLACK for _, c1, c0 in varies),
+          f"a varying trunk gradient moved under the pair: {varies}")
+    del model, trunk, grads
+    torch.cuda.empty_cache()
+
+
+def residual_steps(make_trainer, batch, torch, launches) -> None:
+    """One Trainer at 512^2 on ``batch``: 3 steps under each SAVE_RESIDUALS
+    mode (every launch counter equal to three times the training routes,
+    peak memory), then RES_ROUNDS rounds of one step per mode in rotating
+    order, so each mode's step is timed beside the others' on the same
+    model and allocator state; each mode against "0": its median step
+    difference and the rounds it is faster in."""
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.ops import fused_block_t as fbt
+
+    b = batch.images.shape[0]
+    tr = make_trainer(b, True)
+    for mode in RES_MODES:
+        with fbt.residuals_mode(mode):
+            want = train_launches(512, b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            res = [tr.train_step(batch) for _ in range(3)]
+            torch.cuda.synchronize()
+            got = dict(kernels.launches)
+        lossv = [r["metrics"]["loss"] for r in res]
+        check(all(np.isfinite(lossv)), f"SAVE_RESIDUALS={mode}: non-finite losses {lossv}")
+        check(got == want, f"SAVE_RESIDUALS={mode}: launches {got} differ from the training "
+                           f"routes {want}")
+        launches.setdefault(f"train_res_{mode}", got)
+        log(f"train SAVE_RESIDUALS={mode} batch {b}: launches {got}, losses {lossv}, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    ms = {mode: [] for mode in RES_MODES}
+    for r in range(RES_ROUNDS):
+        for mode in RES_MODES[r % 3:] + RES_MODES[:r % 3]:
+            with fbt.residuals_mode(mode):
+                t = tr.train_step(batch)["timing"]
+            ms[mode].append(1e3 * (t["forward_time"] + t["backward_time"]))
+    for mode in RES_MODES:
+        line = (f"train SAVE_RESIDUALS={mode} 512^2 batch {b}: ms/step "
+                f"{[round(v, 3) for v in ms[mode]]} (median {np.median(ms[mode]):.3f})")
+        if mode != "0":
+            diff = np.subtract(ms[mode], ms["0"])
+            line += (f"; against \"0\" in the same round: median {np.median(diff):+.3f} ms, "
+                     f"faster in {int((diff < 0).sum())} of {RES_ROUNDS}")
+        log(line)
+    del tr
+    torch.cuda.empty_cache()
+
+
+def train_launches(size: int, batch: int, steps: int = 3):
+    """Every launch counter after ``steps`` Trainer steps of ``batch`` images
+    at ``size``^2: the training routes (models/hiera.trunk_routes under the
+    current SAVE_RESIDUALS) forward and backward."""
+    import torch
+
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
+
+    want = {w: 0 for w in kernels.launches}
+    for w, n in Counter(trunk_routes(HIERA_VARIANTS["large"], size // 4, torch.bfloat16, False,
+                                     train_batch=batch)).items():
+        if w != "plain":
+            want[w] = steps * n
+            bwd = w.replace("_res", "") + "_bwd" + ("_res" if w.endswith("_res") else "")
+            if bwd in want:
+                want[bwd] = steps * n
+    return want
+
+
+def validation_phase(master, torch) -> None:
+    """One epoch of Trainer.train with validation on 12 seeded 512^2 PNG
+    samples (val_ratio 0.25) in a temporary directory, as phase 6(e) of the
+    module docstring says."""
+    import tempfile
+
+    from spegnet_tpu_torch.data.dataset import concat_train_datasets, train_val_split
+    from spegnet_tpu_torch.data.pipeline import val_loader
+    from spegnet_tpu_torch.data.png import write_png
+    from spegnet_tpu_torch.engine.model_loader import load_checkpoint
+    from spegnet_tpu_torch.engine.trainer import Trainer
+    from spegnet_tpu_torch.losses import resize_logits_to_canvas
+    from spegnet_tpu_torch.metrics.torch_metrics import (
+        compute_batch_metrics,
+        quantize_predictions,
+    )
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.utils.run_manager import DirectoryManager
+
+    rng = np.random.default_rng(19)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "synthetic"
+        for sub in ("Imgs", "GT", "Edges"):
+            (root / "train" / sub).mkdir(parents=True)
+        yy, xx = np.mgrid[:512, :512]
+        for i in range(12):
+            cy, cx, ry, rx = rng.uniform(160, 352, 2).tolist() + rng.uniform(50, 150, 2).tolist()
+            m = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) < 1
+            p = np.pad(m, 1)
+            edge = m & ~(p[:-2, 1:-1] & p[2:, 1:-1] & p[1:-1, :-2] & p[1:-1, 2:])
+            img = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+            img[m] = (img[m] * 0.5 + 90).astype(np.uint8)
+            write_png(root / "train" / "Imgs" / f"s{i:02d}.png", img)
+            write_png(root / "train" / "GT" / f"s{i:02d}.png", m.astype(np.uint8) * 255)
+            write_png(root / "train" / "Edges" / f"s{i:02d}.png", edge.astype(np.uint8) * 255)
+        conf = train_config(8)
+        conf["training"].update(val_ratio=0.25, save_freq=100)
+        model = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="bfloat16"))
+        model.load_state_dict(master)
+        dm = DirectoryManager("train", base_dir=str(Path(tmp) / "results"))
+        tr = Trainer(conf, dm, device="cuda", model=model)
+        captured = []
+        hook = tr.model.register_forward_hook(
+            lambda mod, inp, out: None if mod.training else captured.append(
+                (out["predictions"][-1].detach().float(), out["edge"].detach().float())))
+        t0 = time.perf_counter()
+        tr.train([str(root)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        hook.remove()
+        hist = json.loads(dm.run_dirs.metrics_file.read_text())
+        check(len(hist["epochs"]) == 1 and "val" in hist["epochs"][0],
+              f"validation did not run: {hist}")
+        val = hist["epochs"][0]["val"]
+        keys = ("loss", "seg_loss", "edge_loss", "s_alpha", "weighted_f", "mae", "e_phi",
+                "mean_f", "edge_mae", "edge_f")
+        check(all(np.isfinite(val["metrics"][k]) for k in keys), f"val metrics {val}")
+        best = dm.run_dirs.checkpoints / "model_best.pth"
+        check(best.exists(), f"no model_best.pth (val weighted F {val['metrics']['weighted_f']})")
+        state, config = load_checkpoint(str(best))
+        SPEGNet(SPEGNetConfig.from_dict(config["model"])).load_state_dict(state, strict=True)
+
+        _, val_ds = train_val_split(concat_train_datasets([str(root)]), 0.25)
+        batches = list(val_loader(val_ds, tr.processor, 8, tr.buckets, num_workers=0))
+        check(len(captured) == len(batches) == 1 and len(val_ds) == 3,
+              f"{len(captured)} validation forwards for {len(batches)} batches")
+        dev = torch.device("cuda")
+        rows = {"card": {}, "cpu": {}}
+        for (logits, edge_logits), b in zip(captured, batches):
+            masks, edges, mask_hw, edge_hw, dst, idx = (
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (b.masks, b.edges, b.mask_hw, b.edge_hw, b.dst, b.nearest_idx))
+            canvas = tuple(masks.shape[1:3])
+            pred_c, valid = resize_logits_to_canvas(logits, mask_hw, canvas)
+            edge_c, evalid = resize_logits_to_canvas(edge_logits, edge_hw, canvas)
+            q, qe = quantize_predictions(pred_c), quantize_predictions(edge_c)
+            for where, put in (("card", lambda t: t), ("cpu", lambda t: t.cpu())):
+                seg = compute_batch_metrics(put(q), put(masks), put(valid), put(mask_hw),
+                                            put(dst), put(idx))
+                edge = compute_batch_metrics(put(qe), put(edges), put(evalid), put(edge_hw))
+                for key, v in (("s_alpha", seg["sm"]), ("weighted_f", seg["wfm"]),
+                               ("mae", seg["mae"]), ("e_phi", seg["em"]),
+                               ("mean_f", seg["fm"]), ("edge_mae", edge["mae"]),
+                               ("edge_f", edge["fm"])):
+                    rows[where].setdefault(key, []).append(v.cpu().double())
+        gap = {k: float((torch.cat(rows["card"][k]) - torch.cat(rows["cpu"][k])).abs().max())
+               for k in rows["card"]}
+        logged = {k: abs(float(torch.cat(rows["card"][k]).mean()) - val["metrics"][k])
+                  for k in rows["card"]}
+        log(f"validation 512^2 (12 PNG samples, 9 train / 3 val, batch 8): one epoch "
+            f"{secs:.2f} s with the build of the val batch; val metrics {val['metrics']}; "
+            f"val ms per batch {1e3 * val['timing']['batch_time']:.3f}, val epoch "
+            f"{val['timing']['epoch_time']:.3f} s; model_best.pth loads")
+        log(f"validation: card vs CPU metrics on the same u8 predictions, max |diff| "
+            f"{max(gap.values()):.3e} (limit {METRIC_TOL}; by metric {gap}); vs the logged "
+            f"val metrics {max(logged.values()):.3e}")
+        check(max(gap.values()) <= METRIC_TOL, f"validation: card metrics differ from CPU {gap}")
+        check(max(logged.values()) <= METRIC_TOL, f"validation: logged metrics differ {logged}")
+    del tr, model
+    torch.cuda.empty_cache()
+
+
+def untried_routes(model, state, torch, dev, launches) -> None:
+    """The Predictor at 1024^2 (batch 2: the three global blocks, L 4096, on
+    fused_block_t) and at 768^2 with int8_encoder (batch 4): launches equal
+    to the routes, mask MAE against the f32 plain path."""
+    from spegnet_tpu_torch.engine.predictor import Predictor
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+
+    rng = np.random.default_rng(17)
+    for size, batch, int8, limit in ((1024, 2, False, MASK_MAE_LIMIT),
+                                     (768, 4, True, MASK_MAE_I8_LIMIT)):
+        mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
+              "int8_encoder": int8, "image_processing": {"target_size": size}}
+        m = model
+        if int8:
+            m = SPEGNet(SPEGNetConfig.from_dict(mc))
+            m.load_state_dict(state)
+        pred = Predictor(None, mc, None, batch_size=batch, device="cuda", model=m)
+        imgs = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(batch)]
+        tag = f"{size}{'_int8' if int8 else ''}"
+        seg, _, launches[f"predict_{tag}"] = predict_checked(pred, imgs, size, int8, torch)
+        xs = torch.from_numpy(np.stack([pred.processor.process_array(a) for a in imgs])).to(dev)
+        seg32, _ = f32_masks(state, xs, torch, dev)
+        mae = float(np.abs(seg - seg32).mean())
+        log(f"predict {tag} batch {batch}: mask MAE vs f32 plain {mae:.4e} (limit {limit}), "
+            f"max {np.abs(seg - seg32).max():.4e}")
+        check(mae <= limit, f"{tag}: mask MAE {mae:.3e} > {limit}")
+        del pred, m, xs
+        torch.cuda.empty_cache()
 
 
 def sdpa_call(name: str, kc, torch, F, dev):

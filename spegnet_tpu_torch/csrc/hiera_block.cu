@@ -95,8 +95,11 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__
   uint64_t* full = reinterpret_cast<uint64_t*>(base + STAGES * STAGE);
   uint64_t* empty = full + STAGES;
   const int tid = threadIdx.x, wg = tid / 128;
-  const long m0 = (long)blockIdx.y * WG_BM;
-  const int n0 = blockIdx.x * BN;
+  // One grid axis: N tiles fastest, so the blocks in flight share A's rows
+  // (the order a (N tiles, M tiles) grid gives), with no 65535 cap on M tiles.
+  const int n_tiles = (N + BN - 1) / BN;
+  const long m0 = (long)(blockIdx.x / n_tiles) * WG_BM;
+  const int n0 = (int)(blockIdx.x % n_tiles) * BN;
   const int nk = (K + WG_BK - 1) / WG_BK;
 
   if (tid == 0) {
@@ -249,8 +252,9 @@ cudaError_t launch_tma_gemm(const void* a, const void* w, const void* bias, cons
                    1024;
   cudaFuncSetAttribute(gemm_tma_kernel<BN, STAGES, ACT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((N + BN - 1) / BN, (M + WG_BM - 1) / WG_BM);
-  gemm_tma_kernel<BN, STAGES, ACT><<<grid, 384, smem, stream>>>(
+  const long blocks = (long)((N + BN - 1) / BN) * ((M + WG_BM - 1) / WG_BM);
+  if (blocks >= (1L << 31)) return cudaErrorInvalidConfiguration;
+  gemm_tma_kernel<BN, STAGES, ACT><<<(unsigned)blocks, 384, smem, stream>>>(
       ta, tb, (const bf16*)bias, (const bf16*)res, (bf16*)c, (bf16*)aux, M, N, K);
   return cudaGetLastError();
 }

@@ -163,8 +163,10 @@ gemm_i8_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
   const int g = lane >> 2, t = lane & 3;
-  const long m0 = (long)blockIdx.y * I8_BM;
-  const int n0 = blockIdx.x * I8_BN;
+  // One grid axis, N tiles fastest (see gemm_tma_kernel).
+  const int n_tiles = (N + I8_BN - 1) / I8_BN;
+  const long m0 = (long)(blockIdx.x / n_tiles) * I8_BM;
+  const int n0 = (int)(blockIdx.x % n_tiles) * I8_BN;
   const int nk = (K + I8_BK - 1) / I8_BK;
 
   // One stage: 128 A rows and 128 W rows of 64 bytes, 4 16-byte chunks each.
@@ -271,8 +273,9 @@ cudaError_t launch_gemm_i8(const void* a, const void* sa, const void* w, const v
                            cudaStream_t st) {
   cudaFuncSetAttribute(gemm_i8_kernel<ACT, SW_FIRST>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, I8_SMEM);
-  const dim3 grid((N + I8_BN - 1) / I8_BN, (M + I8_BM - 1) / I8_BM);
-  gemm_i8_kernel<ACT, SW_FIRST><<<grid, I8_THREADS, I8_SMEM, st>>>(
+  const long blocks = (long)((N + I8_BN - 1) / I8_BN) * ((M + I8_BM - 1) / I8_BM);
+  if (blocks >= (1L << 31)) return cudaErrorInvalidConfiguration;
+  gemm_i8_kernel<ACT, SW_FIRST><<<(unsigned)blocks, I8_THREADS, I8_SMEM, st>>>(
       (const int8_t*)a, (const float*)sa, (const int8_t*)w, (const float*)sw,
       (const float*)bias, (const bf16*)res, (bf16*)c, M, N, K);
   return cudaGetLastError();

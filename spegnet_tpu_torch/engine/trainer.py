@@ -15,11 +15,17 @@ global-norm clip and three AdamW groups.  Behaviour as the JAX trainer's:
   (:class:`PlateauScheduler`);
 * metrics.json with the reference's schema; checkpoints are ``.pth`` files
   holding model, optimizer and scheduler state, epoch, metrics and config,
-  and resume starts at the next epoch.
+  and resume starts at the next epoch;
+* with ``val_ratio > 0``, validation after every epoch on the held-out
+  split: an eval-mode forward (running BatchNorm statistics, the predict
+  path's kernels, the int8 routes where the config asks for them), the
+  loss and the five COD metrics of the masks and the edge MAE / mean F
+  (metrics/torch_metrics.py) on the device; the plateau step on the
+  weighted F-measure, ``model_best.pth`` when it improves by more than
+  ``min_delta``, and the early stop after ``early_stop_patience`` epochs
+  without that.
 
-Validation (and with it the plateau step and best-model selection) needs
-the COD metrics, which are not ported yet: a config with ``val_ratio > 0``
-is refused.  ``dir_manager=None`` keeps metrics and checkpoints in memory.
+``dir_manager=None`` keeps metrics and checkpoints in memory.
 """
 
 from __future__ import annotations
@@ -36,8 +42,15 @@ import torch
 import torch.nn as nn
 
 from spegnet_tpu_torch.data.dataset import concat_train_datasets, train_val_split
-from spegnet_tpu_torch.data.pipeline import ImageProcessor, TrainBatch, train_loader
-from spegnet_tpu_torch.losses import LossConfig, cod_loss
+from spegnet_tpu_torch.data.pipeline import (
+    ImageProcessor,
+    TrainBatch,
+    ValBatch,
+    train_loader,
+    val_loader,
+)
+from spegnet_tpu_torch.losses import LossConfig, cod_loss, resize_logits_to_canvas
+from spegnet_tpu_torch.metrics.torch_metrics import compute_batch_metrics, quantize_predictions
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 from spegnet_tpu_torch.ops import wide
 from spegnet_tpu_torch.utils.device import resolve_device
@@ -140,6 +153,14 @@ class TrainingMonitor:
     def get_current_stats(self) -> Dict[str, float]:
         return {k: s["sum"] / s["count"] for k, s in self.batch_stats.items() if s["count"]}
 
+    def check_best_model(self, current: Dict[str, float]) -> bool:
+        if current["weighted_f"] > self.history["best_metrics"]["weighted_f"]:
+            self.history["best_metrics"] = dict(current)
+            self.save_history()
+            logger.info(f"New best model -> F-Measure: {current['weighted_f']:.4f}")
+            return True
+        return False
+
     def save_history(self):
         if self.metrics_file is None:
             return
@@ -157,8 +178,14 @@ class TrainingMonitor:
             self.history["epochs"].append({"epoch": len(self.history["epochs"])})
         self.history["epochs"][epoch][phase] = {"metrics": metrics, "timing": timing}
         self.save_history()
-        logger.info(f"Epoch {epoch} ({phase}) - Loss: {stats.get('loss', 0):.4f}, "
-                    f"Time: {timing['epoch_time']:.2f}s")
+        if phase == "val":
+            logger.info(f"Epoch {epoch} (val) - F-measure: {stats.get('weighted_f', 0):.4f}, "
+                        f"S-alpha: {stats.get('s_alpha', 0):.4f}, "
+                        f"MAE: {stats.get('mae', 0):.4f}, Loss: {stats.get('loss', 0):.4f}, "
+                        f"Time: {timing['epoch_time']:.2f}s")
+        else:
+            logger.info(f"Epoch {epoch} ({phase}) - Loss: {stats.get('loss', 0):.4f}, "
+                        f"Time: {timing['epoch_time']:.2f}s")
 
 
 def _sam2_trunk(path: str) -> Dict[str, torch.Tensor]:
@@ -183,10 +210,6 @@ class Trainer:
                  model: Optional[SPEGNet] = None):
         self.config = config["training"]
         self.model_config = config["model"]
-        if self.config.get("val_ratio", 0.1) > 0:
-            raise NotImplementedError(
-                "validation needs the COD metrics (spegnet_tpu/metrics/jax_metrics.py), "
-                "which the PyTorch port does not have yet; set training.val_ratio: 0")
         self.device = resolve_device(device)
         if model is None:
             model = init_weights(SPEGNet(SPEGNetConfig.from_dict(self.model_config)),
@@ -208,6 +231,8 @@ class Trainer:
         self.num_epochs = self.config["num_epochs"]
         self.grad_clip = self.config.get("gradient_clip", 1.0)
         self.save_freq = self.config.get("save_freq", 20)
+        self.early_stop_patience = self.config.get("early_stop_patience", 20)
+        self.min_delta = self.config.get("min_delta", 5e-4)
         self.buckets = tuple(self.config.get("canvas_buckets", (512, 1024, 2048)))
         img_cfg = self.model_config.get("image_processing", {})
         self.processor = ImageProcessor(
@@ -250,9 +275,13 @@ class Trainer:
         return wide(images)
 
     def to_device(self, batch: TrainBatch) -> List[torch.Tensor]:
+        """images, masks, edges, mask_hw, edge_hw (and a ValBatch's dst,
+        nearest_idx) on the device."""
+        arrays = [batch.images, batch.masks, batch.edges, batch.mask_hw, batch.edge_hw]
+        if isinstance(batch, ValBatch):
+            arrays += [batch.dst, batch.nearest_idx]
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device, non_blocking=True)
-                for a in (batch.images, batch.masks, batch.edges, batch.mask_hw,
-                          batch.edge_hw)]
+                for a in arrays]
 
     def forward_loss(self, images, masks, edges, mask_hw, edge_hw) -> Dict[str, torch.Tensor]:
         """The forward in train mode and the loss (device tensors)."""
@@ -305,6 +334,59 @@ class Trainer:
                   "batch_time": time.perf_counter() - t0}
         return {"metrics": metrics, "timing": timing}
 
+    @torch.no_grad()
+    def val_step(self, images, masks, edges, mask_hw, edge_hw, dst, nearest_idx):
+        """The forward in eval mode, as ``val_step`` (:381) applies the model
+        without ``train``, the loss, and the metrics of the quantized masks
+        and edge maps on the canvas (device tensors) -> (loss dict, seg
+        metrics, edge metrics), each metric [B].  A model in train mode is
+        put in eval mode for the step and back after it (each switch drops
+        the cached int8 packs: :meth:`validate` switches once)."""
+        switch = self.model.training
+        if switch:
+            self.model.eval()
+        try:
+            out = self.model(self._prep(images))
+            ld = cod_loss(out["predictions"], out["edge"], masks, edges, mask_hw, edge_hw,
+                          self.loss_cfg)
+            canvas = tuple(masks.shape[1:3])
+            pred_c, valid = resize_logits_to_canvas(out["predictions"][-1].float(), mask_hw,
+                                                    canvas)
+            seg = compute_batch_metrics(quantize_predictions(pred_c), masks, valid, mask_hw,
+                                        dst, nearest_idx)
+            edge_c, evalid = resize_logits_to_canvas(out["edge"].float(), edge_hw, canvas)
+            edge_m = compute_batch_metrics(quantize_predictions(edge_c), edges, evalid, edge_hw)
+        finally:
+            if switch:
+                self.model.train()
+        return ld, seg, edge_m
+
+    def validate(self, loader, epoch: int) -> Dict[str, float]:
+        """Mean loss and metrics over the ValBatches of ``loader`` (``validate``
+        :575), with the JAX trainer's keys.  On one card every row of a batch
+        is a sample: the JAX trainer's tail padding (``_pad_batch``) exists to
+        divide a batch over a device mesh."""
+        self.monitor.start_epoch()
+        self.model.eval()
+        try:
+            for batch in loader:
+                t0 = time.perf_counter()
+                ld, seg, edge_m = self.val_step(*self.to_device(batch))
+                metrics = {k: float(v) for k, v in ld.items()}
+                for key, rows in (("s_alpha", seg["sm"]), ("weighted_f", seg["wfm"]),
+                                  ("mae", seg["mae"]), ("e_phi", seg["em"]),
+                                  ("mean_f", seg["fm"]), ("edge_mae", edge_m["mae"]),
+                                  ("edge_f", edge_m["fm"])):
+                    metrics[key] = float(rows.mean())
+                self.monitor.update_batch(metrics, {"batch_time": time.perf_counter() - t0},
+                                          batch.images.shape[0])
+        finally:
+            self.model.train()
+        stats = self.monitor.get_current_stats()
+        logger.info(f"Validation {epoch + 1}/{self.num_epochs}: wF={stats['weighted_f']:.4f} "
+                    f"Sa={stats['s_alpha']:.4f} MAE={stats['mae']:.4f}")
+        return stats
+
     # ------------------------------------------------------------------
     # loops
     # ------------------------------------------------------------------
@@ -330,19 +412,41 @@ class Trainer:
 
     def _train(self, dataset_dirs: List[str]):
         dataset = concat_train_datasets(dataset_dirs)
-        train_ds, _ = train_val_split(dataset, self.config.get("val_ratio", 0.1))
+        train_ds, val_ds = train_val_split(dataset, self.config.get("val_ratio", 0.1))
         logger.info(f"Training samples: {len(train_ds)}")
+        if val_ds:
+            logger.info(f"Validation samples: {len(val_ds)}")
         bf16 = self.model.config.dtype == torch.bfloat16
         wire_u8 = self.config.get("image_wire", "u8" if bf16 else "f32") == "u8"
+        num_workers = self.config.get("num_workers", 4)
+        best_weighted_f, early_stop, val_metrics = 0.0, 0, None
         for epoch in range(self.start_epoch, self.num_epochs):
             loader = train_loader(train_ds, self.processor, self.batch_size, self.buckets,
-                                  shuffle=True, seed=epoch,
-                                  num_workers=self.config.get("num_workers", 4),
+                                  shuffle=True, seed=epoch, num_workers=num_workers,
                                   image_u8=wire_u8)
             self.train_epoch(loader, epoch)
             self.monitor.save_epoch(epoch, "train")
+            train_metrics = self.monitor.get_current_stats()
+            if val_ds:
+                val_metrics = self.validate(self._val_loader(val_ds, num_workers), epoch)
+                self.monitor.save_epoch(epoch, "val")
+                self.scheduler.step(val_metrics["weighted_f"])
+                if val_metrics["weighted_f"] - best_weighted_f > self.min_delta:
+                    best_weighted_f = val_metrics["weighted_f"]
+                    early_stop = 0
+                    if self.monitor.check_best_model(val_metrics):
+                        self.save_checkpoint(epoch, val_metrics, is_best=True)
+                else:
+                    early_stop += 1
+                if early_stop >= self.early_stop_patience:
+                    logger.info("Early stopping triggered")
+                    break
             if (epoch + 1) % self.save_freq == 0:
-                self.save_checkpoint(epoch, self.monitor.get_current_stats(), is_best=False)
+                self.save_checkpoint(epoch, val_metrics or train_metrics, is_best=False)
+
+    def _val_loader(self, val_ds, num_workers: int):
+        return val_loader(val_ds, self.processor, self.batch_size, self.buckets,
+                          num_workers=num_workers)
 
     # ------------------------------------------------------------------
     # checkpoints

@@ -45,6 +45,8 @@ BLOCKS = {
     "stage1_384": ("fused_block_t", 144, 2, 64, 9216),
     "stage2_384": ("fused_block", 288, 4, 16, 2304),
     "stage1_352": ("fused_block", 144, 2, 64, 7744),
+    # the global blocks at 1024^2 (L 4096), which stay on the T-block
+    "global_1024": ("fused_block_t", 576, 8, 4096, 4096),
 }
 # name: (Cin, Cout, heads, window tokens L at the input grid, input tokens)
 QPOOL = {
@@ -81,6 +83,10 @@ ATTN_CASES = {f"{kind}{l}": (wrapper, l) for l in ATTN
 I8 = {"stage2_i8": ("stage2", "fused_block_t_i8"), "stage3_i8": ("stage3", "fused_block_t_i8"),
       "global_i8": ("global", "fused_block_t_i8"), "stage4_i8": ("stage4", "fused_block_i8"),
       "t23_i8": ("t23", "qpool_front_i8"), "t34_i8": ("t34", "qpool_front_i8")}
+
+# The T-block's saved-residual pair (training under SPEGNET_SAVE_RESIDUALS)
+# at its 512^2 geometries.
+RES = ("stage1", "stage2", "stage3", "global")
 
 # Blocks of each geometry in one Hiera-L forward at 512^2 (for per-forward
 # totals), and at 384^2 (fused_attention takes the geometries of
@@ -514,13 +520,94 @@ def grad_case(name: str, batch: int, g, device) -> GradCase:
                                       scale).reshape(x.shape)
     else:
         def kfn(x, *w):
-            return fbt.fused_block_t(x, fbt.BlockWeights(*w), heads, l, scale)
+            with fbt.residuals_mode("0"):    # the recompute backward (#5)
+                return fbt.fused_block_t(x, fbt.BlockWeights(*w), heads, l, scale)
 
         def pfn(x, *w):
             return fbt.block_plain(x, fbt.BlockWeights(*w), heads, l, scale)
     return _grad_case(wrapper + "_bwd", ("x",) + fbt.BlockWeights._fields, (x, *wts), cot,
                       kfn, pfn,
                       lambda: fbt.block_cuda_bwd(x, wts, cot[0], heads, l, scale, 1e-6))
+
+
+class ResCase(NamedTuple):
+    x: torch.Tensor
+    wts: fbt.BlockWeights
+    dy: torch.Tensor
+    heads: int
+    l: int
+    scale: float
+
+
+def res_case(name: str, batch: int, g, device) -> ResCase:
+    """Seeded inputs, weights and output gradient of T-block geometry
+    ``name`` for the saved-residual pair."""
+    _, c, heads, l, n = BLOCKS[name]
+    wts = block_weights(c, heads, g, device)
+    x = torch.randn((batch, n, c), generator=g).to(device, torch.bfloat16)
+    return ResCase(x, wts, _v((batch, n, c), g, device, 1.0), heads, l, (c // heads) ** -0.5)
+
+
+def _rel(got, want) -> Tuple[float, float]:
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-12)
+
+
+def compare_res(case: ResCase) -> Dict[str, float]:
+    """The saved-residual pair against the recompute pair and the plain
+    versions on one case:
+    * through the wrapper: ``fused_block_t`` under autograd with
+      SAVE_RESIDUALS "1" against "0" -- elements of y and of dx and the
+      twelve weight gradients that differ (``wrap_differ``);
+    * the chains: :func:`fbt.block_cuda_res`'s y against
+      :func:`fbt.block_cuda`'s (``fwd_differ``) and
+      :func:`fbt.block_cuda_bwd_res`'s f32 gradients against
+      :func:`fbt.block_cuda_bwd`'s (``bwd_differ``), elements that differ;
+    * against the plain versions: the largest max|k - p| / max|p| of y and
+      the residuals (``fwd_rel``) and of dx and each gradient (``bwd_rel``),
+      the plain backward fed the plain forward's residuals; their max abs
+      errors (``fwd_abs``, ``bwd_abs``)."""
+    x, wts, dy, heads, l, scale = case
+    eps = 1e-6
+    wrap = {}
+    for mode in ("0", "1"):
+        with fbt.residuals_mode(mode):
+            leaves = [t.detach().requires_grad_() for t in (x, *wts)]
+            y = fbt.fused_block_t(leaves[0], fbt.BlockWeights(*leaves[1:]), heads, l, scale)
+            wrap[mode] = (y.detach(), *torch.autograd.grad(y, leaves, dy))
+    y, res = fbt.block_cuda_res(x, wts, heads, l, scale, eps)
+    dx, dws = fbt.block_cuda_bwd_res(x, wts, dy, res, heads, l, scale, eps)
+    dx0, dws0 = fbt.block_cuda_bwd(x, wts, dy, heads, l, scale, eps)
+    yp, resp = fbt.block_plain_res(x, wts, heads, l, scale, eps)
+    dxp, dwsp = fbt.block_plain_bwd_res(x, wts, dy, resp, heads, l, scale, eps)
+    fwd = [_rel(a, b) for a, b in zip((y, *res[:5]), (yp, *resp[:5]))]
+    bwd = [_rel(a, b) for a, b in zip((dx, *dws), (dxp, *dwsp))]
+    if not all(torch.isfinite(t).all() for t in (y, dx, *dws)):
+        raise AssertionError("the saved-residual pair gave a non-finite value")
+    return {
+        "wrap_differ": sum(int((a != b).sum()) for a, b in zip(wrap["1"], wrap["0"])),
+        "fwd_differ": int((y != fbt.block_cuda(x, wts, heads, l, scale, eps)).sum()),
+        "bwd_differ": sum(int((a != b).sum()) for a, b in zip((dx, *dws), (dx0, *dws0))),
+        "fwd_rel": max(r for _, r in fwd), "fwd_abs": max(e for e, _ in fwd),
+        "bwd_rel": max(r for _, r in bwd), "bwd_abs": max(e for e, _ in bwd)}
+
+
+def res_ok(res: Dict[str, float]) -> bool:
+    return (res["wrap_differ"] == res["fwd_differ"] == res["bwd_differ"] == 0
+            and res["fwd_rel"] <= REL_LIMIT and res["bwd_rel"] <= BWD_REL_LIMIT)
+
+
+def res_calls(case: ResCase) -> Dict[str, Callable[[], object]]:
+    """The pair's chains and their plain versions alone, for timing:
+    "fwd", "fwd_plain", "bwd", "bwd_plain" (each backward on its own
+    forward's residuals)."""
+    x, wts, dy, heads, l, scale = case
+    _, res = fbt.block_cuda_res(x, wts, heads, l, scale, 1e-6)
+    _, resp = fbt.block_plain_res(x, wts, heads, l, scale)
+    return {"fwd": lambda: fbt.block_cuda_res(x, wts, heads, l, scale, 1e-6),
+            "fwd_plain": lambda: fbt.block_plain_res(x, wts, heads, l, scale),
+            "bwd": lambda: fbt.block_cuda_bwd_res(x, wts, dy, res, heads, l, scale, 1e-6),
+            "bwd_plain": lambda: fbt.block_plain_bwd_res(x, wts, dy, resp, heads, l, scale)}
 
 
 def compare_grads(case: GradCase) -> Dict[str, Tuple[float, float]]:
@@ -538,7 +625,8 @@ def compare_grads(case: GradCase) -> Dict[str, Tuple[float, float]]:
     return out
 
 
-def work(name: str, batch: int, backward: bool = False) -> Tuple[float, float]:
+def work(name: str, batch: int, backward: bool = False,
+         res: bool = False) -> Tuple[float, float]:
     """(FLOPs, bytes) one call of geometry ``name`` must do at ``batch``:
     its matrix products (2 per multiply-add) and each input read and each
     output written once.  A backward reads x, the output gradient and the
@@ -546,7 +634,12 @@ def work(name: str, batch: int, backward: bool = False) -> Tuple[float, float]:
     recomputes its forward and runs two products per forward product: 3x
     the forward FLOPs.  The block backward recomputes every product but
     fc2 (qkv, proj, fc1 and the attention's two), then runs two products per
-    linear layer and four per attention product pair (dP, dV, dQ, dK)."""
+    linear layer and four per attention product pair (dP, dV, dQ, dK).
+    With ``res`` (a T-block geometry), the saved-residual pair: the forward
+    also writes the residuals (qkv, the attention output, u, z and g in
+    bf16, lse in f32); the backward reads them instead of recomputing, and
+    keeps of the recompute only P's rebuild (4 m l c, as the forward's two
+    attention products)."""
     bf = 2
     if name in I8:
         return work(I8[name][0], batch)
@@ -578,6 +671,13 @@ def work(name: str, batch: int, backward: bool = False) -> Tuple[float, float]:
         m = batch * n
         wbytes = bf * (12 * c * c + 9 * c) + 16 * c
         act_in = act_out = m * c * bf
+        res_bytes = m * (13 * c * bf + 4 * heads)
+        if backward and res:
+            flops = 4.0 * m * l * c + 2 * 2.0 * m * 12 * c * c + 8.0 * m * l * c
+            return flops, act_in + act_out + res_bytes + act_in + 2 * wbytes
+        if res:
+            flops = 2.0 * m * (3 * c * c + c * c + 8 * c * c) + 4.0 * m * l * c
+            return flops, act_in + wbytes + act_out + res_bytes
         if backward:
             flops = (2.0 * m * (3 * c * c + c * c + 4 * c * c) + 4.0 * m * l * c
                      + 2 * 2.0 * m * 12 * c * c + 8.0 * m * l * c)

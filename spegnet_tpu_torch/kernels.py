@@ -12,7 +12,9 @@ the C entry returns a CUDA error.  ``launches`` counts the calls of each
 model-level wrapper (ops/*) that went through a kernel, and under
 ``<wrapper>_bwd`` the calls of its kernel backward (the attention wrappers
 of ops/pallas_attention.py have none: their backward is plain PyTorch);
-``reset_launches`` clears it.
+``fused_block_t_res`` / ``fused_block_t_bwd_res`` count the T-block calls
+that took the saved-residual pair instead of ``fused_block_t`` /
+``fused_block_t_bwd``; ``reset_launches`` clears it.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ launches = {
     "fused_block_i8": 0,
     "fused_attention_lanes": 0,
     "fused_attention": 0,
+    "fused_block_t_res": 0,
+    "fused_block_t_bwd_res": 0,
 }
 
 _lib = None
@@ -208,6 +212,13 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 _ACT = {"none": 0, "gelu": 1, "gelu_pre": 2, "gelu_grad": 3}
 
 
+def _tiles(m: int, n: int, name: str) -> None:
+    """The GEMMs run one block per 128-row by >= 128-column tile on the
+    grid's x axis (limit 2^31 - 1) and take M as a 32-bit int."""
+    if m >= 2 ** 31 or -(-m // 128) * -(-n // 128) >= 2 ** 31:
+        raise ValueError(f"{name}: M={m}, N={n} needs 2^31 or more row tiles x column tiles")
+
+
 def _gemm(a, w, bias, residual, act, aux=None):
     _need(a, "gemm a", ndim=2)
     _need(w, "gemm weight", ndim=2)
@@ -217,6 +228,7 @@ def _gemm(a, w, bias, residual, act, aux=None):
         raise ValueError(f"gemm: a {tuple(a.shape)} vs weight {tuple(w.shape)}")
     if k % 8 or n % 8:
         raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
+    _tiles(m, n, "gemm")
     if a.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("gemm: TMA needs 16-byte aligned operands")
     if bias is not None:
@@ -687,6 +699,7 @@ def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor
     if w.shape[1] != k or k % 32 or n % 8:
         raise ValueError(f"gemm_i8: a {tuple(a.shape)} vs weight {tuple(w.shape)} "
                          "(K % 32 == 0, N % 8 == 0)")
+    _tiles(m, n, "gemm_i8")
     if a.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("gemm_i8: cp.async needs 16-byte aligned operands")
     for t, name, size in ((sa, "row scales", m), (sw, "weight scales", n), (bias, "bias", n)):

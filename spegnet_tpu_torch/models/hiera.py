@@ -35,7 +35,7 @@ compute dtype or device changes.  The decomposed path has no int8 form.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -214,12 +214,15 @@ def morton_grid(cfg: HieraConfig, h: int, w: int) -> bool:
     return True
 
 
-def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool) -> List[str]:
+def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
+                 train_batch: Optional[int] = None) -> List[str]:
     """The route of every block of the trunk for a patch grid ``hw`` (an int
     for a square grid, or (h, w)): :func:`block_route` on the Morton path,
     :func:`grid_route` elsewhere (a shape computation: nothing is
     allocated).  A route is the launch counter of its wrapper, except
-    "plain"."""
+    "plain".  With ``train_batch``, the routes of a training forward of that
+    many images: a T-block that ``fused_block_t.save_residuals`` sends to the
+    saved-residual pair is "fused_block_t_res"."""
     h, w = (hw, hw) if isinstance(hw, int) else hw
     morton = morton_grid(cfg, h, w)
     out, last = [], len(cfg.stages)
@@ -229,6 +232,9 @@ def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool) -> List[s
             out.append(block_route(sp, l, h * w, sp.stage == last, dtype, int8))
         else:
             out.append(grid_route(sp, h, w, int8))
+        if (train_batch is not None and out[-1] == "fused_block_t"
+                and fbt.save_residuals(train_batch, h * w)):
+            out[-1] = "fused_block_t_res"
         if sp.q_pool:
             h, w = h // 2, w // 2
     return out

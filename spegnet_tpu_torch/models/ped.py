@@ -5,7 +5,7 @@ reference state_dict keys (``conv1``, ``bn1``, ``edge_conv``;
 
 Block 2 (the full-resolution block, no edge branch) dispatches to
 ops/fused_decoder.fused_decoder_block when ``kernels`` is set and its input
-is square and passes ``decoder_supported``, as the JAX package dispatched it
+is bf16, square and passes ``decoder_supported``, as the JAX package dispatched it
 to its Pallas kernel (spegnet_tpu/models/ped.py:239-272), with ``int8``
 (the model's ``int8_decoder`` in eval mode, spegnet_tpu/models/spegnet.py:106)
 asking for the W8A8 block, which that wrapper takes where ``int8_supported``
@@ -121,7 +121,8 @@ class BoundaryAwareDecoder(nn.Module):
         for i, (blk, head) in enumerate(zip(self.decoder_blocks, self.pred_heads)):
             ef = edge_features if self.edge_used[i] else None
             if (kernels and i == last == 2 and ef is None and self.n_classes == 1
-                    and not self.training and x.shape[2] == x.shape[3]
+                    and not self.training and x.dtype == torch.bfloat16
+                    and x.shape[2] == x.shape[3]
                     and decoder_supported(x.shape[2])):
                 q = blk.i8_params(head, x.dtype) if int8 else None
                 pred = fused_decoder_block(x.permute(0, 2, 3, 1).contiguous(), blk.params(head),

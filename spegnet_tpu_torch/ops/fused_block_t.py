@@ -26,12 +26,23 @@ Each operator comes in two forms:
   package's custom_vjp with residuals off, the Function saves only the
   input and the weights and recomputes the forward in its backward; weight
   gradients are summed in f32 and returned in each weight's dtype.
+
+The T-block also has the JAX package's saved-residual pair (``_forward_res``
+:499 / ``_backward_res`` :1570): under autograd, where
+:func:`save_residuals` holds (``SPEGNET_SAVE_RESIDUALS``), its forward keeps
+the tensors the backward would recompute (:class:`BlockResiduals`) and its
+backward reads them (:func:`block_cuda_res`, :func:`block_cuda_bwd_res`;
+plain versions :func:`block_plain_res`, :func:`block_plain_bwd_res`).  Its
+output and gradients are bit-equal to the recompute pair's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import NamedTuple
+import math
+import os
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,6 +69,25 @@ class BlockWeights(NamedTuple):
     bfc1: torch.Tensor
     wfc2: torch.Tensor     # [C, hidden]
     bfc2: torch.Tensor
+
+
+class BlockResiduals(NamedTuple):
+    """What the saved-residual forward keeps for its backward, token-major
+    [B*N, ...] in the compute dtype (``BlockResiduals`` :441 transposed, plus
+    g and lse): the backward then reruns only the two LayerNorms."""
+
+    qkv: torch.Tensor   # [B*N, 3*H*d]
+    a: torch.Tensor     # attention output [B*N, H*d]
+    u: torch.Tensor     # x + proj [B*N, C]
+    z: torch.Tensor     # fc1 pre-activation [B*N, hidden]
+    # gelu(fc1), fc2's input.  JAX rebuilds it from the saved z; here it is
+    # kept, since the kernel rounds it from the f32 sum that z is rounded
+    # from, and gelu of the rounded z differs from it in the last bit.
+    g: torch.Tensor     # [B*N, hidden]
+    # Each query row's log-sum-exp in log2 units, [B*N, H] f32, from which
+    # the attention backward kernel rebuilds P; None from the plain version,
+    # whose backward rebuilds P from q and k.
+    lse: Optional[torch.Tensor] = None
 
 
 class QPoolWeights(NamedTuple):
@@ -190,6 +220,40 @@ def supported(c: int, heads: int, l: int, n_tok: int) -> bool:
     return ok and cw % max(l, 128) == 0 and n_tok % cw == 0
 
 
+# The saved-residual policy of the training backward, JAX's knob and values
+# (spegnet_tpu/ops/fused_block_t.py:461): "0" off, "1" on, "auto" where a
+# block's batch holds at most 32768 tokens.  Read at import;
+# :func:`residuals_mode` sets it for a block of code.  The default is JAX's
+# "0": on an H100 the pair takes ~5% off a Hiera-L 512^2 batch-8 step's
+# device time, but the step is host-bound and its time did not move
+# reliably (PERF.md).
+SAVE_RESIDUALS = os.environ.get("SPEGNET_SAVE_RESIDUALS", "0")
+
+
+def save_residuals(b: int, n_tok: int) -> bool:
+    """Whether a T-block of b images of n_tok tokens runs the saved-residual
+    pair when it is trained (``_save_res_ok`` :464 on one card).  JAX's
+    second condition, ``_res_bwd_vmem_ok`` (:478), checks the TPU kernel's
+    VMEM footprint; the pair here is a chain of launches through device
+    memory and has no such limit."""
+    if SAVE_RESIDUALS not in ("0", "1", "auto"):
+        raise ValueError(f"SPEGNET_SAVE_RESIDUALS={SAVE_RESIDUALS!r}: expected 0, 1 or auto")
+    if SAVE_RESIDUALS == "auto":
+        return b * n_tok <= 32768
+    return SAVE_RESIDUALS == "1"
+
+
+@contextlib.contextmanager
+def residuals_mode(mode: str):
+    """:data:`SAVE_RESIDUALS` set to ``mode`` inside the block."""
+    global SAVE_RESIDUALS
+    saved, SAVE_RESIDUALS = SAVE_RESIDUALS, mode
+    try:
+        yield
+    finally:
+        SAVE_RESIDUALS = saved
+
+
 def qpool_supported(cin: int, heads: int, l: int, n_tok: int) -> bool:
     """Shape rules of the transition-front gate (``qpool_supported``
     :1039)."""
@@ -229,16 +293,106 @@ def block_plain(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
                 approx_gelu: bool = True) -> torch.Tensor:
     """One non-pooling Hiera block on [B, N, C], attention over windows of l
     consecutive tokens."""
-    if x.shape[1] % l:
-        raise ValueError(f"{x.shape[1]} tokens do not split into windows of {l}")
+    return block_plain_res(x, wts, heads, l, scale, eps, approx_gelu)[0]
+
+
+def block_plain_res(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
+                    scale: float, eps: float = 1e-6, approx_gelu: bool = True):
+    """:func:`block_plain` and the residuals of its forward (lse None):
+    (y [B, N, C], :class:`BlockResiduals`)."""
+    b, n, c = x.shape
+    if n % l:
+        raise ValueError(f"{n} tokens do not split into windows of {l}")
     h1 = layer_norm(x, wts.ln1_w, wts.ln1_b, eps)
     qkv = F.linear(h1, wts.wqkv, wts.bqkv)
     o = _window_attention_plain(qkv, heads, l, scale)
     u = x + F.linear(o, wts.wproj, wts.bproj)
     h2 = layer_norm(u, wts.ln2_w, wts.ln2_b, eps)
-    z = F.gelu(F.linear(h2, wts.wfc1, wts.bfc1),
-               approximate="tanh" if approx_gelu else "none")
-    return u + F.linear(z, wts.wfc2, wts.bfc2)
+    z = F.linear(h2, wts.wfc1, wts.bfc1)
+    g = F.gelu(z, approximate="tanh" if approx_gelu else "none")
+    y = u + F.linear(g, wts.wfc2, wts.bfc2)
+    return y, BlockResiduals(*(t.reshape(b * n, -1) for t in (qkv, o, u, z, g)))
+
+
+def _gelu_grad(z: torch.Tensor, approx_gelu: bool) -> torch.Tensor:
+    """d gelu / dz (tanh form or erf form), in z's dtype."""
+    if approx_gelu:
+        k = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(k * (z + 0.044715 * z ** 3))
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * k * (1.0 + 3 * 0.044715 * z * z)
+    return (0.5 * (1.0 + torch.erf(z * 0.5 ** 0.5))
+            + z * torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi))
+
+
+def _layer_norm_bwd(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor, eps: float):
+    """LayerNorm backward over the last dim, in the accumulation dtype of
+    dh: (dx, dw, db) for h = xhat * w + b."""
+    x = wide(x)
+    mu = x.mean(-1, keepdim=True)
+    xc = x - mu
+    r = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * r
+    dxhat = dh * wide(w)
+    dx = r * (dxhat - dxhat.mean(-1, keepdim=True)
+              - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, (dh * xhat).sum(0), dh.sum(0)
+
+
+def block_plain_bwd_res(x: torch.Tensor, wts: BlockWeights, dy: torch.Tensor,
+                        res: BlockResiduals, heads: int, l: int, scale: float,
+                        eps: float = 1e-6, approx_gelu: bool = True):
+    """Gradients of :func:`block_plain` from its residuals, written out
+    (not autograd), as ``_bwd_kernel_res`` (:1449) computes them: the
+    LayerNorms rerun, fc2, GELU, fc1, LN2, proj, the attention (softmax
+    backward from P rebuilt from q and k), qkv and LN1, products and sums
+    accumulated in f32 (f64 for f64 inputs), the gradients flowing between
+    the layers rounded to the compute dtype where the kernels round them.
+    Returns (dx [B, N, C], BlockWeights of gradients in the accumulation
+    dtype)."""
+    b, n, c = x.shape
+    dt = x.dtype
+    f = res.qkv.shape[1]
+    hd = f // 3
+    d = hd // heads
+    x2, dy2 = x.reshape(b * n, c), dy.reshape(b * n, c)
+    h1 = layer_norm(x2, wts.ln1_w, wts.ln1_b, eps)
+    h2 = layer_norm(res.u, wts.ln2_w, wts.ln2_b, eps)
+
+    def mm(a, w):       # a [M, K] @ w [K, N], accumulated wide
+        return wide(a) @ wide(w)
+
+    def wgrad(dout, inp):   # (dout^T inp, column sums of dout)
+        return mm(dout.t(), inp), wide(dout).sum(0)
+
+    dwfc2, dbfc2 = wgrad(dy2, res.g)
+    dg = mm(dy2, wts.wfc2).to(dt)
+    dz = (wide(dg) * _gelu_grad(wide(res.z), approx_gelu)).to(dt)
+    dwfc1, dbfc1 = wgrad(dz, h2)
+    dh2 = mm(dz, wts.wfc1)
+    du, dln2_w, dln2_b = _layer_norm_bwd(res.u, wts.ln2_w, dh2, eps)
+    du = (du + wide(dy2)).to(dt)
+    dwproj, dbproj = wgrad(du, res.a)
+    da = mm(du, wts.wproj).to(dt)
+
+    def windows(t):     # [B*N, H*d] -> [windows, H, l, d]
+        return t.reshape(b * n // l, l, heads, d).transpose(1, 2)
+
+    q, k, v = (windows(res.qkv[:, i * hd:(i + 1) * hd]) for i in range(3))
+    s = (wide(q) @ wide(k).transpose(-1, -2)) * scale
+    p = torch.softmax(s, -1)
+    do = windows(da)
+    dp = wide(do) @ wide(v).transpose(-1, -2)
+    dv = p.to(dt).transpose(-1, -2).to(dp.dtype) @ wide(do)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt)
+    dq = wide(ds) @ wide(k)
+    dk = wide(ds).transpose(-1, -2) @ wide(q)
+    dqkv = torch.cat([t.to(dt).transpose(1, 2).reshape(b * n, hd) for t in (dq, dk, dv)], 1)
+    dwqkv, dbqkv = wgrad(dqkv, h1)
+    dh1 = mm(dqkv, wts.wqkv)
+    dx, dln1_w, dln1_b = _layer_norm_bwd(x2, wts.ln1_w, dh1, eps)
+    dx = (dx + wide(du)).to(dt)
+    return dx.reshape(b, n, c), BlockWeights(dln1_w, dln1_b, dwqkv, dbqkv, dwproj, dbproj,
+                                             dln2_w, dln2_b, dwfc1, dbfc1, dwfc2, dbfc2)
 
 
 def qpool_front_plain(x: torch.Tensor, wts: QPoolWeights, heads: int, l: int,
@@ -302,39 +456,85 @@ def _t(w: torch.Tensor) -> torch.Tensor:
     return w.t().contiguous()
 
 
+def _forward_chain(x2: torch.Tensor, wts: BlockWeights, heads: int, l: int, scale: float,
+                   eps: float):
+    """Everything of the block's forward on [rows, C] but fc2: (h1,
+    :class:`BlockResiduals`, h2).  The attention keeps its lse, and fc1's
+    epilogue writes z and g from one f32 sum (g as :func:`block_cuda`'s)."""
+    d = _head_dim(wts.wqkv, heads)
+    h1 = kernels.layernorm(x2, _f32(wts.ln1_w), _f32(wts.ln1_b), eps)
+    qkv = kernels.gemm(h1, wts.wqkv, wts.bqkv)
+    a, lse = kernels.window_attention(qkv, heads, d, l, scale, with_lse=True)
+    u = kernels.gemm(a, wts.wproj, wts.bproj, residual=x2)
+    h2 = kernels.layernorm(u, _f32(wts.ln2_w), _f32(wts.ln2_b), eps)
+    z, g = kernels.gemm_gelu_pre(h2, wts.wfc1, wts.bfc1)
+    return h1, BlockResiduals(qkv, a, u, z, g, lse), h2
+
+
+def _backward_chain(x2, wts: BlockWeights, dy2, res: BlockResiduals, h1, h2, heads: int,
+                    l: int, scale: float, eps: float):
+    """The chain of csrc/hiera_block_bwd.cu on [rows, C] from the forward's
+    tensors: (dx [rows, C], BlockWeights of f32 gradients)."""
+    d = _head_dim(wts.wqkv, heads)
+    hd = heads * d
+    dwfc2, dbfc2 = kernels.gemm_tn(dy2, res.g)
+    dz = kernels.gemm_gelu_grad(dy2, _t(wts.wfc2), res.z)
+    dwfc1, dbfc1 = kernels.gemm_tn(dz, h2)
+    dh2 = kernels.gemm(dz, _t(wts.wfc1))
+    du, dln2_w, dln2_b = kernels.layernorm_bwd(res.u, _f32(wts.ln2_w), dh2, eps, dres=dy2)
+    dwproj, dbproj = kernels.gemm_tn(du, res.a)
+    da = kernels.gemm(du, _t(wts.wproj))
+    qkv = res.qkv
+    dqkv = torch.empty_like(qkv)
+    Cols = kernels.Cols
+    kernels.attention_bwd(Cols(qkv, 0), Cols(qkv, hd), Cols(qkv, 2 * hd), Cols(res.a),
+                          Cols(da), res.lse, Cols(dqkv, 0), Cols(dqkv, hd),
+                          Cols(dqkv, 2 * hd), heads, d, l, l, scale)
+    dwqkv, dbqkv = kernels.gemm_tn(dqkv, h1)
+    dh1 = kernels.gemm(dqkv, _t(wts.wqkv))
+    dx, dln1_w, dln1_b = kernels.layernorm_bwd(x2, _f32(wts.ln1_w), dh1, eps, dres=du)
+    return dx, BlockWeights(dln1_w, dln1_b, dwqkv, dbqkv, dwproj, dbproj,
+                            dln2_w, dln2_b, dwfc1, dbfc1, dwfc2, dbfc2)
+
+
 def block_cuda_bwd(x: torch.Tensor, wts: BlockWeights, dy: torch.Tensor, heads: int,
                    l: int, scale: float, eps: float):
     """Gradients of :func:`block_cuda` (dx, BlockWeights of f32 gradients):
     recompute, then the chain of csrc/hiera_block_bwd.cu."""
     b, n, c = x.shape
-    d = _head_dim(wts.wqkv, heads)
-    hd = heads * d
-    x2, dy2 = x.reshape(b * n, c), dy.reshape(b * n, c)
-    ln1_w, ln2_w = _f32(wts.ln1_w), _f32(wts.ln2_w)
-    h1 = kernels.layernorm(x2, ln1_w, _f32(wts.ln1_b), eps)
-    qkv = kernels.gemm(h1, wts.wqkv, wts.bqkv)
-    a, lse = kernels.window_attention(qkv, heads, d, l, scale, with_lse=True)
-    u = kernels.gemm(a, wts.wproj, wts.bproj, residual=x2)
-    h2 = kernels.layernorm(u, ln2_w, _f32(wts.ln2_b), eps)
-    z, g = kernels.gemm_gelu_pre(h2, wts.wfc1, wts.bfc1)
+    x2 = x.reshape(b * n, c)
+    h1, res, h2 = _forward_chain(x2, wts, heads, l, scale, eps)
+    dx, dws = _backward_chain(x2, wts, dy.reshape(b * n, c), res, h1, h2, heads, l, scale,
+                              eps)
+    return dx.reshape(b, n, c), dws
 
-    dwfc2, dbfc2 = kernels.gemm_tn(dy2, g)
-    dz = kernels.gemm_gelu_grad(dy2, _t(wts.wfc2), z)
-    dwfc1, dbfc1 = kernels.gemm_tn(dz, h2)
-    dh2 = kernels.gemm(dz, _t(wts.wfc1))
-    du, dln2_w, dln2_b = kernels.layernorm_bwd(u, ln2_w, dh2, eps, dres=dy2)
-    dwproj, dbproj = kernels.gemm_tn(du, a)
-    da = kernels.gemm(du, _t(wts.wproj))
-    dqkv = torch.empty_like(qkv)
-    Cols = kernels.Cols
-    kernels.attention_bwd(Cols(qkv, 0), Cols(qkv, hd), Cols(qkv, 2 * hd), Cols(a), Cols(da),
-                          lse, Cols(dqkv, 0), Cols(dqkv, hd), Cols(dqkv, 2 * hd),
-                          heads, d, l, l, scale)
-    dwqkv, dbqkv = kernels.gemm_tn(dqkv, h1)
-    dh1 = kernels.gemm(dqkv, _t(wts.wqkv))
-    dx, dln1_w, dln1_b = kernels.layernorm_bwd(x2, ln1_w, dh1, eps, dres=du)
-    return dx.reshape(b, n, c), BlockWeights(dln1_w, dln1_b, dwqkv, dbqkv, dwproj, dbproj,
-                                             dln2_w, dln2_b, dwfc1, dbfc1, dwfc2, dbfc2)
+
+def block_cuda_res(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
+                   scale: float, eps: float):
+    """The forward chain that also keeps the backward's residuals (replaces
+    ``_kernel_res`` :362): (y [B, N, C], :class:`BlockResiduals`), y bit-equal
+    to :func:`block_cuda`'s (fc2 reads the same g)."""
+    b, n, c = x.shape
+    if n % l:
+        raise ValueError(f"{n} tokens do not split into windows of {l}")
+    x2 = x.reshape(b * n, c)
+    _, res, _ = _forward_chain(x2, wts, heads, l, scale, eps)
+    y = kernels.gemm(res.g, wts.wfc2, wts.bfc2, residual=res.u)
+    return y.reshape(b, n, c), res
+
+
+def block_cuda_bwd_res(x: torch.Tensor, wts: BlockWeights, dy: torch.Tensor,
+                       res: BlockResiduals, heads: int, l: int, scale: float, eps: float):
+    """Gradients of :func:`block_cuda_res` from its residuals (replaces
+    ``_bwd_kernel_res`` :1449): only the two LayerNorms rerun; dx and the
+    weight gradients are bit-equal to :func:`block_cuda_bwd`'s."""
+    b, n, c = x.shape
+    x2 = x.reshape(b * n, c)
+    h1 = kernels.layernorm(x2, _f32(wts.ln1_w), _f32(wts.ln1_b), eps)
+    h2 = kernels.layernorm(res.u, _f32(wts.ln2_w), _f32(wts.ln2_b), eps)
+    dx, dws = _backward_chain(x2, wts, dy.reshape(b * n, c), res, h1, h2, heads, l, scale,
+                              eps)
+    return dx.reshape(b, n, c), dws
 
 
 def qpool_front_cuda(x: torch.Tensor, wts: QPoolWeights, heads: int, l: int,
@@ -407,6 +607,29 @@ class BlockFunction(torch.autograd.Function):
         return (dx, None, None, None, None, None, *_as_dtypes(dws, w))
 
 
+class BlockResFunction(torch.autograd.Function):
+    """The T-block through the saved-residual pair: the forward keeps
+    :class:`BlockResiduals` for the backward instead of recomputing them."""
+
+    @staticmethod
+    def forward(ctx, x, heads, l, scale, eps, *w):
+        y, res = block_cuda_res(x, BlockWeights(*w), heads, l, scale, eps)
+        ctx.save_for_backward(x, *res, *w)
+        ctx.cfg = (heads, l, scale, eps)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *rest = ctx.saved_tensors
+        nres = len(BlockResiduals._fields)
+        res, w = BlockResiduals(*rest[:nres]), rest[nres:]
+        heads, l, scale, eps = ctx.cfg
+        kernels.launches["fused_block_t_bwd_res"] += 1
+        dx, dws = block_cuda_bwd_res(x, BlockWeights(*w), dy.contiguous(), res, heads, l,
+                                     scale, eps)
+        return (dx, None, None, None, None, *_as_dtypes(dws, w))
+
+
 class QPoolFunction(torch.autograd.Function):
     """The Q-pool transition front through the Hopper kernels, with the
     kernel backward."""
@@ -448,12 +671,26 @@ def fused_block_t(x: torch.Tensor, wts: BlockWeights, heads: int, l: int,
     """One non-pooling block on [B, N, C] (stages 1-3, global blocks
     included).  CPU: :func:`block_plain`.  CUDA: csrc/hiera_block.cu, which
     replaces spegnet_tpu/ops/fused_block_t.py ``_kernel`` (:349), and in the
-    backward csrc/hiera_block_bwd.cu, which replaces ``_bwd_kernel`` (:1165)."""
+    backward csrc/hiera_block_bwd.cu, which replaces ``_bwd_kernel`` (:1165);
+    or, where :func:`route` says so, the saved-residual pair."""
     if x.device.type == "cpu":
         return block_plain(x, wts, heads, l, scale, eps, approx_gelu)
     _cuda_gate(x, approx_gelu)
-    kernels.launches["fused_block_t"] += 1
+    counter = route(x, wts)
+    kernels.launches[counter] += 1
+    if counter == "fused_block_t_res":
+        return BlockResFunction.apply(x.contiguous(), heads, l, scale, eps, *wts)
     return BlockFunction.apply(x.contiguous(), heads, l, scale, eps, "fused_block_t", *wts)
+
+
+def route(x: torch.Tensor, wts: BlockWeights) -> str:
+    """The launch counter of :func:`fused_block_t` on the card:
+    "fused_block_t_res" (the saved-residual pair) where autograd will run the
+    backward and :func:`save_residuals` holds, as the JAX package takes the
+    pair only in its custom_vjp forward (``_fwd`` :1710); else
+    "fused_block_t"."""
+    trained = torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in wts))
+    return "fused_block_t_res" if trained and save_residuals(*x.shape[:2]) else "fused_block_t"
 
 
 def qpool_front(x: torch.Tensor, wts: QPoolWeights, heads: int, l: int,

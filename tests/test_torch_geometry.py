@@ -254,7 +254,9 @@ def test_spegnet_on_grid_matches_jax(jax_grid_case, monkeypatch, hw):
     routes = collections.Counter(thiera.trunk_routes(
         thiera.HIERA_VARIANTS["_torch_grid"], (hw[0] // 4, hw[1] // 4), torch.float32, False))
     routes.pop("plain")
-    routes["fused_decoder_block"] = int(hw[0] == hw[1])   # the decoder kernel is square-only
+    # f32: decoder block 2 runs decomposed, as in the JAX package (its fused
+    # block is bf16 only, and square only)
+    routes["fused_decoder_block"] = 0
     assert calls == +routes, (calls, routes)
     for g, w in zip(got["predictions"], want["predictions"]):
         assert tuple(g.shape) == w.shape

@@ -9,7 +9,10 @@ block at every main-path size and at one with a partial tile and three
 strips, its pieces exact (kernel_check.dec_i8_parts_ok); the decoder's edge
 branch with and without a head; the attention kernel at lengths that are
 not multiples of 16 and on strided views; the int8 Predictor's and the
-384^2 Predictor's launches.
+384^2 Predictor's launches; the T-block's saved-residual pair bit-equal to
+the recompute pair and within the limits of its plain versions (T-block
+geometries include the 1024^2 global block, L 4096); the bf16 and int8
+GEMMs just past 65535 row tiles.
 These need an NVIDIA card with nvcc; elsewhere they skip."""
 
 import pytest
@@ -94,6 +97,52 @@ def test_int8_decoder_grid_limits(cuda):
             assert frac <= kernel_check.I8_PART_FRAC and steps <= 1.0, (i, key, frac, steps)
     with pytest.raises(ValueError, match="65535"):
         kernels.quant_image_i8(torch.zeros((65536, 8), dtype=torch.bfloat16, device=cuda))
+
+
+@pytest.mark.parametrize("name", kernel_check.RES)
+def test_residual_pair_matches_recompute_and_plain(cuda, name):
+    """The saved-residual pair (SAVE_RESIDUALS "1" under autograd) against
+    the recompute pair: y, dx and the twelve weight gradients bit-equal,
+    through the wrapper and chain by chain; against its plain versions
+    within REL_LIMIT / BWD_REL_LIMIT."""
+    case = kernel_check.res_case(name, 1, torch.Generator().manual_seed(0), cuda)
+    before = {k: kernels.launches[k] for k in ("fused_block_t_res", "fused_block_t_bwd_res",
+                                               "fused_block_t", "fused_block_t_bwd")}
+    res = kernel_check.compare_res(case)
+    torch.cuda.synchronize()
+    assert {k: kernels.launches[k] - n for k, n in before.items()} == dict.fromkeys(before, 1)
+    assert kernel_check.res_ok(res), (name, res)
+
+
+# M = 65536 * 128 + 128 rows: one 128-row tile past the 65535 of a y grid axis.
+M_PAST_Y = 65536 * 128 + 128
+
+
+def test_gemm_past_65535_row_tiles(cuda):
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn((M_PAST_Y, 64), generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn((64, 64), generator=g) * 0.125).to(cuda, torch.bfloat16)
+    got = kernels.gemm(a, w).float()
+    want = (a.float() @ w.float().t()).to(torch.bfloat16).float()
+    # f32 sums in another order: one bf16 step of the largest output (an
+    # output that nearly cancels may differ by many steps of its own size);
+    # the tile past the old limit on its own too
+    for rows in (slice(None), slice(-128, None)):
+        err = (got[rows] - want[rows]).abs().max() / want[rows].abs().max()
+        assert err <= 2.0 ** -8, (rows, err.item())
+
+
+def test_int8_gemm_past_65535_row_tiles(cuda):
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(-127, 128, (M_PAST_Y, 128), generator=g, dtype=torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (64, 128), generator=g, dtype=torch.int8).to(cuda)
+    sa = (torch.rand(M_PAST_Y, generator=g) * 0.02).to(cuda)
+    sw = (torch.rand(64, generator=g) * 2e-3).to(cuda)
+    bias = (0.1 * torch.randn(64, generator=g)).to(cuda)
+    got = kernels.gemm_i8(a, sa, w, sw, bias)
+    acc = torch._int_mm(a, w.t()).float()
+    want = (acc * sw * sa[:, None] + bias).to(torch.bfloat16)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("head", [False, True])

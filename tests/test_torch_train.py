@@ -16,7 +16,9 @@ the CPU.
 * PlateauScheduler: the same lr scales over a metric sequence;
 * ``python -m spegnet_tpu_torch train --device cpu`` on a tiny PNG dataset
   written with cv2: metrics.json, a .pth that model_loader reads, and a
-  resume that continues at the next epoch."""
+  resume that continues at the next epoch;
+* the config's ``val_ratio`` trains and validates, and without a card the
+  default device is refused."""
 
 import contextlib
 import json
@@ -388,9 +390,19 @@ def test_trainer_loads_the_sam2_trunk(tmp_path, fault):
         torch.testing.assert_close(got[k[len("image_encoder.trunk."):]], v)
 
 
-def test_trainer_refuses_validation_and_missing_card():
-    with pytest.raises(NotImplementedError, match="metrics"):
-        ttrainer.Trainer(train_config([], val_ratio=0.1), None, device="cpu")
+def test_trainer_refuses_validation_and_missing_card(tmp_path):
+    """The config's val_ratio 0.1 trains and validates (3 samples: 2 train,
+    1 val; tests/test_torch_validation.py holds validation against the JAX
+    trainer); without a card the default device is refused."""
+    from spegnet_tpu_torch.utils.run_manager import DirectoryManager
+
+    dm = DirectoryManager("train", base_dir=str(tmp_path / "results"))
+    tr = ttrainer.Trainer(train_config([], val_ratio=0.1), dm, device="cpu")
+    tr.train([str(write_dataset(tmp_path / "ds"))])
+    epoch = json.loads(dm.run_dirs.metrics_file.read_text())["epochs"][0]
+    assert {"loss", "weighted_f", "s_alpha", "mae", "e_phi", "mean_f", "edge_mae",
+            "edge_f"} <= set(epoch["val"]["metrics"])
+    assert all(np.isfinite(v) for v in epoch["val"]["metrics"].values())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrainer.Trainer(train_config([]), None)
