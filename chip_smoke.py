@@ -42,6 +42,12 @@
    within one code / one bf16 step by kernel_check.dec_i8_parts_ok; and the
    edge branch of the bf16 block (no model path) at PED block 1's geometry
    at 512^2 and 384^2 within REL_LIMIT (with the forward kernels above).
+   Then f32 compute (use_amp: false), batch 2: every f32 kernel against its
+   plain f32 version within kernel_check.F32_REL_LIMIT (2e-5) -- the gen-1
+   block at stage 1 / 2 / 4 of 512^2, fused_attention_lanes at L 64, 256,
+   484, 576, 1024, 1600, 4096, fused_attention at L 64, 256, 1024 -- and the
+   int8 gen-1 block on f32 at stage 4 by kernel_check.i8_ok and its pieces
+   by i8_parts_ok.
 4. Runs the Predictor on 4 seeded synthetic 512^2 u8 images with seeded
    random Hiera-L weights in bf16, with every launch counter zeroed just
    before: every launch counter must equal the per-forward count of
@@ -71,17 +77,20 @@
 5. Times the kernel path against the plain bf16 path (kernels=False), the
    int8 kernel path and the speed mode (both int8 flags) in ms/image at
    batch 8 (at 384^2 the kernel path, the speed mode and the plain bf16
-   path), and each kernel -- forward
-   and backward, and the int8 ones -- against its plain version at batch 8
+   path; in f32 at 512^2 the kernel path and the plain f32 path), and each
+   kernel -- forward and backward, the int8 ones and the f32 ones --
+   against its plain version at batch 8
    with CUDA events, beside its roofline bound (kernel_check.work /
    i8_work / bound_ms); then each sub-kernel of the stage-1 and global
    geometries against the one PyTorch call that computes the same function
    (F.linear, scaled_dot_product_attention and its backward, F.layer_norm
    and its backward, a transposed matmul), the int8 GEMM of stage 3's fc1
-   against torch._int_mm, and each attention geometry against
-   F.scaled_dot_product_attention on the same q / k / v, as yardsticks the
-   port never calls.  The saved-residual pair's chains against their plain
-   versions at its four geometries.
+   against torch._int_mm, each attention geometry (bf16 and f32) against
+   F.scaled_dot_product_attention on the same q / k / v, and the f32
+   chain's GEMMs, attention and LayerNorm at stage 1 and 4 against F.linear,
+   SDPA and F.layer_norm in f32, as yardsticks the port never calls.  The
+   saved-residual pair's chains against their plain versions at its four
+   geometries.
 6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
    TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
    a 640 canvas; edges their morphological boundary):
@@ -120,6 +129,12 @@
        of one step per mode in rotating order: ms/step of each, and each
        mode's step against "0"'s of the same round (median difference,
        rounds faster).
+   (f) f32 compute at 512^2: the batch-2 gradient through the f32 kernel
+       path and the plain f32 path, cosine >= COSINE_F32_LIMIT overall and
+       for the encoder; 3 Trainer steps at batch 8 on each path (the kernel
+       path's counters equal to three times the f32 routes, no backward
+       counter moving: the f32 backwards recompute through the plain
+       versions, as in JAX), ms/step and peak memory.
    (e) validation: 12 seeded 512^2 PNG samples written to a temporary
        directory (data/png.py, no Pillow needed), one epoch of Trainer.train
        with val_ratio 0.25 (9 train, 3 val) at batch 8: the val metrics in
@@ -133,12 +148,14 @@
    flags: metrics finite
    and in [0, 1], the card's metrics equal to the port's CPU metrics on the
    same quantized predictions within 1e-5, forward and metrics ms/image;
-   then the bf16 config at 384^2.
+   then the bf16 config at 384^2, and the f32 config at 512^2.
 8. No module of JAX, flax, optax or the JAX package was imported by any of
    the above.
 
-Any failed check raises.  The last lines are the kernel table (JSON), the
-nvidia-smi line and {"ok": true, "device": {...}}.
+Any failed check raises.  The last lines are the kernel table (JSON; the
+f32 rows, KERNELS' dtype "f32", are the f32 kernels behind the same
+wrappers, their launches read from the f32 runs), the nvidia-smi line and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -149,6 +166,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -164,44 +182,77 @@ MASK_MAE_I8_LIMIT = 1.24e-3
 MASK_MAE_I8DEC_LIMIT = 1.27e-3
 METRIC_TOL = 1e-5
 COSINE_MARGIN = 0.01
+# f32 compute (use_amp: false): the kernel path's masks against the plain f32
+# path, and its gradient's cosine to the plain f32 gradient; both are f32 on
+# every kernel (3xTF32 products), so they differ by summation order only.
+MASK_MAE_F32_LIMIT = 1e-5
+COSINE_F32_LIMIT = 0.9999
 TIMED_STEPS = 6   # train steps timed after the warm-up step (512^2)
 GRID_SIZES = (384, 352, 640)   # inputs whose patch grid is not 2^k
+
+
+class Row(NamedTuple):
+    """One row of the kernels line."""
+    source: str
+    replaces: str        # the TPU kernel it replaces
+    counter: str         # its wrapper's launch counter
+    dtype: str = "bf16"  # the runs its launches are read from: "bf16" or "f32"
+    library: bool = False  # one PyTorch call (SDPA) computes the same function
+
+
 KERNELS = {
-    # wrapper (launch counter): (source, TPU kernel it replaces)
-    "fused_block_t": ("spegnet_tpu_torch/csrc/hiera_block.cu",
-                      "spegnet_tpu/ops/fused_block_t.py:349"),
-    "fused_block": ("spegnet_tpu_torch/csrc/hiera_block.cu",
-                    "spegnet_tpu/ops/fused_block.py:99"),
-    "qpool_front": ("spegnet_tpu_torch/csrc/qpool_front.cu",
-                    "spegnet_tpu/ops/fused_block_t.py:634"),
-    "fused_decoder_block": ("spegnet_tpu_torch/csrc/decoder_block.cu",
-                            "spegnet_tpu/ops/fused_decoder.py:338"),
-    "fused_block_t_bwd": ("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
-                          "spegnet_tpu/ops/fused_block_t.py:1165"),
-    "fused_block_bwd": ("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
-                        "spegnet_tpu/ops/fused_block.py:274"),
-    "qpool_front_bwd": ("spegnet_tpu_torch/csrc/qpool_front_bwd.cu",
-                        "spegnet_tpu/ops/fused_block_t.py:833"),
-    "fused_block_t_i8": ("spegnet_tpu_torch/csrc/int8_gemm.cu",
-                         "spegnet_tpu/ops/fused_block_t_i8.py:137"),
-    "qpool_front_i8": ("spegnet_tpu_torch/csrc/int8_gemm.cu",
-                       "spegnet_tpu/ops/fused_block_t_i8.py:294"),
-    "fused_block_i8": ("spegnet_tpu_torch/csrc/int8_gemm.cu",
-                       "spegnet_tpu/ops/fused_block_i8.py:128"),
-    "fused_attention_lanes": ("spegnet_tpu_torch/csrc/attention_lanes.cu",
-                              "spegnet_tpu/ops/pallas_attention.py:199"),
-    "fused_attention": ("spegnet_tpu_torch/csrc/attention_lanes.cu",
-                        "spegnet_tpu/ops/pallas_attention.py:43"),
-    "fused_decoder_block_i8": ("spegnet_tpu_torch/csrc/decoder_i8.cu",
-                               "spegnet_tpu/ops/fused_decoder.py:338"),
-    "fused_decoder_block_edge": ("spegnet_tpu_torch/csrc/decoder_block.cu",
-                                 "spegnet_tpu/ops/fused_decoder.py:338"),
-    "fused_block_t_res": ("spegnet_tpu_torch/csrc/hiera_block.cu",
-                          "spegnet_tpu/ops/fused_block_t.py:362"),
-    "fused_block_t_bwd_res": ("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
-                              "spegnet_tpu/ops/fused_block_t.py:1449"),
+    "fused_block_t": Row("spegnet_tpu_torch/csrc/hiera_block.cu",
+                         "spegnet_tpu/ops/fused_block_t.py:349", "fused_block_t"),
+    "fused_block": Row("spegnet_tpu_torch/csrc/hiera_block.cu",
+                       "spegnet_tpu/ops/fused_block.py:99", "fused_block"),
+    "qpool_front": Row("spegnet_tpu_torch/csrc/qpool_front.cu",
+                       "spegnet_tpu/ops/fused_block_t.py:634", "qpool_front"),
+    "fused_decoder_block": Row("spegnet_tpu_torch/csrc/decoder_block.cu",
+                               "spegnet_tpu/ops/fused_decoder.py:338", "fused_decoder_block"),
+    "fused_block_t_bwd": Row("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
+                             "spegnet_tpu/ops/fused_block_t.py:1165", "fused_block_t_bwd"),
+    "fused_block_bwd": Row("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
+                           "spegnet_tpu/ops/fused_block.py:274", "fused_block_bwd"),
+    "qpool_front_bwd": Row("spegnet_tpu_torch/csrc/qpool_front_bwd.cu",
+                           "spegnet_tpu/ops/fused_block_t.py:833", "qpool_front_bwd"),
+    "fused_block_t_i8": Row("spegnet_tpu_torch/csrc/int8_gemm.cu",
+                            "spegnet_tpu/ops/fused_block_t_i8.py:137", "fused_block_t_i8"),
+    "qpool_front_i8": Row("spegnet_tpu_torch/csrc/int8_gemm.cu",
+                          "spegnet_tpu/ops/fused_block_t_i8.py:294", "qpool_front_i8"),
+    "fused_block_i8": Row("spegnet_tpu_torch/csrc/int8_gemm.cu",
+                          "spegnet_tpu/ops/fused_block_i8.py:128", "fused_block_i8"),
+    "fused_attention_lanes": Row("spegnet_tpu_torch/csrc/attention_lanes.cu",
+                                 "spegnet_tpu/ops/pallas_attention.py:199",
+                                 "fused_attention_lanes", library=True),
+    "fused_attention": Row("spegnet_tpu_torch/csrc/attention_lanes.cu",
+                           "spegnet_tpu/ops/pallas_attention.py:43", "fused_attention",
+                           library=True),
+    "fused_decoder_block_i8": Row("spegnet_tpu_torch/csrc/decoder_i8.cu",
+                                  "spegnet_tpu/ops/fused_decoder.py:338",
+                                  "fused_decoder_block_i8"),
+    "fused_decoder_block_edge": Row("spegnet_tpu_torch/csrc/decoder_block.cu",
+                                    "spegnet_tpu/ops/fused_decoder.py:338",
+                                    "fused_decoder_block_edge"),
+    "fused_block_t_res": Row("spegnet_tpu_torch/csrc/hiera_block.cu",
+                             "spegnet_tpu/ops/fused_block_t.py:362", "fused_block_t_res"),
+    "fused_block_t_bwd_res": Row("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
+                                 "spegnet_tpu/ops/fused_block_t.py:1449",
+                                 "fused_block_t_bwd_res"),
+    # f32 compute: the f32 kernels behind the same wrappers
+    "fused_block_f32": Row("spegnet_tpu_torch/csrc/block_f32.cu",
+                           "spegnet_tpu/ops/fused_block.py:99", "fused_block", "f32"),
+    "fused_attention_lanes_f32": Row("spegnet_tpu_torch/csrc/attention_f32.cu",
+                                     "spegnet_tpu/ops/pallas_attention.py:199",
+                                     "fused_attention_lanes", "f32", library=True),
+    "fused_attention_f32": Row("spegnet_tpu_torch/csrc/attention_f32.cu",
+                               "spegnet_tpu/ops/pallas_attention.py:43", "fused_attention",
+                               "f32", library=True),
+    "fused_block_i8_f32": Row("spegnet_tpu_torch/csrc/int8_gemm.cu",
+                              "spegnet_tpu/ops/fused_block_i8.py:128", "fused_block_i8", "f32"),
 }
-# rows whose per-forward numbers are those of a 384^2 forward
+# (counter, dtype) -> row of KERNELS
+ROW = {(r.counter, r.dtype): name for name, r in KERNELS.items()}
+# bf16 rows whose per-forward numbers are those of a 384^2 forward
 AT_384 = ("fused_attention_lanes", "fused_attention")
 RES_MODES = ("0", "1", "auto")   # SPEGNET_SAVE_RESIDUALS values
 RES_ROUNDS = 10   # timed rounds of one train step per SAVE_RESIDUALS mode
@@ -318,6 +369,7 @@ def main() -> int:
         log(f"check {name:10s} int8 decoder pieces: {parts} (limits share {kc.I8_PART_FRAC}, "
             f"one code / one bf16 step; scales exact)")
         check(kc.dec_i8_parts_ok(parts), f"{name}: an int8 decoder piece disagrees ({parts})")
+    f32_checks(kc, torch, dev, max_err)
 
     # -- 4. the Predictor on the main path -----------------------------------
     cfg = SPEGNetConfig(variant="large", compute_dtype="bfloat16")
@@ -329,7 +381,7 @@ def main() -> int:
                     "image_processing": {"target_size": 512}}
     predictor = Predictor(None, model_config, None, batch_size=4, device="cuda",
                           model=model)
-    launches = {}
+    launches, launches_f32 = {}, {}   # per run: launch counts of the bf16 / f32 runs
     seg, edge, launches["predict"] = predict_checked(predictor, images, 512, False, torch)
     x = torch.from_numpy(np.stack([predictor.processor.process_array(a)
                                    for a in images])).to(dev)
@@ -373,7 +425,7 @@ def main() -> int:
         del pr, m
 
     # -- 4c. the Predictor on grids that are not 2^k ---------------------------
-    x384 = None
+    x384 = seg384_32 = imgs384 = None
     for size in GRID_SIZES:
         mc = {**model_config, "image_processing": {"target_size": size}}
         pred_s = Predictor(None, mc, None, batch_size=4, device="cuda", model=model)
@@ -400,9 +452,10 @@ def main() -> int:
         check(mae8 <= MASK_MAE_I8DEC_LIMIT,
               f"{size} int8dec: mask MAE {mae8:.3e} > {MASK_MAE_I8DEC_LIMIT}")
         if size == 384:
-            x384 = xs
+            x384, seg384_32, imgs384 = xs, seg_s32, imgs
         del pred_s, pred8, m8
     untried_routes(model, state, torch, dev, launches)
+    model_f32 = f32_predict(state, images, seg32, imgs384, seg384_32, torch, launches_f32)
 
     # -- 5. timings at batch 8 ------------------------------------------------
     x8 = torch.cat([x, x]).to(torch.float32)
@@ -420,33 +473,41 @@ def main() -> int:
             model.kernels = mode != "plain_384"
             run.setdefault(mode, []).append(
                 kc.time_ms(lambda: m(x384_8), iters=10, warmup=2) / 8)
-    model.kernels = True
+        for mode in ("kernel_f32", "plain_f32", "plain_f32", "kernel_f32"):
+            model_f32.kernels = mode == "kernel_f32"
+            run.setdefault(mode, []).append(
+                kc.time_ms(lambda: model_f32(x8), iters=3, warmup=1) / 8)
+    model.kernels = model_f32.kernels = True
+    log(f"e2e f32 (use_amp: false) ms/img at batch 8, 512^2: kernel path {run['kernel_f32']}, "
+        f"plain f32 path {run['plain_f32']}")
     log(f"e2e ms/img at batch 8: kernel path {run['kernel']}, int8 kernel path {run['int8']}, "
         f"speed mode (both int8 flags) {run['speed']}, plain bf16 path {run['plain']}; at "
         f"384^2: kernel path {run['kernel_384']}, speed mode {run['speed_384']}, plain bf16 "
         f"path {run['plain_384']}")
-    del model, predictor, model_i8, pred_i8, model_speed
+    del model, predictor, model_i8, pred_i8, model_speed, model_f32
     torch.cuda.empty_cache()
 
     per = {w: {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "library_ms": 0.0}
            for w in KERNELS}
 
-    def account(wrapper, name, k_ms, p_ms, backward=False, lib_ms=None):
-        # per-forward totals: 512^2 counts, 384^2 counts for the AT_384 rows
-        counts = kc.COUNT_384 if wrapper in AT_384 else kc.BLOCK_COUNT
+    def account(row, name, k_ms, p_ms, backward=False, lib_ms=None):
+        # per-forward totals: 512^2 counts, 384^2 counts for the AT_384 rows,
+        # the f32 forward's at 512^2 for the f32 rows
+        f32 = KERNELS[row].dtype == "f32"
+        counts = kc.COUNT_F32 if f32 else kc.COUNT_384 if row in AT_384 else kc.BLOCK_COUNT
         n = counts.get(name.replace("_ties", ""), 0)
-        if name in kc.I8 or name in kc.DEC_I8:
+        if name in kc.I8 or name in kc.DEC_I8 or name in kc.F32_I8:
             int8_ops, flops, nbytes = kc.i8_work(name, 8)
         else:
             int8_ops = 0.0
             flops, nbytes = kc.work(name.replace("_ties", ""), 8, backward,
-                                    res=wrapper.endswith("_res"))
-        b_ms, by = kc.bound_ms(flops, nbytes, int8_ops)
+                                    res=row.endswith("_res"))
+        b_ms, by = kc.bound_ms(flops, nbytes, int8_ops, f32=f32)
         lib = "" if lib_ms is None else f", library sdpa {lib_ms:.4f} ms"
-        log(f"time {name:10s} {wrapper:21s} batch 8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+        log(f"time {name:10s} {row:21s} batch 8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
             f"ms{lib}, bound {b_ms:.4f} ms ({by}) (x{n} per forward"
-            f"{' at 384^2' if wrapper in AT_384 else ''})")
-        p = per[wrapper]
+            f"{' at 384^2' if row in AT_384 else ' in f32' if f32 else ''})")
+        p = per[row]
         p["ms"] += k_ms * n
         p["plain_ms"] += p_ms * n
         p["ops_ms" if by == "operations" else "bytes_ms"] += b_ms * n
@@ -488,6 +549,19 @@ def main() -> int:
             case = kc.dec_i8_case(name, 8, torch.Generator().manual_seed(2), dev)
             account(case.wrapper, name, kc.time_ms(case.kernel),
                     kc.time_ms(case.plain, iters=3, warmup=1))
+            del case
+        for name, make in kc.f32_cases().items():
+            case = make(name, 8, torch.Generator().manual_seed(2), dev)
+            lib_ms = None
+            if name in kc.F32_ATTN_CASES:
+                lib_ms = kc.time_ms(sdpa_call(name, kc, torch, F, dev))
+            account(ROW[case.wrapper, "f32"], name, kc.time_ms(case.kernel),
+                    kc.time_ms(case.plain), lib_ms=lib_ms)
+            del case
+        for name in kc.F32_I8:
+            case = kc.f32_i8_case(name, 8, torch.Generator().manual_seed(2), dev)
+            account(ROW[case.wrapper, "f32"], name, kc.time_ms(case.kernel),
+                    kc.time_ms(case.plain))
             del case
     torch.cuda.empty_cache()
     yardsticks(kc, kernels, F, torch, dev)
@@ -573,26 +647,30 @@ def main() -> int:
         del tr, res
         torch.cuda.empty_cache()
 
+    f32_training(make_trainer, b2, synthetic_train_batch(8, rng), torch, launches_f32)
+
     validation_phase(master, torch)
 
     # -- 7. evaluate -------------------------------------------------------------
     evaluate_phase(state, torch, dev, 512, ((False, False), (True, False), (True, True)))
     evaluate_phase(state, torch, dev, 384, ((False, False),))
+    evaluate_phase(state, torch, dev, 512, ((False, False),), dtype="float32")
 
     jax_side = sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spegnet_tpu"))
     check(not jax_side, f"the port imported JAX-package modules: {jax_side[:5]}")
 
     table = []
-    for w, (src, rep) in KERNELS.items():
+    for w, r in KERNELS.items():
         p = per[w]
         bound = p["ops_ms"] + p["bytes_ms"]
-        table.append({"name": w, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": sum(run_l.get(w, 0) for run_l in launches.values()),
+        runs = launches_f32 if r.dtype == "f32" else launches
+        table.append({"name": w, "route": "cuda", "source": r.source, "replaces": r.replaces,
+                      "launches": sum(run.get(r.counter, 0) for run in runs.values()),
                       "max_abs_err": max_err[w], "ms": p["ms"], "plain_ms": p["plain_ms"],
                       "bound_ms": bound,
                       "bound_by": "operations" if p["ops_ms"] >= p["bytes_ms"] else "bytes",
-                      "library_ms": p["library_ms"] if w in AT_384 else None})
+                      "library_ms": p["library_ms"] if r.library else None})
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -601,26 +679,30 @@ def main() -> int:
     return 0
 
 
-def predict_checked(predictor, images, size: int, int8: bool, torch, int8_dec: bool = False):
+def predict_checked(predictor, images, size: int, int8: bool, torch, int8_dec: bool = False,
+                    dtype=None):
     """The Predictor on ``images`` with every launch counter zeroed just
-    before: the counters must equal the routes of one forward (and decoder
-    block 2, in the int8 mode with ``int8_dec``), the outputs finite and of
-    the expected shapes.  Returns (masks, edges, counters)."""
+    before: the counters must equal the routes of one forward in ``dtype``
+    (default bf16; and decoder block 2, in the int8 mode with ``int8_dec``;
+    in f32 none, as in JAX), the outputs finite and of the expected shapes.
+    Returns (masks, edges, counters)."""
     from spegnet_tpu_torch import kernels
     from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
     from spegnet_tpu_torch.ops.fused_decoder import decoder_supported
 
-    tag = f"predict {size}{' int8' if int8 else ''}{' int8dec' if int8_dec else ''}"
+    dtype = dtype or torch.bfloat16
+    tag = (f"predict {size}{' int8' if int8 else ''}{' int8dec' if int8_dec else ''}"
+           f"{' f32' if dtype == torch.float32 else ''}")
     kernels.reset_launches()
     seg, edge = predictor.predict_arrays(images)
     torch.cuda.synchronize()
     got = dict(kernels.launches)
     want = {w: 0 for w in kernels.launches}
-    want.update(Counter(trunk_routes(HIERA_VARIANTS["large"], size // 4, torch.bfloat16,
-                                     int8)))
+    want.update(Counter(trunk_routes(HIERA_VARIANTS["large"], size // 4, dtype, int8)))
     want.pop("plain", None)
-    want["fused_decoder_block_i8" if int8_dec else "fused_decoder_block"] = int(
-        decoder_supported(size // 2))
+    if dtype == torch.bfloat16:
+        want["fused_decoder_block_i8" if int8_dec else "fused_decoder_block"] = int(
+            decoder_supported(size // 2))
     log(f"{tag}: launches {got} (expected {want})")
     check(got == want, f"{tag}: launches differ from the routes")
     n = len(images)
@@ -673,16 +755,7 @@ def grad_cosines(make_trainer, batch, size: int, torch, residual_ab: bool = Fals
         del tr, ld
         torch.cuda.empty_cache()
 
-    def cosine(a, b, prefix=""):
-        dot = na = nb = 0.0
-        for n in a:
-            if n.startswith(prefix):
-                dot += float((a[n].double() * b[n].double()).sum())
-                na += float((a[n].double() ** 2).sum())
-                nb += float((b[n].double() ** 2).sum())
-        return dot / max(np.sqrt(na * nb), 1e-300)
-
-    cos = {(p, grp): cosine(grads[p], grads["f32"], pre) for p in ("kernel", "plain")
+    cos = {(p, grp): grad_cosine(grads[p], grads["f32"], pre) for p in ("kernel", "plain")
            for grp, pre in (("all", ""), ("encoder", "encoder."))}
     log(f"train grad {size}^2 (batch 2): loss kernel {losses['kernel']:.6f} plain bf16 "
         f"{losses['plain']:.6f} f32 {losses['f32']:.6f}")
@@ -693,11 +766,11 @@ def grad_cosines(make_trainer, batch, size: int, torch, residual_ab: bool = Fals
               f"{size}^2 kernel-path gradient ({grp}) cosine {cos[('kernel', grp)]:.4f} < "
               f"plain {cos[('plain', grp)]:.4f} - {COSINE_MARGIN}")
     if residual_ab:
-        to32 = {p: cosine(grads[p], grads["f32"]) for p in ("kernel", "kernel_again",
+        to32 = {p: grad_cosine(grads[p], grads["f32"]) for p in ("kernel", "kernel_again",
                                                              "kernel_res")}
         spread = abs(to32["kernel"] - to32["kernel_again"])
-        same = cosine(grads["kernel_again"], grads["kernel"])
-        res_to0 = cosine(grads["kernel_res"], grads["kernel"])
+        same = grad_cosine(grads["kernel_again"], grads["kernel"])
+        res_to0 = grad_cosine(grads["kernel_res"], grads["kernel"])
         log(f"train grad {size}^2 saved-residual pair (batch 2): loss \"1\" "
             f"{losses['kernel_res']:.6f}; cosine to f32: \"1\" {to32['kernel_res']:.9f}, "
             f"\"0\" {to32['kernel']:.9f} / {to32['kernel_again']:.9f}; cosine \"1\" to \"0\" "
@@ -708,6 +781,18 @@ def grad_cosines(make_trainer, batch, size: int, torch, residual_ab: bool = Fals
               f"recompute path's {to32['kernel']:.9f} - {COSINE_MARGIN}")
     del grads
     torch.cuda.empty_cache()
+
+
+def grad_cosine(a, b, prefix: str = "") -> float:
+    """Cosine of two gradients (name -> tensor) over the parameters whose
+    names start with ``prefix``."""
+    dot = na = nb = 0.0
+    for n in a:
+        if n.startswith(prefix):
+            dot += float((a[n].double() * b[n].double()).sum())
+            na += float((a[n].double() ** 2).sum())
+            nb += float((b[n].double() ** 2).sum())
+    return dot / max(np.sqrt(na * nb), 1e-300)
 
 
 def residual_trunk_grads(master, batch, torch, dev) -> None:
@@ -814,24 +899,148 @@ def residual_steps(make_trainer, batch, torch, launches) -> None:
     torch.cuda.empty_cache()
 
 
-def train_launches(size: int, batch: int, steps: int = 3):
+def train_launches(size: int, batch: int, steps: int = 3, dtype=None):
     """Every launch counter after ``steps`` Trainer steps of ``batch`` images
-    at ``size``^2: the training routes (models/hiera.trunk_routes under the
-    current SAVE_RESIDUALS) forward and backward."""
+    at ``size``^2 in compute dtype ``dtype`` (default bf16): the training
+    routes (models/hiera.trunk_routes under the current SAVE_RESIDUALS)
+    forward, and in bf16 backward (in f32 the backwards recompute through
+    the plain versions, as in JAX, and count nothing)."""
     import torch
 
     from spegnet_tpu_torch import kernels
     from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
 
+    dtype = dtype or torch.bfloat16
     want = {w: 0 for w in kernels.launches}
-    for w, n in Counter(trunk_routes(HIERA_VARIANTS["large"], size // 4, torch.bfloat16, False,
+    for w, n in Counter(trunk_routes(HIERA_VARIANTS["large"], size // 4, dtype, False,
                                      train_batch=batch)).items():
         if w != "plain":
             want[w] = steps * n
             bwd = w.replace("_res", "") + "_bwd" + ("_res" if w.endswith("_res") else "")
-            if bwd in want:
+            if bwd in want and dtype == torch.bfloat16:
                 want[bwd] = steps * n
     return want
+
+
+def f32_checks(kc, torch, dev, max_err) -> None:
+    """Phase 3 in f32: every f32 kernel against its plain f32 version at
+    every f32 main-path geometry, batch 2, within kc.F32_REL_LIMIT; the int8
+    gen-1 block on f32 by the int8 rule (a code that crosses a rounding edge
+    moves its output by a dequant step) and its pieces by kc.i8_parts_ok."""
+    for name, make in kc.f32_cases().items():
+        case = make(name, 2, torch.Generator().manual_seed(1), dev)
+        err, rel = kc.compare(case)
+        torch.cuda.synchronize()
+        row = ROW[case.wrapper, "f32"]
+        max_err[row] = max(max_err[row], err)
+        log(f"check {name:14s} {row:26s} max_abs {err:.4e} rel {rel:.4e} "
+            f"(limit {kc.F32_REL_LIMIT})")
+        check(rel <= kc.F32_REL_LIMIT, f"{name}: f32 kernel disagrees with plain f32 ({rel:.3e})")
+        del case
+    for name in kc.F32_I8:
+        case = kc.f32_i8_case(name, 2, torch.Generator().manual_seed(1), dev)
+        res = kc.compare_i8(case)
+        torch.cuda.synchronize()
+        row = ROW[case.wrapper, "f32"]
+        max_err[row] = max(max_err[row], res["max_abs"])
+        log(f"check {name:14s} {row:26s} max_abs {res['max_abs']:.4e} rel {res['rel']:.4e} "
+            f"(limits {kc.I8_MAX}, {kc.REL_LIMIT}); elements beyond {kc.I8_ATOL}: "
+            f"{res['frac_strict']:.4%}")
+        check(kc.i8_ok(res), f"{name}: f32 int8 kernel disagrees with plain int8 ({res})")
+        parts = kc.i8_parts(name, 2, torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        log(f"check {name:14s} int8 pieces: {parts} (limits share {kc.I8_PART_FRAC}, one code; "
+            f"row quant and GEMM without GELU exact; GELU rel {kc.I8_F32_GELU_REL})")
+        check(kc.i8_parts_ok(parts), f"{name}: an f32 int8 piece disagrees ({parts})")
+        del case
+    torch.cuda.empty_cache()
+
+
+def f32_predict(state, images, seg32, imgs384, seg384_32, torch, launches):
+    """Phase 4 in f32 (use_amp: false): the Predictor at 512^2 and 384^2
+    (batch 4) on the f32 kernel path, every launch counter equal to the f32
+    routes (JAX's: gen-1 blocks and fused_attention_lanes, no T-block, no
+    front, decoder block 2 decomposed), mask MAE against the plain f32 path
+    <= MASK_MAE_F32_LIMIT; then with int8_encoder at 512^2 (the int8 gen-1
+    block on f32), MAE <= MASK_MAE_I8_LIMIT.  Returns the f32 model."""
+    from spegnet_tpu_torch.engine.predictor import Predictor
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+
+    model = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="float32"))
+    model.load_state_dict(state)
+    for size, imgs, ref, int8 in ((512, images, seg32, False), (384, imgs384, seg384_32, False),
+                                  (512, images, seg32, True)):
+        mc = {"encoder": {"variant": "large"}, "compute_dtype": "float32", "int8_encoder": int8,
+              "image_processing": {"target_size": size}}
+        m = model
+        if int8:
+            m = SPEGNet(SPEGNetConfig.from_dict(mc))
+            m.load_state_dict(state)
+        pred = Predictor(None, mc, None, batch_size=4, device="cuda", model=m)
+        check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+              "an f32 Predictor left TF32 on")
+        tag = f"{size}{'_int8' if int8 else ''}"
+        seg, _, launches[f"predict_{tag}"] = predict_checked(pred, imgs, size, int8, torch,
+                                                              dtype=torch.float32)
+        mae = float(np.abs(seg - ref).mean())
+        limit = MASK_MAE_I8_LIMIT if int8 else MASK_MAE_F32_LIMIT
+        log(f"predict f32 {tag}: mask MAE vs f32 plain {mae:.4e} (limit {limit}), max "
+            f"{np.abs(seg - ref).max():.4e}")
+        check(mae <= limit, f"f32 {tag}: mask MAE {mae:.3e} > {limit}")
+        del pred, m
+    torch.cuda.empty_cache()
+    return model
+
+
+def f32_training(make_trainer, b2, b8, torch, launches) -> None:
+    """Phase 6 in f32 (use_amp: false), 512^2: the batch-2 gradient through
+    the f32 kernel path against the plain f32 path, cosine >=
+    COSINE_F32_LIMIT for the whole model and the encoder; then 3 Trainer
+    steps at batch 8 on each path: every launch counter of the kernel path
+    equal to three times the f32 routes with no backward counter moving
+    (the f32 backwards recompute through the plain versions, as in JAX),
+    losses finite; ms/step (the two steps after the first) and peak
+    memory."""
+    from spegnet_tpu_torch import kernels
+
+    grads = {}
+    for path in ("kernel", "plain"):
+        tr = make_trainer(2, path == "kernel", "float32")
+        check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+              "an f32 Trainer left TF32 on")
+        ld = tr.forward_loss(*tr.to_device(b2))
+        ld["loss"].backward()
+        grads[path] = {n: p.grad.detach().float() for n, p in tr.model.named_parameters()}
+        check(all(torch.isfinite(g).all().item() for g in grads[path].values()),
+              f"f32 {path} gradient not finite")
+        del tr, ld
+        torch.cuda.empty_cache()
+    for grp, pre in (("all", ""), ("encoder", "encoder.")):
+        cos = grad_cosine(grads["kernel"], grads["plain"], pre)
+        log(f"train f32 grad 512^2 (batch 2) cosine kernel path to plain f32 ({grp}): "
+            f"{cos:.9f} (limit {COSINE_F32_LIMIT})")
+        check(cos >= COSINE_F32_LIMIT, f"f32 gradient ({grp}) cosine {cos:.6f}")
+    del grads
+    for path in ("kernel", "plain"):
+        tr = make_trainer(8, path == "kernel", "float32")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        res = [tr.train_step(b8) for _ in range(3)]
+        torch.cuda.synchronize()
+        if path == "kernel":
+            launches["train"] = dict(kernels.launches)
+            want = train_launches(512, 8, dtype=torch.float32)
+            log(f"train f32: launches {launches['train']} (expected {want})")
+            check(launches["train"] == want, "f32 train launches differ from the routes")
+        lossv = [r["metrics"]["loss"] for r in res]
+        check(all(np.isfinite(lossv)), f"f32 {path}: non-finite losses {lossv}")
+        ms = [1e3 * (r["timing"]["forward_time"] + r["timing"]["backward_time"])
+              for r in res[1:]]
+        log(f"train f32 {path} 512^2 batch 8: losses {lossv}, ms/step after warm-up "
+            f"{[round(v, 3) for v in ms]}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del tr, res
+        torch.cuda.empty_cache()
 
 
 def validation_phase(master, torch) -> None:
@@ -968,21 +1177,24 @@ def untried_routes(model, state, torch, dev, launches) -> None:
 
 def sdpa_call(name: str, kc, torch, F, dev):
     """F.scaled_dot_product_attention on the q / k / v of attention geometry
-    ``name`` at batch 8 (heads-major views of one packed qkv)."""
+    ``name`` (bf16, or f32 for a geometry of kc.F32_ATTN_CASES) at batch 8
+    (heads-major views of one packed qkv)."""
     from spegnet_tpu_torch.ops.pallas_attention import split_qkv
 
-    l = kc.ATTN_CASES[name][1]
+    f32 = name in kc.F32_ATTN_CASES
+    l = (kc.F32_ATTN_CASES if f32 else kc.ATTN_CASES)[name][1]
     per_image, heads, d = kc.ATTN[l]
     qkv = torch.randn((8 * per_image, l, 3 * heads * d),
-                      generator=torch.Generator().manual_seed(2)).to(dev, torch.bfloat16)
+                      generator=torch.Generator().manual_seed(2)).to(
+                          dev, torch.float32 if f32 else torch.bfloat16)
     q, k, v = (t.transpose(1, 2) for t in split_qkv(qkv, heads))
     return lambda: F.scaled_dot_product_attention(q, k, v)
 
 
-def evaluate_phase(state, torch, dev, size: int, flags) -> None:
-    """The Evaluator in memory on 8 synthetic samples at ``size``, for each
-    (int8_encoder, int8_decoder) pair of ``flags``; the card's metrics
-    against the CPU's on the same quantized predictions."""
+def evaluate_phase(state, torch, dev, size: int, flags, dtype: str = "bfloat16") -> None:
+    """The Evaluator in memory on 8 synthetic samples at ``size`` in compute
+    dtype ``dtype``, for each (int8_encoder, int8_decoder) pair of ``flags``;
+    the card's metrics against the CPU's on the same quantized predictions."""
     from spegnet_tpu_torch.data.pipeline import synthetic_eval_batch
     from spegnet_tpu_torch.engine.evaluator import METRIC_KEYS, Evaluator
     from spegnet_tpu_torch.losses import resize_logits_to_canvas
@@ -996,7 +1208,7 @@ def evaluate_phase(state, torch, dev, size: int, flags) -> None:
     log(f"evaluate {size}^2: 8 samples, canvas {batch.masks.shape[1:]}, sizes "
         f"{batch.mask_hw.tolist()}")
     for int8, int8_dec in flags:
-        mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
+        mc = {"encoder": {"variant": "large"}, "compute_dtype": dtype,
               "int8_encoder": int8, "int8_decoder": int8_dec,
               "image_processing": {"target_size": size}}
         model = SPEGNet(SPEGNetConfig.from_dict(mc))
@@ -1006,6 +1218,10 @@ def evaluate_phase(state, torch, dev, size: int, flags) -> None:
         t = ev.summaries["synthetic"]["timing"]
         tag = f"{size}^2 " + {(False, False): "bf16", (True, False): "int8",
                               (False, True): "int8dec", (True, True): "speed"}[(int8, int8_dec)]
+        if dtype == "float32":
+            tag = f"{size}^2 f32"
+            check(not torch.backends.cuda.matmul.allow_tf32
+                  and not torch.backends.cudnn.allow_tf32, "f32 evaluate left TF32 on")
         log(f"evaluate {tag}: means {means}; forward {t['forward_ms_per_image']:.3f} ms/img, "
             f"metrics {t['metrics_ms_per_image']:.3f} ms/img (batch 8, the batch twice after "
             f"one warm-up pass; per batch: forward {t['forward_ms']} ms, metrics "
@@ -1099,6 +1315,35 @@ def yardsticks(kc, kernels, F, torch, dev) -> None:
     log(f"yardstick stage3  int8 gemm fc1  batch 8: kernel {k_ms:.4f} ms "
         f"({ops / k_ms / 1e9:.1f} TOPS, dequant + GELU epilogue, rel err {err:.2e}), "
         f"library torch._int_mm {l_ms:.4f} ms ({ops / l_ms / 1e9:.1f} TOPS, int32 out)")
+    # the f32 gen-1 chain's pieces against F.linear / SDPA / F.layer_norm in f32
+    from spegnet_tpu_torch.ops.pallas_attention import attend_windows
+
+    for name in ("stage1_f32", "stage4_f32"):
+        c, heads, l, n = kc.F32_BLOCKS[name]
+        g = torch.Generator().manual_seed(5)
+        wts = kc.block_weights(c, heads, g, dev, torch.float32)
+        d, m = c // heads, 8 * n
+        x = torch.randn((m, c), generator=g).to(dev)
+        qkv = kernels.gemm_f32(x, wts.wqkv, wts.bqkv)
+        q4 = [t.contiguous() for t in qkv.reshape(m // l, l, 3, heads, d).permute(2, 0, 3, 1, 4)]
+        pairs = {
+            "gemm qkv": (lambda: kernels.gemm_f32(x, wts.wqkv, wts.bqkv),
+                         lambda: F.linear(x, wts.wqkv, wts.bqkv), 2.0 * m * c * 3 * c),
+            "gemm fc1 gelu": (lambda: kernels.gemm_f32(x, wts.wfc1, wts.bfc1, gelu="erf"),
+                              lambda: F.linear(x, wts.wfc1, wts.bfc1), 2.0 * m * c * 4 * c),
+            "attention": (lambda: attend_windows(qkv, heads, l, d ** -0.5),
+                          lambda: F.scaled_dot_product_attention(*q4), 4.0 * m * l * c),
+            "layernorm": (lambda: kernels.layernorm_f32(x, wts.ln1_w, wts.ln1_b, 1e-6),
+                          lambda: F.layer_norm(x, (c,), wts.ln1_w, wts.ln1_b, 1e-6), 0.0),
+        }
+        for what, (k, lib, flops) in pairs.items():
+            k_ms, l_ms = kc.time_ms(k), kc.time_ms(lib)
+            rate = (f" ({flops / k_ms / 1e9:.1f} vs {flops / l_ms / 1e9:.1f} TFLOP/s)"
+                    if flops else "")
+            log(f"yardstick {name:10s} {what:14s} f32 batch 8: kernel {k_ms:.4f} ms, library "
+                f"{l_ms:.4f} ms{rate}")
+        del q4, qkv
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

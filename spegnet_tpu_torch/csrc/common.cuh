@@ -2,8 +2,9 @@
 //
 // Every C entry point in this directory launches on the stream it is given,
 // allocates nothing and returns cudaGetLastError() so the Python wrapper can
-// raise on a refused launch.  Tensors are bf16 (activations, matmul weights)
-// or f32 (LayerNorm / folded-BN parameters); products accumulate in f32.
+// raise on a refused launch.  Activations and matmul weights are bf16, or f32
+// under f32 compute; LayerNorm and folded-BN parameters are f32; products
+// accumulate in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,6 +99,52 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma.m16n8k8 tf32 -> f32 fragments, lane = 4g + t: A (16 x 8 row-major)
+// a0 (row g, k t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B (8 x 8, "col")
+// b0 (k t, n g), b1 (k t+4, n g); C as for bf16.  The tensor cores read the
+// top 19 bits of each operand (sign, exponent, 10 mantissa bits).
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: v = big + small, big = v rounded to tf32 (low 13 bits cleared),
+// small = (v - big) rounded to tf32.  Then a b = big_a big_b + big_a small_b
+// + small_a big_b + small_a small_b, and the last term (~2^-22 of the
+// product) is dropped: ~f32 accuracy on the TF32 tensor cores.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+// c += a b with the 3xTF32 split of both operands.  The tensor cores sum
+// the three products from zero (small ones first) and the result is added
+// to c on the FP32 pipe: their own accumulation truncates, which over a
+// long sum (K 4608, 4096 keys) biases c by ~1e-5 of it; added here it
+// rounds to nearest.
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ab[4],
+                                           const uint32_t as[4], const uint32_t bb[2],
+                                           const uint32_t bs[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, as, bb[0], bb[1]);
+  mma_tf32(t, ab, bs[0], bs[1]);
+  mma_tf32(t, ab, bb[0], bb[1]);
+  c[0] += t[0];
+  c[1] += t[1];
+  c[2] += t[2];
+  c[3] += t[3];
 }
 
 // Non-negative floats order as their bit patterns do, so an int atomicMax
@@ -269,6 +316,11 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k0 = 0.7978845608028654f;
   return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
+}
+
+// jax.nn.gelu(approximate=False), torch's F.gelu: 0.5 x (1 + erf(x / sqrt(2))).
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
 // d/dx of gelu_tanh.

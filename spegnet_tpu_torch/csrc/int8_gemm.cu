@@ -1,16 +1,21 @@
 // W8A8 building blocks of the int8 encoder blocks on Hopper:
 //
-//   sp_layernorm_q8  LayerNorm of a bf16 row (f32 statistics, output rounded
-//                    to bf16), then the row's symmetric int8 quant
-//   sp_quant_rows    symmetric per-row int8 quant of a bf16 matrix
+//   sp_layernorm_q8  LayerNorm of a bf16 or f32 row (f32 statistics, output
+//                    rounded to the activation dtype), then the row's
+//                    symmetric int8 quant
+//   sp_quant_rows    symmetric per-row int8 quant of a bf16 or f32 matrix
 //   sp_gemm_i8       A[M, K] int8 . W[N, K]^T int8 -> int32, dequantized
 //                    with one f32 scale per row of A and of W, + f32 bias,
-//                    (-> tanh GELU) -> bf16 (+ bf16 residual)
+//                    (-> GELU, tanh or erf) -> bf16 or f32 (+ a residual of
+//                    the output dtype)
 //
-// Chained with the bf16 attention kernels (attention.cuh) they replace the
-// TPU kernels spegnet_tpu/ops/fused_block_t_i8.py `_kernel_i8` (:137, #10)
-// and `_qpool_kernel_i8` (:294, #11), and spegnet_tpu/ops/fused_block_i8.py
-// `_kernel_i8` (:128, #12): see ops/fused_block_t_i8.py for the chains.
+// Chained with the attention kernels (attention.cuh in bf16,
+// attention_f32.cu in f32) they replace the TPU kernels
+// spegnet_tpu/ops/fused_block_t_i8.py `_kernel_i8` (:137, #10) and
+// `_qpool_kernel_i8` (:294, #11), bf16, and spegnet_tpu/ops/fused_block_i8.py
+// `_kernel_i8` (:128, #12), bf16 and f32 (the JAX package's gen-1 gate
+// ignores dtype, so an f32 `int8_encoder` model runs #12 at dt = f32 with the
+// erf GELU): see ops/fused_block_t_i8.py for the chains.
 //
 // The quant follows the TPU kernels exactly, since a different rounding
 // changes codes: scale s = max(absmax * f32(1/127), 1e-12), codes
@@ -22,11 +27,11 @@
 //
 // Bound on the H100: the four projections carry ~90% of a block's
 // operations and run at the int8 tensor-core rate (twice bf16's) at stages
-// 3-4; the quant passes are row-local bandwidth passes that read bf16 and
-// write a quarter of a bf16 matrix's bytes less.  The GEMM is a plain
-// mma.sync m16n8k32 kernel (128 x 128 x 64 tiles, 8 warps of 64 x 32, a
-// 3-stage cp.async ring, ldmatrix fragments); wgmma with s8 operands and
-// TMA is later work.
+// 3-4; the quant passes are row-local bandwidth passes that read the
+// activations and write a quarter (f32: an eighth) of their bytes.  The GEMM
+// is a plain mma.sync m16n8k32 kernel (128 x 128 x 64 tiles, 8 warps of 64 x
+// 32, a 3-stage cp.async ring, ldmatrix fragments); wgmma with s8 operands
+// and TMA is later work.
 #include "common.cuh"
 
 namespace spk {
@@ -52,88 +57,132 @@ __device__ __forceinline__ uint2 q_pack8(const float (&v)[8], float inv) {
   return make_uint2(w[0], w[1]);
 }
 
-// One warp per row; C % 8 == 0.  y = bf16((x - mu) * rsqrt(var + eps) * w + b),
-// each step rounded as the unfused f32 expression, so the two passes over the
-// row (absmax, then codes) see identical values.
-__device__ __forceinline__ float ln_val(float x, float mu, float r, float w, float b) {
-  return bf(to_bf(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), r), w), b)));
+// Activations: bf16 (8 per 16-byte load) or f32 (4 per load).
+template <typename T>
+struct Act;
+
+template <>
+struct Act<bf16> {
+  static constexpr int kVec = 8;
+  using Vec = uint4;
+  __device__ __forceinline__ static float get(Vec& v, int e) { return bf(lanes(v)[e]); }
+  // the LayerNorm output as the block keeps it: rounded to bf16
+  __device__ __forceinline__ static float keep(float v) { return bf(to_bf(v)); }
+};
+
+template <>
+struct Act<float> {
+  static constexpr int kVec = 4;
+  using Vec = float4;
+  __device__ __forceinline__ static float get(Vec& v, int e) {
+    return reinterpret_cast<float*>(&v)[e];
+  }
+  __device__ __forceinline__ static float keep(float v) { return v; }
+};
+
+// kVec int8 codes of kVec floats, packed for one store.
+__device__ __forceinline__ void q_store(int8_t* dst, const float (&v)[8], float inv) {
+  *reinterpret_cast<uint2*>(dst) = q_pack8(v, inv);
 }
 
+__device__ __forceinline__ void q_store(int8_t* dst, const float (&v)[4], float inv) {
+  uint32_t w = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) w |= (uint32_t)(uint8_t)q_code(v[e], inv) << (8 * e);
+  *reinterpret_cast<uint32_t*>(dst) = w;
+}
+
+// One warp per row; C % kVec == 0.  y = keep((x - mu) * rsqrt(var + eps) * w
+// + b), each step rounded as the unfused f32 expression, so the two passes
+// over the row (absmax, then codes) see identical values.
+template <typename T>
+__device__ __forceinline__ float ln_val(float x, float mu, float r, float w, float b) {
+  return Act<T>::keep(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), r), w), b));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(Q_WARPS * 32)
-layernorm_q8_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+layernorm_q8_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, int8_t* __restrict__ q,
                     float* __restrict__ scale, long rows, int C, float eps) {
+  using A = Act<T>;
+  constexpr int VE = A::kVec;
+  using Vec = typename A::Vec;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long row = (long)blockIdx.x * Q_WARPS + warp;
   if (row >= rows) return;
-  const bf16* xr = x + row * C;
-  const int nv = C / 8;
+  const T* xr = x + row * C;
+  const int nv = C / VE;
   float s = 0.f;
   for (int cv = lane; cv < nv; cv += 32) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + cv * 8);
+    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) s += bf(lanes(v)[e]);
+    for (int e = 0; e < VE; ++e) s += A::get(v, e);
   }
   const float mu = warp_sum(s) / C;
   float var = 0.f;
   for (int cv = lane; cv < nv; cv += 32) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + cv * 8);
+    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float d = bf(lanes(v)[e]) - mu;
+    for (int e = 0; e < VE; ++e) {
+      const float d = A::get(v, e) - mu;
       var += d * d;
     }
   }
   const float r = rsqrtf(warp_sum(var) / C + eps);
   float amax = 0.f;
   for (int cv = lane; cv < nv; cv += 32) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + cv * 8);
+    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int c = cv * 8 + e;
-      amax = fmaxf(amax, fabsf(ln_val(bf(lanes(v)[e]), mu, r, w[c], b[c])));
+    for (int e = 0; e < VE; ++e) {
+      const int c = cv * VE + e;
+      amax = fmaxf(amax, fabsf(ln_val<T>(A::get(v, e), mu, r, w[c], b[c])));
     }
   }
   const float sc = q_scale(warp_max(amax));
   const float inv = 1.0f / sc;
   int8_t* qr = q + row * C;
   for (int cv = lane; cv < nv; cv += 32) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + cv * 8);
-    float y[8];
+    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
+    float y[VE];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int c = cv * 8 + e;
-      y[e] = ln_val(bf(lanes(v)[e]), mu, r, w[c], b[c]);
+    for (int e = 0; e < VE; ++e) {
+      const int c = cv * VE + e;
+      y[e] = ln_val<T>(A::get(v, e), mu, r, w[c], b[c]);
     }
-    *reinterpret_cast<uint2*>(qr + cv * 8) = q_pack8(y, inv);
+    q_store(qr + cv * VE, y, inv);
   }
   if (lane == 0) scale[row] = sc;
 }
 
-// One warp per row of a bf16 [rows, K] matrix; K % 8 == 0.
+// One warp per row of a [rows, K] matrix; K % kVec == 0.
+template <typename T>
 __global__ void __launch_bounds__(Q_WARPS * 32)
-quant_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
+quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                   float* __restrict__ scale, long rows, int K) {
+  using A = Act<T>;
+  constexpr int VE = A::kVec;
+  using Vec = typename A::Vec;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long row = (long)blockIdx.x * Q_WARPS + warp;
   if (row >= rows) return;
-  const bf16* xr = x + row * K;
-  const int nv = K / 8;
+  const T* xr = x + row * K;
+  const int nv = K / VE;
   float amax = 0.f;
   for (int cv = lane; cv < nv; cv += 32) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + cv * 8);
+    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(bf(lanes(v)[e])));
+    for (int e = 0; e < VE; ++e) amax = fmaxf(amax, fabsf(A::get(v, e)));
   }
   const float sc = q_scale(warp_max(amax));
   const float inv = 1.0f / sc;
   int8_t* qr = q + row * K;
   for (int cv = lane; cv < nv; cv += 32) {
-    uint4 v = *reinterpret_cast<const uint4*>(xr + cv * 8);
-    float y[8];
+    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
+    float y[VE];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) y[e] = bf(lanes(v)[e]);
-    *reinterpret_cast<uint2*>(qr + cv * 8) = q_pack8(y, inv);
+    for (int e = 0; e < VE; ++e) y[e] = A::get(v, e);
+    q_store(qr + cv * VE, y, inv);
   }
   if (lane == 0) scale[row] = sc;
 }
@@ -148,17 +197,38 @@ constexpr int I8_TILE = (I8_BM + I8_BN) * I8_PITCH;
 constexpr int I8_SMEM = I8_STAGES * I8_TILE;
 constexpr int I8_THREADS = 256;
 
-enum { I8_ACT_NONE = 0, I8_ACT_GELU = 1 };
+enum { I8_ACT_NONE = 0, I8_ACT_GELU = 1, I8_ACT_GELU_ERF = 2 };
 
-// C[M, N] = dequant(A W^T) + bias (-> GELU), rounded to bf16 (+ res[M, N],
-// a bf16 + bf16 sum rounded once more).  K % 32 == 0, N % 8 == 0; the M, N
+// Two output values, rounded to the output type (bf16 or f32).
+__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+__device__ __forceinline__ float2 load2(const bf16* src) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+}
+
+__device__ __forceinline__ float2 load2(const float* src) {
+  return *reinterpret_cast<const float2*>(src);
+}
+
+__device__ __forceinline__ float round_to(bf16*, float v) { return bf(to_bf(v)); }
+
+__device__ __forceinline__ float round_to(float*, float v) { return v; }
+
+// C[M, N] = dequant(A W^T) + bias (-> GELU), rounded to OutT (+ res[M, N],
+// an OutT + OutT sum rounded once more).  K % 32 == 0, N % 8 == 0; the M, N
 // and K tails are zero-filled in shared memory.
-template <int ACT, bool SW_FIRST>
+template <int ACT, bool SW_FIRST, typename OutT>
 __global__ void __launch_bounds__(I8_THREADS)
 gemm_i8_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
                const int8_t* __restrict__ W, const float* __restrict__ sw,
-               const float* __restrict__ bias, const bf16* __restrict__ res,
-               bf16* __restrict__ C, int M, int N, int K) {
+               const float* __restrict__ bias, const OutT* __restrict__ res,
+               OutT* __restrict__ C, int M, int N, int K) {
   extern __shared__ __align__(16) unsigned char smem_i8[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
@@ -232,7 +302,7 @@ gemm_i8_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
   }
   cp_async_wait<0>();
 
-  // Epilogue straight from the fragments: bf16 pairs, rows g and g + 8.
+  // Epilogue straight from the fragments: pairs, rows g and g + 8.
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = n0 + wn * 32 + ni * 8 + 2 * t;
@@ -254,31 +324,51 @@ gemm_i8_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
                                    : __fmul_rn(__fmul_rn(a, x), ws);
           v[e] = __fadd_rn(p, e ? b1 : b0);
           if (ACT == I8_ACT_GELU) v[e] = gelu_tanh(v[e]);
+          if (ACT == I8_ACT_GELU_ERF) v[e] = gelu_erf(v[e]);
         }
-        __nv_bfloat162 o = __floats2bfloat162_rn(v[0], v[1]);
+        OutT* dst = C + row * N + col;
         if (res) {
-          const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(res + row * N + col);
-          o = __floats2bfloat162_rn(__low2float(rv) + __low2float(o),
-                                    __high2float(rv) + __high2float(o));
+          const float2 rv = load2(res + row * N + col);
+          v[0] = rv.x + round_to(dst, v[0]);
+          v[1] = rv.y + round_to(dst, v[1]);
         }
-        *reinterpret_cast<__nv_bfloat162*>(C + row * N + col) = o;
+        store2(dst, v[0], v[1]);
       }
     }
   }
 }
 
-template <int ACT, bool SW_FIRST>
+template <int ACT, bool SW_FIRST, typename OutT>
 cudaError_t launch_gemm_i8(const void* a, const void* sa, const void* w, const void* sw,
                            const void* bias, const void* res, void* c, int M, int N, int K,
                            cudaStream_t st) {
-  cudaFuncSetAttribute(gemm_i8_kernel<ACT, SW_FIRST>,
+  cudaFuncSetAttribute(gemm_i8_kernel<ACT, SW_FIRST, OutT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, I8_SMEM);
   const long blocks = (long)((N + I8_BN - 1) / I8_BN) * ((M + I8_BM - 1) / I8_BM);
   if (blocks >= (1L << 31)) return cudaErrorInvalidConfiguration;
-  gemm_i8_kernel<ACT, SW_FIRST><<<(unsigned)blocks, I8_THREADS, I8_SMEM, st>>>(
+  gemm_i8_kernel<ACT, SW_FIRST, OutT><<<(unsigned)blocks, I8_THREADS, I8_SMEM, st>>>(
       (const int8_t*)a, (const float*)sa, (const int8_t*)w, (const float*)sw,
-      (const float*)bias, (const bf16*)res, (bf16*)c, M, N, K);
+      (const float*)bias, (const OutT*)res, (OutT*)c, M, N, K);
   return cudaGetLastError();
+}
+
+template <bool SW_FIRST, typename OutT>
+cudaError_t launch_gemm_i8_act(int act, const void* a, const void* sa, const void* w,
+                               const void* sw, const void* bias, const void* res, void* c,
+                               int M, int N, int K, cudaStream_t st) {
+  switch (act) {
+    case I8_ACT_NONE:
+      return launch_gemm_i8<I8_ACT_NONE, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c, M, N, K,
+                                                         st);
+    case I8_ACT_GELU:
+      return launch_gemm_i8<I8_ACT_GELU, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c, M, N, K,
+                                                         st);
+    case I8_ACT_GELU_ERF:
+      return launch_gemm_i8<I8_ACT_GELU_ERF, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c, M, N,
+                                                             K, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -286,38 +376,52 @@ cudaError_t launch_gemm_i8(const void* a, const void* sa, const void* w, const v
 
 extern "C" {
 
+// f32: x is f32 (else bf16).
 int sp_layernorm_q8(const void* x, const void* w, const void* b, void* q, void* scale,
-                    long rows, int C, float eps, void* stream) {
+                    long rows, int C, float eps, int f32, void* stream) {
   const unsigned grid = (unsigned)((rows + spk::Q_WARPS - 1) / spk::Q_WARPS);
-  spk::layernorm_q8_kernel<<<grid, spk::Q_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const spk::bf16*)x, (const float*)w, (const float*)b, (int8_t*)q, (float*)scale, rows,
-      C, eps);
-  return (int)cudaGetLastError();
-}
-
-int sp_quant_rows(const void* x, void* q, void* scale, long rows, int K, void* stream) {
-  const unsigned grid = (unsigned)((rows + spk::Q_WARPS - 1) / spk::Q_WARPS);
-  spk::quant_rows_kernel<<<grid, spk::Q_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const spk::bf16*)x, (int8_t*)q, (float*)scale, rows, K);
-  return (int)cudaGetLastError();
-}
-
-// gelu: 0 none, 1 tanh GELU; sw_first: the dequant order (see the header).
-int sp_gemm_i8(const void* a, const void* sa, const void* w, const void* sw, const void* bias,
-               const void* res, void* c, int M, int N, int K, int gelu, int sw_first,
-               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (gelu && sw_first)
-    return (int)spk::launch_gemm_i8<spk::I8_ACT_GELU, true>(a, sa, w, sw, bias, res, c, M, N,
-                                                             K, st);
-  if (gelu)
-    return (int)spk::launch_gemm_i8<spk::I8_ACT_GELU, false>(a, sa, w, sw, bias, res, c, M,
-                                                              N, K, st);
-  if (sw_first)
-    return (int)spk::launch_gemm_i8<spk::I8_ACT_NONE, true>(a, sa, w, sw, bias, res, c, M, N,
-                                                             K, st);
-  return (int)spk::launch_gemm_i8<spk::I8_ACT_NONE, false>(a, sa, w, sw, bias, res, c, M, N,
-                                                            K, st);
+  if (f32)
+    spk::layernorm_q8_kernel<float><<<grid, spk::Q_WARPS * 32, 0, st>>>(
+        (const float*)x, (const float*)w, (const float*)b, (int8_t*)q, (float*)scale, rows, C,
+        eps);
+  else
+    spk::layernorm_q8_kernel<spk::bf16><<<grid, spk::Q_WARPS * 32, 0, st>>>(
+        (const spk::bf16*)x, (const float*)w, (const float*)b, (int8_t*)q, (float*)scale,
+        rows, C, eps);
+  return (int)cudaGetLastError();
+}
+
+int sp_quant_rows(const void* x, void* q, void* scale, long rows, int K, int f32,
+                  void* stream) {
+  const unsigned grid = (unsigned)((rows + spk::Q_WARPS - 1) / spk::Q_WARPS);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f32)
+    spk::quant_rows_kernel<float><<<grid, spk::Q_WARPS * 32, 0, st>>>(
+        (const float*)x, (int8_t*)q, (float*)scale, rows, K);
+  else
+    spk::quant_rows_kernel<spk::bf16><<<grid, spk::Q_WARPS * 32, 0, st>>>(
+        (const spk::bf16*)x, (int8_t*)q, (float*)scale, rows, K);
+  return (int)cudaGetLastError();
+}
+
+// act: 0 none, 1 tanh GELU, 2 erf GELU; sw_first: the dequant order (see the
+// header); f32: the output and the residual are f32 (else bf16).
+int sp_gemm_i8(const void* a, const void* sa, const void* w, const void* sw, const void* bias,
+               const void* res, void* c, int M, int N, int K, int act, int sw_first, int f32,
+               void* stream) {
+  using namespace spk;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f32)
+    return (int)(sw_first ? launch_gemm_i8_act<true, float>(act, a, sa, w, sw, bias, res, c, M,
+                                                            N, K, st)
+                          : launch_gemm_i8_act<false, float>(act, a, sa, w, sw, bias, res, c,
+                                                             M, N, K, st));
+  if (act == I8_ACT_GELU_ERF) return (int)cudaErrorInvalidValue;
+  return (int)(sw_first ? launch_gemm_i8_act<true, bf16>(act, a, sa, w, sw, bias, res, c, M, N,
+                                                         K, st)
+                        : launch_gemm_i8_act<false, bf16>(act, a, sa, w, sw, bias, res, c, M,
+                                                          N, K, st));
 }
 
 }  // extern "C"

@@ -33,7 +33,7 @@ from spegnet_tpu_torch.engine.model_loader import load_checkpoint
 from spegnet_tpu_torch.losses import resize_logits_to_canvas
 from spegnet_tpu_torch.metrics.torch_metrics import compute_batch_metrics, quantize_predictions
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
-from spegnet_tpu_torch.utils.device import resolve_device
+from spegnet_tpu_torch.utils.device import f32_precision, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +127,7 @@ class Evaluator:
             state_dict, _ = load_checkpoint(model_path)
             model.load_state_dict(state_dict, strict=True)
         self.model = model.eval().to_compute(self.device)
+        f32_precision(model.config.dtype)
         img_cfg = model_config.get("image_processing", {})
         self.target_size = img_cfg.get("target_size", 512)
         self.processor = ImageProcessor(

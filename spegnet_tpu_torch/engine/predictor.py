@@ -25,7 +25,7 @@ from spegnet_tpu_torch.data.pipeline import ImageProcessor
 from spegnet_tpu_torch.engine.model_loader import load_checkpoint
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 from spegnet_tpu_torch.ops.resize import resize_bilinear
-from spegnet_tpu_torch.utils.device import resolve_device
+from spegnet_tpu_torch.utils.device import f32_precision, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -113,6 +113,7 @@ class Predictor:
             state_dict, _ = load_checkpoint(model_path)
             model.load_state_dict(state_dict, strict=True)
         self.model = model.eval().to_compute(self.device)
+        f32_precision(model.config.dtype)
         self.result_manager = None
         if dir_manager is not None:
             self.result_manager = PredictionResultManager(dir_manager)

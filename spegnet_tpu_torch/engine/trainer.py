@@ -53,7 +53,7 @@ from spegnet_tpu_torch.losses import LossConfig, cod_loss, resize_logits_to_canv
 from spegnet_tpu_torch.metrics.torch_metrics import compute_batch_metrics, quantize_predictions
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 from spegnet_tpu_torch.ops import wide
-from spegnet_tpu_torch.utils.device import resolve_device
+from spegnet_tpu_torch.utils.device import f32_precision, resolve_device
 from spegnet_tpu_torch.utils.weights import init_weights
 
 logger = logging.getLogger(__name__)
@@ -226,6 +226,7 @@ class Trainer:
             elif ckpt:
                 logger.warning(f"Encoder checkpoint {ckpt} not found - training from scratch")
         self.model = model.to(self.device)
+        f32_precision(model.config.dtype)
         self.loss_cfg = LossConfig.from_dict(self.config.get("loss", {}))
         self.batch_size = self.config["batch_size"]
         self.num_epochs = self.config["num_epochs"]

@@ -1,7 +1,8 @@
 """Main-path kernel geometries and kernel-vs-plain comparisons.
 
-Every geometry below is one that bf16 SPEGNet inference or training with
-the Hiera-L trunk hands a kernel wrapper, per image: at 512^2 (the Morton
+Every geometry below is one that SPEGNet inference or training with the
+Hiera-L trunk hands a kernel wrapper, per image, in bf16 and (the ``F32``
+tables, ``use_amp: false``) in f32: at 512^2 (the Morton
 path), and at the input sizes whose patch grid is not 2^k (352^2, 384^2,
 640^2, 768^2), where the T-block, the transition front and the gen-1 block
 see other token counts and the decomposed blocks' attention runs
@@ -15,6 +16,9 @@ kernel path (the wrappers' autograd Functions) and through autograd of the
 plain version, plus the two backward passes alone for timing.
 :func:`work` counts each call's FLOPs and bytes for its roofline bound.
 Used by the CUDA-only tests and by chip_smoke.py.
+
+The f32 kernels are held to :data:`F32_REL_LIMIT` against their plain f32
+versions (TF32 off), and their bound is taken at :data:`PEAK_F32`.
 """
 
 from __future__ import annotations
@@ -70,12 +74,13 @@ DEC_EDGE = {"dec_edge": (128, 256, 64, 128), "dec_edge_384": (96, 256, 64, 128)}
 # image, heads, head_dim).  L 64: stage 4 at 352^2 / 384^2 (grid 11 / 12
 # zero-padded to 16); L 256: stage 3 there (grid 22 / 24 padded to 32);
 # L 484 / 576 / 1600 / 2304: the stage-3 global blocks at 352^2 / 384^2 /
-# 640^2 / 768^2.  Each L is a case of fused_attention_lanes ("lanes<L>",
-# on the packed qkv) and of fused_attention ("attn<L>", on strided q / k / v
-# views of the same qkv).
+# 640^2 / 768^2 (in f32 also 1024 / 4096 at 512^2 / 1024^2, whose bf16
+# globals take the T-block).  Each bf16 L is a case of fused_attention_lanes
+# ("lanes<L>", on the packed qkv) and of fused_attention ("attn<L>", on
+# strided q / k / v views of the same qkv).
 ATTN = {64: (4, 16, 72), 256: (4, 8, 72), 484: (1, 8, 72), 576: (1, 8, 72),
-        1600: (1, 8, 72), 2304: (1, 8, 72)}
-ATTN_CASES = {f"{kind}{l}": (wrapper, l) for l in ATTN
+        1024: (1, 8, 72), 1600: (1, 8, 72), 2304: (1, 8, 72), 4096: (1, 8, 72)}
+ATTN_CASES = {f"{kind}{l}": (wrapper, l) for l in (64, 256, 484, 576, 1600, 2304)
               for kind, wrapper in (("lanes", "fused_attention_lanes"),
                                     ("attn", "fused_attention"))}
 # The int8 encoder's geometries (model.int8_encoder): each bf16 geometry the
@@ -83,6 +88,24 @@ ATTN_CASES = {f"{kind}{l}": (wrapper, l) for l in ATTN
 I8 = {"stage2_i8": ("stage2", "fused_block_t_i8"), "stage3_i8": ("stage3", "fused_block_t_i8"),
       "global_i8": ("global", "fused_block_t_i8"), "stage4_i8": ("stage4", "fused_block_i8"),
       "t23_i8": ("t23", "qpool_front_i8"), "t34_i8": ("t34", "qpool_front_i8")}
+
+# f32 compute: the gen-1 block at every f32 main-path geometry of Hiera-L
+# 512^2 (stage 1, stage 2, stage 4; in f32 JAX takes no T-block, so the
+# gen-1 block carries stages 1-2 too), name: (C, heads, window tokens L,
+# tokens per image); the attention kernel at every f32 lanes length
+# (stage 3 at L 256, the global blocks at 484 / 576 / 1024 / 1600 / 4096 at
+# 352^2 / 384^2 / 512^2 / 640^2 / 1024^2, stage 4 of 352^2 / 384^2 at 64) for
+# fused_attention_lanes, and at 512^2's lengths for fused_attention; and the
+# int8 gen-1 block on f32 at stage 4 (``int8_encoder``).
+F32_BLOCKS = {"stage1_f32": (144, 2, 64, 16384), "stage2_f32": (288, 4, 16, 4096),
+              "stage4_f32": (1152, 16, 64, 256)}
+F32_ATTN_CASES = {f"lanes{l}_f32": ("fused_attention_lanes", l)
+                  for l in (64, 256, 484, 576, 1024, 1600, 4096)}
+F32_ATTN_CASES.update({f"attn{l}_f32": ("fused_attention", l) for l in (64, 256, 1024)})
+F32_I8 = {"stage4_i8_f32": "stage4_f32"}
+# Blocks of each f32 geometry in one Hiera-L forward at 512^2.
+COUNT_F32 = {"stage1_f32": 2, "stage2_f32": 5, "stage4_f32": 3, "lanes256_f32": 32,
+             "lanes1024_f32": 3, "attn256_f32": 32, "attn1024_f32": 3, "stage4_i8_f32": 3}
 
 # The T-block's saved-residual pair (training under SPEGNET_SAVE_RESIDUALS)
 # at its 512^2 geometries.
@@ -129,11 +152,23 @@ I8_ATOL, I8_MAX = 5e-4, 0.2
 # must be bit-exact.
 I8_PART_FRAC = 1e-3
 
+# An f32 kernel vs its plain f32 version (TF32 off), same measure: both
+# compute in f32 (the kernels' products 3xTF32, ~f32), summing in other
+# orders; a few hundred f32 ulps (2^-24) of the largest output.
+F32_REL_LIMIT = 2e-5
+# The int8 gen-1 block on f32 vs its plain int8 version: the int8 rule
+# (i8_ok, i8_parts_ok); its GELU epilogue (erff vs torch's erf) within
+# I8_F32_GELU_REL of the largest output, a few f32 ulps.
+I8_F32_GELU_REL = 1e-6
+
 # The H100 SXM's dense bf16 and int8 tensor-core rates and HBM bandwidth
-# (data sheet), for the roofline bound of each call.
+# (data sheet), for the roofline bound of each call; PEAK_F32 is the rate of
+# the card's fastest f32-accurate product, 3xTF32 on the dense 495 TFLOP/s
+# TF32 rate (three products per multiply-add), the f32 kernels' bound.
 PEAK_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+PEAK_F32 = 495e12 / 3
 
 
 class Case(NamedTuple):
@@ -150,15 +185,16 @@ def _v(shape, g, device, scale=0.02, dtype=torch.bfloat16, offset=0.0):
     return (offset + scale * torch.randn(shape, generator=g)).to(device, dtype)
 
 
-def block_weights(c: int, heads: int, g, device) -> fbt.BlockWeights:
+def block_weights(c: int, heads: int, g, device, dtype=torch.bfloat16) -> fbt.BlockWeights:
+    """Seeded random block weights, matmul weights in ``dtype``."""
     f32 = torch.float32
     return fbt.BlockWeights(
         _v((c,), g, device, 0.1, f32, 1.0), _v((c,), g, device, 0.1, f32),
-        _w((3 * c, c), c, g, device), _v((3 * c,), g, device),
-        _w((c, c), c, g, device), _v((c,), g, device),
+        _w((3 * c, c), c, g, device, dtype), _v((3 * c,), g, device, dtype=dtype),
+        _w((c, c), c, g, device, dtype), _v((c,), g, device, dtype=dtype),
         _v((c,), g, device, 0.1, f32, 1.0), _v((c,), g, device, 0.1, f32),
-        _w((4 * c, c), c, g, device), _v((4 * c,), g, device),
-        _w((c, 4 * c), 4 * c, g, device), _v((c,), g, device))
+        _w((4 * c, c), c, g, device, dtype), _v((4 * c,), g, device, dtype=dtype),
+        _w((c, 4 * c), 4 * c, g, device, dtype), _v((c,), g, device, dtype=dtype))
 
 
 def block_case(name: str, batch: int, g, device) -> Case:
@@ -172,6 +208,36 @@ def block_case(name: str, batch: int, g, device) -> Case:
                     lambda: fb.block_reference(xw, wts, heads, scale))
     return Case(wrapper, lambda: fbt.fused_block_t(x, wts, heads, l, scale),
                 lambda: fbt.block_plain(x, wts, heads, l, scale))
+
+
+def f32_block_case(name: str, batch: int, g, device) -> Case:
+    """The f32 gen-1 block at geometry ``name`` of :data:`F32_BLOCKS`, with
+    the erf GELU of f32 compute."""
+    c, heads, l, n = F32_BLOCKS[name]
+    wts = block_weights(c, heads, g, device, torch.float32)
+    xw = torch.randn((batch * n // l, l, c), generator=g).to(device)
+    scale = (c // heads) ** -0.5
+    return Case("fused_block", lambda: fb.fused_block(xw, wts, heads, scale, approx_gelu=False),
+                lambda: fb.block_reference(xw, wts, heads, scale, approx_gelu=False))
+
+
+def f32_attention_case(name: str, batch: int, g, device) -> Case:
+    """An f32 attention geometry of :data:`F32_ATTN_CASES` on seeded random
+    qkv."""
+    wrapper, l = F32_ATTN_CASES[name]
+    return _attention_case(wrapper, l, batch, g, device, torch.float32)
+
+
+def f32_i8_case(name: str, batch: int, g, device) -> Case:
+    """The int8 gen-1 block on f32 (f32 weights packed to W8A8, erf GELU)
+    through the wrapper and its plain int8 version."""
+    c, heads, l, n = F32_BLOCKS[F32_I8[name]]
+    wts = fbt_i8.pack_i8(block_weights(c, heads, g, device, torch.float32))
+    xw = torch.randn((batch * n // l, l, c), generator=g).to(device)
+    scale = (c // heads) ** -0.5
+    return Case("fused_block_i8",
+                lambda: fb_i8.fused_block_i8(xw, wts, heads, scale, approx_gelu=False),
+                lambda: fb_i8.block_i8_plain(xw, wts, heads, scale, approx_gelu=False))
 
 
 def qpool_case(name: str, batch: int, g, device) -> Case:
@@ -293,9 +359,12 @@ def dec_i8_parts_ok(res: Dict[str, float]) -> bool:
 def attention_case(name: str, batch: int, g, device) -> Case:
     """An attention geometry of :data:`ATTN_CASES` on seeded random qkv."""
     wrapper, l = ATTN_CASES[name]
+    return _attention_case(wrapper, l, batch, g, device, torch.bfloat16)
+
+
+def _attention_case(wrapper, l, batch, g, device, dtype) -> Case:
     per_image, heads, d = ATTN[l]
-    qkv = torch.randn((batch * per_image, l, 3 * heads * d), generator=g).to(
-        device, torch.bfloat16)
+    qkv = torch.randn((batch * per_image, l, 3 * heads * d), generator=g).to(device, dtype)
     scale = d ** -0.5
     if wrapper == "fused_attention_lanes":
         return Case(wrapper, lambda: pa.fused_attention_lanes(qkv, heads, scale),
@@ -357,27 +426,39 @@ def i8_ok(res: Dict[str, float]) -> bool:
 
 def _i8_gemms(name: str):
     """(N, K, gelu, residual) of each int8 GEMM of geometry ``name``."""
-    geo = I8[name][0]
-    if geo in QPOOL:
-        cin, cout = QPOOL[geo][:2]
-        return [(4 * cout, cin, False, False)]
-    c = BLOCKS[geo][1]
+    if name in F32_I8:
+        c = F32_BLOCKS[F32_I8[name]][0]
+    else:
+        geo = I8[name][0]
+        if geo in QPOOL:
+            cin, cout = QPOOL[geo][:2]
+            return [(4 * cout, cin, False, False)]
+        c = BLOCKS[geo][1]
     return [(3 * c, c, False, False), (c, c, False, True), (4 * c, c, True, False),
             (c, 4 * c, False, True)]
 
 
 def i8_parts(name: str, batch: int, g, device) -> Dict[str, float]:
-    """The int8 kernels of geometry ``name`` alone, on its shapes, against
-    plain PyTorch on the same inputs: LayerNorm + quant (share of codes that
-    differ, largest code difference, largest scale difference), the row
-    quant of a [rows, 4C] matrix (codes and scales that differ), and each
-    int8 GEMM with its epilogue on random codes and scales (share of bf16
-    outputs that differ, largest difference in bf16 steps of the plain
-    output among differences above 1e-5 of the largest output)."""
-    geo, wrapper = I8[name]
-    c, n = (QPOOL[geo][0], QPOOL[geo][4]) if geo in QPOOL else (BLOCKS[geo][1], BLOCKS[geo][4])
+    """The int8 kernels of geometry ``name`` (of :data:`I8`, bf16, or
+    :data:`F32_I8`, f32) alone, on its shapes, against plain PyTorch on the
+    same inputs: LayerNorm + quant (share of codes that differ, largest code
+    difference, largest scale difference), the row quant of a [rows, 4C]
+    matrix (codes and scales that differ), and each int8 GEMM with its
+    epilogue on random codes and scales.  bf16: the share of outputs that
+    differ and the largest difference in bf16 steps of the plain output
+    among differences above 1e-5 of the largest output; f32 (erf GELU): the
+    same share and the GELU epilogues' largest difference over the largest
+    output (``gelu_rel``)."""
+    f32 = name in F32_I8
+    dt = torch.float32 if f32 else torch.bfloat16
+    if f32:
+        c, n = F32_BLOCKS[F32_I8[name]][0], F32_BLOCKS[F32_I8[name]][3]
+    else:
+        geo = I8[name][0]
+        c, n = (QPOOL[geo][0], QPOOL[geo][4]) if geo in QPOOL else (BLOCKS[geo][1],
+                                                                     BLOCKS[geo][4])
     m = batch * n
-    x = torch.randn((m, c), generator=g).to(device, torch.bfloat16)
+    x = torch.randn((m, c), generator=g).to(device, dt)
     lnw, lnb = _v((c,), g, device, 0.1, torch.float32, 1.0), _v((c,), g, device, 0.1,
                                                                   torch.float32)
     q, s = kernels.layernorm_q8(x, lnw, lnb, 1e-6)
@@ -385,11 +466,11 @@ def i8_parts(name: str, batch: int, g, device) -> Dict[str, float]:
     dq = (q.int() - qp.int()).abs()
     out = {"ln_code_frac": (dq > 0).float().mean().item(), "ln_code_max": dq.max().item(),
            "ln_scale_rel": ((s - sp[:, 0]).abs() / sp[:, 0]).max().item()}
-    z = (torch.randn((m, 4 * c), generator=g) * 0.5).to(device, torch.bfloat16)
+    z = (torch.randn((m, 4 * c), generator=g) * 0.5).to(device, dt)
     qz, sz = kernels.quant_rows(z)
     qzp, szp = fbt_i8.quant_tokens(z)
     out["rowq_diff"] = int((qz != qzp).sum().item() + (sz != szp[:, 0]).sum().item())
-    worst_frac, worst_steps = 0.0, 0.0
+    worst_frac, worst_steps, gelu_rel = 0.0, 0.0, 0.0
     exact = True
     for nn_, k, gelu, res in _i8_gemms(name):
         a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(device)
@@ -397,22 +478,30 @@ def i8_parts(name: str, batch: int, g, device) -> Dict[str, float]:
         sa = (torch.rand(m, generator=g) * 0.02).to(device)
         sw = (torch.rand(nn_, generator=g) * 2e-3).to(device)
         bias = _v((nn_,), g, device, 0.1, torch.float32)
-        r = torch.randn((m, nn_), generator=g).to(device, torch.bfloat16) if res else None
+        r = torch.randn((m, nn_), generator=g).to(device, dt) if res else None
         for sw_first in (True, False):
             got = kernels.gemm_i8(a, sa, w, sw, bias, residual=r, gelu=gelu,
-                                  sw_first=sw_first).float()
+                                  sw_first=sw_first, out_dtype=dt,
+                                  approx_gelu=not f32).float()
             want = fbt_i8.qdot(a, sa[:, None], w, sw, bias, sw_first)
             if gelu:
-                want = F.gelu(want, approximate="tanh")
-            want = want.to(torch.bfloat16)
+                want = F.gelu(want, approximate="none" if f32 else "tanh")
+            want = want.to(dt)
             if r is not None:
                 want = r + want
             want = want.float()
             differ = got != want
             frac = differ.float().mean().item()
+            diff = (got - want).abs()
+            if f32:
+                if gelu:
+                    gelu_rel = max(gelu_rel, (diff.max() / want.abs().max()).item())
+                else:
+                    worst_frac = max(worst_frac, frac)
+                exact = exact and (gelu or not differ.any().item())
+                continue
             _, e = torch.frexp(want)
             ulp = torch.ldexp(torch.ones_like(want), e - 8)  # one bf16 step at |want|
-            diff = (got - want).abs()
             # GELU of a pre-activation below ~-5 is ~1e-6 with few correct
             # bits in either tanh (1 + tanh cancels): steps there are not
             # counted when the difference is below 1e-5 of the largest output.
@@ -421,13 +510,16 @@ def i8_parts(name: str, batch: int, g, device) -> Dict[str, float]:
             worst_frac, worst_steps = max(worst_frac, frac), max(worst_steps, steps)
             exact = exact and (gelu or not differ.any().item())
     out.update(gemm_frac=worst_frac, gemm_steps=worst_steps, gemm_exact_no_gelu=exact)
+    if f32:
+        out["gelu_rel"] = gelu_rel
     return out
 
 
 def i8_parts_ok(res: Dict[str, float]) -> bool:
     return (res["ln_code_frac"] <= I8_PART_FRAC and res["ln_code_max"] <= 1
             and res["rowq_diff"] == 0 and res["gemm_exact_no_gelu"]
-            and res["gemm_frac"] <= I8_PART_FRAC and res["gemm_steps"] <= 1.0)
+            and res["gemm_frac"] <= I8_PART_FRAC and res["gemm_steps"] <= 1.0
+            and res.get("gelu_rel", 0.0) <= I8_F32_GELU_REL)
 
 
 def _tie_rows(x: torch.Tensor) -> torch.Tensor:
@@ -643,11 +735,16 @@ def work(name: str, batch: int, backward: bool = False,
     bf = 2
     if name in I8:
         return work(I8[name][0], batch)
-    if name in ATTN_CASES:
-        l = ATTN_CASES[name][1]
+    if name in F32_BLOCKS:
+        c, heads, l, n = F32_BLOCKS[name]
+        m = batch * n
+        flops = 2.0 * m * (3 * c * c + c * c + 8 * c * c) + 4.0 * m * l * c
+        return flops, 2 * m * c * 4 + 4 * (12 * c * c + 9 * c) + 16 * c
+    if name in ATTN_CASES or name in F32_ATTN_CASES:
+        l = {**ATTN_CASES, **F32_ATTN_CASES}[name][1]
         per_image, heads, d = ATTN[l]
         n = batch * per_image * heads
-        return 4.0 * n * l * l * d, 4 * n * l * d * bf
+        return 4.0 * n * l * l * d, 4 * n * l * d * (4 if name in F32_ATTN_CASES else bf)
     if name in DECODER:
         s, cin, cm = DECODER[name]
         px = batch * (2 * s) ** 2
@@ -689,12 +786,18 @@ def work(name: str, batch: int, backward: bool = False,
 
 
 def i8_work(name: str, batch: int) -> Tuple[float, float, float]:
-    """(int8 operations, bf16 FLOPs, bytes) of one call of int8 geometry
-    ``name``: the projections in int8, attention in bf16; bytes as
-    :func:`work` with the weights as int8 codes and f32 scales and biases.
+    """(int8 operations, bf16 FLOPs (f32 for :data:`F32_I8`), bytes) of one
+    call of int8 geometry ``name``: the projections in int8, attention in the
+    activation dtype; bytes as :func:`work` with the weights as int8 codes
+    and f32 scales and biases.
     The int8 decoder: both convs in int8 (conv1 over the 9 Cin x 4 Cm
     composed weights per cell), the head in bf16; bytes x (bf16) read once,
     the weight codes and f32 vectors, pred written once."""
+    if name in F32_I8:
+        c, heads, l, n = F32_BLOCKS[F32_I8[name]]
+        m = batch * n
+        wbytes = 12 * c * c + 8 * 9 * c + 16 * c
+        return 2.0 * m * 12 * c * c, 4.0 * m * l * c, 2 * m * c * 4 + wbytes
     if name in DEC_I8:
         s, cin, cm = DEC_I8[name]
         cells, px = batch * s * s, batch * (2 * s) ** 2
@@ -714,10 +817,12 @@ def i8_work(name: str, batch: int) -> Tuple[float, float, float]:
     return 2.0 * m * 12 * c * c, 4.0 * m * l * c, 2 * m * c * 2 + wbytes
 
 
-def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0) -> Tuple[float, str]:
-    """The roofline bound in ms and which side sets it: operations (bf16
-    FLOPs at the bf16 peak plus int8 operations at the int8 peak) or bytes."""
-    t_ops = (flops / PEAK_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+def bound_ms(flops: float, nbytes: float, int8_ops: float = 0.0,
+             f32: bool = False) -> Tuple[float, str]:
+    """The roofline bound in ms and which side sets it: operations (FLOPs at
+    the bf16 peak, or with ``f32`` at :data:`PEAK_F32`, plus int8 operations
+    at the int8 peak) or bytes."""
+    t_ops = (flops / (PEAK_F32 if f32 else PEAK_FLOPS) + int8_ops / PEAK_INT8_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -729,6 +834,14 @@ def all_cases() -> Dict[str, Callable]:
     cases.update({n: decoder_case for n in DECODER})
     cases.update({n: edge_case for n in DEC_EDGE})
     cases.update({n: attention_case for n in ATTN_CASES})
+    return cases
+
+
+def f32_cases() -> Dict[str, Callable]:
+    """f32 geometry name -> function (name, batch, generator, device) ->
+    Case, the int8 one (:data:`F32_I8`) excluded (:func:`f32_i8_case`)."""
+    cases = {n: f32_block_case for n in F32_BLOCKS}
+    cases.update({n: f32_attention_case for n in F32_ATTN_CASES})
     return cases
 
 

@@ -11,7 +11,8 @@ outputs with ``torch.empty``, launches on the current stream and raises if
 the C entry returns a CUDA error.  ``launches`` counts the calls of each
 model-level wrapper (ops/*) that went through a kernel, and under
 ``<wrapper>_bwd`` the calls of its kernel backward (the attention wrappers
-of ops/pallas_attention.py have none: their backward is plain PyTorch);
+of ops/pallas_attention.py and ``fused_block`` on f32 have none: their
+backward recomputes through the plain version, as the JAX package's does);
 ``fused_block_t_res`` / ``fused_block_t_bwd_res`` count the T-block calls
 that took the saved-residual pair instead of ``fused_block_t`` /
 ``fused_block_t_bwd``; ``reset_launches`` clears it.
@@ -33,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("hiera_block.cu", "hiera_block_bwd.cu", "qpool_front.cu",
            "qpool_front_bwd.cu", "decoder_block.cu", "decoder_i8.cu", "int8_gemm.cu",
-           "attention_lanes.cu")
+           "attention_lanes.cu", "block_f32.cu", "attention_f32.cu")
 
 launches = {
     "fused_block_t": 0,
@@ -148,11 +149,15 @@ def load():
         "sp_polyconv1_i8": [p, p, p, p, p, p, p, p, i, i, i, i, p],
         "sp_strip_scales_i8": [p, p, p, i, i, i, i, p],
         "sp_conv2_i8_head": [p, p, p, p, p, p, p, p, p, i, i, i, p],
-        "sp_layernorm_q8": [p, p, p, p, p, l, i, f, p],
-        "sp_quant_rows": [p, p, p, l, i, p],
-        "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "sp_layernorm_q8": [p, p, p, p, p, l, i, f, i, p],
+        "sp_quant_rows": [p, p, p, l, i, i, p],
+        "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "sp_lanes_attention": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
                                i, i, i, i, f, p],
+        "sp_attention_f32": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
+                             i, i, i, i, f, p],
+        "sp_layernorm_f32": [p, p, p, p, l, i, f, p],
+        "sp_gemm_f32": [p, p, p, p, p, i, i, i, i, p],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -659,10 +664,21 @@ def _codes(rows: int, k: int, like: torch.Tensor):
             torch.empty((rows,), dtype=torch.float32, device=like.device))
 
 
+_ACTS = (torch.bfloat16, torch.float32)
+
+
+def _act(x: torch.Tensor, name: str) -> int:
+    """1 for f32 activations, 0 for bf16; raises on any other dtype."""
+    if x.dtype not in _ACTS:
+        raise ValueError(f"{name}: expected bf16 or f32, got {x.dtype}")
+    return int(x.dtype == torch.float32)
+
+
 def layernorm_q8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
-    """[rows, C] bf16 -> LayerNorm (f32 weight/bias, rounded to bf16) ->
-    (int8 codes [rows, C], f32 row scales [rows])."""
-    _need(x, "layernorm_q8 x", ndim=2)
+    """[rows, C] bf16 or f32 -> LayerNorm (f32 weight/bias, rounded to x's
+    dtype) -> (int8 codes [rows, C], f32 row scales [rows])."""
+    f32 = _act(x, "layernorm_q8 x")
+    _need(x, "layernorm_q8 x", x.dtype, 2)
     _need(w, "layernorm_q8 weight", torch.float32, 1)
     _need(b, "layernorm_q8 bias", torch.float32, 1)
     rows, c = x.shape
@@ -670,30 +686,39 @@ def layernorm_q8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
         raise ValueError(f"layernorm_q8: weight {tuple(w.shape)} vs C={c} (C % 8 == 0)")
     q, s = _codes(rows, c, x)
     _check(load().sp_layernorm_q8(x.data_ptr(), w.data_ptr(), b.data_ptr(), q.data_ptr(),
-                                   s.data_ptr(), rows, c, eps, _stream(x)), "sp_layernorm_q8")
+                                   s.data_ptr(), rows, c, eps, f32, _stream(x)),
+           "sp_layernorm_q8")
     return q, s
 
 
 def quant_rows(x: torch.Tensor):
-    """[rows, K] bf16 -> (int8 codes [rows, K], f32 row scales [rows])."""
-    _need(x, "quant_rows x", ndim=2)
+    """[rows, K] bf16 or f32 -> (int8 codes [rows, K], f32 row scales [rows])."""
+    f32 = _act(x, "quant_rows x")
+    _need(x, "quant_rows x", x.dtype, 2)
     rows, k = x.shape
     if k % 8:
         raise ValueError(f"quant_rows: K={k} must be a multiple of 8")
     q, s = _codes(rows, k, x)
-    _check(load().sp_quant_rows(x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, k,
+    _check(load().sp_quant_rows(x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, k, f32,
                                  _stream(x)), "sp_quant_rows")
     return q, s
 
 
 def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor,
             bias: torch.Tensor, residual=None, gelu: bool = False,
-            sw_first: bool = True) -> torch.Tensor:
+            sw_first: bool = True, out_dtype: torch.dtype = torch.bfloat16,
+            approx_gelu: bool = True) -> torch.Tensor:
     """a [M, K] int8 (row scales sa [M]) . w [N, K]^T int8 (row scales sw [N])
     -> int32, dequantized (acc * sw * sa with ``sw_first``, else acc * sa *
-    sw) + bias [N] f32 (-> tanh GELU) -> bf16 (+ residual [M, N] bf16)."""
+    sw) + bias [N] f32 (-> GELU: tanh with ``approx_gelu``, else erf, which
+    needs an f32 output) -> ``out_dtype`` (bf16 or f32) (+ residual [M, N] of
+    that dtype)."""
     _need(a, "gemm_i8 a", torch.int8, 2)
     _need(w, "gemm_i8 weight", torch.int8, 2)
+    if out_dtype not in _ACTS:
+        raise ValueError(f"gemm_i8: output dtype {out_dtype} (bf16 or f32)")
+    if gelu and not approx_gelu and out_dtype != torch.float32:
+        raise ValueError("gemm_i8: the erf GELU epilogue writes f32")
     m, k = a.shape
     n = w.shape[0]
     if w.shape[1] != k or k % 32 or n % 8:
@@ -707,13 +732,15 @@ def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor
         if t.numel() != size:
             raise ValueError(f"gemm_i8: {name} length {t.numel()} != {size}")
     if residual is not None:
-        _need(residual, "gemm_i8 residual", ndim=2)
+        _need(residual, "gemm_i8 residual", out_dtype, 2)
         if tuple(residual.shape) != (m, n):
             raise ValueError("gemm_i8: residual shape != [M, N]")
-    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    act = (1 if approx_gelu else 2) if gelu else 0
     _check(load().sp_gemm_i8(a.data_ptr(), sa.data_ptr(), w.data_ptr(), sw.data_ptr(),
                               bias.data_ptr(), _ptr(residual), c.data_ptr(), m, n, k,
-                              int(gelu), int(sw_first), _stream(a)), "sp_gemm_i8")
+                              act, int(sw_first), int(out_dtype == torch.float32),
+                              _stream(a)), "sp_gemm_i8")
     return c
 
 
@@ -722,15 +749,17 @@ def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def _strides(t: torch.Tensor, name: str):
-    """(problem, token, head) element strides of a [P, L, H, D] bf16 view
-    with D contiguous, each a multiple of 8 where its dim is longer than 1."""
-    if t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 4:
-        raise ValueError(f"{name}: expected a bf16 CUDA [P, L, H, D] tensor, got "
+    """(problem, token, head) element strides of a [P, L, H, D] bf16 or f32
+    view with D contiguous, 16-byte aligned, each stride a multiple of 16
+    bytes where its dim is longer than 1."""
+    if t.device.type != "cuda" or t.dtype not in _ACTS or t.dim() != 4:
+        raise ValueError(f"{name}: expected a bf16 or f32 CUDA [P, L, H, D] tensor, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    vec = 16 // t.element_size()
     if t.stride(3) != 1 or t.data_ptr() % 16 or any(
-            s % 8 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            s % vec for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
         raise ValueError(f"{name}: strides {t.stride()} need D contiguous, 16-byte "
-                         "alignment and the other strides multiples of 8")
+                         f"alignment and the other strides multiples of {vec}")
     return t.stride()[:3]
 
 
@@ -738,18 +767,77 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v of every (problem, head) over its L tokens:
     q / k / v strided [P, L, H, D] views -> contiguous [P, L, H, D] (any L,
-    D a multiple of 8 up to 128)."""
+    D up to 128).  bf16 (D a multiple of 8): csrc/attention_lanes.cu; f32 (D
+    a multiple of 4): csrc/attention_f32.cu."""
     qs, ks, vs = _strides(q, "attention q"), _strides(k, "attention k"), \
         _strides(v, "attention v")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} differ")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"attention: q {q.dtype}, k {k.dtype}, v {v.dtype} differ")
     p, l, h, d = q.shape
-    if d % 8 or d > 128 or h > 65535 or p * -(-l // 64) >= 2 ** 31:
-        raise ValueError(f"attention: [P, L, H, D] = {tuple(q.shape)} (D % 8 == 0, "
+    vec = 16 // q.element_size()
+    if d % vec or d > 128 or h > 65535 or p * -(-l // 64) >= 2 ** 31:
+        raise ValueError(f"attention: [P, L, H, D] = {tuple(q.shape)} (D % {vec} == 0, "
                          "D <= 128)")
     out = torch.empty((p, l, h, d), dtype=q.dtype, device=q.device)
-    _check(load().sp_lanes_attention(q.data_ptr(), *qs, k.data_ptr(), *ks, v.data_ptr(),
-                                      *vs, out.data_ptr(), *out.stride()[:3], p, h, l, d,
-                                      scale, _stream(q)), "sp_lanes_attention")
+    fn = load().sp_attention_f32 if q.dtype == torch.float32 else load().sp_lanes_attention
+    _check(fn(q.data_ptr(), *qs, k.data_ptr(), *ks, v.data_ptr(), *vs, out.data_ptr(),
+              *out.stride()[:3], p, h, l, d, scale, _stream(q)), "attention")
     return out
+
+
+# ---------------------------------------------------------------------------
+# launchers (csrc/block_f32.cu)
+# ---------------------------------------------------------------------------
+
+def layernorm_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """[rows, C] f32 -> LayerNorm over C with f32 weight/bias, f32 out."""
+    _need(x, "layernorm_f32 x", torch.float32, 2)
+    _need(w, "layernorm_f32 weight", torch.float32, 1)
+    _need(b, "layernorm_f32 bias", torch.float32, 1)
+    rows, c = x.shape
+    if w.numel() != c or b.numel() != c or c % 4:
+        raise ValueError(f"layernorm_f32: weight {tuple(w.shape)} vs C={c} (C % 4 == 0)")
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("layernorm_f32: float4 loads need 16-byte aligned operands")
+    y = torch.empty_like(x)
+    _check(load().sp_layernorm_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                    rows, c, eps, _stream(x)), "sp_layernorm_f32")
+    return y
+
+
+_GELU_F32 = {None: 0, "erf": 1, "tanh": 2}
+
+
+def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
+             gelu: Optional[str] = None) -> torch.Tensor:
+    """a [M, K] @ w [N, K]^T (+ bias) (-> GELU, "erf" or "tanh") (+ residual),
+    f32, products 3xTF32 (csrc/block_f32.cu)."""
+    _need(a, "gemm_f32 a", torch.float32, 2)
+    _need(w, "gemm_f32 weight", torch.float32, 2)
+    m, k = a.shape
+    n = w.shape[0]
+    if w.shape[1] != k or k % 4 or n % 4:
+        raise ValueError(f"gemm_f32: a {tuple(a.shape)} vs weight {tuple(w.shape)} "
+                         "(K % 4 == 0, N % 4 == 0)")
+    if gelu not in _GELU_F32:
+        raise ValueError(f"gemm_f32: gelu {gelu!r} (None, 'erf' or 'tanh')")
+    _tiles(m, n, "gemm_f32")
+    if a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("gemm_f32: cp.async needs 16-byte aligned operands")
+    if bias is not None:
+        _need(bias, "gemm_f32 bias", torch.float32, 1)
+        if bias.numel() != n:
+            raise ValueError("gemm_f32: bias length != N")
+    if residual is not None:
+        _need(residual, "gemm_f32 residual", torch.float32, 2)
+        if tuple(residual.shape) != (m, n):
+            raise ValueError("gemm_f32: residual shape != [M, N]")
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _check(load().sp_gemm_f32(a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
+                               c.data_ptr(), m, n, k, _GELU_F32[gelu], _stream(a)),
+           "sp_gemm_f32")
+    return c

@@ -8,28 +8,33 @@ channels-last, as in the JAX package.
 Two compositions of the same blocks:
 
 * ``kernels=True`` (default): each block goes through the wrapper its
-  route names (:func:`trunk_routes`).  On a square 2^k patch grid whose
-  windows fit it, the trunk runs token-major in Morton order
+  route names (:func:`trunk_routes`).  In bf16 on a square 2^k patch grid
+  whose windows fit it, the trunk runs token-major in Morton order
   (ops/fused_block_t.to_z): non-pooling blocks go through ``fused_block_t``
   (stages 1-3, global blocks included) or ``fused_block`` (the last stage),
   transitions through ``qpool_front`` plus a plain proj/LN/MLP tail, and
-  the pyramid outputs leave through ``from_z``.  On any other grid the
-  blocks are routed as the JAX package routes them there (its non-Morton
-  branch, spegnet_tpu/models/hiera.py:850-947 and :499-645): the T-block,
-  the transition front and the gen-1 block where their gates allow, on the
+  the pyramid outputs leave through ``from_z``.  On any other grid, and in
+  any other dtype, the blocks are routed as the JAX package routes them
+  there (its non-Morton branch, spegnet_tpu/models/hiera.py:850-947 and
+  :499-645; it takes Morton order, the T-block and the transition front in
+  bf16 only, :806-812, :854-866, :509-517): those two where their gates
+  allow, the gen-1 block on divisible windows of 16-64 tokens, on the
   window-major token layout (ops/fused_block_t.to_w); the rest on the
   decomposed NHWC path, whose attention goes through
   ``fused_attention_lanes`` where its gate allows (all of stages 3-4 of
-  Hiera-L at 352^2, 384^2, 640^2).  The same code runs on the CPU (plain
-  versions inside the wrappers) and on CUDA (the Hopper kernels, bf16).
+  Hiera-L at 352^2, 384^2, 640^2, and in f32 at every size).  The same code
+  runs on the CPU (plain versions inside the wrappers) and on CUDA (the
+  Hopper kernels, bf16 and f32).
 * ``kernels=False``: the decomposed NHWC path (window partition with zero
   padding, plain attention), the numerics anchor.
 
 ``int8=True`` (the flagged W8A8 encoder, inference only) sends the blocks
 the JAX package sends to its int8 kernels to the port's int8 wrappers
-(:func:`block_route`); their quantized weights are packed once per block
-and kept until the block's parameters are reloaded, it changes mode, or the
-compute dtype or device changes.  The decomposed path has no int8 form.
+(:func:`block_route`, :func:`grid_route`): in bf16 the int8 T-block, front
+and gen-1 block, in f32 the int8 gen-1 block.  Their quantized weights are
+packed once per block and kept until the block's parameters are reloaded,
+it changes mode, or the compute dtype or device changes.  The decomposed
+path has no int8 form.
 """
 
 from __future__ import annotations
@@ -142,22 +147,20 @@ TOKEN_ROUTES = ("fused_block_t", "fused_block", "qpool_front", "fused_block_t_i8
                 "fused_block_i8", "qpool_front_i8")
 
 
-def block_route(spec: BlockSpec, l: int, n_tok: int, last_stage: bool, dtype: torch.dtype,
-                int8: bool) -> str:
+def block_route(spec: BlockSpec, l: int, n_tok: int, last_stage: bool, int8: bool) -> str:
     """The wrapper (and launch counter) that one block of the Morton trunk
-    runs, with windows of l tokens over n_tok tokens per image.  Under
-    ``int8`` it follows spegnet_tpu/models/hiera.py: transitions take the
-    int8 front where the bf16 front's gate and C % 32 allow (:409-421, bf16
-    only); other blocks that pass the bf16 T-kernel's gate (bf16 only,
-    :854-870) take the int8 T-block where C % 32 == 0 (:488-497, :916-935),
-    and the rest the int8 gen-1 block where its gate allows (:597-609)."""
+    (bf16) runs, with windows of l tokens over n_tok tokens per image.
+    Under ``int8`` it follows spegnet_tpu/models/hiera.py: transitions take
+    the int8 front where the bf16 front's gate and C % 32 allow (:409-421);
+    other blocks that pass the T-kernel's gate (:854-870) take the int8
+    T-block where C % 32 == 0 (:488-497, :916-935), and the rest the int8
+    gen-1 block where its gate allows (:597-609)."""
     if spec.q_pool:
-        if (int8 and dtype == torch.bfloat16
-                and fbt_i8.qpool_supported_i8(spec.dim, spec.heads, l, n_tok)):
+        if int8 and fbt_i8.qpool_supported_i8(spec.dim, spec.heads, l, n_tok):
             return "qpool_front_i8"
         return "qpool_front"
     if int8:
-        if dtype == torch.bfloat16 and fbt.supported(spec.dim, spec.heads, l, n_tok):
+        if fbt.supported(spec.dim, spec.heads, l, n_tok):
             if fbt_i8.supported_i8(spec.dim, spec.heads, l, n_tok):
                 return "fused_block_t_i8"
         elif fb_i8.supported_i8(n_tok // l, l, spec.dim):
@@ -165,30 +168,31 @@ def block_route(spec: BlockSpec, l: int, n_tok: int, last_stage: bool, dtype: to
     return "fused_block" if last_stage else "fused_block_t"
 
 
-def grid_route(spec: BlockSpec, h: int, w: int, int8: bool) -> str:
+def grid_route(spec: BlockSpec, h: int, w: int, dtype: torch.dtype, int8: bool) -> str:
     """The route of one block on an h x w patch grid outside the Morton
-    path, by the JAX package's gates for bf16 compute (the dtype of the
-    Hopper kernels; other dtypes run the plain versions along the same
-    routes): the transition front where ``use_qpool_t`` holds
-    (spegnet_tpu/models/hiera.py:509-517), the T-block where ``can_t`` does
-    (:854-866), the gen-1 block on divisible windows of 16 to 64 tokens
-    (:566-574), each in its int8 form under ``int8`` where the int8 gate
-    allows (:543, :488-491, :597); else the decomposed block, whose attention
-    is ``fused_attention_lanes`` where ``lanes_supported`` holds (:296-300)
-    and "plain" otherwise (the Q-pool blocks, whose q is shorter than k)."""
+    path, by the JAX package's gates for compute dtype ``dtype``: in bf16
+    the transition front where ``use_qpool_t`` holds
+    (spegnet_tpu/models/hiera.py:509-517) and the T-block where ``can_t``
+    does (:854-866), both bf16 only; in every dtype the gen-1 block on
+    divisible windows of 16 to 64 tokens (:566-574), whose gate ignores the
+    dtype; each in its int8 form under ``int8`` where the int8 gate allows
+    (:543, :488-491, :597); else the decomposed block, whose attention is
+    ``fused_attention_lanes`` where ``lanes_supported`` holds (:296-300) and
+    "plain" otherwise (the Q-pool blocks, whose q is shorter than k)."""
     ws = spec.window
     l = ws * ws if ws else h * w
     n_tok = h * w
     divisible = ws == 0 or (h % ws == 0 and w % ws == 0)
+    bf16 = dtype == torch.bfloat16
     if spec.q_pool:
-        if (spec.dim != spec.dim_out and ws > 1 and ws % 2 == 0 and divisible
+        if (bf16 and spec.dim != spec.dim_out and ws > 1 and ws % 2 == 0 and divisible
                 and fbt.qpool_supported(spec.dim, spec.heads, l, n_tok)):
             if int8 and fbt_i8.qpool_supported_i8(spec.dim, spec.heads, l, n_tok):
                 return "qpool_front_i8"
             return "qpool_front"
         return "plain"
     if spec.dim == spec.dim_out and divisible:
-        if fbt.supported(spec.dim, spec.heads, l, n_tok):
+        if bf16 and fbt.supported(spec.dim, spec.heads, l, n_tok):
             if int8 and fbt_i8.supported_i8(spec.dim, spec.heads, l, n_tok):
                 return "fused_block_t_i8"
             return "fused_block_t"
@@ -202,7 +206,7 @@ def grid_route(spec: BlockSpec, h: int, w: int, int8: bool) -> str:
 
 
 def morton_grid(cfg: HieraConfig, h: int, w: int) -> bool:
-    """Whether an h x w patch grid takes the Morton path: square, 2^k, and
+    """Whether an h x w patch grid suits the Morton path: square, 2^k, and
     every block's window no larger than its grid."""
     if h != w or not _pow2(h):
         return False
@@ -214,24 +218,32 @@ def morton_grid(cfg: HieraConfig, h: int, w: int) -> bool:
     return True
 
 
+def takes_morton(cfg: HieraConfig, h: int, w: int, dtype: torch.dtype) -> bool:
+    """Whether the trunk runs in Morton order: bf16 (JAX's ``use_z`` and
+    ``can_t``, spegnet_tpu/models/hiera.py:806-812, :854-866) on a
+    :func:`morton_grid` grid."""
+    return dtype == torch.bfloat16 and morton_grid(cfg, h, w)
+
+
 def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
                  train_batch: Optional[int] = None) -> List[str]:
     """The route of every block of the trunk for a patch grid ``hw`` (an int
-    for a square grid, or (h, w)): :func:`block_route` on the Morton path,
+    for a square grid, or (h, w)) in compute dtype ``dtype``:
+    :func:`block_route` on the Morton path (:func:`takes_morton`),
     :func:`grid_route` elsewhere (a shape computation: nothing is
     allocated).  A route is the launch counter of its wrapper, except
     "plain".  With ``train_batch``, the routes of a training forward of that
     many images: a T-block that ``fused_block_t.save_residuals`` sends to the
     saved-residual pair is "fused_block_t_res"."""
     h, w = (hw, hw) if isinstance(hw, int) else hw
-    morton = morton_grid(cfg, h, w)
+    morton = takes_morton(cfg, h, w, dtype)
     out, last = [], len(cfg.stages)
     for sp in block_specs(cfg):
         if morton:
             l = sp.window * sp.window if sp.window else h * w
-            out.append(block_route(sp, l, h * w, sp.stage == last, dtype, int8))
+            out.append(block_route(sp, l, h * w, sp.stage == last, int8))
         else:
-            out.append(grid_route(sp, h, w, int8))
+            out.append(grid_route(sp, h, w, dtype, int8))
         if (train_batch is not None and out[-1] == "fused_block_t"
                 and fbt.save_residuals(train_batch, h * w)):
             out[-1] = "fused_block_t_res"
@@ -489,14 +501,15 @@ class Hiera(nn.Module):
                          int8: bool = False) -> List[torch.Tensor]:
         """The trunk through the wrappers of :func:`trunk_routes`.  ``lay`` is
         the window of x's window-major token layout [B, N, C] (0: raster), or
-        None while x is NHWC.  A :func:`morton_grid` grid starts in Morton
-        order, one window of the whole grid, which keeps every window of the
-        trunk consecutive, so it never changes layout; elsewhere a block
-        changes it only when its route needs windows it does not keep."""
+        None while x is NHWC.  The Morton path (:func:`takes_morton`) starts
+        in Morton order, one window of the whole grid, which keeps every
+        window of the trunk consecutive, so it never changes layout;
+        elsewhere a block changes it only when its route needs windows it
+        does not keep."""
         _, h, w, _ = x.shape
         routes = trunk_routes(self.config, (h, w), x.dtype, int8)
         lay = None
-        if morton_grid(self.config, h, w):
+        if takes_morton(self.config, h, w, x.dtype):
             x, lay = to_z(x), h
         outputs = []
         for blk, route in zip(self.blocks, routes):

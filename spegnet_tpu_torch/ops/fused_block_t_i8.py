@@ -24,7 +24,9 @@ Each operator comes in two forms: a plain PyTorch version
 ``block_t_i8_reference`` :479 and ``qpool_i8_reference`` :424) and a wrapper
 (:func:`fused_block_t_i8`, :func:`qpool_front_i8`) that runs the plain
 version for a CPU tensor and, for a bf16 CUDA tensor, the chain of
-csrc/int8_gemm.cu and the bf16 attention kernels, or raises.  There is no
+csrc/int8_gemm.cu and the bf16 attention kernels, or raises (the T-block
+and the front are bf16 only, as in the JAX package; the gen-1 int8 block
+of ops/fused_block_i8.py also runs the chain in f32).  There is no
 autograd Function: training never takes this path.
 
 The gates (:func:`supported_i8`, :func:`qpool_supported_i8`) are the JAX
@@ -50,6 +52,8 @@ from spegnet_tpu_torch.ops.fused_block_t import (
     qpool_supported,
     supported,
 )
+from spegnet_tpu_torch.ops.pallas_attention import attend_windows
+
 
 class BlockWeightsI8(NamedTuple):
     """A block's W8A8 parameters: int8 codes [out, in], f32 scales and
@@ -195,23 +199,33 @@ def qpool_front_i8_plain(x: torch.Tensor, w: QPoolWeightsI8, heads: int, l: int,
 # ---------------------------------------------------------------------------
 
 def block_cuda_i8(x: torch.Tensor, w: BlockWeightsI8, heads: int, l: int, scale: float,
-                  eps: float, sw_first: bool = True) -> torch.Tensor:
-    """The W8A8 block on [B, N, C] (bf16, CUDA): LN + quant, the int8 GEMMs
-    of csrc/int8_gemm.cu with their dequant / GELU / residual epilogues, the
-    bf16 window attention of csrc/attention.cuh and two row quants."""
+                  eps: float, sw_first: bool = True, approx_gelu: bool = True) -> torch.Tensor:
+    """The W8A8 block on [B, N, C] (CUDA): LN + quant, the int8 GEMMs of
+    csrc/int8_gemm.cu with their dequant / GELU / residual epilogues, the
+    window attention and two row quants, all in x's dtype: bf16 (the
+    attention of csrc/attention.cuh, tanh GELU) or f32 (the attention of
+    csrc/attention_f32.cu, either GELU)."""
     b, n, c = x.shape
     if n % l:
         raise ValueError(f"{n} tokens do not split into windows of {l}")
     d = _head_dim(w.wqkv, heads)
+    dt = x.dtype
     x2 = x.reshape(b * n, c)
     q, s = kernels.layernorm_q8(x2, w.ln1_w, w.ln1_b, eps)
-    qkv = kernels.gemm_i8(q, s, w.wqkv, w.sqkv, w.bqkv, sw_first=sw_first)
-    q, s = kernels.quant_rows(kernels.window_attention(qkv, heads, d, l, scale))
-    u = kernels.gemm_i8(q, s, w.wproj, w.sproj, w.bproj, residual=x2, sw_first=sw_first)
+    qkv = kernels.gemm_i8(q, s, w.wqkv, w.sqkv, w.bqkv, sw_first=sw_first, out_dtype=dt)
+    if dt == torch.float32:
+        a = attend_windows(qkv, heads, l, scale)
+    else:
+        a = kernels.window_attention(qkv, heads, d, l, scale)
+    q, s = kernels.quant_rows(a)
+    u = kernels.gemm_i8(q, s, w.wproj, w.sproj, w.bproj, residual=x2, sw_first=sw_first,
+                        out_dtype=dt)
     q, s = kernels.layernorm_q8(u, w.ln2_w, w.ln2_b, eps)
-    z = kernels.gemm_i8(q, s, w.wfc1, w.sfc1, w.bfc1, gelu=True, sw_first=sw_first)
+    z = kernels.gemm_i8(q, s, w.wfc1, w.sfc1, w.bfc1, gelu=True, sw_first=sw_first,
+                        out_dtype=dt, approx_gelu=approx_gelu)
     q, s = kernels.quant_rows(z)
-    y = kernels.gemm_i8(q, s, w.wfc2, w.sfc2, w.bfc2, residual=u, sw_first=sw_first)
+    y = kernels.gemm_i8(q, s, w.wfc2, w.sfc2, w.bfc2, residual=u, sw_first=sw_first,
+                        out_dtype=dt)
     return y.reshape(b, n, c)
 
 

@@ -1,8 +1,8 @@
 """Attention of Hiera's decomposed blocks (port of spegnet_tpu/ops/pallas_attention.py).
 
 Two entries compute softmax(q k^T * scale) v per (problem, head), scores and
-softmax in f32, probabilities cast to the input dtype before the product
-with v:
+softmax in f32, probabilities cast to the input dtype (bf16 or f32) before
+the product with v:
 
 * :func:`fused_attention_lanes` takes the packed token-major output of a
   qkv projection ``[B, L, 3*H*D]`` in nn.Linear column order (q heads, then
@@ -20,10 +20,14 @@ with v:
 
 Each has a plain PyTorch version beside it (:func:`lanes_plain`,
 :func:`attention_reference`), which the wrapper runs for a CPU tensor; for a
-CUDA tensor it launches csrc/attention_lanes.cu (bf16 only) or raises.  The
-gradient is an autograd Function whose backward recomputes through the
-plain version, as the JAX package's custom VJPs do (:149-161, :323-332):
-there is no backward kernel for either.
+CUDA tensor it launches csrc/attention_lanes.cu (bf16) or
+csrc/attention_f32.cu (f32, the JAX package's f32 compute, whose gates
+ignore the dtype), or raises.  The gradient is an autograd Function whose
+backward recomputes through the plain version, as the JAX package's custom
+VJPs do (:149-161, :323-332): there is no backward kernel for either.
+:func:`attend_windows` runs the same kernels, uncounted, as the window
+attention of the f32 gen-1 chains (ops/fused_block.py,
+ops/fused_block_t_i8.py).
 
 The gates are the JAX package's (:188-197, :335-356) without its TPU-backend
 test, so the port sends the same blocks here.
@@ -80,6 +84,17 @@ def lanes_plain(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
     return attention_reference(*split_qkv(qkv, heads), scale).reshape(b, l, -1)
 
 
+def attend_windows(qkv: torch.Tensor, heads: int, l: int, scale: float) -> torch.Tensor:
+    """qkv [rows, 3*H*d] (CUDA) with windows of l consecutive rows ->
+    softmax(q k^T * scale) v per window and head, [rows, H*d], through
+    :func:`kernels.attention` on strided views (each window one problem)."""
+    rows, f = qkv.shape
+    if rows % l:
+        raise ValueError(f"{rows} rows do not split into windows of {l}")
+    q, k, v = split_qkv(qkv.reshape(rows // l, l, f), heads)
+    return kernels.attention(q, k, v, scale).reshape(rows, f // 3)
+
+
 def _plain_grads(fn, inputs, g):
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in inputs]
@@ -125,13 +140,14 @@ class AttentionFunction(torch.autograd.Function):
 def _gate(t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"the Hopper attention kernel takes bf16, got {t.dtype}")
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the Hopper attention kernels take bf16 or f32, got {t.dtype}")
 
 
 def fused_attention_lanes(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
     """[B, L, 3*H*D] packed qkv -> [B, L, H*D].  CPU: :func:`lanes_plain`.
-    CUDA: csrc/attention_lanes.cu, which replaces
+    CUDA: csrc/attention_lanes.cu (bf16) or csrc/attention_f32.cu (f32),
+    which replace
     spegnet_tpu/ops/pallas_attention.py ``_lanes_kernel`` (:199) and
     ``_lanes_qblock_kernel`` (:220)."""
     if qkv.device.type == "cpu":
@@ -144,8 +160,9 @@ def fused_attention_lanes(qkv: torch.Tensor, heads: int, scale: float) -> torch.
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """[B, L, H, D] q / k / v -> [B, L, H, D], scale D^-0.5 by default.
-    CPU: :func:`attention_reference`.  CUDA: csrc/attention_lanes.cu, which
-    replaces spegnet_tpu/ops/pallas_attention.py ``_attn_kernel`` (:43) and
+    CPU: :func:`attention_reference`.  CUDA: csrc/attention_lanes.cu (bf16)
+    or csrc/attention_f32.cu (f32), which replace
+    spegnet_tpu/ops/pallas_attention.py ``_attn_kernel`` (:43) and
     ``_qblock_kernel`` (:68)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5

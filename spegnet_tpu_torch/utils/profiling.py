@@ -1,10 +1,12 @@
 """Device-time breakdown of one SPEGNet forward, or one training step, on the GPU.
 
     python -m spegnet_tpu_torch.utils.profiling [--batch 8] [--variant large]
-        [--size 512] [--plain | --int8] [--int8-decoder] [--train] [--trace trace.json]
+        [--size 512] [--plain | --int8] [--int8-decoder] [--f32] [--train]
+        [--trace trace.json]
 
 Builds seeded random weights, runs two warm-up calls at ``--size``^2 (512
-by default; 384 for a patch grid that is not 2^k) in bf16,
+by default; 384 for a patch grid that is not 2^k) in bf16 (with ``--f32``
+in f32, TF32 off, as ``use_amp: false`` runs),
 then profiles one call with torch.profiler (CPU + CUDA activities) and
 prints the kernels sorted by device time, the device-busy total and the
 call's wall time.  The call is an inference forward, or with ``--train``
@@ -32,6 +34,7 @@ def main(argv=None) -> None:
     ap.add_argument("--plain", action="store_true", help="profile kernels=False")
     ap.add_argument("--int8", action="store_true", help="forward with int8_encoder")
     ap.add_argument("--int8-decoder", action="store_true", help="forward with int8_decoder")
+    ap.add_argument("--f32", action="store_true", help="f32 compute (use_amp: false)")
     ap.add_argument("--train", action="store_true", help="profile a training step")
     ap.add_argument("--trace", help="write a chrome trace here")
     ap.add_argument("--rows", type=int, default=25)
@@ -42,11 +45,15 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.utils.device import f32_precision
     from spegnet_tpu_torch.utils.weights import init_weights
 
     if (args.int8 or args.int8_decoder) and (args.train or args.plain):
         raise SystemExit("--int8 / --int8-decoder profile the kernel path's forward only")
-    cfg = SPEGNetConfig(variant=args.variant, compute_dtype="bfloat16", int8_encoder=args.int8,
+    dtype = "float32" if args.f32 else "bfloat16"
+    if dtype == "float32":
+        f32_precision(torch.float32)
+    cfg = SPEGNetConfig(variant=args.variant, compute_dtype=dtype, int8_encoder=args.int8,
                         int8_decoder=args.int8_decoder)
     model = init_weights(SPEGNet(cfg, kernels=not args.plain), torch.Generator().manual_seed(0))
     if args.train:
@@ -56,7 +63,7 @@ def main(argv=None) -> None:
         from spegnet_tpu_torch.engine.trainer import Trainer
 
         conf = {"model": {"encoder": {"variant": args.variant, "checkpoint_path": None},
-                          "compute_dtype": "bfloat16",
+                          "compute_dtype": dtype,
                           "image_processing": {"target_size": args.size}},
                 "training": {"batch_size": args.batch, "num_epochs": 1, "val_ratio": 0}}
         trainer = Trainer(conf, None, device="cuda", model=model)
@@ -82,8 +89,8 @@ def main(argv=None) -> None:
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    what = "train step" if args.train else (
-        " ".join(["int8"] * args.int8 + ["int8-decoder"] * args.int8_decoder + ["forward"]))
+    what = ("f32 " if args.f32 else "") + ("train step" if args.train else (
+        " ".join(["int8"] * args.int8 + ["int8-decoder"] * args.int8_decoder + ["forward"])))
     print(f"{what} wall {wall:.3f} ms at batch {args.batch}; device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}% of wall)")
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)

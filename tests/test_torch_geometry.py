@@ -8,13 +8,18 @@ and the whole model against the JAX package.
 * ``trunk_routes`` of Hiera-L at 352^2, 384^2, 640^2 and 768^2 (and of the
   small variants below) equal to the JAX package's non-Morton gates
   (spegnet_tpu/models/hiera.py:854-866, :509-517, :566-574, :296-300), bf16,
-  with and without int8 (a shape computation).
-* A small SPEGNet whose trunk takes every route (T-block, transition front,
-  gen-1 block, lanes attention on zero-padded windows and on a global block,
-  plain Q-pool attention) on a 96x96 input (grid 24) and a non-square 64x96
-  one (grid 16x24), kernels=True, against the JAX model in f32 at the
-  tolerance of tests/test_torch_model.py; each wrapper called once per
-  block of its route.
+  with and without int8 (a shape computation); and in f32, where JAX takes
+  neither Morton order nor the T-block nor the transition front (bf16 only,
+  :806-812), at every size from 352^2 to 1024^2.
+* A small SPEGNet whose trunk takes the f32 routes (gen-1 block, lanes
+  attention on zero-padded windows and on a global block, plain Q-pool
+  attention) on a 96x96 input (grid 24) and a non-square 64x96 one (grid
+  16x24), kernels=True, against the JAX model in f32 at the tolerance of
+  tests/test_torch_model.py; each wrapper called once per block of its
+  route.  The routes only bf16 takes (the T-block and the transition front
+  on the window-major layout, and Morton order on a 2^k grid) run in bf16
+  against the decomposed bf16 trunk here, and against JAX's bf16 model in
+  tests/test_torch_bf16.py.
 * The engines at such a target size: Predictor, Evaluator and one Trainer
   step at 96^2 on the CPU.
 """
@@ -123,16 +128,19 @@ def jax_gates(monkeypatch):
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
 
 
-def _jax_grid_routes(cfg, h, w, int8, batch=8):
-    """Each block's route under the JAX package's non-Morton branch, bf16."""
-    bf = jnp.bfloat16
+def _jax_grid_routes(cfg, h, w, int8, batch=8, dt=jnp.bfloat16):
+    """Each block's route under the JAX package's non-Morton branch in
+    compute dtype ``dt``: the front and the T-block need bf16
+    (``self.dtype == jnp.bfloat16``, :514, :863)."""
+    bf = dt
+    t_ok = dt == jnp.bfloat16
     out = []
     for sp in thiera.block_specs(cfg):
         ws = sp.window
         l, n = (ws * ws if ws else h * w), h * w
         divisible = ws == 0 or (h % ws == 0 and w % ws == 0)
         if sp.q_pool:
-            if (sp.dim != sp.dim_out and ws > 1 and ws % 2 == 0 and divisible
+            if (t_ok and sp.dim != sp.dim_out and ws > 1 and ws % 2 == 0 and divisible
                     and jfbt.qpool_supported(sp.dim, sp.heads, l, n, bf, batch=batch)):
                 i8 = int8 and jfbt_i8.qpool_supported_i8(sp.dim, sp.heads, l, n, bf,
                                                          batch=batch)
@@ -142,7 +150,7 @@ def _jax_grid_routes(cfg, h, w, int8, batch=8):
             h, w = h // 2, w // 2
             continue
         rows = batch * n // l if divisible else 0
-        if (sp.dim == sp.dim_out and divisible
+        if (t_ok and sp.dim == sp.dim_out and divisible
                 and jfbt.supported(sp.dim, sp.heads, l, n, bf, batch=batch)):
             i8 = int8 and jfbt_i8.supported_i8(sp.dim, sp.heads, l, n, bf, batch=batch)
             out.append("fused_block_t_i8" if i8 else "fused_block_t")
@@ -179,12 +187,45 @@ def test_hiera_large_routes_match_jax_gates(jax_gates, size):
         HIERA_L[size]
 
 
+# blocks per route of Hiera-L in f32 at each input size, without and with
+# int8_encoder (stage 4's gen-1 blocks, C 1152, take the int8 gen-1 block
+# where its windows divide the grid)
+HIERA_L_F32 = {
+    **{s: ({"fused_block": 10, "fused_attention_lanes": 35, "plain": 3},
+           {"fused_block": 7, "fused_block_i8": 3, "fused_attention_lanes": 35, "plain": 3})
+       for s in (512, 768, 1024)},
+    **{s: ({"fused_block": 7, "fused_attention_lanes": 38, "plain": 3},) * 2
+       for s in (352, 384, 640)},
+}
+
+
+@pytest.mark.parametrize("size", sorted(HIERA_L_F32))
+def test_hiera_large_f32_routes_match_jax_gates(jax_gates, size):
+    cfg = thiera.HIERA_VARIANTS["large"]
+    g = size // 4
+    for int8 in (False, True):
+        port = thiera.trunk_routes(cfg, g, torch.float32, int8)
+        assert port == _jax_grid_routes(cfg, g, g, int8, dt=jnp.float32), (size, int8)
+        assert collections.Counter(port) == HIERA_L_F32[size][int8], (size, int8)
+        assert port == thiera.trunk_routes(cfg, g, torch.float64, int8)
+    assert not thiera.takes_morton(cfg, g, g, torch.float32)
+
+
 @pytest.mark.parametrize("hw", [(24, 24), (16, 24), (24, 16), (12, 20)])
 def test_small_grid_routes_match_jax_gates(jax_gates, hw):
     cfg = thiera.HIERA_VARIANTS["_torch_grid"]
     for int8 in (False, True):
-        assert thiera.trunk_routes(cfg, hw, torch.float32, int8) == \
+        assert thiera.trunk_routes(cfg, hw, torch.bfloat16, int8) == \
             _jax_grid_routes(cfg, *hw, int8)
+
+
+@pytest.mark.parametrize("hw", [(24, 24), (16, 24), (16, 16), (32, 32)])
+def test_small_grid_f32_routes_match_jax_gates(jax_gates, hw):
+    cfg = thiera.HIERA_VARIANTS["_torch_grid"]
+    for int8 in (False, True):
+        port = thiera.trunk_routes(cfg, hw, torch.float32, int8)
+        assert port == _jax_grid_routes(cfg, *hw, int8, dt=jnp.float32)
+        assert not {"fused_block_t", "qpool_front"} & set(port)
 
 
 def test_morton_grids_keep_their_routes():
@@ -264,6 +305,36 @@ def test_spegnet_on_grid_matches_jax(jax_grid_case, monkeypatch, hw):
     np.testing.assert_allclose(got["edge"].numpy(), want["edge"], **TOL)
     for k in ("context", "fused", "edge_features"):
         np.testing.assert_allclose(got["features"][k].numpy(), want["features"][k], **TOL)
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (64, 96)], ids=["64x64-morton", "64x96"])
+def test_bf16_token_layouts_match_decomposed(monkeypatch, hw):
+    """The token-major layouts of bf16 (Morton order on a 2^k grid; the
+    window-major layout elsewhere, with the T-block and the transition
+    front), which f32 no longer takes, on the CPU against the decomposed
+    bf16 trunk: each wrapper called once per block of its route, and every
+    pyramid output within two bf16 steps (2^-7) of the largest (a wrong
+    layout moves it by O(1))."""
+    cfg = thiera.HIERA_VARIANTS["_torch_grid"]
+    torch.manual_seed(0)
+    trunk = thiera.Hiera("_torch_grid").eval()
+    with torch.no_grad():
+        for p in trunk.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    x = torch.randn(2, *hw, 3)
+    routes = collections.Counter(thiera.trunk_routes(cfg, (hw[0] // 4, hw[1] // 4),
+                                                     torch.bfloat16, False))
+    assert {"fused_block_t", "qpool_front"} <= set(routes)
+    assert thiera.takes_morton(cfg, hw[0] // 4, hw[1] // 4, torch.bfloat16) == (hw[0] == hw[1])
+    calls = _count_wrappers(monkeypatch)
+    with torch.no_grad():
+        got = trunk(x, kernels=True, dtype=torch.bfloat16)
+        want = trunk(x, kernels=False, dtype=torch.bfloat16)
+    routes.pop("plain", None)
+    assert calls == routes
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= 2 ** -7
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ not multiples of 16 and on strided views; the int8 Predictor's and the
 384^2 Predictor's launches; the T-block's saved-residual pair bit-equal to
 the recompute pair and within the limits of its plain versions (T-block
 geometries include the 1024^2 global block, L 4096); the bf16 and int8
-GEMMs just past 65535 row tiles.
+GEMMs just past 65535 row tiles.  In f32 (``use_amp: false``): the gen-1
+block, both attention wrappers and the int8 gen-1 block at every f32
+main-path geometry (kernel_check.F32_REL_LIMIT; the int8 one by the int8
+rule), the f32 GEMM, LayerNorm and attention on ragged shapes, and the f32
+Predictor's launches (JAX's f32 routes: no T-block, no front).
 These need an NVIDIA card with nvcc; elsewhere they skip."""
 
 import pytest
@@ -241,12 +245,107 @@ def test_attention_kernel_any_length(cuda, l):
     assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.REL_LIMIT
 
 
-def test_attention_wrappers_refuse_f32(cuda):
+def test_attention_wrappers_run_f32(cuda):
+    """f32 attention has its own kernel (csrc/attention_f32.cu): both
+    wrappers launch it and match their plain f32 versions."""
     from spegnet_tpu_torch.ops import pallas_attention as pa
 
-    qkv = torch.randn((1, 64, 3 * 2 * 72), device=cuda)
-    with pytest.raises(ValueError, match="bf16"):
-        pa.fused_attention_lanes(qkv, 2, 72 ** -0.5)
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn((2, 64, 3 * 2 * 72), generator=g).to(cuda)
+    before = dict(kernels.launches)
+    got = pa.fused_attention_lanes(qkv, 2, 72 ** -0.5)
+    want = pa.lanes_plain(qkv, 2, 72 ** -0.5)
+    q, k, v = pa.split_qkv(qkv, 2)
+    got2, want2 = pa.fused_attention(q, k, v), pa.attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_attention_lanes"] == before["fused_attention_lanes"] + 1
+    assert kernels.launches["fused_attention"] == before["fused_attention"] + 1
+    for a, b in ((got, want), (got2, want2)):
+        assert a.dtype == torch.float32
+        assert float((a - b).abs().max() / b.abs().max()) <= kernel_check.F32_REL_LIMIT
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.f32_cases()))
+def test_f32_kernel_matches_plain(cuda, name):
+    case = kernel_check.f32_cases()[name](name, 1, torch.Generator().manual_seed(0), cuda)
+    before = kernels.launches[case.wrapper]
+    err, rel = kernel_check.compare(case)
+    torch.cuda.synchronize()
+    assert kernels.launches[case.wrapper] == before + 1
+    assert rel <= kernel_check.F32_REL_LIMIT, (name, err, rel)
+
+
+def test_f32_int8_kernel_matches_plain_int8(cuda):
+    name = "stage4_i8_f32"
+    case = kernel_check.f32_i8_case(name, 1, torch.Generator().manual_seed(0), cuda)
+    before = kernels.launches[case.wrapper]
+    res = kernel_check.compare_i8(case)
+    torch.cuda.synchronize()
+    assert kernels.launches[case.wrapper] == before + 1
+    assert kernel_check.i8_ok(res), res
+    parts = kernel_check.i8_parts(name, 1, torch.Generator().manual_seed(1), cuda)
+    assert kernel_check.i8_parts_ok(parts), parts
+
+
+@pytest.mark.parametrize("gelu", [None, "erf", "tanh"])
+def test_f32_gemm_and_layernorm_ragged(cuda, gelu):
+    """M, N and K tails (300 x 200 x 100) in the 3xTF32 GEMM and its
+    epilogues, and a LayerNorm row of 100, against f32 PyTorch (TF32 off)."""
+    import torch.nn.functional as F
+
+    from spegnet_tpu_torch.ops.fused_block_t import layer_norm
+
+    g = torch.Generator().manual_seed(2)
+    a, w, bias, res = (torch.randn(shape, generator=g).to(cuda)
+                       for shape in ((300, 100), (200, 100), (200,), (300, 200)))
+    got = kernels.gemm_f32(a, w, bias, residual=res, gelu=gelu)
+    want = F.linear(a, w, bias)
+    if gelu:
+        want = F.gelu(want, approximate="tanh" if gelu == "tanh" else "none")
+    want = res + want
+    assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.F32_REL_LIMIT
+    lw, lb = torch.randn(100, generator=g).to(cuda), torch.randn(100, generator=g).to(cuda)
+    y, yp = kernels.layernorm_f32(a, lw, lb, 1e-6), layer_norm(a, lw, lb, 1e-6)
+    assert float((y - yp).abs().max() / yp.abs().max()) <= kernel_check.F32_REL_LIMIT
+
+
+@pytest.mark.parametrize("l", [1, 20, 100, 484])
+def test_f32_attention_kernel_any_length(cuda, l):
+    from spegnet_tpu_torch.ops import pallas_attention as pa
+
+    g = torch.Generator().manual_seed(l)
+    qkv = torch.randn((3, l, 3 * 2 * 72), generator=g).to(cuda)
+    got, want = pa.fused_attention_lanes(qkv, 2, 72 ** -0.5), pa.lanes_plain(qkv, 2, 72 ** -0.5)
+    assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.F32_REL_LIMIT
+    q = torch.randn((3, 2, l, 64), generator=g).to(cuda).transpose(1, 2)
+    k, v = (torch.randn((3, l, 2, 64), generator=g).to(cuda) for _ in "kv")
+    got, want = pa.fused_attention(q, k, v), pa.attention_reference(q, k, v)
+    assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.F32_REL_LIMIT
+
+
+def test_f32_predictor_launches_follow_the_routes(cuda):
+    import collections
+
+    import numpy as np
+
+    from spegnet_tpu_torch.engine.predictor import Predictor
+    from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.utils.weights import init_weights
+
+    mc = {"encoder": {"variant": "large"}, "compute_dtype": "float32",
+          "image_processing": {"target_size": 512}}
+    model = init_weights(SPEGNet(SPEGNetConfig.from_dict(mc)), torch.Generator().manual_seed(0))
+    pred = Predictor(None, mc, None, device="cuda", model=model)
+    kernels.reset_launches()
+    seg, _ = pred.predict_arrays([np.zeros((300, 400, 3), np.uint8)])
+    torch.cuda.synchronize()
+    routes = collections.Counter(trunk_routes(HIERA_VARIANTS["large"], 128, torch.float32,
+                                              False))
+    assert routes == {"fused_block": 10, "fused_attention_lanes": 35, "plain": 3}
+    routes.pop("plain")
+    assert {w: n for w, n in kernels.launches.items() if n} == dict(routes)
+    assert seg.shape == (1, 512, 512) and np.isfinite(seg).all()
 
 
 def test_predictor_384_launches_follow_the_routes(cuda):

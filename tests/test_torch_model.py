@@ -3,10 +3,13 @@
 JAX weights come from ``model.init`` (perturbed so biases, BN statistics and
 position embeddings are non-trivial) and are carried across by
 ``state_dict_from_jax``; both models see the same numpy input.  Both port
-compositions are checked: ``kernels=True`` (the Morton trunk and decoder
-block 2 through the kernel wrappers, which take their plain versions on the
-CPU; and on a 64x96 input, the trunk of grids that are not 2^k) and
-``kernels=False`` (the decomposed path).
+compositions are checked: ``kernels=True`` (the trunk on the JAX package's
+f32 routes -- gen-1 blocks, lanes attention and the decomposed blocks, no
+Morton order, T-block or transition front, which are bf16 only -- through
+the kernel wrappers, which take their plain versions on the CPU; and on a
+64x96 input, a grid that is not 2^k) and ``kernels=False`` (the decomposed
+path).  The bf16 token-major trunk is held against JAX's bf16 model in
+tests/test_torch_bf16.py.
 
 Tolerance 1e-4 absolute + 1e-4 relative on logits of magnitude up to ~10:
 f32 throughout, differences come from summation order across ~10 layers
@@ -104,9 +107,8 @@ def test_kernel_path_refuses_uncovered_geometry():
 
 def test_kernel_path_runs_grid_that_is_not_2k(jax_case):
     """A 64x96 input (patch grid 16x24) runs on the kernel path, its blocks
-    routed by JAX's gates (a T-block and the transition front on the
-    window-major layout, then the decomposed blocks), and matches the JAX
-    model."""
+    routed by JAX's f32 gates (gen-1, lanes and the decomposed blocks, on
+    the raster layout), and matches the JAX model."""
     variant, head, _, variables, _ = jax_case
     x = np.random.default_rng(3).standard_normal((2, 64, 96, 3)).astype(np.float32)
     want = jax.device_get(jax.jit(JaxSPEGNet(JaxConfig(variant=variant, **head)).apply)(
