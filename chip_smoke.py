@@ -6,7 +6,9 @@
 1. Requires CUDA (exits non-zero without it) and prints the card's name and
    power limit as nvidia-smi reports them.
 2. Builds the Hopper kernels from spegnet_tpu_torch/csrc into build/kernels/
-   (one nvcc per source, all started together) and prints the build seconds.
+   (one nvcc per source, all started together) and prints the build seconds
+   and the ptxas registers and spills of each instantiation of the bf16 and
+   f32 attention kernels (none may spill at Hiera-L's head dim 72 in bf16).
 3. Compares every kernel with its plain PyTorch version in bf16 at every
    main-path geometry of Hiera-L inference and training, batch 2: the
    forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
@@ -77,7 +79,8 @@
 5. Times the kernel path against the plain bf16 path (kernels=False), the
    int8 kernel path and the speed mode (both int8 flags) in ms/image at
    batch 8 (at 384^2 the kernel path, the speed mode and the plain bf16
-   path; in f32 at 512^2 the kernel path and the plain f32 path), and each
+   path; at 640^2 the kernel path and the plain bf16 path; in f32 at 512^2
+   the kernel path and the plain f32 path), and each
    kernel -- forward and backward, the int8 ones and the f32 ones --
    against its plain version at batch 8
    with CUDA events, beside its roofline bound (kernel_check.work /
@@ -86,7 +89,9 @@
    (F.linear, scaled_dot_product_attention and its backward, F.layer_norm
    and its backward, a transposed matmul), the int8 GEMM of stage 3's fc1
    against torch._int_mm, each attention geometry (bf16 and f32) against
-   F.scaled_dot_product_attention on the same q / k / v, and the f32
+   F.scaled_dot_product_attention on the same q / k / v -- by CUDA events
+   and by device time (torch.profiler, kernel_check.device_ms), per call and
+   per forward, since the short-L calls are host-bound --, and the f32
    chain's GEMMs, attention and LayerNorm at stage 1 and 4 against F.linear,
    SDPA and F.layer_norm in f32, as yardsticks the port never calls.  The
    saved-residual pair's chains against their plain versions at its four
@@ -304,9 +309,17 @@ def main() -> int:
     log(f"card: {smi}")
 
     t0 = time.perf_counter()
-    so = kernels.build()
+    so = kernels.build(verbose=True, echo=False)
     kernels.load()
     log(f"build: {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    for kern in ("attention_wgmma_kernel", "attention_f32_kernel"):
+        usage = kernels.ptxas_usage(kern)
+        log(f"ptxas {kern} (template arguments: registers, spill store / load bytes): "
+            + ", ".join(f"{w}: {r}, {ss} / {sl}" for w, r, ss, sl in sorted(usage)))
+        if kern == "attention_wgmma_kernel":
+            at72 = [u for u in usage if u[0][0] == 72]
+            check(len(at72) == 3 and all(ss == sl == 0 for _, _, ss, sl in at72),
+                  f"{kern}<72, *> (Hiera-L's head dim) spills or was not built: {usage}")
 
     # -- 3. every kernel vs its plain version at every main-path geometry ----
     cases = kc.all_cases()
@@ -425,7 +438,7 @@ def main() -> int:
         del pr, m
 
     # -- 4c. the Predictor on grids that are not 2^k ---------------------------
-    x384 = seg384_32 = imgs384 = None
+    x384 = seg384_32 = imgs384 = x640 = None
     for size in GRID_SIZES:
         mc = {**model_config, "image_processing": {"target_size": size}}
         pred_s = Predictor(None, mc, None, batch_size=4, device="cuda", model=model)
@@ -453,6 +466,8 @@ def main() -> int:
               f"{size} int8dec: mask MAE {mae8:.3e} > {MASK_MAE_I8DEC_LIMIT}")
         if size == 384:
             x384, seg384_32, imgs384 = xs, seg_s32, imgs
+        if size == 640:
+            x640 = xs
         del pred_s, pred8, m8
     untried_routes(model, state, torch, dev, launches)
     model_f32 = f32_predict(state, images, seg32, imgs384, seg384_32, torch, launches_f32)
@@ -473,6 +488,11 @@ def main() -> int:
             model.kernels = mode != "plain_384"
             run.setdefault(mode, []).append(
                 kc.time_ms(lambda: m(x384_8), iters=10, warmup=2) / 8)
+        x640_8 = torch.cat([x640, x640]).to(torch.float32)
+        for mode in ("kernel_640", "plain_640", "plain_640", "kernel_640"):
+            model.kernels = mode == "kernel_640"
+            run.setdefault(mode, []).append(
+                kc.time_ms(lambda: model(x640_8), iters=5, warmup=2) / 8)
         for mode in ("kernel_f32", "plain_f32", "plain_f32", "kernel_f32"):
             model_f32.kernels = mode == "kernel_f32"
             run.setdefault(mode, []).append(
@@ -483,7 +503,8 @@ def main() -> int:
     log(f"e2e ms/img at batch 8: kernel path {run['kernel']}, int8 kernel path {run['int8']}, "
         f"speed mode (both int8 flags) {run['speed']}, plain bf16 path {run['plain']}; at "
         f"384^2: kernel path {run['kernel_384']}, speed mode {run['speed_384']}, plain bf16 "
-        f"path {run['plain_384']}")
+        f"path {run['plain_384']}; at 640^2: kernel path {run['kernel_640']}, plain bf16 path "
+        f"{run['plain_640']}")
     del model, predictor, model_i8, pred_i8, model_speed, model_f32
     torch.cuda.empty_cache()
 
@@ -514,14 +535,36 @@ def main() -> int:
         if lib_ms is not None:
             p["library_ms"] += lib_ms * n
 
+    # the attention rows' device time per forward (torch.profiler), beside the
+    # events time of account(): [kernel, SDPA] per row, nan where a geometry
+    # went unmeasured
+    attn_dev = {w: [0.0, 0.0] for w in KERNELS}
+
+    def attn_times(row, name, case, sdpa, counts):
+        k_ms, s_ms = kc.time_ms(case.kernel), kc.time_ms(sdpa)
+        try:
+            k_dev, s_dev = kc.device_ms(case.kernel), kc.device_ms(sdpa)
+        except RuntimeError as e:   # the profiler saw nothing: a reading, not a check
+            log(f"device {name:10s} {row:21s}: not measured ({e})")
+            attn_dev[row][0] = attn_dev[row][1] = float("nan")
+            return k_ms, s_ms
+        n = counts.get(name, 0)
+        attn_dev[row][0] += k_dev * n
+        attn_dev[row][1] += s_dev * n
+        log(f"device {name:10s} {row:21s} batch 8: kernel events {k_ms:.4f} ms, device "
+            f"{k_dev:.4f} ms (host-bound share {max(k_ms - k_dev, 0.0):.4f} ms); sdpa events "
+            f"{s_ms:.4f} ms, device {s_dev:.4f} ms (x{n} per forward)")
+        return k_ms, s_ms
+
     with torch.inference_mode():
         for name, make in cases.items():
             case = make(name, 8, torch.Generator().manual_seed(2), dev)
-            lib_ms = None
             if name in kc.ATTN_CASES:
-                lib_ms = kc.time_ms(sdpa_call(name, kc, torch, F, dev))
-            account(case.wrapper, name, kc.time_ms(case.kernel), kc.time_ms(case.plain),
-                    lib_ms=lib_ms)
+                k_ms, lib_ms = attn_times(case.wrapper, name, case,
+                                          sdpa_call(name, kc, torch, F, dev), kc.COUNT_384)
+                account(case.wrapper, name, k_ms, kc.time_ms(case.plain), lib_ms=lib_ms)
+            else:
+                account(case.wrapper, name, kc.time_ms(case.kernel), kc.time_ms(case.plain))
             del case
     for name in kc.GRAD_CASES:
         if name.endswith("_ties"):
@@ -552,17 +595,24 @@ def main() -> int:
             del case
         for name, make in kc.f32_cases().items():
             case = make(name, 8, torch.Generator().manual_seed(2), dev)
-            lib_ms = None
+            row = ROW[case.wrapper, "f32"]
             if name in kc.F32_ATTN_CASES:
-                lib_ms = kc.time_ms(sdpa_call(name, kc, torch, F, dev))
-            account(ROW[case.wrapper, "f32"], name, kc.time_ms(case.kernel),
-                    kc.time_ms(case.plain), lib_ms=lib_ms)
+                k_ms, lib_ms = attn_times(row, name, case, sdpa_call(name, kc, torch, F, dev),
+                                          kc.COUNT_F32)
+                account(row, name, k_ms, kc.time_ms(case.plain), lib_ms=lib_ms)
+            else:
+                account(row, name, kc.time_ms(case.kernel), kc.time_ms(case.plain))
             del case
         for name in kc.F32_I8:
             case = kc.f32_i8_case(name, 8, torch.Generator().manual_seed(2), dev)
             account(ROW[case.wrapper, "f32"], name, kc.time_ms(case.kernel),
                     kc.time_ms(case.plain))
             del case
+    for row, (k_dev, s_dev) in attn_dev.items():
+        if KERNELS[row].library:
+            log(f"device per forward {row}: kernel {k_dev:.4f} ms, sdpa {s_dev:.4f} ms, events "
+                f"kernel {per[row]['ms']:.4f} ms, sdpa {per[row]['library_ms']:.4f} ms ("
+                f"{'384^2' if row in AT_384 else '512^2 f32'})")
     torch.cuda.empty_cache()
     yardsticks(kc, kernels, F, torch, dev)
 

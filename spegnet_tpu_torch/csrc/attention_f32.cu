@@ -13,11 +13,13 @@
 //
 // Operands are strided views [problems, L, heads, D] with D contiguous (the
 // packed token-major qkv of an nn.Linear, or separate tensors), element
-// strides multiples of 4, D a multiple of 4 up to 128; the output is written
-// through the same kind of view.
+// strides multiples of 4, D a multiple of 4 up to 256 (the launcher,
+// kernels.attention, zero-pads any other head dim to one); the output is
+// written through the same kind of view.
 //
 // A block of 4 warps owns 64 query rows of one (problem, head); each warp 16
-// rows.  Keys stream through shared memory in tiles of 64, double-buffered
+// rows.  Keys stream through shared memory in tiles of KT (64; 32 above a
+// padded head dim of 160, so that Q and two K/V buffers fit), double-buffered
 // with cp.async; the scores, the online softmax (exp2, running max and sum
 // per row, f32) and the output accumulator stay in registers as mma
 // fragments.  Both products run 3xTF32 on mma.sync.m16n8k8 (common.cuh),
@@ -36,15 +38,15 @@
 namespace spk {
 namespace {
 
-constexpr int AF_KT = 64;      // keys per shared-memory tile
 constexpr int AF_WARPS = 4;    // warps (16 query rows each) per block
 constexpr int AF_ROWS = AF_WARPS * 16;
 
 template <int DP>
 struct AfSmem {
+  static constexpr int kKT = DP <= 160 ? 64 : 32;  // keys per shared-memory tile
   static constexpr int kPitch = DP + 4;  // floats per row: rows on distinct banks
   static constexpr int kQ = AF_ROWS * kPitch;
-  static constexpr int kKV = AF_KT * kPitch;
+  static constexpr int kKV = kKT * kPitch;
   static constexpr int kBytes = (kQ + 4 * kKV) * 4;  // Q + 2 buffers x (K, V)
 };
 
@@ -58,7 +60,7 @@ __global__ void __launch_bounds__(AF_WARPS * 32)
 attention_f32_kernel(ViewF q, ViewF k, ViewF v, float* __restrict__ o, long ob, long ol,
                      long oh, int L, int D, int nqb, float scale) {
   constexpr int P = AfSmem<DP>::kPitch;
-  constexpr int KT = AF_KT;
+  constexpr int KT = AfSmem<DP>::kKT;
   constexpr int NV = DP / 4;   // 16-byte vectors per padded row
   constexpr int NT = DP / 8;   // n8 tiles of the output accumulator
   constexpr int KD = DP / 8;   // k8 steps over head_dim
@@ -229,7 +231,7 @@ attention_f32_kernel(ViewF q, ViewF k, ViewF v, float* __restrict__ o, long ob, 
 extern "C" {
 
 // q / k / v / o: pointer and element strides (problem, token, head) of each
-// [problems, L, heads, D] f32 view; D a multiple of 4, at most 128.
+// [problems, L, heads, D] f32 view; D a multiple of 4, at most 256.
 int sp_attention_f32(const void* q, long qb, long ql, long qh, const void* k, long kb,
                      long kl, long kh, const void* v, long vb, long vl, long vh, void* o,
                      long ob, long ol, long oh, int problems, int heads, int L, int D,
@@ -243,17 +245,23 @@ int sp_attention_f32(const void* q, long qb, long ql, long qh, const void* k, lo
   cudaStream_t st = (cudaStream_t)stream;
   // head_dim padded in shared memory to the next of these widths
   const int dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 48 ? 48 : D <= 64 ? 64 : D <= 72 ? 72
-               : D <= 80 ? 80 : D <= 96 ? 96 : D <= 112 ? 112 : 128;
+               : D <= 80 ? 80 : D <= 96 ? 96 : D <= 112 ? 112 : D <= 128 ? 128
+               : D <= 144 ? 144 : D <= 160 ? 160 : D <= 192 ? 192 : D <= 224 ? 224 : 256;
 #define SPK_AF_CASE(DPV)                                                                \
   case DPV: {                                                                           \
     const int smem = AfSmem<DPV>::kBytes;                                               \
-    cudaFuncSetAttribute(attention_f32_kernel<DPV>,                                     \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);            \
+    static bool attr = false; /* set once per instantiation */                          \
+    if (!attr) {                                                                        \
+      const cudaError_t e = cudaFuncSetAttribute(                                       \
+          attention_f32_kernel<DPV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
+      if (e != cudaSuccess) return (int)e;                                              \
+      attr = true;                                                                      \
+    }                                                                                   \
     attention_f32_kernel<DPV><<<grid, block, smem, st>>>(qv, kv, vv, (float*)o, ob, ol, \
                                                          oh, L, D, nqb, scale);         \
     break;                                                                              \
   }
-  if (D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+  if (D > 256 || D % 4) return (int)cudaErrorInvalidValue;
   switch (dp) {
     SPK_AF_CASE(16)
     SPK_AF_CASE(32)
@@ -264,6 +272,11 @@ int sp_attention_f32(const void* q, long qb, long ql, long qh, const void* k, lo
     SPK_AF_CASE(96)
     SPK_AF_CASE(112)
     SPK_AF_CASE(128)
+    SPK_AF_CASE(144)
+    SPK_AF_CASE(160)
+    SPK_AF_CASE(192)
+    SPK_AF_CASE(224)
+    SPK_AF_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

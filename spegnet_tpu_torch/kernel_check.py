@@ -867,6 +867,35 @@ def compare(case: Case) -> Tuple[float, float]:
     return err, err / max(ref, 1e-12)
 
 
+def device_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2,
+              attempts: int = 10) -> float:
+    """Mean device time per call in ms: the summed time of the CUDA kernels
+    that `iters` calls launch, from torch.profiler (no host time, unlike
+    :func:`time_ms` on calls the host cannot keep ahead of).  A profiling
+    session now and then records no device activity on the card's machine
+    (2 of 96 short sessions in one run, 3 in a row once): such a session is
+    run again, up to ``attempts`` in all, then the call raises."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.05)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    raise RuntimeError(f"torch.profiler recorded no device time in {attempts} sessions")
+
+
 def time_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:
     """Mean ms per call on the current CUDA stream (events around `iters`
     back-to-back calls, after `warmup` calls)."""

@@ -21,6 +21,7 @@ that took the saved-residual pair instead of ``fused_block_t`` /
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -82,15 +83,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA toolkit")
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, echo: bool = True) -> Path:
     """Compile csrc/*.cu into build/kernels/libspegnet_kernels_<hash>.so
     (skipped when that file exists) and return its path.  Each source is
     compiled to an object by its own nvcc process, all started together,
-    then linked.  ``verbose`` adds ``-Xptxas -v`` and prints the compiler's
-    register/shared-memory report."""
+    then linked.  ``verbose`` adds ``-Xptxas -v`` and writes the compiler's
+    register/shared-memory report beside the library (``<so>.ptxas.txt``,
+    :func:`ptxas_usage`; a library built without one is built again),
+    printed unless ``echo`` is False."""
     digest = _digest()
     so = BUILD_DIR / f"libspegnet_kernels_{digest}.so"
-    if so.exists():
+    if so.exists() and (not verbose or so.with_suffix(".ptxas.txt").exists()):
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{digest}.{os.getpid()}"
@@ -119,9 +122,39 @@ def build(verbose: bool = False) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     if verbose:
-        print("".join(report), flush=True)
+        so.with_suffix(".ptxas.txt").write_text("".join(report))
+        if echo:
+            print("".join(report), flush=True)
     os.replace(tmp, so)
     return so
+
+
+def ptxas_usage(kernel: str, report: Optional[str] = None):
+    """[(template arguments, registers, spill store bytes, spill load bytes)]
+    of each instantiation of ``kernel`` in a ptxas report (default: the one
+    a verbose :func:`build` of the current sources wrote; empty if none);
+    the arguments a tuple of its int / bool values."""
+    import re
+
+    if report is None:
+        path = BUILD_DIR / f"libspegnet_kernels_{_digest()}.ptxas.txt"
+        report = path.read_text() if path.exists() else ""
+    out, name, spill = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            arg = re.search(kernel + r"I((?:L[ib]\d+E)+)E", name)
+            args = tuple(int(v) for v in re.findall(r"L[ib](\d+)E", arg.group(1))) if arg else ()
+            out.append((args, int(m.group(1))) + spill)
+            name, spill = None, (0, 0)
+    return out
 
 
 def load():
@@ -153,7 +186,7 @@ def load():
         "sp_quant_rows": [p, p, p, l, i, i, p],
         "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "sp_lanes_attention": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
-                               i, i, i, i, f, p],
+                               i, i, i, i, i, i, i, i, i, f, p],
         "sp_attention_f32": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
                              i, i, i, i, f, p],
         "sp_layernorm_f32": [p, p, p, p, l, i, f, p],
@@ -748,44 +781,130 @@ def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor
 # launchers (csrc/attention_lanes.cu)
 # ---------------------------------------------------------------------------
 
-def _strides(t: torch.Tensor, name: str):
+# The largest head dim the attention kernels take (the gate of
+# ops/pallas_attention.fused_attention, ``is_supported``, admits up to it; the
+# lanes gate, as JAX's, does not look at the head dim, so a wider head
+# reaches :func:`attention_head_dim` and is refused there).
+MAX_HEAD_DIM = 256
+# Widths of the bf16 kernel's P.V product (csrc/attention_lanes.cu
+# instantiations): the head dim, padded to a multiple of 8, rounds up to one.
+ATTN_DV = (16, 32, 48, 64, 72, 80, 96, 128, 144, 192, 256)
+_AW_ROWS = 64   # rows of a box, of an m-tile (query rows) and of a key tile
+
+
+def attention_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The shape rule of the attention kernels: head dim ``d`` runs as the
+    next multiple of 8 (bf16) or 4 (f32), the 16-byte vector of each; any
+    1 <= d <= :data:`MAX_HEAD_DIM` is taken, a wider one raises."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"attention: head_dim {d}; the kernels take 1 <= head_dim <= "
+                         f"{MAX_HEAD_DIM}")
+    vec = 4 if dtype == torch.float32 else 8
+    return -(-d // vec) * vec
+
+
+class AttnPlan(NamedTuple):
+    """Launch plan of the bf16 attention kernel: ``dv`` the P.V width,
+    ``solo`` one (problem, head) per consumer warpgroup (L <= 64) instead of
+    2 * ``mt`` 64-row m-tiles of one (problem, head) per item (``mt`` 1 or
+    2, :func:`attention_plan`), ``items`` the work items, ``grid`` the
+    persistent blocks that stride over them."""
+    dv: int
+    solo: bool
+    mt: int
+    items: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(problems: int, heads: int, l: int, d: int, sms: int,
+                   mt: Optional[int] = None) -> AttnPlan:
+    """The work list of csrc/attention_lanes.cu for [problems, L, heads, d]
+    (d already a multiple of 8) on a card of ``sms`` SMs: about one block
+    per SM (fewer when there are fewer items).  ``mt`` (m-tiles per
+    consumer) by default: 2 up to a P.V width of 80 where 256-row items take
+    fewer rounds of the grid's blocks than 128-row ones, a round of 256-row
+    items counted 1.8 rounds of 128-row ones (their K/V loads are shared;
+    utils/attention_bench.py on an H100 at L 1024 and 4096, where both fill
+    their last round alike)."""
+    dv = next(x for x in ATTN_DV if x >= d)
+    solo = l <= _AW_ROWS
+
+    def n_items(m):
+        return (-(-problems * heads // 2) if solo
+                else problems * heads * -(-l // (2 * m * _AW_ROWS)))
+
+    if mt is None:
+        mt = 1
+        if not solo and dv <= 80:
+            rounds = {m: -(-n_items(m) // sms) for m in (1, 2)}
+            mt = 2 if 1.8 * rounds[2] < rounds[1] else 1
+    if mt not in (1, 2) or (mt == 2 and (solo or dv > 80)):
+        raise ValueError(f"attention: {mt} m-tiles at L {l}, P.V width {dv}")
+    items = n_items(mt)
+    if items >= 2 ** 31:
+        raise ValueError(f"attention: {items} work items (at most 2^31 - 1)")
+    return AttnPlan(dv, solo, mt, items, min(items, sms))
+
+
+def _view_strides(t: torch.Tensor, name: str):
     """(problem, token, head) element strides of a [P, L, H, D] bf16 or f32
     view with D contiguous, 16-byte aligned, each stride a multiple of 16
-    bytes where its dim is longer than 1."""
-    if t.device.type != "cuda" or t.dtype not in _ACTS or t.dim() != 4:
-        raise ValueError(f"{name}: expected a bf16 or f32 CUDA [P, L, H, D] tensor, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    bytes where its dim is longer than 1; a dim of extent 1 (never stepped)
+    reports one 16-byte vector.  The bf16 kernel's tensor maps take them as
+    byte strides of a head, a token and a problem, over dims (D, H, L, P),
+    which TMA needs to be multiples of 16."""
     vec = 16 // t.element_size()
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(
-            s % vec for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
-        raise ValueError(f"{name}: strides {t.stride()} need D contiguous, 16-byte "
+    st, shape = t.stride(), t.shape
+    out = tuple(st[i] if shape[i] > 1 else vec for i in range(3))
+    if st[3] != 1 or t.data_ptr() % 16 or out[0] % vec or out[1] % vec or out[2] % vec:
+        raise ValueError(f"{name}: strides {st} need D contiguous, 16-byte "
                          f"alignment and the other strides multiples of {vec}")
-    return t.stride()[:3]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v of every (problem, head) over its L tokens:
-    q / k / v strided [P, L, H, D] views -> contiguous [P, L, H, D] (any L,
-    D up to 128).  bf16 (D a multiple of 8): csrc/attention_lanes.cu; f32 (D
-    a multiple of 4): csrc/attention_f32.cu."""
-    qs, ks, vs = _strides(q, "attention q"), _strides(k, "attention k"), \
-        _strides(v, "attention v")
+    q / k / v [P, L, H, D] views -> contiguous [P, L, H, D] (any L >= 1,
+    head dims by :func:`attention_head_dim`).  bf16: csrc/attention_lanes.cu
+    (TMA + wgmma, :func:`attention_plan`); f32: csrc/attention_f32.cu.  A
+    head dim that is not a multiple of the kernel's vector is zero-padded to
+    one (one pad of the stacked q / k / v) and the output sliced back."""
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device.type != "cuda" or t.dtype not in _ACTS or t.dim() != 4:
+            raise ValueError(f"attention {name}: expected a bf16 or f32 CUDA [P, L, H, D] "
+                             f"tensor, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} differ")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention: q {q.dtype}, k {k.dtype}, v {v.dtype} differ")
     p, l, h, d = q.shape
-    vec = 16 // q.element_size()
-    if d % vec or d > 128 or h > 65535 or p * -(-l // 64) >= 2 ** 31:
-        raise ValueError(f"attention: [P, L, H, D] = {tuple(q.shape)} (D % {vec} == 0, "
-                         "D <= 128)")
-    out = torch.empty((p, l, h, d), dtype=q.dtype, device=q.device)
-    fn = load().sp_attention_f32 if q.dtype == torch.float32 else load().sp_lanes_attention
-    _check(fn(q.data_ptr(), *qs, k.data_ptr(), *ks, v.data_ptr(), *vs, out.data_ptr(),
-              *out.stride()[:3], p, h, l, d, scale, _stream(q)), "attention")
-    return out
+    dp = attention_head_dim(d, q.dtype)
+    if dp != d:
+        q, k, v = torch.nn.functional.pad(torch.stack((q, k, v)), (0, dp - d)).unbind(0)
+    qs, ks, vs = (_view_strides(q, "attention q"), _view_strides(k, "attention k"),
+                  _view_strides(v, "attention v"))
+    if l < 1 or h > 65535 or p * -(-l // 64) >= 2 ** 31:
+        raise ValueError(f"attention: [P, L, H, D] = {tuple(q.shape)}")
+    out = torch.empty((p, l, h, dp), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32:
+        _check(load().sp_attention_f32(q.data_ptr(), *qs, k.data_ptr(), *ks, v.data_ptr(),
+                                        *vs, out.data_ptr(), l * h * dp, h * dp, dp, p, h, l,
+                                        dp, scale, _stream(q)), "attention")
+    else:
+        plan = attention_plan(p, h, l, dp, _sm_count(q.device.index))
+        _check(load().sp_lanes_attention(q.data_ptr(), *qs, k.data_ptr(), *ks, v.data_ptr(),
+                                          *vs, out.data_ptr(), l * h * dp, h * dp, dp, p, h, l,
+                                          dp, plan.dv, plan.items, int(plan.solo), plan.mt,
+                                          plan.grid, scale, _stream(q)), "attention")
+    return out if dp == d else out[..., :d].contiguous()
 
 
 # ---------------------------------------------------------------------------

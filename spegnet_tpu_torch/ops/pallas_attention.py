@@ -24,7 +24,9 @@ CUDA tensor it launches csrc/attention_lanes.cu (bf16) or
 csrc/attention_f32.cu (f32, the JAX package's f32 compute, whose gates
 ignore the dtype), or raises.  The gradient is an autograd Function whose
 backward recomputes through the plain version, as the JAX package's custom
-VJPs do (:149-161, :323-332): there is no backward kernel for either.
+VJPs do (:149-161, :323-332): there is no backward kernel for either; where
+no gradient is recorded (inference) the wrappers launch the kernel without
+the Function, which saves its host cost per call.
 :func:`attend_windows` runs the same kernels, uncounted, as the window
 attention of the f32 gen-1 chains (ops/fused_block.py,
 ops/fused_block_t_i8.py).
@@ -51,7 +53,8 @@ _Q_BLOCKS = (512, 256, 128, 64)
 
 def lanes_supported(l: int, head_dim: int) -> bool:
     """Gate of :func:`fused_attention_lanes` (``lanes_supported`` :188),
-    L tokens per problem."""
+    L tokens per problem.  As JAX's, it ignores the head dim: a head wider
+    than kernels.MAX_HEAD_DIM passes it and the launcher refuses it."""
     if l <= _SMALL_L:
         return l >= 16
     return l <= _MAX_L and any(l % x == 0 for x in _Q_BLOCKS)
@@ -59,13 +62,15 @@ def lanes_supported(l: int, head_dim: int) -> bool:
 
 def is_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Gate of :func:`fused_attention` (``is_supported`` :335): [B, L, H, D]
-    self-attention with equal shapes, 16 <= L <= 8192, D <= 256."""
+    self-attention with equal shapes, 16 <= L <= 8192, D <= 256
+    (kernels.MAX_HEAD_DIM, the kernels' own limit: every D it admits
+    launches, kernels.attention_head_dim)."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         return False
     _, l, _, d = q.shape
     if l > _SMALL_L and not any(l % x == 0 for x in _Q_BLOCKS):
         return False
-    return l <= _MAX_L and d <= 256 and l >= 16
+    return l <= _MAX_L and d <= kernels.MAX_HEAD_DIM and l >= 16
 
 
 def split_qkv(qkv: torch.Tensor, heads: int):
@@ -73,8 +78,7 @@ def split_qkv(qkv: torch.Tensor, heads: int):
     b, l, f = qkv.shape
     if f % (3 * heads):
         raise ValueError(f"qkv width {f} does not split into 3 x {heads} heads")
-    t = qkv.unflatten(2, (3, heads, f // (3 * heads)))
-    return t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    return qkv.unflatten(2, (3, heads, f // (3 * heads))).unbind(2)
 
 
 def lanes_plain(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
@@ -154,7 +158,11 @@ def fused_attention_lanes(qkv: torch.Tensor, heads: int, scale: float) -> torch.
         return lanes_plain(qkv, heads, scale)
     _gate(qkv)
     kernels.launches["fused_attention_lanes"] += 1
-    return LanesFunction.apply(qkv.contiguous(), heads, scale)
+    qkv = qkv.contiguous()
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return LanesFunction.apply(qkv, heads, scale)
+    b, l, _ = qkv.shape   # no graph to record: the kernel alone
+    return kernels.attention(*split_qkv(qkv, heads), scale).reshape(b, l, -1)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -171,4 +179,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (q, k, v):
         _gate(t)
     kernels.launches["fused_attention"] += 1
-    return AttentionFunction.apply(q, k, v, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return AttentionFunction.apply(q, k, v, scale)
+    return kernels.attention(q, k, v, scale)

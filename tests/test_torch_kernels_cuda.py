@@ -226,10 +226,12 @@ def test_int8_wrapper_refuses_f32(cuda):
         fbt_i8.fused_block_t_i8(torch.randn(1, 256, 64, device=cuda), wts, 2, 64, 32 ** -0.5)
 
 
-@pytest.mark.parametrize("l", [1, 20, 100, 484])
+@pytest.mark.parametrize("l", [1, 20, 63, 65, 100, 127, 129, 484])
 def test_attention_kernel_any_length(cuda, l):
-    """Query and key tails are masked inside the kernel: any L, and q / k / v
-    given as separate [B, L, H, D] tensors (one of them a permuted view)."""
+    """Query and key tails are masked inside the kernel: any L (one consumer
+    per problem up to 64, 128-row items and 128-key tiles above, whose edges
+    63 / 65 / 127 / 129 straddle), and q / k / v given as separate
+    [B, L, H, D] tensors (one of them a permuted view)."""
     from spegnet_tpu_torch.ops import pallas_attention as pa
 
     g = torch.Generator().manual_seed(l)
@@ -243,6 +245,50 @@ def test_attention_kernel_any_length(cuda, l):
     got = pa.fused_attention(q, k, v)
     want = pa.attention_reference(q, k, v)
     assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.REL_LIMIT
+
+
+@pytest.mark.parametrize("p,h,l", [(300, 3, 100), (301, 3, 20)])
+def test_attention_kernel_persistent_grid(cuda, p, h, l):
+    """More work items than blocks (the grid is about one block per SM): each
+    block walks several items, with an odd (problem, head) count at L <= 64
+    leaving one consumer of the last item idle."""
+    from spegnet_tpu_torch.ops import pallas_attention as pa
+
+    g = torch.Generator().manual_seed(p)
+    qkv = torch.randn((p, l, 3 * h * 72), generator=g).to(cuda, torch.bfloat16)
+    plan = kernels.attention_plan(p, h, l, 72, kernels._sm_count(qkv.device.index))
+    assert plan.items > plan.grid
+    got, want = pa.fused_attention_lanes(qkv, h, 72 ** -0.5), pa.lanes_plain(qkv, h, 72 ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.REL_LIMIT
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("l", [20, 484])
+@pytest.mark.parametrize("d", [20, 136, 256])
+def test_attention_head_dims_up_to_256(cuda, d, l, dtype):
+    """Every head dim up to 256 launches a kernel through both wrappers: 20
+    (zero-padded to 24 / the f32 kernel's 20), 136 and 256, within REL_LIMIT
+    (bf16) / F32_REL_LIMIT (f32) of the plain version; 264 is refused."""
+    from spegnet_tpu_torch.ops import pallas_attention as pa
+
+    dt, limit = ((torch.bfloat16, kernel_check.REL_LIMIT) if dtype == "bf16"
+                 else (torch.float32, kernel_check.F32_REL_LIMIT))
+    g = torch.Generator().manual_seed(d + l)
+    qkv = torch.randn((2, l, 3 * 2 * d), generator=g).to(cuda, dt)
+    before = dict(kernels.launches)
+    got, want = pa.fused_attention_lanes(qkv, 2, d ** -0.5), pa.lanes_plain(qkv, 2, d ** -0.5)
+    q, k, v = pa.split_qkv(qkv, 2)
+    got2, want2 = pa.fused_attention(q, k, v), pa.attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_attention_lanes"] == before["fused_attention_lanes"] + 1
+    assert kernels.launches["fused_attention"] == before["fused_attention"] + 1
+    for a, b in ((got, want), (got2, want2)):
+        assert a.shape == b.shape and a.dtype == dt
+        assert float((a - b).abs().max() / b.abs().max()) <= limit
+    wide = torch.zeros((1, l, 1, 264), device=cuda, dtype=dt)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        kernels.attention(wide, wide, wide, 0.1)
 
 
 def test_attention_wrappers_run_f32(cuda):
