@@ -8,7 +8,8 @@
 2. Builds the Hopper kernels from spegnet_tpu_torch/csrc into build/kernels/
    (one nvcc per source, all started together) and prints the build seconds
    and the ptxas registers and spills of each instantiation of the bf16 and
-   f32 attention kernels (none may spill at Hiera-L's head dim 72 in bf16).
+   f32 attention kernels and of the weight-gradient GEMM (no attention
+   kernel may spill at Hiera-L's head dim 72, bf16 or f32).
 3. Compares every kernel with its plain PyTorch version in bf16 at every
    main-path geometry of Hiera-L inference and training, batch 2: the
    forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
@@ -18,7 +19,11 @@
    576, 1600 and 2304) against kernel_check.REL_LIMIT, and the backward
    kernels (every block and transition geometry plus a t23 case with forced
    pool ties) against bf16 autograd of the plain version, dx and every
-   weight gradient, against kernel_check.BWD_REL_LIMIT.
+   weight gradient, against kernel_check.BWD_REL_LIMIT; and the
+   weight-gradient GEMM (kernels.gemm_tn) at every weight gradient of those
+   backwards (kernel_check.tn_shapes) against its plain version
+   (ops/fused_block_t.weight_grad, f32 sums of the bf16 operands) within
+   TN_REL_LIMIT, two calls bit-equal.
    Then each int8 kernel of the flagged int8 encoder (model.int8_encoder)
    against its plain int8 version at every int8 geometry of Hiera-L 512^2
    (stages 2-4, the global blocks, t23, t34), batch 2: the whole block by
@@ -92,10 +97,13 @@
    F.scaled_dot_product_attention on the same q / k / v -- by CUDA events
    and by device time (torch.profiler, kernel_check.device_ms), per call and
    per forward, since the short-L calls are host-bound --, and the f32
-   chain's GEMMs, attention and LayerNorm at stage 1 and 4 against F.linear,
-   SDPA and F.layer_norm in f32, as yardsticks the port never calls.  The
-   saved-residual pair's chains against their plain versions at its four
-   geometries.
+   chain's GEMMs, attention and LayerNorm at stage 1 and 4 (and its window
+   attention at stage 2, L 16) against F.linear, SDPA and F.layer_norm in
+   f32, as yardsticks the port never calls.  The saved-residual pair's
+   chains against their plain versions at its four geometries.  The
+   weight-gradient GEMM at every weight gradient of a training step
+   (utils/gemm_tn_bench.py: device time against torch.mm, TFLOP/s, GB/s,
+   the roofline bound, the per-step totals).
 6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
    TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
    a 640 canvas; edges their morphological boundary):
@@ -192,6 +200,11 @@ COSINE_MARGIN = 0.01
 # every kernel (3xTF32 products), so they differ by summation order only.
 MASK_MAE_F32_LIMIT = 1e-5
 COSINE_F32_LIMIT = 0.9999
+# The weight-gradient GEMM against its plain version (f32 sums of the same
+# bf16 products): the tensor cores' own accumulation truncates, which over a
+# split of up to 8192 rows (kernels.TN_MAX_SPLIT) biases a sum by ~1e-5 of
+# it.
+TN_REL_LIMIT = 1e-4
 TIMED_STEPS = 6   # train steps timed after the warm-up step (512^2)
 GRID_SIZES = (384, 352, 640)   # inputs whose patch grid is not 2^k
 
@@ -312,14 +325,14 @@ def main() -> int:
     so = kernels.build(verbose=True, echo=False)
     kernels.load()
     log(f"build: {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
-    for kern in ("attention_wgmma_kernel", "attention_f32_kernel"):
+    for kern, n72 in (("attention_wgmma_kernel", 3), ("attention_tf32_kernel", 1),
+                      ("attention_f32_kernel", 0), ("gemm_tn_kernel", 0)):
         usage = kernels.ptxas_usage(kern)
         log(f"ptxas {kern} (template arguments: registers, spill store / load bytes): "
             + ", ".join(f"{w}: {r}, {ss} / {sl}" for w, r, ss, sl in sorted(usage)))
-        if kern == "attention_wgmma_kernel":
-            at72 = [u for u in usage if u[0][0] == 72]
-            check(len(at72) == 3 and all(ss == sl == 0 for _, _, ss, sl in at72),
-                  f"{kern}<72, *> (Hiera-L's head dim) spills or was not built: {usage}")
+        at72 = [u for u in usage if u[0][0] == 72]
+        check(len(at72) == n72 and all(ss == sl == 0 for _, _, ss, sl in at72),
+              f"{kern}<72, *> (Hiera-L's head dim) spills or was not built: {usage}")
 
     # -- 3. every kernel vs its plain version at every main-path geometry ----
     cases = kc.all_cases()
@@ -342,6 +355,7 @@ def main() -> int:
             f"{k} {r:.2e}" for k, (_, r) in errs.items()) + f" (limit {kc.BWD_REL_LIMIT})")
         check(errs[worst][1] <= kc.BWD_REL_LIMIT,
               f"{name}: backward {worst} disagrees with plain autograd ({errs[worst][1]:.3e})")
+    tn_checks(kc, kernels, torch, dev)
     for name in kc.RES:
         res = kc.compare_res(kc.res_case(name, 8, torch.Generator().manual_seed(1), dev))
         torch.cuda.synchronize()
@@ -615,6 +629,11 @@ def main() -> int:
                 f"{'384^2' if row in AT_384 else '512^2 f32'})")
     torch.cuda.empty_cache()
     yardsticks(kc, kernels, F, torch, dev)
+    from spegnet_tpu_torch.utils import gemm_tn_bench
+
+    with torch.inference_mode():
+        gemm_tn_bench.run(8, log)
+    torch.cuda.empty_cache()
 
     # -- 6. training ------------------------------------------------------------
     master = init_weights(SPEGNet(SPEGNetConfig(variant="large")),
@@ -1006,6 +1025,30 @@ def f32_checks(kc, torch, dev, max_err) -> None:
     torch.cuda.empty_cache()
 
 
+def tn_checks(kc, kernels, torch, dev) -> None:
+    """Phase 3's weight-gradient GEMM: kernels.gemm_tn at every weight
+    gradient of the kernel backwards (kc.tn_shapes, batch 2) against its
+    plain version within TN_REL_LIMIT, gradient and column sums, two calls
+    bit-equal."""
+    from spegnet_tpu_torch.ops.fused_block_t import weight_grad
+
+    for name, (m, n, k) in kc.tn_shapes(2).items():
+        g = torch.Generator().manual_seed(m + n + k)
+        a = torch.randn((m, n), generator=g).to(dev, torch.bfloat16)
+        b = torch.randn((m, k), generator=g).to(dev, torch.bfloat16)
+        out, cs = kernels.gemm_tn(a, b)
+        out2, cs2 = kernels.gemm_tn(a, b)
+        want, want_cs = weight_grad(a, b)
+        torch.cuda.synchronize()
+        rel = max(float((out - want).abs().max() / want.abs().max()),
+                  float((cs - want_cs).abs().max() / want_cs.abs().max()))
+        same = torch.equal(out, out2) and torch.equal(cs, cs2)
+        log(f"check {name:11s} gemm_tn M {m} N {n} K {k}: rel {rel:.2e} (limit {TN_REL_LIMIT}),"
+            f" two calls bit-equal {same}")
+        check(rel <= TN_REL_LIMIT and same, f"{name}: gemm_tn disagrees ({rel:.3e}, {same})")
+    torch.cuda.empty_cache()
+
+
 def f32_predict(state, images, seg32, imgs384, seg384_32, torch, launches):
     """Phase 4 in f32 (use_amp: false): the Predictor at 512^2 and 384^2
     (batch 4) on the f32 kernel path, every launch counter equal to the f32
@@ -1338,8 +1381,6 @@ def yardsticks(kc, kernels, F, torch, dev) -> None:
                                                lnb.to(torch.bfloat16), 1e-6)),
             "layernorm bwd": (lambda: kernels.layernorm_bwd(x, lnw, x, 1e-6),
                               lambda: torch.autograd.grad(ln_out, xg, x, retain_graph=True)),
-            "weight grad": (lambda: kernels.gemm_tn(qkv, x),
-                            lambda: torch.mm(qkv.t(), x)),
         }
         for what, (k, lib) in pairs.items():
             log(f"yardstick {name:7s} {what:14s} batch 8: kernel {kc.time_ms(k):.4f} ms, "
@@ -1368,7 +1409,7 @@ def yardsticks(kc, kernels, F, torch, dev) -> None:
     # the f32 gen-1 chain's pieces against F.linear / SDPA / F.layer_norm in f32
     from spegnet_tpu_torch.ops.pallas_attention import attend_windows
 
-    for name in ("stage1_f32", "stage4_f32"):
+    for name in ("stage1_f32", "stage2_f32", "stage4_f32"):
         c, heads, l, n = kc.F32_BLOCKS[name]
         g = torch.Generator().manual_seed(5)
         wts = kc.block_weights(c, heads, g, dev, torch.float32)

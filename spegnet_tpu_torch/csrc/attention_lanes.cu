@@ -426,28 +426,14 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // Tensor map of a strided [problems, L, heads, D] bf16 view: dims (D, heads,
 // L, problems), byte strides of a head, a token and a problem (multiples of
 // 16), boxes of 64 x 1 x 64 x 1 with the 128-byte swizzle, out-of-bound
 // elements read as zeros.
 cudaError_t make_view_tmap(CUtensorMap* map, const void* ptr, int D, int heads, int L,
                            int problems, long sh, long sl, long sb) {
-  static EncodeTiledFn encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult q;
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                                            reinterpret_cast<void**>(&encode),
-                                            cudaEnableDefault, &q);
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode) {
-      encode = nullptr;
-      return e != cudaSuccess ? e : cudaErrorNotSupported;
-    }
-  }
+  const TmapEncodeFn encode = tmap_encoder();
+  if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L,
                               (cuuint64_t)problems};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2, (cuuint64_t)sb * 2};

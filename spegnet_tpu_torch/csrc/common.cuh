@@ -301,6 +301,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// The tensor-map encoder cuTensorMapEncodeTiled, looked up once (null
+// where it is missing).
+typedef CUresult (*TmapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline TmapEncodeFn tmap_encoder() {
+  static TmapEncodeFn encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TmapEncodeFn>(fn)
+               : nullptr;
+  }();
+  return encode;
+}
+
 // 2-D TMA load of the box at (x = inner coordinate, y = outer coordinate)
 // into shared memory, completing `bytes` on the barrier.
 __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_t* bar, int x,

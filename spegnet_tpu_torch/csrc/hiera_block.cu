@@ -213,23 +213,11 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // Tensor map of a row-major [rows, K] bf16 matrix read in boxes of
 // box_rows x 64 with the 128-byte swizzle (the layout wgmma_desc_sw128 reads).
 cudaError_t make_tmap(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
-  static EncodeTiledFn encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult q;
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                                            reinterpret_cast<void**>(&encode),
-                                            cudaEnableDefault, &q);
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || !encode)
-      return e != cudaSuccess ? e : cudaErrorNotSupported;
-  }
+  const TmapEncodeFn encode = tmap_encoder();
+  if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
   const cuuint32_t box[2] = {(cuuint32_t)WG_BK, (cuuint32_t)box_rows};

@@ -31,6 +31,7 @@
 // weight-gradient GEMMs have small outputs (432 x 144 at stage 1) over
 // contractions of up to 131072 rows, so they split M to fill the card.
 #include "attention.cuh"
+#include "wgmma_attn.cuh"
 
 namespace spk {
 namespace {
@@ -334,100 +335,210 @@ attn_dq_kernel(const bf16* __restrict__ q, long ldq, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // Weight-gradient GEMM: part[s][n][k] = sum_{m in split s} A[m][n] B[m][k]
-// (both operands M-major, the layout the forward GEMM does not take), with
-// cspart[s][n] = sum_{m in split s} A[m][n] (the bias gradient) from the
-// blocks of the first K tile.  128 threads, a 64 x 64 output tile, 32-row M steps
-// double-buffered with cp.async; fragments through ldmatrix.trans and
-// mma.m16n8k16 with f32 accumulation.  N % 8 == 0 and K % 8 == 0; tails
-// zero-filled.
+// and cspart[s][n] = sum_{m in split s} A[m][n] (the bias gradient), for
+// row-major A [M, N] and B [M, K] bf16, f32 sums.  The contraction runs over
+// the rows of both operands, so both are read "transposed": wgmma takes A' =
+// A^T (64 output rows n x 16 rows m) and B (16 rows m x TK columns k) from
+// shared memory MN-major (n, respectively k, contiguous: the rows TMA loads),
+// with the transpose bits of bf16 wgmma.  One producer thread streams
+// 64-row slices of M through a ring of stages by TMA (A: 2 MT boxes of 64
+// columns, B: TK / 64 boxes, 128-byte swizzle, zero-filled past M, N and
+// K); two consumer warpgroups each own 64 MT output rows x TK columns of a
+// 128 MT x TK tile and release a stage as soon as its wgmma group retires
+// (holding one stage, not two, gives the loads a stage more of lead).
+// The bias gradient is summed from the A tile in shared memory by the
+// tiles of the first k-tile column: each thread 16 MT rows of two columns
+// per slice, in order, then the row groups in order.  M is cut into splits to fill the card (kernels.gemm_tn_plan:
+// the tile and split count of least estimated time, at most 8192 rows a
+// split, since the tensor cores' accumulation truncates); each split writes
+// its f32 partials and reduce_splits_kernel sums them in split order, so
+// two calls give the same bits (one split writes the result itself).  N %
+// 8 == 0, K % 8 == 0 (16-byte TMA strides).
+//
+// Bound on the H100: 2 M N K FLOPs against 2 M (N + K) bytes: bytes at the
+// T-block's stages 1-2 (M 131072 / 32768 rows of 144 / 288 columns),
+// operations at stage 3 and the global blocks.  On an H100 80GB HBM3 at
+// 700 W a block reaches ~65% of an SM's share of the bf16 peak with 128-
+// and 256-row tiles alike (PERF.md); what holds it there is not identified
+// (no profiler counters on the card's machine).
 // ---------------------------------------------------------------------------
 
-constexpr int TN_TILE = 64, TN_BM = 32, TN_P = TN_TILE + 8;
+constexpr int TN_BM = 64;          // rows of M per stage
+constexpr int TN_THREADS = 384;    // producer + two consumer warpgroups
+// The producer issues TMA loads only; a consumer holds up to 192
+// accumulators (256-row tiles of 192 columns).
+constexpr int TN_PRODUCER_REGS = 24, TN_CONSUMER_REGS = 240;
+constexpr int TN_SMEM = 225 * 1024;
+constexpr uint32_t TN_ATOM = TN_BM * 128;   // 64 rows x 64 bf16 columns
 
-__global__ void __launch_bounds__(128)
-gemm_tn_kernel(const bf16* __restrict__ A, long lda, const bf16* __restrict__ B, long ldb,
-               long M, int N, int K, long m_split, float* __restrict__ part,
-               float* __restrict__ cspart) {
-  __shared__ __align__(128) bf16 As[2][TN_BM * TN_P];
-  __shared__ __align__(128) bf16 Bs[2][TN_BM * TN_P];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * TN_TILE, n0 = blockIdx.y * TN_TILE;
-  const long mb = (long)blockIdx.z * m_split, me = lmin(M, mb + m_split);
-  const int wn = (warp >> 1) * 32, wk = (warp & 1) * 32;
-  const bool colsum = blockIdx.x == 0;
+// A tile of 128 * MT output rows (MT 64-row blocks per consumer) x TK
+// columns; a stage holds 2 * MT 64-column atoms of A and TK / 64 of B.
+template <int TK, int MT>
+struct TnCfg {
+  static_assert(MT == 1 || (MT == 2 && TK <= 192), "accumulator registers");
+  static constexpr int NB = (TK + 63) / 64;
+  static constexpr uint32_t kA = 2 * MT * TN_ATOM;
+  static constexpr uint32_t kStage = kA + NB * TN_ATOM;
+  static constexpr int kCsum = 2 * 4 * 64 * 4;   // [consumer][warp][64] f32
+  static constexpr int ST_FIT = (TN_SMEM - kCsum) / (int)kStage;
+  static constexpr int ST = ST_FIT > 6 ? 6 : ST_FIT;
+  static constexpr int kBytes = ST * kStage + kCsum + 2 * ST * 8 + 1024;
+  static_assert(ST >= 3 && kBytes <= 232448, "shared memory");
+};
 
-  auto load = [&](int buf, long m0) {
-    for (int idx = tid; idx < TN_BM * (TN_TILE / 8); idx += 128) {
-      const int r = idx / (TN_TILE / 8), cv = idx % (TN_TILE / 8);
-      const long m = m0 + r;
-      const int na = n0 + cv * 8, kb = k0 + cv * 8;
-      const bool ina = m < me && na < N, inb = m < me && kb < K;
-      cp_async16(&As[buf][r * TN_P + cv * 8], ina ? A + m * lda + na : A, ina ? 16 : 0);
-      cp_async16(&Bs[buf][r * TN_P + cv * 8], inb ? B + m * ldb + kb : B, inb ? 16 : 0);
+template <int TK, int MT>
+__global__ void __launch_bounds__(TN_THREADS, 1)
+gemm_tn_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+               int M, int N, int K, int n_tiles, int k_tiles, int m_split,
+               float* __restrict__ part, float* __restrict__ cspart) {
+  using C = TnCfg<TK, MT>;
+  constexpr int ST = C::ST, BN = 128 * MT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* csum_s = reinterpret_cast<float*>(base + ST * C::kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + ST * C::kStage + C::kCsum);
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int kt = blockIdx.x % k_tiles, nt = (blockIdx.x / k_tiles) % n_tiles;
+  const int split = blockIdx.x / k_tiles / n_tiles;
+  const int n0 = nt * BN, k0 = kt * TK;
+  const int mb = split * m_split, me = min(M, mb + m_split);
+  const int steps = (me - mb + TN_BM - 1) / TN_BM;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
     }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  float csum = 0.f;
-
-  if (mb < me) load(0, mb);
-  cp_async_commit();
-  int buf = 0;
-  for (long m0 = mb; m0 < me; m0 += TN_BM, buf ^= 1) {
-    if (m0 + TN_BM < me) load(buf ^ 1, m0 + TN_BM);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* as = As[buf];
-    const bf16* bs = Bs[buf];
-#pragma unroll
-    for (int ks = 0; ks < TN_BM / 16; ++ks) {
-      uint32_t af[2][4], bfr[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4_trans(af[i], as + (ks * 16 + (lane >> 4) * 8 + (lane & 7)) * TN_P + wn +
-                                     i * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldmatrix_x4_trans(bfr[j], bs + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * TN_P +
-                                      wk + j * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16(acc[i][2 * j], af[i], bfr[j][0], bfr[j][1]);
-          mma_bf16(acc[i][2 * j + 1], af[i], bfr[j][2], bfr[j][3]);
-        }
-    }
-    if (colsum && tid < TN_TILE)
-      for (int r = 0; r < TN_BM; ++r) csum += bf(as[r * TN_P + tid]);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  float* out = part + (long)blockIdx.z * N * K;
+  if (wg == 0) {
+    setmaxnreg_dec<TN_PRODUCER_REGS>();
+    if (tid != 0) return;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % ST, m = mb + i * TN_BM;
+      if (i >= ST) mbar_wait(&empty[s], ((i / ST) - 1) & 1);
+      unsigned char* st = base + s * C::kStage;
+      mbar_arrive_expect_tx(&full[s], C::kStage);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+      for (int a = 0; a < 2 * MT; ++a) tma_load_2d(st + a * TN_ATOM, &ta, &full[s], n0 + 64 * a, m);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + wk + j * 8 + 2 * t;
+      for (int b = 0; b < C::NB; ++b)
+        tma_load_2d(st + C::kA + b * TN_ATOM, &tb, &full[s], k0 + 64 * b, m);
+    }
+    return;
+  }
+
+  // Consumer c: output rows n0 + 128 c * MT ... (its MT atoms of A), warp w's
+  // share of the column sums: atom w / (4 / MT), rows (w % (4 / MT)) * 16 MT
+  // onward, columns 2 lane and 2 lane + 1.
+  setmaxnreg_inc<TN_CONSUMER_REGS>();
+  const int c = wg - 1, ctid = tid % 128, w = ctid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bool colsum = kt == 0;
+  const int cs_atom = w / (4 / MT), cs_row = (w % (4 / MT)) * 16 * MT;
+  float acc[MT][TK / 2];
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int n = n0 + wn + i * 16 + g + 8 * hh;
-        if (n < N && k < K) {
-          out[(long)n * K + k] = acc[i][j][2 * hh];
-          out[(long)n * K + k + 1] = acc[i][j][2 * hh + 1];
-        }
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < TK / 2; ++e) acc[i][e] = 0.f;
+  float cs0 = 0.f, cs1 = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % ST;
+    mbar_wait(&full[s], (i / ST) & 1);
+    const unsigned char* a_t = base + s * C::kStage + c * MT * TN_ATOM;
+    const unsigned char* b_t = base + s * C::kStage + C::kA;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TN_BM / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+        WgmmaSSTT<TK>::run(acc[j], wgmma_desc_sw128_mn(a_t + j * TN_ATOM + kk * 2048, TN_ATOM),
+                           wgmma_desc_sw128_mn(b_t + kk * 2048, TN_ATOM), 1);
+    wgmma_commit();
+    if (colsum) {
+      const unsigned char* at = a_t + cs_atom * TN_ATOM;
+#pragma unroll
+      for (int r = cs_row; r < cs_row + 16 * MT; ++r) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+            at + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) + (lane & 3) * 4);
+        cs0 += __low2float(v);
+        cs1 += __high2float(v);
       }
     }
-  if (colsum && tid < TN_TILE && n0 + tid < N) cspart[(long)blockIdx.z * N + n0 + tid] = csum;
+    wgmma_wait<0>();
+    mbar_arrive(&empty[s]);
+  }
+  fence_acc(acc);
+
+  float* out = part + (long)split * N * K;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+      const int k = k0 + 8 * j + 2 * t;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int n = n0 + 64 * (c * MT + i) + 16 * w + g + 8 * hh;
+        if (n < N && k < K)
+          *reinterpret_cast<float2*>(out + (long)n * K + k) =
+              make_float2(acc[i][4 * j + 2 * hh], acc[i][4 * j + 2 * hh + 1]);
+      }
+    }
+  if (colsum) {
+    // The warps of an atom in order: rows of the atom in order.
+    float* cs = csum_s + c * 4 * 64;
+    cs[w * 64 + 2 * lane] = cs0;
+    cs[w * 64 + 2 * lane + 1] = cs1;
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    const int n = n0 + 64 * c * MT + ctid;
+    if (ctid < 64 * MT && n < N) {
+      const int a = ctid / 64, col = ctid % 64;
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4 / MT; ++q) v += cs[(a * (4 / MT) + q) * 64 + col];
+      cspart[(long)split * N + n] = v;
+    }
+  }
+}
+
+// Tensor map of a row-major [rows, cols] bf16 matrix read in boxes of 64
+// rows x 64 columns with the 128-byte swizzle, zero-filled past its edges.
+cudaError_t make_tn_tmap(CUtensorMap* map, const void* ptr, int rows, int cols) {
+  const TmapEncodeFn encode = tmap_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)TN_BM};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int TK, int MT>
+cudaError_t launch_gemm_tn(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N, int K,
+                           int m_split, int splits, float* part, float* cspart,
+                           cudaStream_t st) {
+  constexpr int smem = TnCfg<TK, MT>::kBytes;
+  static bool attr = false;  // the shared-memory attribute, set once per instantiation
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gemm_tn_kernel<TK, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  const int n_tiles = (N + 128 * MT - 1) / (128 * MT), k_tiles = (K + TK - 1) / TK;
+  const long blocks = (long)n_tiles * k_tiles * splits;
+  if (blocks >= (1L << 31)) return cudaErrorInvalidConfiguration;
+  gemm_tn_kernel<TK, MT><<<(unsigned)blocks, TN_THREADS, smem, st>>>(
+      ta, tb, M, N, K, n_tiles, k_tiles, m_split, part, cspart);
+  return cudaGetLastError();
 }
 
 // out[i] = sum_{s < splits} part[s * len + i], in order.
@@ -569,23 +680,43 @@ int sp_attention_bwd(const void* q, long ldq, const void* k, long ldk, const voi
 }
 
 // out [N, K] f32 = A[M, N]^T B[M, K] and colsum [N] f32 = the column sums
-// of A.  part: [splits, N, K] f32 scratch, cspart: [splits, N] f32 scratch;
-// M is cut into splits of m_split rows (a multiple of 32).
-int sp_gemm_tn(const void* a, long lda, const void* b, long ldb, long M, int N, int K,
-               long m_split, int splits, void* part, void* cspart, void* out, void* colsum,
-               void* stream) {
+// of A, for contiguous bf16 A and B (16-byte aligned, N % 8 == 0, K % 8 ==
+// 0).  part: [splits, N, K] f32 scratch, cspart: [splits, N] f32 scratch
+// (with one split, out and colsum themselves: the blocks write the result
+// and no reduce runs); M is cut into splits of m_split rows (a multiple of
+// 64), the output into 128 mt x tk tiles (mt 1 with tk 192 or 256, mt 2
+// with tk 192), as kernels.gemm_tn_plan chooses.
+int sp_gemm_tn(const void* a, const void* b, int M, int N, int K, int tk, int mt, int m_split,
+               int splits, void* part, void* cspart, void* out, void* colsum, void* stream) {
+  using namespace spk;
+  if (M < 1 || N % 8 || K % 8 || m_split % TN_BM || splits < 1 ||
+      (long)(splits - 1) * m_split >= M || (long)splits * m_split < M ||
+      (splits == 1 && (part != out || cspart != colsum)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((K + spk::TN_TILE - 1) / spk::TN_TILE, (N + spk::TN_TILE - 1) / spk::TN_TILE,
-                  splits);
-  spk::gemm_tn_kernel<<<grid, 128, 0, st>>>((const bf16*)a, lda, (const bf16*)b, ldb, M, N, K,
-                                             m_split, (float*)part, (float*)cspart);
-  cudaError_t e = cudaGetLastError();
+  CUtensorMap ta, tb;
+  cudaError_t e = make_tn_tmap(&ta, a, M, N);
+  if (e == cudaSuccess) e = make_tn_tmap(&tb, b, M, K);
   if (e != cudaSuccess) return (int)e;
+#define SPK_TN_CASE(TKV, MTV)                                                         \
+  case TKV * 4 + MTV:                                                                 \
+    e = launch_gemm_tn<TKV, MTV>(ta, tb, M, N, K, m_split, splits, (float*)part,      \
+                                 (float*)cspart, st);                                 \
+    break;
+  switch (tk * 4 + mt) {
+    SPK_TN_CASE(192, 1)
+    SPK_TN_CASE(256, 1)
+    SPK_TN_CASE(192, 2)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SPK_TN_CASE
+  if (e != cudaSuccess || splits == 1) return (int)e;
   const long len = (long)N * K;
-  spk::reduce_splits_kernel<<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
-      (const float*)part, splits, len, (float*)out);
-  spk::reduce_splits_kernel<<<(N + 255) / 256, 256, 0, st>>>((const float*)cspart, splits, N,
-                                                              (float*)colsum);
+  reduce_splits_kernel<<<(unsigned)((len + 255) / 256), 256, 0, st>>>((const float*)part, splits,
+                                                                     len, (float*)out);
+  reduce_splits_kernel<<<(N + 255) / 256, 256, 0, st>>>((const float*)cspart, splits, N,
+                                                         (float*)colsum);
   return (int)cudaGetLastError();
 }
 

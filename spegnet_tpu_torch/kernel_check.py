@@ -14,8 +14,10 @@ call with CUDA events.  A gradient case (:func:`grad_case`) does the same
 for the backward: gradients of the input and of every weight through the
 kernel path (the wrappers' autograd Functions) and through autograd of the
 plain version, plus the two backward passes alone for timing.
-:func:`work` counts each call's FLOPs and bytes for its roofline bound.
-Used by the CUDA-only tests and by chip_smoke.py.
+:func:`work` counts each call's FLOPs and bytes for its roofline bound;
+:func:`tn_shapes` and :func:`tn_work` do the same for the weight-gradient
+GEMM (kernels.gemm_tn) inside the backwards.  Used by the CUDA-only tests,
+chip_smoke.py and utils/gemm_tn_bench.py.
 
 The f32 kernels are held to :data:`F32_REL_LIMIT` against their plain f32
 versions (TF32 off), and their bound is taken at :data:`PEAK_F32`.
@@ -106,6 +108,37 @@ F32_I8 = {"stage4_i8_f32": "stage4_f32"}
 # Blocks of each f32 geometry in one Hiera-L forward at 512^2.
 COUNT_F32 = {"stage1_f32": 2, "stage2_f32": 5, "stage4_f32": 3, "lanes256_f32": 32,
              "lanes1024_f32": 3, "attn256_f32": 32, "attn1024_f32": 3, "stage4_i8_f32": 3}
+
+# The weight-gradient GEMM (kernels.gemm_tn, csrc/hiera_block_bwd.cu) in the
+# kernel backwards of one Hiera-L training step at 512^2: the T-block's four
+# (#5, and #6 under SPEGNET_SAVE_RESIDUALS) at stages 1-3 and the global
+# blocks, the transition fronts' one (#4: the qkv and shortcut projections
+# together) and the gen-1 block's four at stage 4 (#7's backward); name:
+# (block geometry, N, K as multiples of C (or of Cout, Cin for a front)),
+# M = batch x tokens.
+TN_PRODUCTS = {"qkv": (3, 1), "proj": (1, 1), "fc1": (4, 1), "fc2": (1, 4)}
+TN_GEOMS = ("stage1", "stage2", "stage3", "global", "stage4", "t12", "t23", "t34")
+
+
+def tn_shapes(batch: int) -> Dict[str, Tuple[int, int, int]]:
+    """name -> (M, N, K) of each weight gradient of :data:`TN_GEOMS`."""
+    out = {}
+    for geo in TN_GEOMS:
+        if geo in QPOOL:
+            cin, cout, _, _, n = QPOOL[geo]
+            out[f"{geo}_qkv_sc"] = (batch * n, 4 * cout, cin)
+            continue
+        _, c, _, _, n = BLOCKS[geo]
+        for prod, (fn, fk) in TN_PRODUCTS.items():
+            out[f"{geo}_{prod}"] = (batch * n, fn * c, fk * c)
+    return out
+
+
+def tn_work(m: int, n: int, k: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one gemm_tn call: 2 M N K, the bf16 operands read
+    once and the f32 gradient and column sums written once."""
+    return 2.0 * m * n * k, 2.0 * m * (n + k) + 4.0 * n * (k + 1)
+
 
 # The T-block's saved-residual pair (training under SPEGNET_SAVE_RESIDUALS)
 # at its 512^2 geometries.

@@ -171,7 +171,7 @@ def load():
         "sp_pool4_rows": [p, p, l, i, i, i, p],
         "sp_attention_bwd": [p, l, p, l, p, l, p, l, p, l, p, p, p, l, p, l, p, l,
                              i, i, i, i, i, f, p],
-        "sp_gemm_tn": [p, l, p, l, l, i, i, l, i, p, p, p, p, p],
+        "sp_gemm_tn": [p, p, i, i, i, i, i, i, i, p, p, p, p, p],
         "sp_layernorm_bwd": [p, p, p, p, p, p, p, l, i, p, l, i, f, p],
         "sp_pool4_scatter": [p, l, i, p, l, p, l, i, l, i, p],
         "sp_upconv3x3_bn_relu": [p, p, p, p, p, i, i, i, p],
@@ -189,6 +189,8 @@ def load():
                                i, i, i, i, i, i, i, i, i, f, p],
         "sp_attention_f32": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
                              i, i, i, i, f, p],
+        "sp_attention_tf32": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
+                              i, i, i, i, i, i, i, i, i, f, p],
         "sp_layernorm_f32": [p, p, p, p, l, i, f, p],
         "sp_gemm_f32": [p, p, p, p, p, i, i, i, i, p],
     }
@@ -419,30 +421,111 @@ def attention_bwd(q: Cols, k: Cols, v: Cols, o: Cols, dout: Cols, lse: torch.Ten
         q_rows, heads, d, lq, lk, scale, _stream(lse)), "sp_attention_bwd")
 
 
+# Output tiles of csrc/hiera_block_bwd.cu's weight-gradient GEMM (the
+# instantiations of gemm_tn_kernel): (64-row blocks per consumer warpgroup,
+# so 128 * mt rows; columns tk).  Narrower tiles move more operand bytes
+# per FLOP and are not built.
+TN_TILES = ((1, 192), (1, 256), (2, 192))
+TN_BM = 64      # rows of M per stage
+# Rows of M one block sums in the tensor cores: their accumulation
+# truncates (common.cuh `mma_3xtf32`), a bias that grows with the rows of
+# a sum, so a split takes at most this many.
+TN_MAX_SPLIT = 8192
+# The reckoning's rates, fitted to the kernel's device times at the 19
+# weight-gradient shapes of a Hiera-L 512^2 training step under two tile
+# sets (utils/gemm_tn_bench.py on an H100 80GB HBM3 at 700 W): a block
+# runs its tile's FLOPs at 65% of an SM's share of the dense bf16 peak (989
+# TFLOP/s) or draws its operand tiles at 65 GB/s per SM through L2,
+# whichever is slower, plus 3 us per wave; operands stream from memory at
+# 2.2 TB/s, partials at 3 TB/s.
+_PEAK_BF16 = 989e12
+_TN_EFF = 0.65
+_SM_FEED = 65e9
+_WAVE_S = 3e-6
+_HBM_STREAM = 2.2e12
+_PARTIALS = 3e12
+
+
+class TnPlan(NamedTuple):
+    """Launch plan of :func:`gemm_tn` for a[M, N], b[M, K]: output tiles of
+    128 * ``mt`` x ``tk``, ``n_tiles`` x ``k_tiles`` of them, each computed
+    by ``splits`` blocks over consecutive ``m_split``-row slices of M."""
+    mt: int
+    tk: int
+    n_tiles: int
+    k_tiles: int
+    splits: int
+    m_split: int
+
+
+def gemm_tn_seconds(m: int, n: int, k: int, mt: int, tk: int, splits: int, sms: int) -> float:
+    """Estimated time of one :func:`gemm_tn` call with 128 * mt x tk tiles
+    and ``splits`` splits on a card of ``sms`` SMs: the waves of blocks
+    times one block's time, or the operands read once from memory,
+    whichever is longer, plus the f32 result (and with more than one split
+    the partials, written and read back by the reduce pass), at the rates
+    above."""
+    bn = 128 * mt
+    tiles = -(-n // bn) * -(-k // tk)
+    m_split = -(-m // (TN_BM * splits)) * TN_BM
+    splits = -(-m // m_split)
+    waves = -(-tiles * splits // sms)
+    block = max(2.0 * m_split * bn * tk / (_TN_EFF * _PEAK_BF16 / sms),
+                2.0 * m_split * (bn + 64 * -(-tk // 64)) / _SM_FEED) + _WAVE_S
+    operands = 2.0 * m * (n + k) / _HBM_STREAM
+    partials = (2 * splits + 1 if splits > 1 else 1) * n * (k + 1) * 4 / _PARTIALS
+    return max(waves * block, operands) + partials
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_tn_plan(m: int, n: int, k: int, sms: int) -> TnPlan:
+    """The plan of csrc/hiera_block_bwd.cu's weight-gradient GEMM: the tile
+    of :data:`TN_TILES` and the split count of least :func:`gemm_tn_seconds`,
+    on a tie the fewer splits, then the earlier tile.  Split counts run from
+    the fewest that keep a split within :data:`TN_MAX_SPLIT` rows up to one
+    split per TN_BM rows or four blocks per SM (more only add partials),
+    and 2^31 - 1 blocks."""
+    best = None
+    for rank, (mt, tk) in enumerate(TN_TILES):
+        tiles = -(-n // (128 * mt)) * -(-k // tk)
+        lo = -(-m // TN_MAX_SPLIT)
+        hi = min(max(lo, min(-(-m // TN_BM), 4 * sms)), (2 ** 31 - 1) // tiles)
+        for s in range(lo, hi + 1):
+            key = (gemm_tn_seconds(m, n, k, mt, tk, s, sms), s, rank)
+            best = key if best is None else min(best, key)
+    if best is None:
+        raise ValueError(f"gemm_tn: no tile fits N={n}, K={k} in 2^31 blocks")
+    _, s, rank = best
+    mt, tk = TN_TILES[rank]
+    m_split = -(-m // (TN_BM * s)) * TN_BM
+    return TnPlan(mt, tk, -(-n // (128 * mt)), -(-k // tk), -(-m // m_split), m_split)
+
+
 def gemm_tn(a: torch.Tensor, b: torch.Tensor):
     """(a^T b [N, K] f32, column sums of a [N] f32) for a [M, N], b [M, K]
-    bf16: a weight gradient and its bias gradient.  M is split to fill the
-    card; the per-split partials are summed in a fixed order."""
+    bf16: a weight gradient and its bias gradient (TMA + wgmma,
+    csrc/hiera_block_bwd.cu).  M is split to fill the card
+    (:func:`gemm_tn_plan`); the per-split partials are summed in a fixed
+    order, so two calls give the same bits."""
     _need(a, "gemm_tn a", ndim=2)
     _need(b, "gemm_tn b", ndim=2)
     m, n = a.shape
     k = b.shape[1]
-    if b.shape[0] != m or n % 8 or k % 8:
+    if b.shape[0] != m or n % 8 or k % 8 or m < 1 or m >= 2 ** 31:
         raise ValueError(f"gemm_tn: a {tuple(a.shape)}, b {tuple(b.shape)}")
-    tiles = -(-n // 64) * -(-k // 64)
-    # Four 128-thread blocks on each of the card's SMs.
-    target = 4 * torch.cuda.get_device_properties(a.device).multi_processor_count
-    splits = max(1, min(-(-target // tiles), -(-m // 256), 4096))
-    m_split = -(-m // (32 * splits)) * 32
-    splits = -(-m // m_split)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("gemm_tn: TMA needs 16-byte aligned operands")
+    plan = gemm_tn_plan(m, n, k, _sm_count(a.device.index))
     f32 = dict(dtype=torch.float32, device=a.device)
-    part = torch.empty((splits, n, k), **f32)
-    cspart = torch.empty((splits, n), **f32)
     out = torch.empty((n, k), **f32)
     cs = torch.empty((n,), **f32)
-    _check(load().sp_gemm_tn(a.data_ptr(), n, b.data_ptr(), k, m, n, k, m_split, splits,
-                              part.data_ptr(), cspart.data_ptr(), out.data_ptr(),
-                              cs.data_ptr(), _stream(a)), "sp_gemm_tn")
+    part, cspart = out, cs    # one split: the blocks write the result
+    if plan.splits > 1:
+        part = torch.empty((plan.splits, n, k), **f32)
+        cspart = torch.empty((plan.splits, n), **f32)
+    _check(load().sp_gemm_tn(a.data_ptr(), b.data_ptr(), m, n, k, plan.tk, plan.mt,
+                              plan.m_split, plan.splits, part.data_ptr(), cspart.data_ptr(),
+                              out.data_ptr(), cs.data_ptr(), _stream(a)), "sp_gemm_tn")
     return out, cs
 
 
@@ -847,6 +930,58 @@ def attention_plan(problems: int, heads: int, l: int, d: int, sms: int,
     return AttnPlan(dv, solo, mt, items, min(items, sms))
 
 
+# Widths of the f32 kernel's P.V product (csrc/attention_f32.cu
+# attention_tf32_kernel instantiations); a wider head dim runs
+# attention_f32_kernel (3xTF32 on mma.sync).
+ATTN_F32_DV = (16, 32, 48, 64, 72, 80)
+_TF_KT = 32     # keys of the f32 kernel's K / V tile
+
+
+class F32Plan(NamedTuple):
+    """Launch plan of csrc/attention_f32.cu's ``attention_tf32_kernel``:
+    ``dv`` the P.V width; ``solo`` (L <= 64) one group of problems per
+    consumer warpgroup instead of 128 query rows of one (problem, head) per
+    item; ``lg`` log2 L where windows of L dividing 32 are packed 64 / L to an
+    m-tile (-1 otherwise); ``items`` the work items, ``grid`` the
+    persistent blocks that stride over them."""
+    dv: int
+    solo: bool
+    lg: int
+    items: int
+    grid: int
+
+    @property
+    def pb(self) -> int:
+        """Problems per consumer in solo mode."""
+        return 64 >> self.lg if self.lg >= 0 else 1
+
+    def key_tiles(self, l: int) -> int:
+        """32-key tiles a consumer reads per item."""
+        return 2 if self.lg >= 0 else -(-l // _TF_KT)
+
+
+@functools.lru_cache(maxsize=256)
+def attention_f32_plan(problems: int, heads: int, l: int, d: int,
+                       sms: int) -> Optional[F32Plan]:
+    """The work list of ``attention_tf32_kernel`` for [problems, L, heads, d]
+    f32 (d a multiple of 4) on a card of ``sms`` SMs, about one block per
+    SM; None where d is wider than its widest P.V product (attention_f32_kernel
+    takes it)."""
+    dv = next((x for x in ATTN_F32_DV if x >= d), None)
+    if dv is None:
+        return None
+    solo = l <= _AW_ROWS
+    lg = l.bit_length() - 1 if solo and _TF_KT % l == 0 else -1
+    plan = F32Plan(dv, solo, lg, 0, 0)
+    if solo:    # a group of plan.pb problems and one head per consumer
+        items = -(-(-(-problems // plan.pb) * heads) // 2)
+    else:       # 128 query rows of one (problem, head)
+        items = problems * heads * -(-l // (2 * _AW_ROWS))
+    if items >= 2 ** 31:
+        raise ValueError(f"attention: {items} work items (at most 2^31 - 1)")
+    return plan._replace(items=items, grid=min(items, sms))
+
+
 def _view_strides(t: torch.Tensor, name: str):
     """(problem, token, head) element strides of a [P, L, H, D] bf16 or f32
     view with D contiguous, 16-byte aligned, each stride a multiple of 16
@@ -873,7 +1008,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T * scale) v of every (problem, head) over its L tokens:
     q / k / v [P, L, H, D] views -> contiguous [P, L, H, D] (any L >= 1,
     head dims by :func:`attention_head_dim`).  bf16: csrc/attention_lanes.cu
-    (TMA + wgmma, :func:`attention_plan`); f32: csrc/attention_f32.cu.  A
+    (TMA + wgmma, :func:`attention_plan`); f32: csrc/attention_f32.cu (TMA +
+    3xTF32 wgmma, :func:`attention_f32_plan`, up to head dim 80; its
+    mma.sync kernel above it).  A
     head dim that is not a multiple of the kernel's vector is zero-padded to
     one (one pad of the stacked q / k / v) and the output sliced back."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -894,7 +1031,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if l < 1 or h > 65535 or p * -(-l // 64) >= 2 ** 31:
         raise ValueError(f"attention: [P, L, H, D] = {tuple(q.shape)}")
     out = torch.empty((p, l, h, dp), dtype=q.dtype, device=q.device)
-    if q.dtype == torch.float32:
+    fplan = (attention_f32_plan(p, h, l, dp, _sm_count(q.device.index))
+             if q.dtype == torch.float32 else None)
+    if fplan is not None:
+        _check(load().sp_attention_tf32(q.data_ptr(), *qs, k.data_ptr(), *ks, v.data_ptr(),
+                                         *vs, out.data_ptr(), l * h * dp, h * dp, dp, p, h, l,
+                                         dp, fplan.dv, fplan.items, int(fplan.solo), fplan.lg,
+                                         fplan.grid, scale, _stream(q)), "attention")
+    elif q.dtype == torch.float32:
         _check(load().sp_attention_f32(q.data_ptr(), *qs, k.data_ptr(), *ks, v.data_ptr(),
                                         *vs, out.data_ptr(), l * h * dp, h * dp, dp, p, h, l,
                                         dp, scale, _stream(q)), "attention")

@@ -338,6 +338,13 @@ def _layer_norm_bwd(x: torch.Tensor, w: torch.Tensor, dh: torch.Tensor, eps: flo
     return dx, (dh * xhat).sum(0), dh.sum(0)
 
 
+def weight_grad(dout: torch.Tensor, inp: torch.Tensor):
+    """(dout^T inp, column sums of dout), accumulated wide, for dout [M, N]
+    and inp [M, K]: a weight gradient and its bias gradient, the plain
+    version of kernels.gemm_tn."""
+    return wide(dout).t() @ wide(inp), wide(dout).sum(0)
+
+
 def block_plain_bwd_res(x: torch.Tensor, wts: BlockWeights, dy: torch.Tensor,
                         res: BlockResiduals, heads: int, l: int, scale: float,
                         eps: float = 1e-6, approx_gelu: bool = True):
@@ -361,17 +368,14 @@ def block_plain_bwd_res(x: torch.Tensor, wts: BlockWeights, dy: torch.Tensor,
     def mm(a, w):       # a [M, K] @ w [K, N], accumulated wide
         return wide(a) @ wide(w)
 
-    def wgrad(dout, inp):   # (dout^T inp, column sums of dout)
-        return mm(dout.t(), inp), wide(dout).sum(0)
-
-    dwfc2, dbfc2 = wgrad(dy2, res.g)
+    dwfc2, dbfc2 = weight_grad(dy2, res.g)
     dg = mm(dy2, wts.wfc2).to(dt)
     dz = (wide(dg) * _gelu_grad(wide(res.z), approx_gelu)).to(dt)
-    dwfc1, dbfc1 = wgrad(dz, h2)
+    dwfc1, dbfc1 = weight_grad(dz, h2)
     dh2 = mm(dz, wts.wfc1)
     du, dln2_w, dln2_b = _layer_norm_bwd(res.u, wts.ln2_w, dh2, eps)
     du = (du + wide(dy2)).to(dt)
-    dwproj, dbproj = wgrad(du, res.a)
+    dwproj, dbproj = weight_grad(du, res.a)
     da = mm(du, wts.wproj).to(dt)
 
     def windows(t):     # [B*N, H*d] -> [windows, H, l, d]
@@ -387,7 +391,7 @@ def block_plain_bwd_res(x: torch.Tensor, wts: BlockWeights, dy: torch.Tensor,
     dq = wide(ds) @ wide(k)
     dk = wide(ds).transpose(-1, -2) @ wide(q)
     dqkv = torch.cat([t.to(dt).transpose(1, 2).reshape(b * n, hd) for t in (dq, dk, dv)], 1)
-    dwqkv, dbqkv = wgrad(dqkv, h1)
+    dwqkv, dbqkv = weight_grad(dqkv, h1)
     dh1 = mm(dqkv, wts.wqkv)
     dx, dln1_w, dln1_b = _layer_norm_bwd(x2, wts.ln1_w, dh1, eps)
     dx = (dx + wide(du)).to(dt)

@@ -369,6 +369,54 @@ def test_f32_attention_kernel_any_length(cuda, l):
     assert float((got - want).abs().max() / want.abs().max()) <= kernel_check.F32_REL_LIMIT
 
 
+@pytest.mark.parametrize("l", [1, 2, 16, 20, 32, 64, 65, 256, 300, 4096])
+@pytest.mark.parametrize("d", [4, 12, 20, 64, 72, 76, 80, 84, 128, 256])
+def test_f32_attention_every_head_dim_and_length(cuda, d, l):
+    """The f32 kernels against the plain f32 version within F32_REL_LIMIT
+    (TF32 off) at head dims 4-256 and L 1-4096: attention_tf32_kernel up to
+    80 (packed windows at L 1, 2, 16, 32; one consumer per problem at 20,
+    64; 128-row items at 65 and above, the last key tile partial at 65 and
+    300), the mma.sync kernel above 80; on 5 problems of 3 heads (an idle consumer
+    at L <= 64, a partial group of packed windows)."""
+    from spegnet_tpu_torch.ops import pallas_attention as pa
+
+    p = 1 if l == 4096 else 5
+    g = torch.Generator().manual_seed(d * 10000 + l)
+    qkv = torch.randn((p, l, 3 * 3 * d), generator=g).to(cuda)
+    got, want = pa.fused_attention_lanes(qkv, 3, d ** -0.5), pa.lanes_plain(qkv, 3, d ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= kernel_check.F32_REL_LIMIT, (d, l, rel)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 8, 8), (31, 136, 72), (1000, 432, 144), (4099, 264, 1160),
+                                   (65536 * 128 + 128, 8, 16)])
+def test_gemm_tn_matches_mm(cuda, m, n, k):
+    """The weight-gradient GEMM (csrc/hiera_block_bwd.cu) against torch.mm in
+    f32 (TF32 off) and in f64 on bf16 operands, at N / K tails (136 = 128 +
+    8 rows, K 72 / 1160 past a tile width), M 1, 31 and past 2^23 rows (65536
+    x 128 + 128; the 1-D grid, TMA row coordinates past 65535 boxes), the
+    column sums against a.sum(0) in f64: max|kernel - ref| / max|ref| <=
+    1e-4 (f32 sums over up to 8.4e6 rows in other orders; the tensor cores'
+    own accumulation truncates, which over a split of ~6e4 rows biases its
+    sum by up to ~5e-5 of it, common.cuh `mma_3xtf32`); and two calls
+    bit-equal (fixed split order, no atomics)."""
+    g = torch.Generator().manual_seed(m % 1000 + n + k)
+    a = torch.randn((m, n), generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn((m, k), generator=g).to(cuda, torch.bfloat16)
+    out, cs = kernels.gemm_tn(a, b)
+    out2, cs2 = kernels.gemm_tn(a, b)
+    ref32 = torch.mm(a.float().t(), b.float())
+    ref64 = torch.mm(a.double().t(), b.double())
+    cs64 = a.double().sum(0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(cs, cs2)
+    for ref in (ref32.double(), ref64):
+        assert float((out.double() - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert float((cs.double() - cs64).abs().max() / cs64.abs().max()) <= 1e-4
+
+
 def test_f32_predictor_launches_follow_the_routes(cuda):
     import collections
 
