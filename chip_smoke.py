@@ -8,8 +8,10 @@
 2. Builds the Hopper kernels from spegnet_tpu_torch/csrc into build/kernels/
    (one nvcc per source, all started together) and prints the build seconds
    and the ptxas registers and spills of each instantiation of the bf16 and
-   f32 attention kernels and of the weight-gradient GEMM (no attention
-   kernel may spill at Hiera-L's head dim 72, bf16 or f32).
+   f32 attention kernels, of the weight-gradient GEMM and of the persistent
+   forward GEMM (csrc/gemm_persistent.cuh, bf16 and int8; no attention
+   kernel may spill at Hiera-L's head dim 72, bf16 or f32, and no
+   instantiation of the persistent GEMM may spill).
 3. Compares every kernel with its plain PyTorch version in bf16 at every
    main-path geometry of Hiera-L inference and training, batch 2: the
    forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
@@ -103,7 +105,11 @@
    chains against their plain versions at its four geometries.  The
    weight-gradient GEMM at every weight gradient of a training step
    (utils/gemm_tn_bench.py: device time against torch.mm, TFLOP/s, GB/s,
-   the roofline bound, the per-step totals).
+   the roofline bound, the per-step totals), and the forward GEMMs at every
+   forward product of a 512^2 forward (utils/gemm_bench.py: device time
+   against torch.mm / torch._int_mm, TFLOP/s or TOPS, GB/s, the bound, the
+   per-forward totals of #1's, #10's, the bf16 and the int8-encoder
+   forward's GEMMs).
 6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
    TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
    a 640 canvas; edges their morphological boundary):
@@ -333,6 +339,16 @@ def main() -> int:
         at72 = [u for u in usage if u[0][0] == 72]
         check(len(at72) == n72 and all(ss == sl == 0 for _, _, ss, sl in at72),
               f"{kern}<72, *> (Hiera-L's head dim) spills or was not built: {usage}")
+    # the persistent GEMM's instantiations (csrc/gemm_persistent.cuh): bf16 (BN,
+    # ACT) and int8 (BN, ACT, SW_FIRST, output type), and the one-tile-per-block
+    # bf16 kernel kept beside it (BN, STAGES, ACT); none may spill
+    for kern, n_inst in (("gemm_bf16_kernel", 8), ("gemm_i8_kernel", 14),
+                         ("gemm_tma_kernel", 3)):
+        usage = kernels.ptxas_usage(kern)
+        log(f"ptxas {kern} (template arguments: registers, spill store / load bytes): "
+            + ", ".join(f"{w}: {r}, {ss} / {sl}" for w, r, ss, sl in sorted(usage, key=str)))
+        check(len(usage) == n_inst and all(ss == sl == 0 for _, _, ss, sl in usage),
+              f"{kern} spills or was not built: {usage}")
 
     # -- 3. every kernel vs its plain version at every main-path geometry ----
     cases = kc.all_cases()
@@ -629,9 +645,10 @@ def main() -> int:
                 f"{'384^2' if row in AT_384 else '512^2 f32'})")
     torch.cuda.empty_cache()
     yardsticks(kc, kernels, F, torch, dev)
-    from spegnet_tpu_torch.utils import gemm_tn_bench
+    from spegnet_tpu_torch.utils import gemm_bench, gemm_tn_bench
 
     with torch.inference_mode():
+        gemm_bench.run(8, log)
         gemm_tn_bench.run(8, log)
     torch.cuda.empty_cache()
 

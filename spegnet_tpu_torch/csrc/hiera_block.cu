@@ -19,10 +19,14 @@
 // or mask.  Weights stay in the unpadded nn.Linear layout [N, K].
 //
 // Bound on the H100: the four GEMMs carry ~93% of the block's FLOPs.  At
-// stages 3-4 (K >= 576) they are compute bound and run on TMA + wgmma; at
-// stages 1-2 (K = 144 / 288, M up to 131072 rows at batch 8) the output
-// write dominates and the epilogue is staged for coalesced 16-byte stores.
+// stages 3-4 (K >= 576) they are compute bound; at stages 1-2 (K = 144 /
+// 288, M up to 131072 rows at batch 8) the output write dominates.  They
+// run on the persistent TMA + wgmma GEMM of gemm_persistent.cuh, whose
+// epilogue (staged for coalesced 16-byte stores) overlaps the next tile's
+// loads, or, for fc1 and the fronts' products (width 192, no residual), on
+// gemm_tma_kernel, one tile per block, measured faster there.
 #include "attention.cuh"
+#include "gemm_persistent.cuh"
 
 namespace spk {
 namespace {
@@ -52,15 +56,121 @@ layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
   for (int c = lane; c < C; c += 32) yr[c] = to_bf((bf(xr[c]) - mu) * r * w[c] + b[c]);
 }
 
-constexpr int WG_BM = 128, WG_BK = 64;
 enum { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_PRE = 2, ACT_GELU_GRAD = 3 };
-constexpr int GEMM_STAGES = 4;
 
-template <int NACC>
-__device__ __forceinline__ void fence_regs(float (&d)[NACC]) {
+// The bf16 GEMM's epilogue on one consumer's 64 x BN tile of f32 sums
+// (gemm_persistent.cuh): C = sum (+ bias[N]), then by ACT:
+//   ACT_NONE:      (+ residual[M, N])
+//   ACT_GELU:      gelu_tanh of the f32 sum (+ residual)
+//   ACT_GELU_PRE:  C = the pre-activation, aux = gelu_tanh(it), both rounded
+//                  from the same f32 sum (the backward's recompute of fc1;
+//                  C is stored from the accumulators, uncoalesced)
+//   ACT_GELU_GRAD: C = bf16(sum) * gelu_tanh'(res), res holding the
+//                  pre-activation (dz = dg * gelu'(z) of the block backward)
+// Rounding follows the TPU kernel: the f32 sum (+ bias, -> GELU) is rounded
+// to bf16, and the residual add is a bf16 + bf16 sum rounded once more.
+// The residual tile waits in the consumer's staging tile (prefetched by
+// cp.async before the k-loop); each output pair is finished against it in
+// place, then the tile goes out on coalesced 16-byte rows.  Requires
+// N % 8 == 0.
+template <int BN, int ACT>
+struct Bf16Epi {
+  static constexpr int P = BN + 8;  // staging pitch (elements), 16-byte rows
+  static constexpr int kBytes = (64 * P * 2 + 1023) / 1024 * 1024;
+  const bf16* bias;
+  const bf16* res;
+  bf16* C;
+  bf16* aux;
+  int M, N;
+
+  __device__ __forceinline__ void prefetch(int mrow0, int n0, unsigned char* stage,
+                                           int cw) const {
+    pg_prefetch_tile<BN, P>(res, M, N, mrow0, n0, stage, cw);
+  }
+
+  __device__ __forceinline__ void operator()(float (&d)[BN / 2], int mrow0, int n0,
+                                             unsigned char* stage, int cw) const {
+    const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl = w * 16 + g;
+    if (ACT == ACT_GELU_PRE) {
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + 2 * t;
+        if (col >= N) continue;
+        const float b0 = bias ? bf(bias[col]) : 0.f, b1 = bias ? bf(bias[col + 1]) : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long row = mrow0 + rl + 8 * hh;
+          if (row < M)
+            *reinterpret_cast<__nv_bfloat162*>(C + row * N + col) =
+                __floats2bfloat162_rn(d[4 * j + 2 * hh] + b0, d[4 * j + 2 * hh + 1] + b1);
+        }
+      }
+    }
+    constexpr bool gelu = ACT == ACT_GELU || ACT == ACT_GELU_PRE;
+    bf16* dst = ACT == ACT_GELU_PRE ? aux : C;
+    bf16* Cs = reinterpret_cast<bf16*>(stage);
+    if (res) pg_prefetch_wait(cw);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int cl = j * 8 + 2 * t;
+      const int col = n0 + cl;
+      const float b0 = (bias && col < N) ? bf(bias[col]) : 0.f;
+      const float b1 = (bias && col < N) ? bf(bias[col + 1]) : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v0 = d[4 * j + 2 * hh] + b0, v1 = d[4 * j + 2 * hh + 1] + b1;
+        if (gelu) {
+          v0 = gelu_tanh(v0);
+          v1 = gelu_tanh(v1);
+        }
+        __nv_bfloat162* slot = reinterpret_cast<__nv_bfloat162*>(Cs + (rl + 8 * hh) * P + cl);
+        __nv_bfloat162 out = __floats2bfloat162_rn(v0, v1);
+        if (res) {
+          const __nv_bfloat162 r = *slot;
+          if (ACT == ACT_GELU_GRAD)
+            out = __floats2bfloat162_rn(__low2float(out) * gelu_tanh_grad(__low2float(r)),
+                                        __high2float(out) * gelu_tanh_grad(__high2float(r)));
+          else
+            out = __floats2bfloat162_rn(__low2float(r) + __low2float(out),
+                                        __high2float(r) + __high2float(out));
+        }
+        *slot = out;
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    for (int idx = tid; idx < 64 * (BN / 8); idx += 128) {
+      const int r = idx / (BN / 8), c = idx % (BN / 8);
+      const long row = mrow0 + r;
+      const int col = n0 + c * 8;
+      if (row < M && col < N)
+        *reinterpret_cast<uint4*>(dst + row * N + col) =
+            *reinterpret_cast<const uint4*>(Cs + r * P + c * 8);
+    }
+  }
+};
+
+// C[M, N] = A[M, K] W[N, K]^T with Bf16Epi<BN, ACT>: the persistent GEMM of
+// gemm_persistent.cuh on bf16 operands.  Requires K % 8 == 0 and N % 8 == 0
+// (16-byte rows).
+template <int BN, int ACT>
+__global__ void __launch_bounds__(PG_THREADS, 1)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+                 Bf16Epi<BN, ACT> epi, int K) {
+  pg_gemm<bf16, BN>(&tmA, &tmB, epi.M, epi.N, K, epi);
 }
+
+template <int BN, int ACT>
+cudaError_t launch_gemm(const void* a, const void* w, const void* bias, const void* res, void* c,
+                        void* aux, int M, int N, int K, int grid, cudaStream_t st) {
+  const Bf16Epi<BN, ACT> epi{(const bf16*)bias, (const bf16*)res, (bf16*)c, (bf16*)aux, M, N};
+  return pg_launch<bf16, BN, Bf16Epi<BN, ACT>::kBytes>(gemm_bf16_kernel<BN, ACT>, a, w, M, N, K,
+                                                        grid, st, epi, K);
+}
+
+constexpr int WG_BM = 128, WG_BK = 64;
+constexpr int GEMM_STAGES = 4;
 
 // C[M, N] = A[M, K] W[N, K]^T (+ bias[N]), then by ACT:
 //   ACT_NONE:      (+ residual[M, N])
@@ -73,6 +183,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[NACC]) {
 // Rounding follows the TPU kernel: the f32 sum (+ bias, -> GELU) is rounded
 // to bf16, and the residual add is a bf16 + bf16 sum rounded once more.
 //
+// One 128 x BN output tile per block (grid = tiles), kept beside the
+// persistent GEMM for the bf16 products whose epilogue reads no residual at
+// BN 192 (fc1 with its GELU, the fronts' stacked qkv + shortcut), where it
+// measured 3-15% faster on an H100 (PERF.md, utils/gemm_bench.py); its sums
+// and roundings are the persistent kernel's, bit for bit.
 // A 128 x BN block tile on Hopper's warpgroup MMA, warp-specialized:
 // warpgroup 0 is the producer (one thread issues the TMA loads of each
 // 64-deep k step, 128-byte swizzled, into a STAGES-deep ring of full/empty
@@ -135,7 +250,7 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__
     mbar_wait(&full[s], (kt / STAGES) & 1);
     const bf16* As = base + s * STAGE;
     const bf16* Bs = As + TILE_A;
-    fence_regs(d);
+    fence_acc(d);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WG_BK / 16; ++kk)
@@ -143,11 +258,11 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__
                    wgmma_desc_sw128(Bs + kk * 16));
     wgmma_commit();
     wgmma_wait<1>();
-    fence_regs(d);
+    fence_acc(d);
     if (kt > 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
   }
   wgmma_wait<0>();
-  fence_regs(d);
+  fence_acc(d);
 
   // Epilogue: bias (+ GELU) rounded into this warpgroup's own staging tile,
   // then the residual add (or the GELU-gradient product) and the store on
@@ -230,7 +345,7 @@ cudaError_t make_tmap(CUtensorMap* map, const void* ptr, int rows, int K, int bo
 }
 
 template <int BN, int STAGES, int ACT>
-cudaError_t launch_tma_gemm(const void* a, const void* w, const void* bias, const void* res,
+cudaError_t launch_tile_gemm(const void* a, const void* w, const void* bias, const void* res,
                             void* c, void* aux, int M, int N, int K, cudaStream_t stream) {
   CUtensorMap ta, tb;
   cudaError_t e = make_tmap(&ta, a, M, K, WG_BM);
@@ -247,20 +362,37 @@ cudaError_t launch_tma_gemm(const void* a, const void* w, const void* bias, cons
   return cudaGetLastError();
 }
 
-template <int BN>
-int gemm_act(const void* a, const void* w, const void* bias, const void* res, void* c,
-             void* aux, int M, int N, int K, int act, cudaStream_t st) {
+// The one-tile-per-block kernel at BN 192 for the epilogues without a
+// residual (see gemm_tma_kernel).
+int gemm_tile_act(const void* a, const void* w, const void* bias, void* c, void* aux, int M,
+                  int N, int K, int act, cudaStream_t st) {
   switch (act) {
     case ACT_NONE:
-      return (int)launch_tma_gemm<BN, GEMM_STAGES, ACT_NONE>(a, w, bias, res, c, aux, M, N, K, st);
+      return (int)launch_tile_gemm<192, GEMM_STAGES, ACT_NONE>(a, w, bias, nullptr, c, aux, M, N,
+                                                               K, st);
     case ACT_GELU:
-      return (int)launch_tma_gemm<BN, GEMM_STAGES, ACT_GELU>(a, w, bias, res, c, aux, M, N, K, st);
+      return (int)launch_tile_gemm<192, GEMM_STAGES, ACT_GELU>(a, w, bias, nullptr, c, aux, M, N,
+                                                               K, st);
     case ACT_GELU_PRE:
-      return (int)launch_tma_gemm<BN, GEMM_STAGES, ACT_GELU_PRE>(a, w, bias, res, c, aux, M, N,
-                                                                 K, st);
+      return (int)launch_tile_gemm<192, GEMM_STAGES, ACT_GELU_PRE>(a, w, bias, nullptr, c, aux, M,
+                                                                   N, K, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int BN>
+int gemm_act(const void* a, const void* w, const void* bias, const void* res, void* c,
+             void* aux, int M, int N, int K, int act, int grid, cudaStream_t st) {
+  switch (act) {
+    case ACT_NONE:
+      return (int)launch_gemm<BN, ACT_NONE>(a, w, bias, res, c, aux, M, N, K, grid, st);
+    case ACT_GELU:
+      return (int)launch_gemm<BN, ACT_GELU>(a, w, bias, res, c, aux, M, N, K, grid, st);
+    case ACT_GELU_PRE:
+      return (int)launch_gemm<BN, ACT_GELU_PRE>(a, w, bias, res, c, aux, M, N, K, grid, st);
     case ACT_GELU_GRAD:
-      return (int)launch_tma_gemm<BN, GEMM_STAGES, ACT_GELU_GRAD>(a, w, bias, res, c, aux, M, N,
-                                                                  K, st);
+      return (int)launch_gemm<BN, ACT_GELU_GRAD>(a, w, bias, res, c, aux, M, N, K, grid, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -283,14 +415,19 @@ int sp_layernorm(const void* x, const void* w, const void* b, void* y, long rows
   return (int)cudaGetLastError();
 }
 
-// The N tile (128 or 192) is the one that pads N least; ties go to 192.
-// `act` as gemm_tma_kernel's ACT; aux is written only by ACT_GELU_PRE.
+// `bn` (144 or 192), `grid` and `one_tile` (gemm_tma_kernel, one tile per
+// block, BN 192, no residual) from kernels.gemm_plan; `act` as Bf16Epi's
+// ACT; aux is written only by ACT_GELU_PRE.
 int sp_gemm(const void* a, const void* w, const void* bias, const void* res, void* c,
-            void* aux, int M, int N, int K, int act, void* stream) {
+            void* aux, int M, int N, int K, int act, int bn, int grid, int one_tile,
+            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int pad128 = (N + 127) / 128 * 128, pad192 = (N + 191) / 192 * 192;
-  if (pad128 < pad192) return spk::gemm_act<128>(a, w, bias, res, c, aux, M, N, K, act, st);
-  return spk::gemm_act<192>(a, w, bias, res, c, aux, M, N, K, act, st);
+  if (one_tile)
+    return bn == 192 && !res ? spk::gemm_tile_act(a, w, bias, c, aux, M, N, K, act, st)
+                             : (int)cudaErrorInvalidValue;
+  if (bn == 144) return spk::gemm_act<144>(a, w, bias, res, c, aux, M, N, K, act, grid, st);
+  if (bn == 192) return spk::gemm_act<192>(a, w, bias, res, c, aux, M, N, K, act, grid, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // lse (nullable): [rows, heads] f32 log-sum-exp of each row's scores.

@@ -29,10 +29,11 @@
 // operations and run at the int8 tensor-core rate (twice bf16's) at stages
 // 3-4; the quant passes are row-local bandwidth passes that read the
 // activations and write a quarter (f32: an eighth) of their bytes.  The GEMM
-// is a plain mma.sync m16n8k32 kernel (128 x 128 x 64 tiles, 8 warps of 64 x
-// 32, a 3-stage cp.async ring, ldmatrix fragments); wgmma with s8 operands
-// and TMA is later work.
-#include "common.cuh"
+// is the persistent TMA + wgmma kernel of gemm_persistent.cuh on s8
+// operands (wgmma m64nBNk32, int32 sums), with the dequant epilogue below.
+#include <type_traits>
+
+#include "gemm_persistent.cuh"
 
 namespace spk {
 namespace {
@@ -191,184 +192,162 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
 // int8 GEMM
 // ---------------------------------------------------------------------------
 
-constexpr int I8_BM = 128, I8_BN = 128, I8_BK = 64, I8_STAGES = 3;
-constexpr int I8_PITCH = I8_BK + 16;  // bytes per smem row: conflict-free ldmatrix
-constexpr int I8_TILE = (I8_BM + I8_BN) * I8_PITCH;
-constexpr int I8_SMEM = I8_STAGES * I8_TILE;
-constexpr int I8_THREADS = 256;
-
 enum { I8_ACT_NONE = 0, I8_ACT_GELU = 1, I8_ACT_GELU_ERF = 2 };
 
-// Two output values, rounded to the output type (bf16 or f32).
-__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void store2(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-
-__device__ __forceinline__ float2 load2(const bf16* src) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
-}
-
-__device__ __forceinline__ float2 load2(const float* src) {
-  return *reinterpret_cast<const float2*>(src);
-}
-
-__device__ __forceinline__ float round_to(bf16*, float v) { return bf(to_bf(v)); }
-
-__device__ __forceinline__ float round_to(float*, float v) { return v; }
-
-// C[M, N] = dequant(A W^T) + bias (-> GELU), rounded to OutT (+ res[M, N],
-// an OutT + OutT sum rounded once more).  K % 32 == 0, N % 8 == 0; the M, N
-// and K tails are zero-filled in shared memory.
-template <int ACT, bool SW_FIRST, typename OutT>
-__global__ void __launch_bounds__(I8_THREADS)
-gemm_i8_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
-               const int8_t* __restrict__ W, const float* __restrict__ sw,
-               const float* __restrict__ bias, const OutT* __restrict__ res,
-               OutT* __restrict__ C, int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem_i8[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-  const int g = lane >> 2, t = lane & 3;
-  // One grid axis, N tiles fastest (see gemm_tma_kernel).
-  const int n_tiles = (N + I8_BN - 1) / I8_BN;
-  const long m0 = (long)(blockIdx.x / n_tiles) * I8_BM;
-  const int n0 = (int)(blockIdx.x % n_tiles) * I8_BN;
-  const int nk = (K + I8_BK - 1) / I8_BK;
-
-  // One stage: 128 A rows and 128 W rows of 64 bytes, 4 16-byte chunks each.
-  auto load_stage = [&](int s, int kt) {
-    unsigned char* As = smem_i8 + s * I8_TILE;
-    unsigned char* Bs = As + I8_BM * I8_PITCH;
-    const int k0 = kt * I8_BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * I8_THREADS;
-      const int r = idx / 4, ck = (idx % 4) * 16;
-      const bool kin = k0 + ck < K;
-      const long ra = m0 + r;
-      const bool ina = kin && ra < M;
-      cp_async16(As + r * I8_PITCH + ck, ina ? A + ra * K + k0 + ck : A, ina ? 16 : 0);
-      const int rb = n0 + r;
-      const bool inb = kin && rb < N;
-      cp_async16(Bs + r * I8_PITCH + ck, inb ? W + (long)rb * K + k0 + ck : W, inb ? 16 : 0);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-#pragma unroll
-  for (int s = 0; s < I8_STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+// The rounded output pair at `slot` of the staging tile, plus the residual
+// pair prefetched there (OutT + OutT, rounded once more) where there is one.
+__device__ __forceinline__ void finish2(bf16* slot, float a, float b, bool res) {
+  __nv_bfloat162 out = __floats2bfloat162_rn(a, b);
+  if (res) {
+    const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(slot);
+    out = __floats2bfloat162_rn(__low2float(r) + __low2float(out),
+                                __high2float(r) + __high2float(out));
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<I8_STAGES - 2>();
-    __syncthreads();
-    const int nxt = kt + I8_STAGES - 1;
-    if (nxt < nk) load_stage(nxt % I8_STAGES, nxt);
-    cp_async_commit();
-    const unsigned char* As = smem_i8 + (kt % I8_STAGES) * I8_TILE;
-    const unsigned char* Bs = As + I8_BM * I8_PITCH;
-#pragma unroll
-    for (int ks = 0; ks < I8_BK / 32; ++ks) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], As + (wm * 64 + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                     I8_PITCH + ks * 32 + (lane >> 4) * 16);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, Bs + (wn * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) * I8_PITCH +
-                           ks * 32 + ((lane >> 3) & 1) * 16);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-    }
-  }
-  cp_async_wait<0>();
+  *reinterpret_cast<__nv_bfloat162*>(slot) = out;
+}
 
-  // Epilogue straight from the fragments: pairs, rows g and g + 8.
+__device__ __forceinline__ void finish2(float* slot, float a, float b, bool res) {
+  float2 out = make_float2(a, b);
+  if (res) {
+    const float2 r = *reinterpret_cast<const float2*>(slot);
+    out = make_float2(r.x + a, r.y + b);
+  }
+  *reinterpret_cast<float2*>(slot) = out;
+}
+
+// The dequant epilogue on one consumer's 64 x BN tile of exact int32 sums
+// (gemm_persistent.cuh): C = dequant(A W^T) + bias (-> GELU), rounded to
+// OutT (+ res[M, N], an OutT + OutT sum rounded once more).  Each sum is
+// converted with __int2float_rn and rescaled in the order SW_FIRST gives,
+// each product rounded (no FMA contraction), then + bias, the tanh or erf
+// GELU and the rounding to OutT; the residual tile waits in the consumer's
+// staging tile (prefetched by cp.async before the k-loop), each output
+// pair is finished against it in place, then the tile goes out on
+// coalesced 16-byte rows.  Requires N % 8 == 0.
+template <int BN, int ACT, bool SW_FIRST, typename OutT>
+struct I8Epi {
+  static constexpr int VE = 16 / sizeof(OutT);  // outputs per 16-byte vector
+  static constexpr int P = BN + VE;             // staging pitch (elements)
+  static constexpr int kBytes = (64 * P * (int)sizeof(OutT) + 1023) / 1024 * 1024;
+  const float* sa;
+  const float* sw;
+  const float* bias;
+  const OutT* res;
+  OutT* C;
+  int M, N;
+
+  __device__ __forceinline__ void prefetch(int mrow0, int n0, unsigned char* stage,
+                                           int cw) const {
+    pg_prefetch_tile<BN, P>(res, M, N, mrow0, n0, stage, cw);
+  }
+
+  __device__ __forceinline__ void operator()(int (&d)[BN / 2], int mrow0, int n0,
+                                             unsigned char* stage, int cw) const {
+    const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl = w * 16 + g;
+    OutT* Cs = reinterpret_cast<OutT*>(stage);
+    float x[2];
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-    if (col >= N) continue;
-    const float w0 = sw[col], w1 = sw[col + 1], b0 = bias[col], b1 = bias[col + 1];
+    for (int hh = 0; hh < 2; ++hh) {
+      const long row = mrow0 + rl + 8 * hh;
+      x[hh] = row < M ? sa[row] : 0.f;
+    }
+    if (res) pg_prefetch_wait(cw);
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
+    for (int j = 0; j < BN / 8; ++j) {
+      const int cl = j * 8 + 2 * t;
+      const int col = n0 + cl;
+      const bool in = col < N;
+      const float w0 = in ? sw[col] : 0.f, w1 = in ? sw[col + 1] : 0.f;
+      const float b0 = in ? bias[col] : 0.f, b1 = in ? bias[col + 1] : 0.f;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const long row = m0 + wm * 64 + mi * 16 + g + 8 * hh;
-        if (row >= M) continue;
-        const float x = sa[row];
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float a = __int2float_rn(acc[mi][ni][2 * hh + e]);
+          const float a = __int2float_rn(d[4 * j + 2 * hh + e]);
           const float ws = e ? w1 : w0;
-          const float p = SW_FIRST ? __fmul_rn(__fmul_rn(a, ws), x)
-                                   : __fmul_rn(__fmul_rn(a, x), ws);
+          const float p = SW_FIRST ? __fmul_rn(__fmul_rn(a, ws), x[hh])
+                                   : __fmul_rn(__fmul_rn(a, x[hh]), ws);
           v[e] = __fadd_rn(p, e ? b1 : b0);
           if (ACT == I8_ACT_GELU) v[e] = gelu_tanh(v[e]);
           if (ACT == I8_ACT_GELU_ERF) v[e] = gelu_erf(v[e]);
         }
-        OutT* dst = C + row * N + col;
-        if (res) {
-          const float2 rv = load2(res + row * N + col);
-          v[0] = rv.x + round_to(dst, v[0]);
-          v[1] = rv.y + round_to(dst, v[1]);
-        }
-        store2(dst, v[0], v[1]);
+        finish2(Cs + (rl + 8 * hh) * P + cl, v[0], v[1], res != nullptr);
       }
     }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    for (int idx = tid; idx < 64 * (BN / VE); idx += 128) {
+      const int r = idx / (BN / VE), c = idx % (BN / VE);
+      const long row = mrow0 + r;
+      const int col = n0 + c * VE;
+      if (row < M && col < N)
+        *reinterpret_cast<uint4*>(C + row * N + col) =
+            *reinterpret_cast<const uint4*>(Cs + r * P + c * VE);
+    }
   }
+};
+
+// C[M, N] = dequant(A W^T) ... with I8Epi: the persistent GEMM of
+// gemm_persistent.cuh on int8 operands (wgmma m64nBNk32 s8 x s8 -> s32, a
+// k-step of 128 codes).  K % 32 == 0 (so K % 16 == 0 for TMA's row pitch),
+// N % 8 == 0.
+template <int BN, int ACT, bool SW_FIRST, typename OutT>
+__global__ void __launch_bounds__(PG_THREADS, 1)
+gemm_i8_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+               I8Epi<BN, ACT, SW_FIRST, OutT> epi, int K) {
+  pg_gemm<int8_t, BN>(&tmA, &tmB, epi.M, epi.N, K, epi);
 }
 
-template <int ACT, bool SW_FIRST, typename OutT>
+template <int BN, int ACT, bool SW_FIRST, typename OutT>
 cudaError_t launch_gemm_i8(const void* a, const void* sa, const void* w, const void* sw,
                            const void* bias, const void* res, void* c, int M, int N, int K,
-                           cudaStream_t st) {
-  cudaFuncSetAttribute(gemm_i8_kernel<ACT, SW_FIRST, OutT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, I8_SMEM);
-  const long blocks = (long)((N + I8_BN - 1) / I8_BN) * ((M + I8_BM - 1) / I8_BM);
-  if (blocks >= (1L << 31)) return cudaErrorInvalidConfiguration;
-  gemm_i8_kernel<ACT, SW_FIRST, OutT><<<(unsigned)blocks, I8_THREADS, I8_SMEM, st>>>(
-      (const int8_t*)a, (const float*)sa, (const int8_t*)w, (const float*)sw,
-      (const float*)bias, (const OutT*)res, (OutT*)c, M, N, K);
-  return cudaGetLastError();
+                           int grid, cudaStream_t st) {
+  using Epi = I8Epi<BN, ACT, SW_FIRST, OutT>;
+  const Epi epi{(const float*)sa, (const float*)sw, (const float*)bias, (const OutT*)res,
+                (OutT*)c, M, N};
+  return pg_launch<int8_t, BN, Epi::kBytes>(gemm_i8_kernel<BN, ACT, SW_FIRST, OutT>, a, w, M, N,
+                                            K, grid, st, epi, K);
 }
 
-template <bool SW_FIRST, typename OutT>
+template <int BN, bool SW_FIRST, typename OutT>
 cudaError_t launch_gemm_i8_act(int act, const void* a, const void* sa, const void* w,
                                const void* sw, const void* bias, const void* res, void* c,
-                               int M, int N, int K, cudaStream_t st) {
+                               int M, int N, int K, int grid, cudaStream_t st) {
   switch (act) {
     case I8_ACT_NONE:
-      return launch_gemm_i8<I8_ACT_NONE, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c, M, N, K,
-                                                         st);
+      return launch_gemm_i8<BN, I8_ACT_NONE, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c, M, N,
+                                                             K, grid, st);
     case I8_ACT_GELU:
-      return launch_gemm_i8<I8_ACT_GELU, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c, M, N, K,
-                                                         st);
-    case I8_ACT_GELU_ERF:
-      return launch_gemm_i8<I8_ACT_GELU_ERF, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c, M, N,
-                                                             K, st);
+      return launch_gemm_i8<BN, I8_ACT_GELU, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c, M, N,
+                                                             K, grid, st);
+    case I8_ACT_GELU_ERF:  // written in f32 only
+      if constexpr (std::is_same<OutT, float>::value)
+        return launch_gemm_i8<BN, I8_ACT_GELU_ERF, SW_FIRST, OutT>(a, sa, w, sw, bias, res, c,
+                                                                  M, N, K, grid, st);
+      else
+        return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <bool SW_FIRST>
+cudaError_t launch_gemm_i8_bn(int bn, int act, int f32, const void* a, const void* sa,
+                              const void* w, const void* sw, const void* bias, const void* res,
+                              void* c, int M, int N, int K, int grid, cudaStream_t st) {
+  if (f32)  // #12 on f32: one tile width
+    return bn == 144 ? launch_gemm_i8_act<144, SW_FIRST, float>(act, a, sa, w, sw, bias, res, c,
+                                                                M, N, K, grid, st)
+                     : cudaErrorInvalidValue;
+  if (bn == 144)
+    return launch_gemm_i8_act<144, SW_FIRST, bf16>(act, a, sa, w, sw, bias, res, c, M, N, K,
+                                                   grid, st);
+  if (bn == 192)
+    return launch_gemm_i8_act<192, SW_FIRST, bf16>(act, a, sa, w, sw, bias, res, c, M, N, K,
+                                                   grid, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -405,23 +384,18 @@ int sp_quant_rows(const void* x, void* q, void* scale, long rows, int K, int f32
   return (int)cudaGetLastError();
 }
 
-// act: 0 none, 1 tanh GELU, 2 erf GELU; sw_first: the dequant order (see the
-// header); f32: the output and the residual are f32 (else bf16).
+// act: 0 none, 1 tanh GELU, 2 erf GELU (f32 only); sw_first: the dequant
+// order (see the header); f32: the output and the residual are f32 (else
+// bf16); `bn` (144, or 192 for a bf16 output) and `grid` from
+// kernels.gemm_plan.
 int sp_gemm_i8(const void* a, const void* sa, const void* w, const void* sw, const void* bias,
                const void* res, void* c, int M, int N, int K, int act, int sw_first, int f32,
-               void* stream) {
-  using namespace spk;
+               int bn, int grid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (f32)
-    return (int)(sw_first ? launch_gemm_i8_act<true, float>(act, a, sa, w, sw, bias, res, c, M,
-                                                            N, K, st)
-                          : launch_gemm_i8_act<false, float>(act, a, sa, w, sw, bias, res, c,
-                                                             M, N, K, st));
-  if (act == I8_ACT_GELU_ERF) return (int)cudaErrorInvalidValue;
-  return (int)(sw_first ? launch_gemm_i8_act<true, bf16>(act, a, sa, w, sw, bias, res, c, M, N,
-                                                         K, st)
-                        : launch_gemm_i8_act<false, bf16>(act, a, sa, w, sw, bias, res, c, M,
-                                                          N, K, st));
+  return (int)(sw_first ? spk::launch_gemm_i8_bn<true>(bn, act, f32, a, sa, w, sw, bias, res, c,
+                                                       M, N, K, grid, st)
+                        : spk::launch_gemm_i8_bn<false>(bn, act, f32, a, sa, w, sw, bias, res,
+                                                        c, M, N, K, grid, st));
 }
 
 }  // extern "C"

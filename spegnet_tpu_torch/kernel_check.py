@@ -140,6 +140,49 @@ def tn_work(m: int, n: int, k: int) -> Tuple[float, float]:
     return 2.0 * m * n * k, 2.0 * m * (n + k) + 4.0 * n * (k + 1)
 
 
+# The forward GEMMs (kernels.gemm in bf16, kernels.gemm_i8 in int8) of one
+# Hiera-L forward at 512^2: each block geometry's four projections with their
+# epilogues (the T-block's at stages 1-3 and the global blocks, #1 / #10;
+# the gen-1 block's at stage 4, #7 / #12) and each transition front's
+# stacked qkv + shortcut product (#3 / #11).  name: (block geometry, N, K as
+# multiples of C (of Cout, Cin for a front), GELU, residual).
+GEMM_PRODUCTS = {"qkv": (3, 1, False, False), "proj": (1, 1, False, True),
+                 "fc1": (4, 1, True, False), "fc2": (1, 4, False, True)}
+# Blocks or fronts of each geometry per forward (stage 3 with the three
+# global blocks, which have its shapes), bf16 and with ``int8_encoder``
+# (stage 1 and t12 stay bf16 there, as JAX's int8 gates send them).
+GEMM_COUNT = {"stage1": 2, "stage2": 5, "stage3": 35, "stage4": 3, "t12": 1, "t23": 1,
+              "t34": 1}
+GEMM_I8_GEOMS = ("stage2", "stage3", "stage4", "t23", "t34")
+
+
+def gemm_shapes(batch: int) -> Dict[str, Tuple[int, int, int, bool, bool]]:
+    """name -> (M, N, K, GELU, residual) of each forward GEMM of
+    :data:`GEMM_COUNT`'s geometries."""
+    out = {}
+    for geo in GEMM_COUNT:
+        if geo in QPOOL:
+            cin, cout, _, _, n = QPOOL[geo]
+            out[f"{geo}_qkv_sc"] = (batch * n, 4 * cout, cin, False, False)
+            continue
+        _, c, _, _, n = BLOCKS[geo]
+        for prod, (fn, fk, gelu, res) in GEMM_PRODUCTS.items():
+            out[f"{geo}_{prod}"] = (batch * n, fn * c, fk * c, gelu, res)
+    return out
+
+
+def gemm_work(m: int, n: int, k: int, int8: bool = False, residual: bool = False,
+              out_bytes: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of one forward GEMM: 2 M N K; the operands read
+    once (bf16, or int8 codes with f32 row scales), the bias (bf16, or f32
+    in int8) and a residual read once, the output written once."""
+    if int8:
+        nbytes = m * k + n * k + 4.0 * (m + n) + 4.0 * n
+    else:
+        nbytes = 2.0 * (m * k + n * k) + 2.0 * n
+    return 2.0 * m * n * k, nbytes + out_bytes * m * n * (2 if residual else 1)
+
+
 # The T-block's saved-residual pair (training under SPEGNET_SAVE_RESIDUALS)
 # at its 512^2 geometries.
 RES = ("stage1", "stage2", "stage3", "global")

@@ -129,11 +129,37 @@ def build(verbose: bool = False, echo: bool = True) -> Path:
     return so
 
 
+def _template_args(mangled: str, kernel: str) -> tuple:
+    """The template arguments of ``kernel`` in an Itanium-mangled name: ints
+    and bools as ints, types by name (``float``, ``__nv_bfloat16``)."""
+    i = mangled.find(kernel + "I")
+    if i < 0:
+        return ()
+    s, pos, out = mangled, i + len(kernel) + 1, []
+    builtin = {"f": "float", "i": "int", "a": "signed char", "h": "unsigned char"}
+    while pos < len(s) and s[pos] != "E":
+        if s[pos] == "L":
+            end = s.index("E", pos)
+            out.append(int(s[pos + 2:end]))
+            pos = end + 1
+        elif s[pos].isdigit():
+            j = pos
+            while s[j].isdigit():
+                j += 1
+            n = int(s[pos:j])
+            out.append(s[j:j + n])
+            pos = j + n
+        else:
+            out.append(builtin.get(s[pos], s[pos]))
+            pos += 1
+    return tuple(out)
+
+
 def ptxas_usage(kernel: str, report: Optional[str] = None):
     """[(template arguments, registers, spill store bytes, spill load bytes)]
     of each instantiation of ``kernel`` in a ptxas report (default: the one
     a verbose :func:`build` of the current sources wrote; empty if none);
-    the arguments a tuple of its int / bool values."""
+    the arguments a tuple of its int / bool values and type names."""
     import re
 
     if report is None:
@@ -150,9 +176,7 @@ def ptxas_usage(kernel: str, report: Optional[str] = None):
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            arg = re.search(kernel + r"I((?:L[ib]\d+E)+)E", name)
-            args = tuple(int(v) for v in re.findall(r"L[ib](\d+)E", arg.group(1))) if arg else ()
-            out.append((args, int(m.group(1))) + spill)
+            out.append((_template_args(name, kernel), int(m.group(1))) + spill)
             name, spill = None, (0, 0)
     return out
 
@@ -165,7 +189,7 @@ def load():
     p, i, f, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
     sigs = {
         "sp_layernorm": [p, p, p, p, l, i, f, p],
-        "sp_gemm": [p, p, p, p, p, p, i, i, i, i, p],
+        "sp_gemm": [p, p, p, p, p, p, i, i, i, i, i, i, i, p],
         "sp_window_attention": [p, p, p, i, i, i, i, i, f, p],
         "sp_qpool_attention": [p, p, p, i, i, i, i, i, f, p],
         "sp_pool4_rows": [p, p, l, i, i, i, p],
@@ -184,7 +208,7 @@ def load():
         "sp_conv2_i8_head": [p, p, p, p, p, p, p, p, p, i, i, i, p],
         "sp_layernorm_q8": [p, p, p, p, p, l, i, f, i, p],
         "sp_quant_rows": [p, p, p, l, i, i, p],
-        "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
         "sp_lanes_attention": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
                                i, i, i, i, i, i, i, i, i, f, p],
         "sp_attention_f32": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
@@ -253,10 +277,79 @@ _ACT = {"none": 0, "gelu": 1, "gelu_pre": 2, "gelu_grad": 3}
 
 
 def _tiles(m: int, n: int, name: str) -> None:
-    """The GEMMs run one block per 128-row by >= 128-column tile on the
-    grid's x axis (limit 2^31 - 1) and take M as a 32-bit int."""
+    """The f32 GEMM (csrc/block_f32.cu) runs one block per 128-row by
+    >= 128-column tile on the grid's x axis (limit 2^31 - 1); every GEMM
+    takes M as a 32-bit int."""
     if m >= 2 ** 31 or -(-m // 128) * -(-n // 128) >= 2 ** 31:
         raise ValueError(f"{name}: M={m}, N={n} needs 2^31 or more row tiles x column tiles")
+
+
+# The persistent TMA + wgmma GEMM (csrc/gemm_persistent.cuh) behind
+# :func:`gemm` and :func:`gemm_i8`: 128-row output tiles, BN columns of
+# those built for each operand type ("int8_f32": int8 with an f32 output,
+# #12 on f32, which stages twice the bytes).
+GEMM_BM = 128
+GEMM_BN = {"bf16": (144, 192), "int8": (144, 192), "int8_f32": (144,)}
+# The reckoning of :func:`gemm_seconds`: a tile's k-loop at this share of an
+# SM's part of the dense tensor-core rate, then its epilogue's output bytes
+# at the SM's part of the HBM rate (the stores of all SMs share it).
+_GEMM_EFF = 0.75
+_GEMM_PEAK = {"bf16": 989e12, "int8": 1979e12, "int8_f32": 1979e12}
+_GEMM_OUT_BYTES = {"bf16": 2, "int8": 2, "int8_f32": 4}
+_HBM = 3.35e12
+
+
+class GemmPlan(NamedTuple):
+    """Launch plan of the persistent GEMM for A[M, K] W[N, K]^T: tiles of
+    128 x ``bn``, ``m_tiles`` x ``n_tiles`` of them (N fastest), walked by
+    ``grid`` blocks, block b taking tiles b, b + grid, ...; with
+    ``one_tile`` csrc/hiera_block.cu's ``gemm_tma_kernel`` instead, one
+    block per tile (grid = tiles)."""
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    grid: int
+    one_tile: bool = False
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+
+def gemm_seconds(m: int, n: int, k: int, bn: int, sms: int, dtype: str = "bf16") -> float:
+    """Estimated time of one persistent-GEMM call with 128 x ``bn`` tiles on
+    a card of ``sms`` SMs: the tiles of the busiest block (the wave count)
+    times one tile's k-loop plus its epilogue, at the rates above."""
+    tiles = -(-m // GEMM_BM) * -(-n // bn)
+    rounds = -(-tiles // sms)
+    mma = 2.0 * GEMM_BM * bn * k / (_GEMM_EFF * _GEMM_PEAK[dtype] / sms)
+    epilogue = GEMM_BM * bn * _GEMM_OUT_BYTES[dtype] / (_HBM / sms)
+    return rounds * (mma + epilogue)
+
+
+@functools.lru_cache(maxsize=512)
+def gemm_plan(m: int, n: int, k: int, sms: int, dtype: str = "bf16",
+              residual: bool = False) -> GemmPlan:
+    """The plan of the persistent GEMM for ``dtype`` ("bf16", "int8" or
+    "int8_f32"): the tile width of :data:`GEMM_BN` of least
+    :func:`gemm_seconds` (within 1e-9 of it, the widest: fewer, larger
+    tiles), and min(tiles, ``sms``) blocks.  A bf16 product at width 192
+    whose epilogue reads no ``residual`` (fc1 with its GELU, the fronts'
+    stacked product) takes the one-tile-per-block kernel, which measured
+    3-15% faster there (H100, utils/gemm_bench.py).  Every output tile is
+    computed by one block; the sums run over K in k order whatever the plan,
+    so the results do not depend on it."""
+    if m < 1 or n < 1 or k < 1 or m >= 2 ** 31:
+        raise ValueError(f"gemm: M={m}, N={n}, K={k}")
+    cost = {bn: gemm_seconds(m, n, k, bn, sms, dtype) for bn in GEMM_BN[dtype]}
+    best = min(cost.values())
+    bn = max(b for b, t in cost.items() if t <= best * (1 + 1e-9))
+    m_tiles, n_tiles = -(-m // GEMM_BM), -(-n // bn)
+    if m_tiles * n_tiles >= 2 ** 31:
+        raise ValueError(f"gemm: M={m}, N={n} needs 2^31 or more tiles")
+    if dtype == "bf16" and bn == 192 and not residual:
+        return GemmPlan(bn, m_tiles, n_tiles, m_tiles * n_tiles, True)
+    return GemmPlan(bn, m_tiles, n_tiles, min(m_tiles * n_tiles, sms))
 
 
 def _gemm(a, w, bias, residual, act, aux=None):
@@ -268,7 +361,7 @@ def _gemm(a, w, bias, residual, act, aux=None):
         raise ValueError(f"gemm: a {tuple(a.shape)} vs weight {tuple(w.shape)}")
     if k % 8 or n % 8:
         raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
-    _tiles(m, n, "gemm")
+    plan = gemm_plan(m, n, k, _sm_count(a.device.index), "bf16", residual is not None)
     if a.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("gemm: TMA needs 16-byte aligned operands")
     if bias is not None:
@@ -281,15 +374,16 @@ def _gemm(a, w, bias, residual, act, aux=None):
             raise ValueError("gemm: residual shape != [M, N]")
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     _check(load().sp_gemm(a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
-                           c.data_ptr(), _ptr(aux), m, n, k, _ACT[act], _stream(a)),
-           "sp_gemm")
+                           c.data_ptr(), _ptr(aux), m, n, k, _ACT[act], plan.bn, plan.grid,
+                           int(plan.one_tile), _stream(a)), "sp_gemm")
     return c
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
          gelu: bool = False) -> torch.Tensor:
     """a [M, K] @ w[N, K]^T (+ bias) (-> tanh GELU) (+ residual), bf16
-    (TMA + wgmma, csrc/hiera_block.cu)."""
+    (the persistent TMA + wgmma GEMM, csrc/hiera_block.cu, or its
+    one-tile-per-block kernel, as :func:`gemm_plan` says)."""
     return _gemm(a, w, bias, residual, "gelu" if gelu else "none")
 
 
@@ -828,7 +922,10 @@ def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor
     -> int32, dequantized (acc * sw * sa with ``sw_first``, else acc * sa *
     sw) + bias [N] f32 (-> GELU: tanh with ``approx_gelu``, else erf, which
     needs an f32 output) -> ``out_dtype`` (bf16 or f32) (+ residual [M, N] of
-    that dtype)."""
+    that dtype).  The persistent TMA + wgmma GEMM on s8 operands
+    (csrc/int8_gemm.cu, :func:`gemm_plan`); int32 sums are exact, so the
+    result is the plain version's (:func:`ops.fused_block_t_i8.qdot`) bit for
+    bit, GELU aside."""
     _need(a, "gemm_i8 a", torch.int8, 2)
     _need(w, "gemm_i8 weight", torch.int8, 2)
     if out_dtype not in _ACTS:
@@ -840,9 +937,10 @@ def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor
     if w.shape[1] != k or k % 32 or n % 8:
         raise ValueError(f"gemm_i8: a {tuple(a.shape)} vs weight {tuple(w.shape)} "
                          "(K % 32 == 0, N % 8 == 0)")
-    _tiles(m, n, "gemm_i8")
+    plan = gemm_plan(m, n, k, _sm_count(a.device.index),
+                     "int8_f32" if out_dtype == torch.float32 else "int8")
     if a.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("gemm_i8: cp.async needs 16-byte aligned operands")
+        raise ValueError("gemm_i8: TMA needs 16-byte aligned operands")
     for t, name, size in ((sa, "row scales", m), (sw, "weight scales", n), (bias, "bias", n)):
         _need(t, f"gemm_i8 {name}", torch.float32, 1)
         if t.numel() != size:
@@ -855,8 +953,8 @@ def gemm_i8(a: torch.Tensor, sa: torch.Tensor, w: torch.Tensor, sw: torch.Tensor
     act = (1 if approx_gelu else 2) if gelu else 0
     _check(load().sp_gemm_i8(a.data_ptr(), sa.data_ptr(), w.data_ptr(), sw.data_ptr(),
                               bias.data_ptr(), _ptr(residual), c.data_ptr(), m, n, k,
-                              act, int(sw_first), int(out_dtype == torch.float32),
-                              _stream(a)), "sp_gemm_i8")
+                              act, int(sw_first), int(out_dtype == torch.float32), plan.bn,
+                              plan.grid, _stream(a)), "sp_gemm_i8")
     return c
 
 

@@ -1,0 +1,226 @@
+"""Device time of the forward GEMMs (kernels.gemm in bf16, kernels.gemm_i8 in
+int8) at every forward product of one Hiera-L forward at 512^2
+(kernel_check.gemm_shapes: the T-block's four projections at stages 1-3 and
+the global blocks, the gen-1 block's at stage 4, the transition fronts'
+stacked products), beside torch.mm (bf16) or torch._int_mm (int8, int32
+out) on the same operands: yardsticks the port never calls.
+
+    python -m spegnet_tpu_torch.utils.gemm_bench [--batch 8]
+        [--digests OUT.json] [--against REF.json]
+
+Prints, per product and epilogue (bias, GELU, residual as the block runs
+it), the launch plan (kernels.gemm_plan), the device ms
+(kernel_check.device_ms, torch.profiler) of the kernel and the yardstick,
+the kernel's TFLOP/s or TOPS and GB/s, the roofline bound
+(kernel_check.gemm_work at the H100's bf16 / int8 and memory peaks) and the
+kernel's error (bf16: max |kernel - mm| / max |mm| against the f32
+torch.mm; int8: elements that differ from the exact integer sum's dequant,
+GELU products excepted); then the totals per forward: #1's products (the
+T-block at stages 1-3), #10's (stages 2-3 in int8), and every product of
+the bf16 and the int8-encoder forwards.  ``--digests`` writes, and
+``--against`` compares with a file written before (by another build of the
+kernels), the SHA-256 of every output of kernels.gemm / gemm_gelu_pre /
+gemm_gelu_grad / gemm_i8 on seeded inputs at every forward product and at
+the dX products of the block backward (:func:`digests`), which shows
+whether two builds give the same bits.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Callable, Dict
+
+# The rows whose per-forward totals are printed: the geometries of each.
+TOTALS = {"#1 fused_block_t": ("bf16", ("stage1", "stage2", "stage3")),
+          "#10 fused_block_t_i8": ("int8", ("stage2", "stage3")),
+          "bf16 forward": ("bf16", ("stage1", "stage2", "stage3", "stage4", "t12", "t23", "t34")),
+          "int8-encoder forward": ("mixed", ())}
+
+
+def _bf16_call(m, n, k, gelu, res, g, dev):
+    import torch
+
+    from spegnet_tpu_torch import kernels
+
+    a = torch.randn((m, k), generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn((n, k), generator=g) * k ** -0.5).to(dev, torch.bfloat16)
+    bias = (0.1 * torch.randn((n,), generator=g)).to(dev, torch.bfloat16)
+    r = torch.randn((m, n), generator=g).to(dev, torch.bfloat16) if res else None
+
+    def kern():
+        return kernels.gemm(a, w, bias, residual=r, gelu=gelu)
+
+    got = kern().float()
+    want = torch.mm(a.float(), w.float().t()) + bias.float()
+    if gelu:
+        want = torch.nn.functional.gelu(want, approximate="tanh")
+    if r is not None:
+        want = want + r.float()
+    err = f"rel {float((got - want).abs().max() / want.abs().max()):.2e}"
+    return kern, lambda: torch.mm(a, w.t()), err
+
+
+def _i8_call(m, n, k, gelu, res, g, dev):
+    import torch
+
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.ops.fused_block_t_i8 import qdot
+
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(dev)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(dev)
+    sa = (torch.rand(m, generator=g) * 0.02).to(dev)
+    sw = (torch.rand(n, generator=g) * 2e-3).to(dev)
+    bias = (0.1 * torch.randn((n,), generator=g)).to(dev)
+    r = torch.randn((m, n), generator=g).to(dev, torch.bfloat16) if res else None
+
+    def kern():
+        return kernels.gemm_i8(a, sa, w, sw, bias, residual=r, gelu=gelu)
+
+    got = kern()
+    want = qdot(a, sa[:, None], w, sw, bias)
+    if gelu:
+        want = torch.nn.functional.gelu(want, approximate="tanh")
+    want = want.to(torch.bfloat16)
+    if r is not None:
+        want = r + want
+    err = f"differ {int((got != want).sum())}{' (GELU)' if gelu else ''}"
+    return kern, lambda: torch._int_mm(a, w.t()), err
+
+
+def run(batch: int, log: Callable[[str], None] = print) -> Dict[str, Dict[str, float]]:
+    """Times every product and returns the per-forward totals in ms of each
+    row of :data:`TOTALS`: kernel, yardstick and bound."""
+    import torch
+
+    from spegnet_tpu_torch import kernel_check as kc
+    from spegnet_tpu_torch import kernels
+
+    dev = torch.device("cuda")
+    sms = kernels._sm_count(dev.index or 0)
+    plan = getattr(kernels, "gemm_plan", None)
+    times = {}   # (dtype, geometry) -> [kernel, yardstick, bound] ms summed over products
+    for name, (m, n, k, gelu, res) in kc.gemm_shapes(batch).items():
+        geo = name.split("_")[0]
+        for dt in ("bf16", "int8"):
+            if dt == "int8" and geo not in kc.GEMM_I8_GEOMS:
+                continue
+            g = torch.Generator().manual_seed(m + n + k)
+            make = _i8_call if dt == "int8" else _bf16_call
+            kern, lib, err = make(m, n, k, gelu, res, g, dev)
+            k_ms = kc.device_ms(kern, iters=10)
+            l_ms = kc.device_ms(lib, iters=10)
+            ops, nbytes = kc.gemm_work(m, n, k, dt == "int8", res)
+            b_ms, by = (kc.bound_ms(0.0, nbytes, ops) if dt == "int8"
+                        else kc.bound_ms(ops, nbytes))
+            t = times.setdefault((dt, geo), [0.0, 0.0, 0.0])
+            t[0], t[1], t[2] = t[0] + k_ms, t[1] + l_ms, t[2] + b_ms
+            unit = "TOPS" if dt == "int8" else "TFLOP/s"
+            p = f" {plan(m, n, k, sms, dt, res)}" if plan else ""
+            ep = "+".join(e for e, on in (("gelu", gelu), ("residual", res)) if on) or "bias"
+            log(f"gemm {dt:4s} {name:13s} M {m} N {n} K {k} ({ep}){p}: kernel {k_ms:.4f} ms "
+                f"({ops / k_ms / 1e9:.1f} {unit}, {nbytes / k_ms / 1e6:.1f} GB/s), "
+                f"{'torch._int_mm' if dt == 'int8' else 'torch.mm'} {l_ms:.4f} ms "
+                f"({ops / l_ms / 1e9:.1f} {unit}), bound {b_ms:.4f} ms ({by}), {err} "
+                f"(x{kc.GEMM_COUNT[geo]} per forward)")
+            del kern, lib
+            torch.cuda.empty_cache()
+    tot = {}
+    for row, (dt, geos) in TOTALS.items():
+        if dt == "mixed":   # int8 where the int8 gates send the geometry, else bf16
+            keys = [("int8" if geo in kc.GEMM_I8_GEOMS else "bf16", geo) for geo in kc.GEMM_COUNT]
+        else:
+            keys = [(dt, geo) for geo in geos]
+        s = [sum(times[key][i] * kc.GEMM_COUNT[key[1]] for key in keys) for i in range(3)]
+        tot[row] = {"kernel": s[0], "library": s[1], "bound": s[2]}
+        log(f"gemm per forward at batch {batch}, {row}: kernel {s[0]:.4f} ms, "
+            f"yardstick {s[1]:.4f} ms, bound {s[2]:.4f} ms")
+    return tot
+
+
+def digests(batch: int) -> Dict[str, str]:
+    """name -> SHA-256 of the output bytes of each GEMM launcher on seeded
+    inputs: every forward product of :func:`run` (bf16 and, where the int8
+    gates send it, int8 with both dequant orders), the fc1 product through
+    gemm_gelu_pre (pre-activation and GELU) and the block backward's dX
+    products (dz through gemm_gelu_grad, dh2, da, dh1) at each block
+    geometry."""
+    import hashlib
+
+    import torch
+
+    from spegnet_tpu_torch import kernel_check as kc
+    from spegnet_tpu_torch import kernels
+
+    dev = torch.device("cuda")
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def bf(shape, g, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev, torch.bfloat16)
+
+    out = {}
+    for name, (m, n, k, gelu, res) in kc.gemm_shapes(batch).items():
+        g = torch.Generator().manual_seed(m + n + k)
+        a, w, b = bf((m, k), g), bf((n, k), g, k ** -0.5), bf((n,), g, 0.1)
+        r = bf((m, n), g) if res else None
+        out[f"bf16 {name}"] = sha(kernels.gemm(a, w, b, residual=r, gelu=gelu))
+        if gelu:
+            out[f"bf16 {name} gelu_pre"] = sha(*kernels.gemm_gelu_pre(a, w, b))
+        if name.split("_")[0] in kc.GEMM_I8_GEOMS:
+            qa = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(dev)
+            qw = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(dev)
+            sa, sw = torch.rand(m, generator=g).to(dev), torch.rand(n, generator=g).to(dev)
+            bias = torch.randn((n,), generator=g).to(dev)
+            for first in (True, False):
+                out[f"int8 {name} sw_first {first}"] = sha(kernels.gemm_i8(
+                    qa, sa, qw, sw, bias, residual=r, gelu=gelu, sw_first=first))
+        del a, w, r
+        torch.cuda.empty_cache()
+    for geo in ("stage1", "stage2", "stage3", "stage4"):
+        c, n = kc.BLOCKS[geo][1], kc.BLOCKS[geo][4]
+        m = batch * n
+        g = torch.Generator().manual_seed(m + c)
+        dy, z = bf((m, c), g), bf((m, 4 * c), g)
+        out[f"bf16 {geo}_dz gelu_grad"] = sha(kernels.gemm_gelu_grad(dy, bf((4 * c, c), g), z))
+        for prod, kk in (("dh2", 4 * c), ("da", c), ("dh1", 3 * c)):
+            out[f"bf16 {geo}_{prod}"] = sha(kernels.gemm(bf((m, kk), g), bf((c, kk), g)))
+        del dy, z
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> None:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--digests", help="write the outputs' SHA-256 here (JSON)")
+    ap.add_argument("--against", help="compare the outputs' SHA-256 with this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("gemm_bench needs a CUDA device")
+    print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}", flush=True)
+    with torch.inference_mode():
+        if args.digests or args.against:
+            import json
+
+            got = digests(args.batch)
+            if args.digests:
+                with open(args.digests, "w") as f:
+                    json.dump(got, f, indent=1)
+            if args.against:
+                with open(args.against) as f:
+                    ref = json.load(f)
+                differ = sorted(k for k in ref if got.get(k) != ref[k])
+                print(f"gemm digests: {len(ref) - len(differ)} of {len(ref)} outputs "
+                      f"bit-equal to {args.against}; differ: {differ}", flush=True)
+            return
+        run(args.batch, lambda s: print(s, flush=True))
+
+
+if __name__ == "__main__":
+    main()

@@ -149,6 +149,91 @@ def test_int8_gemm_past_65535_row_tiles(cuda):
     assert torch.equal(got, want)
 
 
+# The persistent GEMM (csrc/gemm_persistent.cuh) on s8: every forward product
+# of the int8 blocks at stages 2-3 (batch 1) and tails of M, N and K (M 1, 31,
+# 4099; N 8, 136; K 32, 96, 2304).
+I8_GEMM_SHAPES = sorted({(m, n, k) for name, (m, n, k, _, _) in
+                         kernel_check.gemm_shapes(1).items()
+                         if name.split("_")[0] in ("stage2", "stage3")}
+                        | {(1, 8, 32), (31, 136, 96), (4099, 136, 2304)})
+
+
+@pytest.mark.parametrize("m,n,k", I8_GEMM_SHAPES)
+def test_int8_gemm_equals_exact_qdot(cuda, m, n, k):
+    """The s8 GEMM against the exact f64 integer sum (ops/fused_block_t_i8.qdot)
+    plus the same rounding, bit for bit, for each epilogue (none, residual,
+    tanh GELU; the erf GELU on an f32 output to within I8_F32_GELU_REL, as
+    erff and torch's erf differ), both dequant orders and both output
+    types; the tanh GELU on bf16 to within one bf16 step on <= I8_PART_FRAC
+    of the outputs (kernel_check.i8_parts' rule: tanhf vs torch's tanh)."""
+    import torch.nn.functional as F
+
+    from spegnet_tpu_torch.ops.fused_block_t_i8 import qdot
+
+    g = torch.Generator().manual_seed(m + n + k)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(cuda)
+    sa = (torch.rand(m, generator=g) * 0.02).to(cuda)
+    sw = (torch.rand(n, generator=g) * 2e-3).to(cuda)
+    bias = (0.1 * torch.randn(n, generator=g)).to(cuda)
+    for dt in (torch.bfloat16, torch.float32):
+        r = torch.randn((m, n), generator=g).to(cuda, dt)
+        gelus = [None, "tanh"] + (["erf"] if dt == torch.float32 else [])
+        for sw_first in (True, False):
+            acc = qdot(a, sa[:, None], w, sw, bias, sw_first)
+            for gelu in gelus:
+                for res in (None, r):
+                    got = kernels.gemm_i8(a, sa, w, sw, bias, residual=res, gelu=gelu is not None,
+                                          sw_first=sw_first, out_dtype=dt,
+                                          approx_gelu=gelu != "erf")
+                    want = acc if gelu is None else F.gelu(
+                        acc, approximate="tanh" if gelu == "tanh" else "none")
+                    want = want.to(dt)
+                    if res is not None:
+                        want = res + want
+                    torch.cuda.synchronize()
+                    what = (dt, sw_first, gelu, res is None)
+                    if gelu is None:
+                        assert torch.equal(got, want), what
+                    elif dt == torch.float32:
+                        rel = (got - want).abs().max() / want.abs().max()
+                        assert rel <= kernel_check.I8_F32_GELU_REL, (what, rel.item())
+                    else:
+                        _, e = torch.frexp(want.float())
+                        ulp = torch.ldexp(torch.ones_like(want.float()), e - 8)
+                        diff = (got.float() - want.float()).abs()
+                        assert (diff <= ulp).all(), what
+                        assert (diff > 0).float().mean() <= kernel_check.I8_PART_FRAC, what
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 8, 8), (31, 136, 72), (4099, 576, 144),
+                                   (8192, 1728, 576), (8192, 576, 2304), (2048, 1152, 4608)])
+def test_gemm_matches_mm_and_repeats(cuda, m, n, k):
+    """The bf16 persistent GEMM within REL_LIMIT of torch.mm in f32 (TF32
+    off) on the same bf16 operands, each epilogue, and two calls bit-equal
+    (every sum over K in k order, whatever the tile walk)."""
+    g = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn((m, k), generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn((n, k), generator=g) * k ** -0.5).to(cuda, torch.bfloat16)
+    bias = (0.1 * torch.randn(n, generator=g)).to(cuda, torch.bfloat16)
+    r = torch.randn((m, n), generator=g).to(cuda, torch.bfloat16)
+    ref = a.float() @ w.float().t() + bias.float()
+    calls = {
+        "none": (lambda: kernels.gemm(a, w, bias), ref),
+        "residual": (lambda: kernels.gemm(a, w, bias, residual=r), ref + r.float()),
+        "gelu": (lambda: kernels.gemm(a, w, bias, gelu=True),
+                 torch.nn.functional.gelu(ref, approximate="tanh")),
+        "gelu_pre": (lambda: torch.cat(kernels.gemm_gelu_pre(a, w, bias), 1),
+                     torch.cat([ref, torch.nn.functional.gelu(ref, approximate="tanh")], 1)),
+    }
+    for what, (call, want) in calls.items():
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), what
+        rel = float((got.float() - want).abs().max() / want.abs().max())
+        assert rel <= kernel_check.REL_LIMIT, (what, rel)
+
+
 @pytest.mark.parametrize("head", [False, True])
 def test_decoder_edge_branch_small(cuda, head):
     case = kernel_check.edge_case((16, 64, 32, 128), 2, torch.Generator().manual_seed(0), cuda,
