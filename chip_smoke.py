@@ -8,10 +8,12 @@
 2. Builds the Hopper kernels from spegnet_tpu_torch/csrc into build/kernels/
    (one nvcc per source, all started together) and prints the build seconds
    and the ptxas registers and spills of each instantiation of the bf16 and
-   f32 attention kernels, of the weight-gradient GEMM and of the persistent
-   forward GEMM (csrc/gemm_persistent.cuh, bf16 and int8; no attention
-   kernel may spill at Hiera-L's head dim 72, bf16 or f32, and no
-   instantiation of the persistent GEMM may spill).
+   f32 attention kernels, of the window attention (csrc/attention_window.cu),
+   of the weight-gradient GEMM and of the persistent forward GEMM
+   (csrc/gemm_persistent.cuh, bf16 and int8; no attention kernel may spill
+   at Hiera-L's head dim 72, bf16 or f32, nor any of the window attention's
+   six instantiations there, and no instantiation of the persistent GEMM
+   may spill).
 3. Compares every kernel with its plain PyTorch version in bf16 at every
    main-path geometry of Hiera-L inference and training, batch 2: the
    forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
@@ -57,6 +59,15 @@
    484, 576, 1024, 1600, 4096, fused_attention at L 64, 256, 1024 -- and the
    int8 gen-1 block on f32 at stage 4 by kernel_check.i8_ok and its pieces
    by i8_parts_ok.
+   Then the window attention alone (kernels.window_attention /
+   qpool_attention, csrc/attention_window.cu), batch 2, at every geometry
+   kernel_check.WINDOW lists (each T-block stage and global block, stage
+   4's gen-1 block, the three fronts at 512^2, the 1024^2 global block at
+   L 4096, head dims 96 / 128 / 256 in every work mode of
+   kernels.window_plan): its output against the plain version within
+   REL_LIMIT, its log-sum-exp (log2 units) against the plain scores' within
+   kernel_check.LSE_ABS_LIMIT, and the output without the log-sum-exp bit
+   for bit the same (kernel_check.window_ok).
 4. Runs the Predictor on 4 seeded synthetic 512^2 u8 images with seeded
    random Hiera-L weights in bf16, with every launch counter zeroed just
    before: every launch counter must equal the per-forward count of
@@ -109,7 +120,11 @@
    forward product of a 512^2 forward (utils/gemm_bench.py: device time
    against torch.mm / torch._int_mm, TFLOP/s or TOPS, GB/s, the bound, the
    per-forward totals of #1's, #10's, the bf16 and the int8-encoder
-   forward's GEMMs).
+   forward's GEMMs), and the window attention at each geometry of a 512^2
+   forward and the 1024^2 global block
+   (utils/window_attention_bench.py: device ms without and with the
+   log-sum-exp, events ms, the host µs a call takes to enqueue, SDPA's
+   device ms on the same windows, the bound, the per-forward totals).
 6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
    TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
    a 640 canvas; edges their morphological boundary):
@@ -339,6 +354,14 @@ def main() -> int:
         at72 = [u for u in usage if u[0][0] == 72]
         check(len(at72) == n72 and all(ss == sl == 0 for _, _, ss, sl in at72),
               f"{kern}<72, *> (Hiera-L's head dim) spills or was not built: {usage}")
+    # the window attention (csrc/attention_window.cu): (DV, SHARED, MT, MASK,
+    # POOL); the six at DV 72 (Hiera-L's head dim) may not spill
+    usage = kernels.ptxas_usage("window_attention_kernel")
+    log("ptxas window_attention_kernel (template arguments: registers, spill store / load "
+        "bytes): " + ", ".join(f"{w}: {r}, {ss} / {sl}" for w, r, ss, sl in sorted(usage)))
+    at72 = [u for u in usage if u[0][0] == 72]
+    check(len(at72) == 6 and all(ss == sl == 0 for _, _, ss, sl in at72),
+          f"window_attention_kernel<72, *> spills or was not built: {usage}")
     # the persistent GEMM's instantiations (csrc/gemm_persistent.cuh): bf16 (BN,
     # ACT) and int8 (BN, ACT, SW_FIRST, output type), and the one-tile-per-block
     # bf16 kernel kept beside it (BN, STAGES, ACT); none may spill
@@ -413,6 +436,13 @@ def main() -> int:
             f"one code / one bf16 step; scales exact)")
         check(kc.dec_i8_parts_ok(parts), f"{name}: an int8 decoder piece disagrees ({parts})")
     f32_checks(kc, torch, dev, max_err)
+    for name in kc.WINDOW:
+        res = kc.compare_window(name, 2, torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        log(f"check {name:11s} window attention max_abs {res['max_abs']:.4e} rel "
+            f"{res['rel']:.4e} (limit {kc.REL_LIMIT}), lse max_abs {res['lse']:.3e} (limit "
+            f"{kc.LSE_ABS_LIMIT}), without lse bit-equal {res['same']}")
+        check(kc.window_ok(res), f"{name}: the window attention disagrees with plain ({res})")
 
     # -- 4. the Predictor on the main path -----------------------------------
     cfg = SPEGNetConfig(variant="large", compute_dtype="bfloat16")
@@ -1362,9 +1392,14 @@ def evaluate_phase(state, torch, dev, size: int, flags, dtype: str = "bfloat16")
 
 
 def yardsticks(kc, kernels, F, torch, dev) -> None:
-    """Each sub-kernel of the stage-1 and global block geometries at batch 8
-    beside the one PyTorch call that computes the same function (timed
-    here, never called by the port)."""
+    """The window attention at every geometry of a 512^2 forward
+    (utils/window_attention_bench.py), and each sub-kernel of the stage-1
+    and global block geometries, at batch 8, beside the one PyTorch call
+    that computes the same function (timed here, never called by the
+    port)."""
+    from spegnet_tpu_torch.utils import window_attention_bench
+
+    window_attention_bench.run(8, log, choices=False)
     Cols = kernels.Cols
     for name in ("stage1", "global"):
         _, c, heads, l, n = kc.BLOCKS[name]

@@ -101,13 +101,6 @@ struct AwCfg {
   static_assert((SOLO ? ST >= 1 : ST >= 2) && kBytes <= 232448, "shared memory");
 };
 
-// 2^x on the SFU (ex2.approx.ftz: ~2^-22 relative, far below bf16's step).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The (problem, head, first row) a consumer computes for one item, its rows
 // [row0, row0 + 64 * MT); tests/test_torch_attention_tiles.py mirrors it.  An
 // item is 2 * MT * 64 query rows of one (problem, head), or with SOLO one

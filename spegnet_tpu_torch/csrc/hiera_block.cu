@@ -2,7 +2,7 @@
 //
 //   h1 = LN1(x)                       sp_layernorm
 //   qkv = h1 Wqkv^T + b               sp_gemm
-//   a  = window/global attention(qkv) sp_window_attention
+//   a  = window/global attention(qkv) sp_window_attention (attention_window.cu)
 //   u  = x + (a Wproj^T + b)          sp_gemm, residual epilogue
 //   h2 = LN2(u)                       sp_layernorm
 //   z  = gelu_tanh(h2 Wfc1^T + b)     sp_gemm, GELU on the f32 pre-activation
@@ -14,7 +14,7 @@
 // CTA cannot hold a stage-3 window's activations (256 x 576 bf16 = 295 KB)
 // or a global block's K/V, so the block is split at the GEMMs; what the TPU
 // kernel kept out of HBM inside attention (the [L, L] scores) stays on chip
-// here too (attention.cuh).  Activations are token-major [tokens, C] in
+// here too (attention_window.cu).  Activations are token-major [tokens, C] in
 // Morton order, so every window is L consecutive rows and needs no packing
 // or mask.  Weights stay in the unpadded nn.Linear layout [N, K].
 //
@@ -25,7 +25,6 @@
 // epilogue (staged for coalesced 16-byte stores) overlaps the next tile's
 // loads, or, for fc1 and the fronts' products (width 192, no residual), on
 // gemm_tma_kernel, one tile per block, measured faster there.
-#include "attention.cuh"
 #include "gemm_persistent.cuh"
 
 namespace spk {
@@ -428,13 +427,6 @@ int sp_gemm(const void* a, const void* w, const void* bias, const void* res, voi
   if (bn == 144) return spk::gemm_act<144>(a, w, bias, res, c, aux, M, N, K, act, grid, st);
   if (bn == 192) return spk::gemm_act<192>(a, w, bias, res, c, aux, M, N, K, act, grid, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// lse (nullable): [rows, heads] f32 log-sum-exp of each row's scores.
-int sp_window_attention(const void* qkv, void* out, void* lse, int rows, int ld, int heads,
-                        int D, int L, float scale, void* stream) {
-  return (int)spk::launch_attention<false>((const bf16*)qkv, (bf16*)out, (float*)lse, rows,
-                                            ld, heads, D, L, L, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

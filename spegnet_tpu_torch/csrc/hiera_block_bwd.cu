@@ -30,7 +30,6 @@
 // (the backward runs ~2x the forward's GEMM work plus its recompute).  The
 // weight-gradient GEMMs have small outputs (432 x 144 at stage 1) over
 // contractions of up to 131072 rows, so they split M to fill the card.
-#include "attention.cuh"
 #include "wgmma_attn.cuh"
 
 namespace spk {
@@ -40,7 +39,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // Attention backward (FlashAttention-2 style, recomputing P from the
-// forward's log-sum-exp).  Windows as in attention.cuh: query window w is
+// forward's log-sum-exp).  Windows as in attention_window.cu: query window w is
 // rows [w*Lq, (w+1)*Lq), its keys rows [w*Lk, (w+1)*Lk); Lk % 16 == 0.
 // Each warp works alone on one 16-row tile (no block-wide barrier), with
 // its own two 16-row shared-memory tiles; head_dim is zero-padded to DP in

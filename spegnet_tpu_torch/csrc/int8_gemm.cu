@@ -9,7 +9,7 @@
 //                    (-> GELU, tanh or erf) -> bf16 or f32 (+ a residual of
 //                    the output dtype)
 //
-// Chained with the attention kernels (attention.cuh in bf16,
+// Chained with the attention kernels (attention_window.cu in bf16,
 // attention_f32.cu in f32) they replace the TPU kernels
 // spegnet_tpu/ops/fused_block_t_i8.py `_kernel_i8` (:137, #10) and
 // `_qpool_kernel_i8` (:294, #11), bf16, and spegnet_tpu/ops/fused_block_i8.py

@@ -3,20 +3,21 @@
 //   h1 = LN(x)                                   sp_layernorm (hiera_block.cu)
 //   y  = h1 [Wqkv; Wsc]^T + [bqkv; bsc]          sp_gemm (hiera_block.cu), one GEMM
 //   o  = attention(maxpool4(q), k, v) per window sp_qpool_attention
+//                                                (attention_window.cu)
 //   sc = maxpool4(y[:, shortcut columns])        sp_pool4_rows
 //
 // Replaces spegnet_tpu/ops/fused_block_t.py `_qpool_kernel` (:634).  The
 // TPU kernel pooled q with lane rolls and compacted every 4th lane with a
 // selection matmul; in Morton order a 2x2 pool group is 4 consecutive token
-// rows, so here the pooled q row is formed while loading the query tile
-// (after the bf16 cast, as `_qpool_kernel` :642-655 does) and the window's
-// L keys are read in place.  Outputs are token-major at the pooled grid,
+// rows, so the attention kernel forms the pooled q row while it builds the
+// query tile (after the bf16 cast, as `_qpool_kernel` :642-655 does) and
+// reads the window's L keys in place.  Outputs are token-major at the pooled grid,
 // still in Morton order: o [tokens/4, H*D], sc [tokens/4, Cout].
 //
 // Bound on the H100: the combined projection GEMM (3*H*D + Cout columns) is
 // ~90% of the FLOPs and compute bound; attention runs Lq = L/4 query rows per
 // window, and the pool kernel is a pure bandwidth pass over Cout columns.
-#include "attention.cuh"
+#include "common.cuh"
 
 namespace spk {
 namespace {
@@ -46,16 +47,6 @@ __global__ void pool4_rows_kernel(const bf16* __restrict__ src, bf16* __restrict
 using spk::bf16;
 
 extern "C" {
-
-// y [rows_in, ld] (q/k/v columns first) -> out [rows_in / 4, heads * D];
-// key windows of L consecutive input rows, query windows of L / 4 pooled rows.
-// lse (nullable): [rows_in / 4, heads] f32 log-sum-exp of each pooled row.
-int sp_qpool_attention(const void* y, void* out, void* lse, int rows_in, int ld, int heads,
-                       int D, int L, float scale, void* stream) {
-  return (int)spk::launch_attention<true>((const bf16*)y, (bf16*)out, (float*)lse,
-                                           rows_in / 4, ld, heads, D, L / 4, L, scale,
-                                           (cudaStream_t)stream);
-}
 
 int sp_pool4_rows(const void* src, void* dst, long rows_out, int ld, int col0, int ncols,
                   void* stream) {

@@ -14,7 +14,8 @@
 // common.cuh: d[4j], d[4j+1] at row 16w + g, columns 8j + 2t, +1; d[4j+2],
 // d[4j+3] at row 16w + g + 8.  N takes the head widths the attention kernel
 // is instantiated for.  Beside them: the MN-major descriptor, register
-// fences for in-flight wgmma operands, setmaxnreg and the 4-D TMA load.
+// fences for in-flight wgmma operands, setmaxnreg, the 3-D and 4-D TMA
+// loads and the SFU's exp2.
 //
 // WgmmaTf32RS<N>::run: D[64 x N] (fresh when scale_d is 0) += A[64 x 8]
 // B[8 x N] in tf32 (attention_f32.cu), A from registers in the layout of an
@@ -93,6 +94,24 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// 3-D TMA load of the box at coordinates (x innermost, y, z) into shared
+// memory, completing its bytes on the barrier.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap, uint64_t* bar, int x,
+                                            int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_addr(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// 2^x on the SFU (ex2.approx.ftz: ~2^-22 relative, far below bf16's step).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // 4-D TMA load of the box at coordinates (x innermost, y, z, w) into shared

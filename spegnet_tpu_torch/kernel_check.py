@@ -14,6 +14,9 @@ call with CUDA events.  A gradient case (:func:`grad_case`) does the same
 for the backward: gradients of the input and of every weight through the
 kernel path (the wrappers' autograd Functions) and through autograd of the
 plain version, plus the two backward passes alone for timing.
+:func:`compare_window` holds the window attention alone (the launcher
+the T-block, the gen-1 block and the fronts share) against its plain
+version at each :data:`WINDOW` geometry, its log-sum-exp included.
 :func:`work` counts each call's FLOPs and bytes for its roofline bound;
 :func:`tn_shapes` and :func:`tn_work` do the same for the weight-gradient
 GEMM (kernels.gemm_tn) inside the backwards.  Used by the CUDA-only tests,
@@ -85,6 +88,24 @@ ATTN = {64: (4, 16, 72), 256: (4, 8, 72), 484: (1, 8, 72), 576: (1, 8, 72),
 ATTN_CASES = {f"{kind}{l}": (wrapper, l) for l in (64, 256, 484, 576, 1600, 2304)
               for kind, wrapper in (("lanes", "fused_attention_lanes"),
                                     ("attn", "fused_attention"))}
+# The window attention alone (kernels.window_attention, and
+# kernels.qpool_attention where pooled), at every geometry the T-block, the
+# gen-1 block (stage 4) and the fronts hand it per image in a 512^2 forward,
+# the 1024^2 global block (L 4096), and head dims past Hiera-L's 72 at every
+# work mode of kernels.window_plan; name: (heads, head_dim, key window Lk,
+# pooled, key rows per image).  Pooled: query windows of Lk / 4 rows.
+WINDOW = {"stage1": (2, 72, 64, False, 16384), "stage2": (4, 72, 16, False, 4096),
+          "stage3": (8, 72, 256, False, 1024), "global": (8, 72, 1024, False, 1024),
+          "stage4": (16, 72, 64, False, 256), "t12": (4, 72, 64, True, 16384),
+          "t23": (8, 72, 16, True, 4096), "t34": (16, 72, 256, True, 1024),
+          "global_1024": (8, 72, 4096, False, 4096), "d96": (4, 96, 256, False, 1024),
+          "d128": (4, 128, 16, True, 1024), "d256": (2, 256, 256, True, 1024),
+          "d256_global": (2, 256, 1024, False, 1024), "d256_l16": (2, 256, 16, False, 1024)}
+# The window attention's log-sum-exp (log2 units) against the plain one,
+# max abs difference: f32 sums of the same bf16 products in another order
+# and the SFU's exp2 (2^-22 relative) on values of a few units at most;
+# a wrong window or tile would be off by O(1).
+LSE_ABS_LIMIT = 1e-3
 # The int8 encoder's geometries (model.int8_encoder): each bf16 geometry the
 # int8 gates take, as (bf16 geometry, int8 wrapper).
 I8 = {"stage2_i8": ("stage2", "fused_block_t_i8"), "stage3_i8": ("stage3", "fused_block_t_i8"),
@@ -448,6 +469,59 @@ def _attention_case(wrapper, l, batch, g, device, dtype) -> Case:
     q, k, v = pa.split_qkv(qkv, heads)
     return Case(wrapper, lambda: pa.fused_attention(q, k, v),
                 lambda: pa.attention_reference(q, k, v))
+
+
+def window_inputs(name: str, batch: int, g, device):
+    """Seeded bf16 qkv [batch * rows, 3 * H * d (+ a shortcut block where
+    pooled, as the front's y)] of :data:`WINDOW` geometry ``name``, and the
+    call's arguments (heads, d, Lk, scale)."""
+    heads, d, lk, pooled, n = WINDOW[name]
+    cols = 3 * heads * d + (2 * heads * d if pooled else 0)
+    qkv = torch.randn((batch * n, cols), generator=g).to(device, torch.bfloat16)
+    return qkv, (heads, d, lk, d ** -0.5)
+
+
+def window_plain(name: str, qkv: torch.Tensor, heads: int, d: int, lk: int, scale: float):
+    """The plain version of :data:`WINDOW` geometry ``name``: (output, the
+    log-sum-exp of each query row's scaled scores in log2 units [rows, H])."""
+    rows, f = qkv.shape[0], 3 * heads * d
+    t = qkv[:, :f].reshape(rows // lk, lk, 3, heads, d)
+    q = t[:, :, 0]
+    if WINDOW[name][3]:   # the front's plain attention, its shortcut columns beside
+        o, _ = fbt._qpool_attend(qkv[None, :, :f], qkv[None, :, f:], heads, lk, scale)
+        q = q.reshape(rows // lk, lk // 4, 4, heads, d).amax(2)
+    else:
+        o = fbt._window_attention_plain(qkv[None, :, :f], heads, lk, scale)
+    s = torch.einsum("wqhd,wkhd->wqhk", q.float(), t[:, :, 1].float()) * scale
+    lse = torch.logsumexp(s, -1) * 1.4426950408889634
+    return o[0], lse.reshape(-1, heads)
+
+
+def window_call(name: str, qkv: torch.Tensor, heads: int, d: int, lk: int, scale: float,
+                with_lse: bool = True):
+    """The kernel launcher of :data:`WINDOW` geometry ``name``."""
+    fn = kernels.qpool_attention if WINDOW[name][3] else kernels.window_attention
+    return fn(qkv, heads, d, lk, scale, with_lse=with_lse)
+
+
+def compare_window(name: str, batch: int, g, device) -> Dict[str, float]:
+    """The window attention against its plain version at geometry ``name``:
+    max abs error and max|k - p| / max|p| of the output, max abs error of
+    the log-sum-exp (``lse``), and whether the call without the log-sum-exp
+    gives the same output bit for bit (``same``)."""
+    qkv, args = window_inputs(name, batch, g, device)
+    o, lse = window_call(name, qkv, *args)
+    o2 = window_call(name, qkv, *args, with_lse=False)
+    po, plse = window_plain(name, qkv, *args)
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"{name}: window attention output is not finite")
+    err, rel = _rel(o, po)
+    return {"max_abs": err, "rel": rel, "lse": (lse - plse).abs().max().item(),
+            "same": bool(torch.equal(o, o2))}
+
+
+def window_ok(res: Dict[str, float]) -> bool:
+    return res["rel"] <= REL_LIMIT and res["lse"] <= LSE_ABS_LIMIT and res["same"]
 
 
 def i8_case(name: str, batch: int, g, device) -> Case:

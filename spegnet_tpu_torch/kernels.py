@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("hiera_block.cu", "hiera_block_bwd.cu", "qpool_front.cu",
            "qpool_front_bwd.cu", "decoder_block.cu", "decoder_i8.cu", "int8_gemm.cu",
-           "attention_lanes.cu", "block_f32.cu", "attention_f32.cu")
+           "attention_lanes.cu", "block_f32.cu", "attention_f32.cu", "attention_window.cu")
 
 launches = {
     "fused_block_t": 0,
@@ -187,11 +187,12 @@ def load():
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i, f, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
+    ll = ctypes.c_longlong
     sigs = {
         "sp_layernorm": [p, p, p, p, l, i, f, p],
         "sp_gemm": [p, p, p, p, p, p, i, i, i, i, i, i, i, p],
-        "sp_window_attention": [p, p, p, i, i, i, i, i, f, p],
-        "sp_qpool_attention": [p, p, p, i, i, i, i, i, f, p],
+        "sp_window_attention": [p, i, p, p, i, i, i, i, ll, f, p],
+        "sp_qpool_attention": [p, i, p, p, i, i, i, i, ll, f, p],
         "sp_pool4_rows": [p, p, l, i, i, i, p],
         "sp_attention_bwd": [p, l, p, l, p, l, p, l, p, l, p, p, p, l, p, l, p, l,
                              i, i, i, i, i, f, p],
@@ -234,7 +235,14 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 
+# The current stream's handle without a torch.cuda.Stream object (host
+# time on every launch); None on builds of torch without CUDA.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(t: torch.Tensor) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -402,14 +410,89 @@ def gemm_gelu_grad(a: torch.Tensor, w: torch.Tensor, z: torch.Tensor) -> torch.T
 def _attn_checks(qkv, heads, d, l, name):
     _need(qkv, f"{name} qkv", ndim=2)
     rows, ld = qkv.shape
-    if d % 8 or d > 128:
-        raise ValueError(f"{name}: head_dim {d} must be a multiple of 8, <= 128")
-    if ld % 8 or ld < 3 * heads * d:
-        raise ValueError(f"{name}: row length {ld} vs 3*{heads}*{d}")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {d} must be a multiple of 8, <= {MAX_HEAD_DIM}")
+    if ld % 8 or ld < 3 * heads * d or qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: row length {ld} vs 3*{heads}*{d} (a multiple of 8, "
+                         "16-byte aligned)")
     if l % 16 or rows % l:
         raise ValueError(f"{name}: window {l} must be a multiple of 16 dividing "
                          f"{rows} rows")
     return rows, ld
+
+
+# csrc/attention_window.cu: the window attention of the T-block, the Q-pool
+# front and the gen-1 block (TMA + wgmma, :func:`window_plan`).
+
+class WindowPlan(NamedTuple):
+    """Launch plan of csrc/attention_window.cu: ``dv`` the P.V width;
+    ``shared`` items of 128 * ``mt`` query rows of one (window, head) whose
+    two consumer warpgroups read the same K/V tiles (Lq a multiple of 128,
+    Lk of 64, not pooled), else one 64-row m-tile of one head per consumer,
+    over the keys of the windows its rows touch, under the block-diagonal
+    mask where ``mask`` (a 64-key tile not one window's: Lq or Lk not a
+    multiple of 64); ``pool`` queries max-pooled over 4 rows in the kernel
+    (the front); ``items`` the work items, ``grid`` the persistent blocks
+    that stride over them."""
+    dv: int
+    shared: bool
+    mt: int
+    mask: bool
+    pool: bool
+    items: int
+    grid: int
+    arg: int   # the plan as the C entries take it: mode | grid << 16 | items << 32
+
+    @property
+    def mode(self) -> int:
+        """The variant: dv | shared << 9 | (mt - 1) << 10 | mask << 11 |
+        pool << 12."""
+        return self.arg & 0xFFFF
+
+
+@functools.lru_cache(maxsize=256)
+def window_plan(q_rows: int, heads: int, d: int, lq: int, lk: int, sms: int,
+                mt: Optional[int] = None, pool: bool = False) -> WindowPlan:
+    """The work list of csrc/attention_window.cu for ``q_rows`` query rows
+    in windows of ``lq`` against key windows of ``lk`` rows, ``heads`` heads
+    of dim ``d`` (a multiple of 8) on a card of ``sms`` SMs: about one block
+    per SM (fewer when there are fewer items).  ``mt`` (m-tiles per consumer
+    of a shared item) by default as :func:`attention_plan` picks it;
+    ``pool``: the front's pooled queries (lq = lk / 4), always per
+    consumer."""
+    dv = next(x for x in ATTN_DV if x >= d)
+    shared = not pool and lq % (2 * _AW_ROWS) == 0 and lk % _AW_ROWS == 0
+
+    def n_items(m):
+        if shared:
+            return q_rows // lq * heads * (lq // (2 * m * _AW_ROWS))
+        return heads * -(-(-(-q_rows // _AW_ROWS)) // 2)
+
+    if mt is None:
+        mt = 1
+        if shared and dv <= 80 and lq % (4 * _AW_ROWS) == 0:
+            rounds = {m: -(-n_items(m) // sms) for m in (1, 2)}
+            mt = 2 if 1.8 * rounds[2] < rounds[1] else 1
+    if mt not in (1, 2) or (mt == 2 and (not shared or dv > 80 or lq % (4 * _AW_ROWS))):
+        raise ValueError(f"window attention: {mt} m-tiles at Lq {lq}, P.V width {dv}")
+    if pool and lk != 4 * lq:
+        raise ValueError(f"window attention: pooled query windows of {lq} rows, keys {lk}")
+    items = n_items(mt)
+    if items >= 2 ** 31 or (q_rows // lq) * lk + 128 * lk >= 2 ** 31:
+        raise ValueError(f"window attention: {items} work items, {q_rows} query rows")
+    mask = not shared and (lq % _AW_ROWS != 0 or lk % _AW_ROWS != 0)
+    grid = min(items, sms)
+    mode = dv | shared << 9 | (mt - 1) << 10 | mask << 11 | pool << 12
+    return WindowPlan(dv, shared, mt, mask, pool, items, grid, mode | grid << 16 | items << 32)
+
+
+def window_tmap(rows: int, ld: int, slots: int, d: int):
+    """The tensor map csrc/attention_window.cu encodes over a token-major
+    [rows, ld] bf16 matrix (``make_rows_tmap``): dims (d, head slots, rows)
+    innermost first, byte strides of a head slot and a row, the box; head
+    slot h is columns [h * d, (h + 1) * d), and a box past column d, the
+    last slot or the last row reads zeros."""
+    return (d, slots, rows), (2 * d, 2 * ld), (64, 1, _AW_ROWS)
 
 
 def _lse(rows: int, heads: int, like: torch.Tensor, with_lse: bool):
@@ -419,38 +502,46 @@ def _lse(rows: int, heads: int, like: torch.Tensor, with_lse: bool):
 
 
 def window_attention(qkv: torch.Tensor, heads: int, d: int, l: int,
-                     scale: float, with_lse: bool = False):
+                     scale: float, with_lse: bool = False,
+                     plan: Optional[WindowPlan] = None):
     """qkv [rows, >=3*H*d] -> softmax(q k^T * scale) v per window of l
     consecutive rows, [rows, H*d] (and, with ``with_lse``, each row's
-    log-sum-exp of its scaled scores in log2 units, [rows, H] f32)."""
+    log-sum-exp of its scaled scores in log2 units, [rows, H] f32).
+    ``plan``: a :func:`window_plan` of this call in place of its default."""
     rows, ld = _attn_checks(qkv, heads, d, l, "window_attention")
     out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = _lse(rows, heads, qkv, with_lse)
-    _check(load().sp_window_attention(qkv.data_ptr(), out.data_ptr(), _ptr(lse), rows,
-                                       ld, heads, d, l, scale, _stream(qkv)),
+    if plan is None:
+        plan = window_plan(rows, heads, d, l, l, _sm_count(qkv.get_device()))
+    _check(load().sp_window_attention(qkv.data_ptr(), ld, out.data_ptr(), _ptr(lse), rows,
+                                       heads, d, l, plan.arg, scale, _stream(qkv)),
            "sp_window_attention")
     return (out, lse) if with_lse else out
 
 
-# ---------------------------------------------------------------------------
-# launchers (csrc/qpool_front.cu)
-# ---------------------------------------------------------------------------
-
 def qpool_attention(y: torch.Tensor, heads: int, d: int, l: int,
-                    scale: float, with_lse: bool = False):
+                    scale: float, with_lse: bool = False,
+                    plan: Optional[WindowPlan] = None):
     """y [rows, >=3*H*d]: q max-pooled over 4 consecutive rows, attending to
     the l rows of its window -> [rows/4, H*d] (and the log-sum-exp, as
-    :func:`window_attention`)."""
+    :func:`window_attention`); the kernel pools q as it builds each query
+    tile.  ``plan``: a pooled :func:`window_plan` of this call."""
     rows, ld = _attn_checks(y, heads, d, l, "qpool_attention")
     if rows % 64:
         raise ValueError(f"qpool_attention: {rows} rows must pool to a "
                          "multiple of 16")
     out = torch.empty((rows // 4, heads * d), dtype=y.dtype, device=y.device)
     lse = _lse(rows // 4, heads, y, with_lse)
-    _check(load().sp_qpool_attention(y.data_ptr(), out.data_ptr(), _ptr(lse), rows, ld,
-                                      heads, d, l, scale, _stream(y)),
-           "sp_qpool_attention")
+    if plan is None:
+        plan = window_plan(rows // 4, heads, d, l // 4, l, _sm_count(y.get_device()), pool=True)
+    _check(load().sp_qpool_attention(y.data_ptr(), ld, out.data_ptr(), _ptr(lse), rows, heads,
+                                      d, l, plan.arg, scale, _stream(y)), "sp_qpool_attention")
     return (out, lse) if with_lse else out
+
+
+# ---------------------------------------------------------------------------
+# launchers (csrc/qpool_front.cu)
+# ---------------------------------------------------------------------------
 
 
 def pool4_rows(y: torch.Tensor, col0: int, ncols: int) -> torch.Tensor:
@@ -1096,6 +1187,7 @@ def _view_strides(t: torch.Tensor, name: str):
     return out
 
 
+@functools.lru_cache(maxsize=None)
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -203,7 +203,7 @@ def block_cuda_i8(x: torch.Tensor, w: BlockWeightsI8, heads: int, l: int, scale:
     """The W8A8 block on [B, N, C] (CUDA): LN + quant, the int8 GEMMs of
     csrc/int8_gemm.cu with their dequant / GELU / residual epilogues, the
     window attention and two row quants, all in x's dtype: bf16 (the
-    attention of csrc/attention.cuh, tanh GELU) or f32 (the attention of
+    attention of csrc/attention_window.cu, tanh GELU) or f32 (the attention of
     csrc/attention_f32.cu, either GELU)."""
     b, n, c = x.shape
     if n % l:

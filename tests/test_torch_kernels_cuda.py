@@ -1,7 +1,9 @@
 """The Hopper kernels against their plain PyTorch versions, in bf16, at every
 main-path geometry of Hiera-L inference and training (batch 1; 512^2, and
 the grids of 352^2 / 384^2 / 640^2 / 768^2 that are not 2^k, the attention
-kernel at L 64 to 2304, 484 included): the forward kernels against the
+kernel at L 64 to 2304, 484 included; the window attention alone at every
+kernel_check.WINDOW geometry, head dims 96 / 128 / 256 and L 4096
+included): the forward kernels against the
 plain forward, the backward kernels against bf16 autograd of the plain
 forward, for dx and every weight gradient, and the int8 encoder's kernels
 against their plain int8 versions (kernel_check.i8_ok); the int8 decoder
@@ -45,6 +47,16 @@ def test_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert kernels.launches[case.wrapper] == before + 1
     assert rel <= kernel_check.REL_LIMIT, (name, err, rel)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.WINDOW))
+def test_window_attention_matches_plain(cuda, name):
+    """The window attention alone (csrc/attention_window.cu) at every
+    kernel_check.WINDOW geometry: output, log-sum-exp, and the call without
+    the log-sum-exp bit-equal (kernel_check.window_ok)."""
+    res = kernel_check.compare_window(name, 1, torch.Generator().manual_seed(0), cuda)
+    torch.cuda.synchronize()
+    assert kernel_check.window_ok(res), (name, res)
 
 
 @pytest.mark.parametrize("name", kernel_check.GRAD_CASES)
