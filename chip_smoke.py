@@ -9,11 +9,12 @@
    (one nvcc per source, all started together) and prints the build seconds
    and the ptxas registers and spills of each instantiation of the bf16 and
    f32 attention kernels, of the window attention (csrc/attention_window.cu),
-   of the weight-gradient GEMM and of the persistent forward GEMM
+   of the attention backward (csrc/attention_window_bwd.cu), of the
+   weight-gradient GEMM and of the persistent forward GEMM
    (csrc/gemm_persistent.cuh, bf16 and int8; no attention kernel may spill
    at Hiera-L's head dim 72, bf16 or f32, nor any of the window attention's
-   six instantiations there, and no instantiation of the persistent GEMM
-   may spill).
+   six instantiations there, nor the attention backward's nine there, and
+   no instantiation of the persistent GEMM may spill).
 3. Compares every kernel with its plain PyTorch version in bf16 at every
    main-path geometry of Hiera-L inference and training, batch 2: the
    forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
@@ -68,6 +69,13 @@
    REL_LIMIT, its log-sum-exp (log2 units) against the plain scores' within
    kernel_check.LSE_ABS_LIMIT, and the output without the log-sum-exp bit
    for bit the same (kernel_check.window_ok).
+   Then the attention backward alone (kernels.attention_bwd,
+   csrc/attention_window_bwd.cu), batch 2, at every geometry
+   kernel_check.ATTN_BWD lists (every WINDOW geometry up to head dim 128,
+   those of the 384^2 / 352^2 grids, and shapes reaching its other cases):
+   dq, dk and dv against bf16 autograd of the plain attention within
+   BWD_REL_LIMIT, two calls bit-equal, the front's q and shortcut columns of
+   dy untouched (kernel_check.attn_bwd_ok).
 4. Runs the Predictor on 4 seeded synthetic 512^2 u8 images with seeded
    random Hiera-L weights in bf16, with every launch counter zeroed just
    before: every launch counter must equal the per-forward count of
@@ -124,7 +132,11 @@
    forward and the 1024^2 global block
    (utils/window_attention_bench.py: device ms without and with the
    log-sum-exp, events ms, the host µs a call takes to enqueue, SDPA's
-   device ms on the same windows, the bound, the per-forward totals).
+   device ms on the same windows, the bound, the per-forward totals), and
+   the attention backward at each geometry of a 512^2 and a 384^2 training
+   step and the 1024^2 global block (utils/attention_bwd_bench.py: device
+   ms and each of its kernels', host µs per call, SDPA's backward on the
+   same windows, the bound, the per-step totals).
 6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
    TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
    a 640 canvas; edges their morphological boundary):
@@ -194,6 +206,7 @@ wrappers, their launches read from the f32 runs), the nvidia-smi line and {"ok":
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -362,6 +375,18 @@ def main() -> int:
     at72 = [u for u in usage if u[0][0] == 72]
     check(len(at72) == 6 and all(ss == sl == 0 for _, _, ss, sl in at72),
           f"window_attention_kernel<72, *> spills or was not built: {usage}")
+    # the attention backward (csrc/attention_window_bwd.cu): the packed
+    # kernel (DV, QT, MASK), the dQ kernel (DV, SHARED, MASK) and the dK / dV
+    # kernel (DV, SHARED); none of the nine at DV 72 (Hiera-L's head dim) may
+    # spill
+    for kern, n72 in (("attn_bwd_packed_kernel", 4), ("attn_bwd_dq_kernel", 3),
+                      ("attn_bwd_dkdv_kernel", 2)):
+        usage = kernels.ptxas_usage(kern)
+        log(f"ptxas {kern} (template arguments: registers, spill store / load bytes): "
+            + ", ".join(f"{w}: {r}, {ss} / {sl}" for w, r, ss, sl in sorted(usage)))
+        at72 = [u for u in usage if u[0][0] == 72]
+        check(len(at72) == n72 and all(ss == sl == 0 for _, _, ss, sl in at72),
+              f"{kern}<72, *> spills or was not built: {usage}")
     # the persistent GEMM's instantiations (csrc/gemm_persistent.cuh): bf16 (BN,
     # ACT) and int8 (BN, ACT, SW_FIRST, output type), and the one-tile-per-block
     # bf16 kernel kept beside it (BN, STAGES, ACT); none may spill
@@ -443,6 +468,13 @@ def main() -> int:
             f"{res['rel']:.4e} (limit {kc.REL_LIMIT}), lse max_abs {res['lse']:.3e} (limit "
             f"{kc.LSE_ABS_LIMIT}), without lse bit-equal {res['same']}")
         check(kc.window_ok(res), f"{name}: the window attention disagrees with plain ({res})")
+    for name in kc.ATTN_BWD:
+        res = kc.compare_attn_bwd(name, 2, torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        log(f"check {name:11s} attention backward rel " + " ".join(
+            f"{k} {r:.2e}" for k, r in res["rel"].items()) + f" (limit {kc.BWD_REL_LIMIT}), "
+            f"two calls bit-equal {res['same']}, other columns untouched {res['untouched']}")
+        check(kc.attn_bwd_ok(res), f"{name}: the attention backward disagrees ({res})")
 
     # -- 4. the Predictor on the main path -----------------------------------
     cfg = SPEGNetConfig(variant="large", compute_dtype="bfloat16")
@@ -1397,9 +1429,10 @@ def yardsticks(kc, kernels, F, torch, dev) -> None:
     and global block geometries, at batch 8, beside the one PyTorch call
     that computes the same function (timed here, never called by the
     port)."""
-    from spegnet_tpu_torch.utils import window_attention_bench
+    from spegnet_tpu_torch.utils import attention_bwd_bench, window_attention_bench
 
     window_attention_bench.run(8, log, choices=False)
+    attention_bwd_bench.geometries(argparse.Namespace(batch=8, old=None, rounds=3), log)
     Cols = kernels.Cols
     for name in ("stage1", "global"):
         _, c, heads, l, n = kc.BLOCKS[name]

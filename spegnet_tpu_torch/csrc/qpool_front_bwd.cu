@@ -3,7 +3,7 @@
 // h1 = LN(x), y = h1 [Wqkv; Wsc]^T + b, the pooled q and the attention with
 // its log-sum-exp (qpool_front.cu), then:
 //
-//   dk, dv, dq_pooled = attention'(d out)    sp_attention_bwd (hiera_block_bwd.cu)
+//   dk, dv, dq_pooled = attention'(d out)    sp_attention_bwd (attention_window_bwd.cu)
 //   dy[:, q]  = scatter4(dq_pooled)          sp_pool4_scatter
 //   dy[:, sc] = scatter4(d shortcut)         sp_pool4_scatter
 //   d[Wqkv; Wsc] = dy^T h1, d[bqkv; bsc]     sp_gemm_tn, one GEMM

@@ -28,7 +28,7 @@ versions (TF32 off), and their bound is taken at :data:`PEAK_F32`.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -522,6 +522,123 @@ def compare_window(name: str, batch: int, g, device) -> Dict[str, float]:
 
 def window_ok(res: Dict[str, float]) -> bool:
     return res["rel"] <= REL_LIMIT and res["lse"] <= LSE_ABS_LIMIT and res["same"]
+
+
+# The attention backward alone (kernels.attention_bwd,
+# csrc/attention_window_bwd.cu): every WINDOW geometry whose head dim it
+# takes (up to 128), the 384^2 / 352^2 grids' (stage 1 and 2 at 384^2, stage
+# 1 at 352^2, the first front at 384^2), and shapes off the main path that
+# reach its other cases: windows across 64-key tiles (L 48, 192; the pooled
+# L 80), L 32 and 128, the pooled L 1024, head dim 16; name: (heads, head_dim, key window Lk, pooled,
+# key rows per image).  Pooled: query windows of Lk / 4 rows.
+ATTN_BWD = {**{n: g for n, g in WINDOW.items() if g[1] <= 128},
+            "stage1_384": (2, 72, 64, False, 9216), "stage2_384": (4, 72, 16, False, 2304),
+            "stage1_352": (2, 72, 64, False, 7744), "t12_384": (4, 72, 64, True, 9216),
+            "l48": (2, 72, 48, False, 240), "l128": (2, 72, 128, False, 512),
+            "l192": (2, 72, 192, False, 576), "p1024": (2, 72, 1024, True, 2048),
+            "l32": (2, 64, 32, False, 1024), "p80": (2, 72, 80, True, 320),
+            "d16": (2, 16, 64, False, 1024)}
+
+
+class AttnBwdCase(NamedTuple):
+    y: torch.Tensor        # the qkv (pooled: the front's y, shortcut columns beside)
+    q: Optional[torch.Tensor]   # pooled: kernels.pool4_rows of y's q columns
+    o: torch.Tensor
+    lse: torch.Tensor
+    dout: torch.Tensor
+    heads: int
+    d: int
+    lq: int
+    lk: int
+    scale: float
+
+
+def attn_bwd_case(name: str, batch: int, g, device) -> AttnBwdCase:
+    """Seeded bf16 inputs of :data:`ATTN_BWD` geometry ``name``: the forward
+    through the window attention kernel (its output and log-sum-exp, as the
+    block and front backwards take them) and a random output gradient."""
+    heads, d, lk, pooled, n = ATTN_BWD[name]
+    hd, scale = heads * d, d ** -0.5
+    y = torch.randn((batch * n, 3 * hd + (2 * hd if pooled else 0)),
+                    generator=g).to(device, torch.bfloat16)
+    fn = kernels.qpool_attention if pooled else kernels.window_attention
+    o, lse = fn(y, heads, d, lk, scale, with_lse=True)
+    q = kernels.pool4_rows(y, 0, hd) if pooled else None
+    dout = torch.randn(o.shape, generator=g).to(device, torch.bfloat16)
+    return AttnBwdCase(y, q, o, lse, dout, heads, d, lk // 4 if pooled else lk, lk, scale)
+
+
+def attn_bwd_launch(case: AttnBwdCase, fn: Optional[Callable] = None):
+    """(run, outputs) of ``fn`` (an attention backward launcher; default
+    kernels.attention_bwd) on ``case`` as the block and front backwards call
+    it: q / k / v in y's columns (the front: the pooled q), dk / dv into the
+    k / v columns of dy, allocated once and zeroed.  ``run()`` launches;
+    ``outputs()`` gives (dq, dk, dv, dy)."""
+    fn = fn or kernels.attention_bwd
+    y, hd, Cols = case.y, case.heads * case.d, kernels.Cols
+    dy = torch.zeros_like(y)
+    dq = dy if case.q is None else torch.zeros_like(case.q)
+    args = (Cols(y if case.q is None else case.q), Cols(y, hd), Cols(y, 2 * hd), Cols(case.o),
+            Cols(case.dout), case.lse, Cols(dq), Cols(dy, hd), Cols(dy, 2 * hd), case.heads,
+            case.d, case.lq, case.lk, case.scale)
+    return (lambda: fn(*args)), (lambda: (dq[:, :hd], dy[:, hd:2 * hd], dy[:, 2 * hd:3 * hd], dy))
+
+
+def attn_bwd_plain(case: AttnBwdCase):
+    """bf16 autograd of the plain attention (ops/attention.attention_reference)
+    on the same q, k, v and output gradient: (dq, dk, dv) as [rows, H d]."""
+    from spegnet_tpu_torch.ops.attention import attention_reference
+
+    rows, hd = case.y.shape[0], case.heads * case.d
+    t = case.y[:, :3 * hd].reshape(rows // case.lk, case.lk, 3, case.heads, case.d)
+    q = (t[:, :, 0] if case.q is None
+         else case.q.reshape(rows // case.lk, case.lq, case.heads, case.d))
+    leaves = [x.detach().requires_grad_() for x in (q, t[:, :, 1], t[:, :, 2])]
+    o = attention_reference(*leaves, case.scale)
+    grads = torch.autograd.grad(o, leaves, case.dout.reshape(o.shape))
+    return tuple(x.reshape(-1, hd) for x in grads)
+
+
+def compare_attn_bwd(name: str, batch: int, g, device) -> Dict[str, object]:
+    """The attention backward against bf16 autograd of the plain attention
+    at geometry ``name``: max|k - p| / max|p| of dq, dk and dv (``rel``)
+    and their max abs errors (``max_abs``), whether a second call gives the
+    same bits (``same``), and whether the columns of dy that are not k / v
+    stayed zero (``untouched``: the front's q and shortcut columns)."""
+    case = attn_bwd_case(name, batch, g, device)
+    run, outputs = attn_bwd_launch(case)
+    run()
+    *got, dy = (t.clone() for t in outputs())
+    run()
+    *again, dy2 = outputs()
+    want = attn_bwd_plain(case)
+    hd = case.heads * case.d
+    if not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError(f"{name}: attention backward is not finite")
+    errs = {nm: _rel(a, b) for nm, a, b in zip(("dq", "dk", "dv"), got, want)}
+    rest = dy[:, 3 * hd:] if case.q is None else torch.cat([dy[:, :hd], dy[:, 3 * hd:]], 1)
+    return {"rel": {k: r for k, (_, r) in errs.items()},
+            "max_abs": {k: e for k, (e, _) in errs.items()},
+            "same": all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(dy, dy2),
+            "untouched": bool((rest == 0).all())}
+
+
+def attn_bwd_ok(res: Dict[str, object]) -> bool:
+    return (max(res["rel"].values()) <= BWD_REL_LIMIT and res["same"]
+            and res["untouched"])
+
+
+def attn_bwd_work(name: str, batch: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one attention backward of :data:`ATTN_BWD`
+    geometry ``name`` at ``batch``: five products per (query row, head, key
+    of its window), 2 D FLOPs each (S, dP, dV, dK, dQ), and q, k, v, o, dO
+    and lse read once, dq, dk and dv written once."""
+    heads, d, lk, pooled, n = ATTN_BWD[name]
+    k_rows = batch * n
+    q_rows = k_rows // 4 if pooled else k_rows
+    flops = 10.0 * d * q_rows * heads * lk
+    nbytes = 2.0 * heads * d * (4 * q_rows + 4 * k_rows) + 4.0 * q_rows * heads
+    return flops, nbytes
 
 
 def i8_case(name: str, batch: int, g, device) -> Case:

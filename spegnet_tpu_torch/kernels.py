@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("hiera_block.cu", "hiera_block_bwd.cu", "qpool_front.cu",
            "qpool_front_bwd.cu", "decoder_block.cu", "decoder_i8.cu", "int8_gemm.cu",
-           "attention_lanes.cu", "block_f32.cu", "attention_f32.cu", "attention_window.cu")
+           "attention_lanes.cu", "block_f32.cu", "attention_f32.cu", "attention_window.cu",
+           "attention_window_bwd.cu")
 
 launches = {
     "fused_block_t": 0,
@@ -195,7 +196,7 @@ def load():
         "sp_qpool_attention": [p, i, p, p, i, i, i, i, ll, f, p],
         "sp_pool4_rows": [p, p, l, i, i, i, p],
         "sp_attention_bwd": [p, l, p, l, p, l, p, l, p, l, p, p, p, l, p, l, p, l,
-                             i, i, i, i, i, f, p],
+                             i, i, i, i, i, ll, f, p],
         "sp_gemm_tn": [p, p, i, i, i, i, i, i, i, p, p, p, p, p],
         "sp_layernorm_bwd": [p, p, p, p, p, p, p, l, i, p, l, i, f, p],
         "sp_pool4_scatter": [p, l, i, p, l, p, l, i, l, i, p],
@@ -575,21 +576,122 @@ class Cols(NamedTuple):
         return self.t.shape[1]
 
 
+# csrc/attention_window_bwd.cu: the attention backward of the T-block, the
+# gen-1 block's bf16 backward and the Q-pool front (TMA + wgmma,
+# :func:`window_bwd_plan`).  Widths of its dK / dV / dQ products: the head
+# dim rounds up to one.  A consumer holds dK and dV of 64 keys in registers,
+# 2 x 64 f32 a thread at width 128; above it they do not fit beside the
+# scores, so the backward takes head dims up to 128.
+ATTN_BWD_DV = (16, 32, 48, 64, 72, 80, 96, 128)
+
+
+class WindowBwdPlan(NamedTuple):
+    """Launch plan of csrc/attention_window_bwd.cu.  ``packed``: every key
+    window divides a 64-key tile and one tile's windows hold ``qt`` (64 or
+    16) query rows: one kernel per call, a unit of 64 keys and their ``qt``
+    queries per consumer, dQ inside the unit (``units`` (key tile, head)
+    pairs over ``grid_a`` blocks).  Else the split route: the dQ kernel
+    (``items_q`` items of two 64-row query tiles, or with ``shared_q`` of 128
+    query rows of one window, over ``grid_b`` blocks; it also writes lse and
+    Di by head, transposed, for the second kernel's TMA loads),
+    then the dK / dV kernel (``items_kv`` pairs of 64-key tiles of one head,
+    read against the same query tiles where ``shared_kv``, over ``grid_a``
+    blocks).  ``mask``: a tile holds keys or queries of more than one window
+    (the block-diagonal mask)."""
+    dv: int
+    packed: bool
+    qt: int
+    mask: bool
+    shared_kv: bool
+    shared_q: bool
+    units: int
+    items_kv: int
+    items_q: int
+    grid_a: int
+    grid_b: int
+    arg: int   # mode | grid_a << 16 | grid_b << 32
+
+    @property
+    def mode(self) -> int:
+        """dv | packed << 9 | (qt == 16) << 10 | mask << 11 | shared_kv << 12
+        | shared_q << 13."""
+        return self.arg & 0xFFFF
+
+    @property
+    def route(self) -> str:
+        return "packed" if self.packed else "split"
+
+
+@functools.lru_cache(maxsize=256)
+def window_bwd_plan(q_rows: int, heads: int, d: int, lq: int, lk: int,
+                    sms: int) -> WindowBwdPlan:
+    """The work list of csrc/attention_window_bwd.cu for ``q_rows`` query
+    rows in windows of ``lq`` against key windows of ``lk`` rows, ``heads``
+    heads of dim ``d`` (a multiple of 8, at most 128) on a card of ``sms``
+    SMs: about one block per SM.  The packed route where ``lk`` divides 64
+    and 64 / lk * lq is 64 or 16 (Hiera's L 16 and 64 blocks, the fronts
+    t12 and t23), else the split route (stage 3, the global blocks, t34)."""
+    dv = next((x for x in ATTN_BWD_DV if x >= d), None)
+    if dv is None or d % 8 or lk % 16 or lk < 16 or lq < 1 or q_rows % lq:
+        raise ValueError(f"attention backward: d={d}, lq={lq}, lk={lk}, {q_rows} query rows")
+    k_rows = q_rows // lq * lk
+    k_tiles = -(-k_rows // _AW_ROWS)
+    q_tiles = -(-q_rows // _AW_ROWS)
+    packed = _AW_ROWS % lk == 0 and _AW_ROWS // lk * lq in (16, 64)
+    if packed:
+        qt, mask = _AW_ROWS // lk * lq, lk < _AW_ROWS
+        shared_kv = shared_q = False
+        units, items_kv, items_q = k_tiles * heads, 0, 0
+        grid_a, grid_b = min(-(-units // 2), sms), 0
+    else:
+        qt, mask = _AW_ROWS, lq % _AW_ROWS != 0 or lk % _AW_ROWS != 0
+        shared_kv = lk % (2 * _AW_ROWS) == 0 and not mask
+        shared_q = lq % (2 * _AW_ROWS) == 0 and not mask
+        units = 0
+        items_kv = heads * -(-k_tiles // 2)
+        items_q = (q_rows // lq * heads * (lq // (2 * _AW_ROWS)) if shared_q
+                   else heads * -(-q_tiles // 2))
+        grid_a, grid_b = min(items_kv, sms), min(items_q, sms)
+    if max(units, items_kv, items_q) >= 2 ** 31 or k_rows + 2 * _AW_ROWS >= 2 ** 31:
+        raise ValueError(f"attention backward: {q_rows} query rows, {k_rows} key rows")
+    mode = (dv | packed << 9 | (qt == 16) << 10 | mask << 11 | shared_kv << 12
+            | shared_q << 13)
+    return WindowBwdPlan(dv, packed, qt, mask, shared_kv, shared_q, units, items_kv, items_q,
+                         grid_a, grid_b, mode | grid_a << 16 | grid_b << 32)
+
+
+def window_bwd_tmap(rows: int, ld: int, heads: int, d: int, box_rows: int):
+    """The tensor map csrc/attention_window_bwd.cu encodes over heads * d
+    columns of a row-major [rows, ld] bf16 matrix from its first column
+    (``bwd_tmap``): dims (d, heads, rows) innermost first, byte strides of a
+    head and a row, the box; a box past column d or the last row reads
+    zeros."""
+    return (d, heads, rows), (2 * d, 2 * ld), (64, 1, box_rows)
+
+
 def attention_bwd(q: Cols, k: Cols, v: Cols, o: Cols, dout: Cols, lse: torch.Tensor,
                   dq: Cols, dk: Cols, dv: Cols, heads: int, d: int, lq: int, lk: int,
                   scale: float) -> None:
     """Gradients of softmax(q k^T * scale) v for query windows of lq rows
-    against key windows of lk rows, written into dq / dk / dv.  ``o`` is the
-    forward output and ``lse`` its log-sum-exp ([q rows, heads] f32)."""
+    against key windows of lk rows, written into dq / dk / dv
+    (csrc/attention_window_bwd.cu, :func:`window_bwd_plan`).  ``o`` is the
+    forward output and ``lse`` its log-sum-exp in log2 units ([q rows,
+    heads] f32, as :func:`window_attention` writes it)."""
+    checked = set()   # the block passes q, k, v (and dq, dk, dv) in one matrix: check it once
     for c, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (dout, "dout"), (dq, "dq"),
                     (dk, "dk"), (dv, "dv")):
-        _need(c.t, f"attention_bwd {name}", ndim=2)
+        if id(c.t) not in checked:
+            _need(c.t, f"attention_bwd {name}", ndim=2)
+            if c.t.data_ptr() % 16:
+                raise ValueError(f"attention_bwd {name}: not 16-byte aligned")
+            checked.add(id(c.t))
         if c.col % 8 or c.ld % 8 or c.col + heads * d > c.ld:
             raise ValueError(f"attention_bwd {name}: columns [{c.col}, "
                              f"{c.col + heads * d}) of {c.ld}")
     q_rows = q.t.shape[0]
-    if d % 8 or d > 128 or lk % 16 or q_rows % 16 or q_rows % lq:
-        raise ValueError(f"attention_bwd: d={d}, lq={lq}, lk={lk}, {q_rows} query rows")
+    if d % 8 or d > ATTN_BWD_DV[-1] or lk % 16 or q_rows % 16 or q_rows % lq:
+        raise ValueError(f"attention_bwd: d={d} (a multiple of 8, at most "
+                         f"{ATTN_BWD_DV[-1]}), lq={lq}, lk={lk}, {q_rows} query rows")
     k_rows = q_rows // lq * lk
     for c, rows, name in ((o, q_rows, "o"), (dout, q_rows, "dout"), (dq, q_rows, "dq"),
                           (k, k_rows, "k"), (v, k_rows, "v"), (dk, k_rows, "dk"),
@@ -599,11 +701,30 @@ def attention_bwd(q: Cols, k: Cols, v: Cols, o: Cols, dout: Cols, lse: torch.Ten
     _need(lse, "attention_bwd lse", torch.float32)
     if tuple(lse.shape) != (q_rows, heads):
         raise ValueError(f"attention_bwd: lse {tuple(lse.shape)}")
-    dd = torch.empty_like(lse)
+    plan = window_bwd_plan(q_rows, heads, d, lq, lk, _sm_count(lse.get_device()))
+    stream = _stream(lse)
+    # the split route's lse and Di by head, transposed ([2 heads, q rows] f32)
+    dd = None if plan.packed else _scratch(lse, stream, 2 * heads * q_rows)
     _check(load().sp_attention_bwd(
         q.ptr(), q.ld, k.ptr(), k.ld, v.ptr(), v.ld, o.ptr(), o.ld, dout.ptr(), dout.ld,
-        lse.data_ptr(), dd.data_ptr(), dq.ptr(), dq.ld, dk.ptr(), dk.ld, dv.ptr(), dv.ld,
-        q_rows, heads, d, lq, lk, scale, _stream(lse)), "sp_attention_bwd")
+        lse.data_ptr(), dd, dq.ptr(), dq.ld, dk.ptr(), dk.ld, dv.ptr(), dv.ld,
+        q_rows, heads, d, lq, lk, plan.arg, scale, stream), "sp_attention_bwd")
+
+
+_scratch_bufs = {}
+
+
+def _scratch(like: torch.Tensor, stream: int, n: int) -> int:
+    """The address of an f32 scratch buffer of at least ``n`` elements on
+    ``like``'s device, one per stream, kept between calls (host time per
+    call; each call's kernels finish with it before the next call's start,
+    in stream order)."""
+    key = (like.get_device(), stream)
+    buf = _scratch_bufs.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=like.device)
+        _scratch_bufs[key] = buf
+    return buf.data_ptr()
 
 
 # Output tiles of csrc/hiera_block_bwd.cu's weight-gradient GEMM (the

@@ -3,7 +3,8 @@ main-path geometry of Hiera-L inference and training (batch 1; 512^2, and
 the grids of 352^2 / 384^2 / 640^2 / 768^2 that are not 2^k, the attention
 kernel at L 64 to 2304, 484 included; the window attention alone at every
 kernel_check.WINDOW geometry, head dims 96 / 128 / 256 and L 4096
-included): the forward kernels against the
+included, and the attention backward alone at every kernel_check.ATTN_BWD
+geometry): the forward kernels against the
 plain forward, the backward kernels against bf16 autograd of the plain
 forward, for dx and every weight gradient, and the int8 encoder's kernels
 against their plain int8 versions (kernel_check.i8_ok); the int8 decoder
@@ -57,6 +58,17 @@ def test_window_attention_matches_plain(cuda, name):
     res = kernel_check.compare_window(name, 1, torch.Generator().manual_seed(0), cuda)
     torch.cuda.synchronize()
     assert kernel_check.window_ok(res), (name, res)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.ATTN_BWD))
+def test_attention_bwd_matches_plain(cuda, name):
+    """The attention backward alone (csrc/attention_window_bwd.cu) at every
+    kernel_check.ATTN_BWD geometry: dq, dk, dv against bf16 autograd of the
+    plain attention, two calls bit-equal, the columns of dy that are not k
+    or v left alone (kernel_check.attn_bwd_ok)."""
+    res = kernel_check.compare_attn_bwd(name, 1, torch.Generator().manual_seed(0), cuda)
+    torch.cuda.synchronize()
+    assert kernel_check.attn_bwd_ok(res), (name, res)
 
 
 @pytest.mark.parametrize("name", kernel_check.GRAD_CASES)
