@@ -10,11 +10,13 @@
    and the ptxas registers and spills of each instantiation of the bf16 and
    f32 attention kernels, of the window attention (csrc/attention_window.cu),
    of the attention backward (csrc/attention_window_bwd.cu), of the
-   weight-gradient GEMM and of the persistent forward GEMM
-   (csrc/gemm_persistent.cuh, bf16 and int8; no attention kernel may spill
-   at Hiera-L's head dim 72, bf16 or f32, nor any of the window attention's
-   six instantiations there, nor the attention backward's nine there, and
-   no instantiation of the persistent GEMM may spill).
+   weight-gradient GEMM, of the persistent forward GEMM
+   (csrc/gemm_persistent.cuh, bf16 and int8, and its 3xTF32 form, the f32
+   GEMM) and of the int8 LayerNorm + quant row pass (no attention kernel
+   may spill at Hiera-L's head dim 72, bf16 or f32, nor any of the window
+   attention's six instantiations there, nor the attention backward's nine
+   there, and no instantiation of the persistent GEMM, the f32 GEMM or the
+   row pass may spill).
 3. Compares every kernel with its plain PyTorch version in bf16 at every
    main-path geometry of Hiera-L inference and training, batch 2: the
    forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
@@ -59,7 +61,13 @@
    block at stage 1 / 2 / 4 of 512^2, fused_attention_lanes at L 64, 256,
    484, 576, 1024, 1600, 4096, fused_attention at L 64, 256, 1024 -- and the
    int8 gen-1 block on f32 at stage 4 by kernel_check.i8_ok and its pieces
-   by i8_parts_ok.
+   by i8_parts_ok.  The f32 GEMM alone (kernels.gemm_f32) at every product
+   of the f32 gen-1 blocks at 512^2 and 384^2 and a ragged shape
+   (kernel_check.gemm_f32_shapes) within F32_REL_LIMIT of its plain f32
+   version, two calls bit-equal; and the int8 LayerNorm + quant alone
+   (kernels.layernorm_q8) at every kernel_check.LNQ8 geometry, bf16 and
+   f32, by kernel_check.lnq8_ok (codes one apart on at most I8_PART_FRAC,
+   scales within LNQ8_SCALE_REL, two calls bit-equal).
    Then the window attention alone (kernels.window_attention /
    qpool_attention, csrc/attention_window.cu), batch 2, at every geometry
    kernel_check.WINDOW lists (each T-block stage and global block, stage
@@ -136,7 +144,11 @@
    the attention backward at each geometry of a 512^2 and a 384^2 training
    step and the 1024^2 global block (utils/attention_bwd_bench.py: device
    ms and each of its kernels', host µs per call, SDPA's backward on the
-   same windows, the bound, the per-step totals).
+   same windows, the bound, the per-step totals), the f32 GEMM at every
+   f32 gen-1 product against F.linear in f32 and its bound at
+   kernel_check.PEAK_F32 (utils/gemm_bench.py --f32), and the int8 LayerNorm + quant at each
+   kernel_check.LNQ8 geometry against its plain version and its bytes
+   bound (utils/gemm_bench.py --lnq8).
 6. Training, Hiera-L 512^2, bf16 compute, f32 master weights, synthetic
    TrainBatches (u8 images; {0,1} ellipse masks at original sizes 384-640 on
    a 640 canvas; edges their morphological boundary):
@@ -389,9 +401,11 @@ def main() -> int:
               f"{kern}<72, *> spills or was not built: {usage}")
     # the persistent GEMM's instantiations (csrc/gemm_persistent.cuh): bf16 (BN,
     # ACT) and int8 (BN, ACT, SW_FIRST, output type), and the one-tile-per-block
-    # bf16 kernel kept beside it (BN, STAGES, ACT); none may spill
+    # bf16 kernel kept beside it (BN, STAGES, ACT), the f32 GEMM (ACT) and the
+    # LayerNorm + quant row pass (T, NV, WREG); none may spill
     for kern, n_inst in (("gemm_bf16_kernel", 8), ("gemm_i8_kernel", 14),
-                         ("gemm_tma_kernel", 3)):
+                         ("gemm_tma_kernel", 3), ("gemm_f32_kernel", 3),
+                         ("layernorm_q8_kernel", 4)):
         usage = kernels.ptxas_usage(kern)
         log(f"ptxas {kern} (template arguments: registers, spill store / load bytes): "
             + ", ".join(f"{w}: {r}, {ss} / {sl}" for w, r, ss, sl in sorted(usage, key=str)))
@@ -712,6 +726,8 @@ def main() -> int:
     with torch.inference_mode():
         gemm_bench.run(8, log)
         gemm_tn_bench.run(8, log)
+    gemm_bench.run_f32(8, log)
+    gemm_bench.run_lnq8(8, log)
     torch.cuda.empty_cache()
 
     # -- 6. training ------------------------------------------------------------
@@ -1074,7 +1090,9 @@ def f32_checks(kc, torch, dev, max_err) -> None:
     """Phase 3 in f32: every f32 kernel against its plain f32 version at
     every f32 main-path geometry, batch 2, within kc.F32_REL_LIMIT; the int8
     gen-1 block on f32 by the int8 rule (a code that crosses a rounding edge
-    moves its output by a dequant step) and its pieces by kc.i8_parts_ok."""
+    moves its output by a dequant step) and its pieces by kc.i8_parts_ok;
+    the f32 GEMM alone at every f32 gen-1 product and a ragged shape, and
+    the int8 LayerNorm + quant alone at every LNQ8 geometry."""
     for name, make in kc.f32_cases().items():
         case = make(name, 2, torch.Generator().manual_seed(1), dev)
         err, rel = kc.compare(case)
@@ -1101,6 +1119,18 @@ def f32_checks(kc, torch, dev, max_err) -> None:
             f"row quant and GEMM without GELU exact; GELU rel {kc.I8_F32_GELU_REL})")
         check(kc.i8_parts_ok(parts), f"{name}: an f32 int8 piece disagrees ({parts})")
         del case
+    for name, (m, n, k, _, _) in kc.gemm_f32_shapes(2).items():
+        res = kc.compare_gemm_f32(name, 2, torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        log(f"check {name:20s} gemm_f32 M {m} N {n} K {k}: rel {res['rel']:.3e} (limit "
+            f"{kc.F32_REL_LIMIT}), two calls bit-equal {res['same']}")
+        check(kc.gemm_f32_ok(res), f"{name}: the f32 GEMM disagrees with plain f32 ({res})")
+    for name, (c, _, f32, _) in kc.LNQ8.items():
+        res = kc.compare_lnq8(name, 2, torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        log(f"check {name:10s} layernorm_q8 C {c} {'f32' if f32 else 'bf16'}: {res} (limits "
+            f"share {kc.I8_PART_FRAC}, one code, scale rel {kc.LNQ8_SCALE_REL[f32]:.3g})")
+        check(kc.lnq8_ok(res, f32), f"{name}: layernorm_q8 disagrees with plain ({res})")
     torch.cuda.empty_cache()
 
 

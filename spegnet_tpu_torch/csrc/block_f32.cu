@@ -13,20 +13,26 @@
 // memory, as the bf16 chain of hiera_block.cu does.
 //
 // Products must be f32-accurate: the JAX kernel contracts f32 operands with
-// an f32 result.  The GEMM runs 3xTF32 on mma.sync.m16n8k8 (common.cuh
-// `mma_3xtf32`: each operand split into a tf32 big part and the rest, three
-// products), ~f32 accuracy at a third of the TF32 tensor-core rate; a
-// single TF32 pass keeps ~3 decimal digits and is not the f32 the JAX
-// kernel computes.
+// an f32 result.  The GEMM runs 3xTF32 (each operand split into a tf32 big
+// part and the rest, three products), ~f32 accuracy at a third of the TF32
+// tensor-core rate; a single TF32 pass keeps ~3 decimal digits and is not
+// the f32 the JAX kernel computes.
 //
 // Bound on the H100: the four projections carry ~95% of a block's
 // operations at 165 TFLOP/s (3 x TF32 on the dense 495 TF32 rate, the
 // card's fastest f32-accurate product): operations-bound at every Hiera-L
-// geometry.  The GEMM is a plain kernel: 128 x 128 x 16 tiles, 8 warps of
-// 64 x 32, a 3-stage cp.async ring, fragments read from padded shared
-// memory; wgmma (tf32) and TMA are later work.  LayerNorm is a bandwidth
-// pass, one warp per row.
-#include "common.cuh"
+// geometry, near the balance of bytes and operations at stage 1 (qkv reads
+// 75 MB of A and writes 226 MB at batch 8: ~90 us of bytes against ~99 us
+// of operations).  The GEMM is the persistent TMA + wgmma kernel of
+// gemm_persistent.cuh in its 3xTF32 form (pg_gemm_3xtf32: W's small part
+// split once per stage by the producer warpgroup, A split once into register
+// fragments, 12 tf32 wgmma per 32-deep k-step summed from zero and added on
+// the FP32 pipe), 128 x 144 tiles (every Hiera-L width is a multiple of 144), with
+// the epilogue below.  It replaced an mma.sync.m16n8k8 kernel (one 128 x
+// 128 tile per block, every operand split by each warp that read it), which
+// ran at 29-38 TFLOP/s on an H100, below cuBLAS's f32 GEMM.  LayerNorm is a
+// bandwidth pass, one warp per row.
+#include "gemm_persistent.cuh"
 
 namespace spk {
 namespace {
@@ -75,12 +81,7 @@ layernorm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // 3xTF32 GEMM
 // ---------------------------------------------------------------------------
 
-constexpr int G_BM = 128, G_BN = 128, G_BK = 16, G_STAGES = 3, G_THREADS = 256;
-// floats per shared-memory row: 80 bytes keeps rows 16-byte aligned for
-// cp.async and the fragment reads (row 4g + k, g = 0..7) on 32 banks.
-constexpr int G_PITCH = G_BK + 4;
-constexpr int G_TILE = (G_BM + G_BN) * G_PITCH;
-constexpr int G_SMEM = G_STAGES * G_TILE * 4;
+constexpr int G_BN = 144;  // output columns of a tile (kernels.GEMM_BN["f32"])
 
 // The model's f32 blocks take the erf GELU (models/hiera.py: approx_gelu is
 // bf16 only, as in the JAX package). The tanh form stays because the TPU
@@ -88,126 +89,121 @@ constexpr int G_SMEM = G_STAGES * G_TILE * 4;
 // and ops/fused_block.fused_block keeps that signature for every dtype.
 enum { G_ACT_NONE = 0, G_ACT_GELU_ERF = 1, G_ACT_GELU_TANH = 2 };
 
-// K % 4 == 0, N % 4 == 0; the M, N and K tails are zero-filled in shared
-// memory and not stored.
+// The epilogue on one consumer's 64 x 144 tile of f32 sums: + bias, then
+// the GELU of ACT, then residual + value, as the unfused f32 expression.
+// The tile goes out in two halves of 72 columns through a 64 x 72 staging
+// buffer (two full 64 x 144 f32 tiles do not fit beside three ring stages):
+// the first half's residual is prefetched there by cp.async before the
+// k-loop; the second half's is read into the registers the k-loop's fresh
+// sums held, issued before the first half is finished so its latency
+// overlaps.  Each half's values are written over the staged residual, then
+// leave as coalesced 16-byte row vectors.  Requires N % 4 == 0.
 template <int ACT>
-__global__ void __launch_bounds__(G_THREADS)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias, const float* __restrict__ res,
-                float* __restrict__ C, int M, int N, int K) {
-  extern __shared__ __align__(16) float smem_g[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-  const int g = lane >> 2, t = lane & 3;
-  // One grid axis, N tiles fastest.
-  const int n_tiles = (N + G_BN - 1) / G_BN;
-  const long m0 = (long)(blockIdx.x / n_tiles) * G_BM;
-  const int n0 = (int)(blockIdx.x % n_tiles) * G_BN;
-  const int nk = (K + G_BK - 1) / G_BK;
+struct F32Epi {
+  static constexpr int H = G_BN / 2;          // columns of a half, the staging pitch
+  static constexpr int kBytes = 64 * H * 4;   // 18 KB, a multiple of 1024
+  const float* bias;
+  const float* res;
+  float* C;
+  int M, N;
 
-  // One stage: 128 A rows and 128 W rows of 16 floats, 4 16-byte chunks each.
-  auto load_stage = [&](int s, int kt) {
-    float* As = smem_g + s * G_TILE;
-    float* Bs = As + G_BM * G_PITCH;
-    const int k0 = kt * G_BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * G_THREADS;
-      const int r = idx / 4, ck = (idx % 4) * 4;
-      const bool kin = k0 + ck < K;
-      const long ra = m0 + r;
-      const bool ina = kin && ra < M;
-      cp_async16(As + r * G_PITCH + ck, ina ? A + ra * K + k0 + ck : A, ina ? 16 : 0);
-      const int rb = n0 + r;
-      const bool inb = kin && rb < N;
-      cp_async16(Bs + r * G_PITCH + ck, inb ? W + (long)rb * K + k0 + ck : W, inb ? 16 : 0);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < G_STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+  __device__ __forceinline__ void prefetch(int mrow0, int n0, unsigned char* stage,
+                                           int cw) const {
+    pg_prefetch_tile<H, H>(res, M, N, mrow0, n0, stage, cw);
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<G_STAGES - 2>();
-    __syncthreads();
-    const int nxt = kt + G_STAGES - 1;
-    if (nxt < nk) load_stage(nxt % G_STAGES, nxt);
-    cp_async_commit();
-    const float* As = smem_g + (kt % G_STAGES) * G_TILE;
-    const float* Bs = As + G_BM * G_PITCH;
-#pragma unroll
-    for (int ks = 0; ks < G_BK / 8; ++ks) {
-      uint32_t ab[4][4], as[4][4], bb[4][2], bs[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const float* p = As + (wm * 64 + mi * 16 + g) * G_PITCH + ks * 8 + t;
-        split_tf32(p[0], ab[mi][0], as[mi][0]);
-        split_tf32(p[8 * G_PITCH], ab[mi][1], as[mi][1]);
-        split_tf32(p[4], ab[mi][2], as[mi][2]);
-        split_tf32(p[8 * G_PITCH + 4], ab[mi][3], as[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* p = Bs + (wn * 32 + ni * 8 + g) * G_PITCH + ks * 8 + t;
-        split_tf32(p[0], bb[ni][0], bs[ni][0]);
-        split_tf32(p[4], bb[ni][1], bs[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_3xtf32(acc[mi][ni], ab[mi], as[mi], bb[ni], bs[ni]);
-    }
-  }
-  cp_async_wait<0>();
 
-  // Epilogue from the fragments: pairs of columns, rows g and g + 8.
+  __device__ __forceinline__ void operator()(float (&d)[G_BN / 2], int mrow0, int n0,
+                                             unsigned char* stage, int cw) const {
+    const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl = w * 16 + g;
+    float* Cs = reinterpret_cast<float*>(stage);
+    float r2[H / 2];  // the second half's residual, in the accumulators' layout
+    if (res) {
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-    if (col >= N) continue;
-    const float b0 = bias ? bias[col] : 0.f, b1 = bias ? bias[col + 1] : 0.f;
+      for (int jj = 0; jj < H / 8; ++jj) {
+        const int col = n0 + H + jj * 8 + 2 * t;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long row = m0 + wm * 64 + mi * 16 + g + 8 * hh;
-        if (row >= M) continue;
-        float v0 = acc[mi][ni][2 * hh] + b0, v1 = acc[mi][ni][2 * hh + 1] + b1;
-        if (ACT == G_ACT_GELU_ERF) {
-          v0 = gelu_erf(v0);
-          v1 = gelu_erf(v1);
-        } else if (ACT == G_ACT_GELU_TANH) {
-          v0 = gelu_tanh(v0);
-          v1 = gelu_tanh(v1);
+        for (int hh = 0; hh < 2; ++hh) {
+          const long row = mrow0 + rl + 8 * hh;
+          float2 r = make_float2(0.f, 0.f);
+          if (row < M && col < N) r = *reinterpret_cast<const float2*>(res + row * N + col);
+          r2[4 * jj + 2 * hh] = r.x;
+          r2[4 * jj + 2 * hh + 1] = r.y;
         }
-        if (res) {
-          const float2 r = *reinterpret_cast<const float2*>(res + row * N + col);
-          v0 = r.x + v0;
-          v1 = r.y + v1;
+      }
+      pg_prefetch_wait(cw);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (half) asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+#pragma unroll
+      for (int jj = 0; jj < H / 8; ++jj) {
+        const int j = half * (H / 8) + jj;
+        const int cl = jj * 8 + 2 * t;
+        const int col = n0 + half * H + cl;
+        const float b0 = (bias && col < N) ? bias[col] : 0.f;
+        const float b1 = (bias && col < N) ? bias[col + 1] : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float v0 = d[4 * j + 2 * hh] + b0, v1 = d[4 * j + 2 * hh + 1] + b1;
+          if (ACT == G_ACT_GELU_ERF) {
+            v0 = gelu_erf(v0);
+            v1 = gelu_erf(v1);
+          } else if (ACT == G_ACT_GELU_TANH) {
+            v0 = gelu_tanh(v0);
+            v1 = gelu_tanh(v1);
+          }
+          float2* slot = reinterpret_cast<float2*>(Cs + (rl + 8 * hh) * H + cl);
+          if (res) {
+            const float2 r = half ? make_float2(r2[4 * jj + 2 * hh], r2[4 * jj + 2 * hh + 1])
+                                  : *slot;
+            v0 = r.x + v0;
+            v1 = r.y + v1;
+          }
+          *slot = make_float2(v0, v1);
         }
-        *reinterpret_cast<float2*>(C + row * N + col) = make_float2(v0, v1);
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      for (int idx = tid; idx < 64 * (H / 4); idx += 128) {
+        const int r = idx / (H / 4), c = idx % (H / 4);
+        const long row = mrow0 + r;
+        const int col = n0 + half * H + c * 4;
+        if (row < M && col < N)
+          *reinterpret_cast<float4*>(C + row * N + col) =
+              *reinterpret_cast<const float4*>(Cs + r * H + c * 4);
       }
     }
   }
+};
+
+// C[M, N] = A[M, K] W[N, K]^T with F32Epi<ACT>: the persistent GEMM of
+// gemm_persistent.cuh in its 3xTF32 form.  Requires K % 4 == 0 and N % 4 ==
+// 0 (16-byte rows for TMA and the epilogue's vectors); TMA zero-fills the
+// M, N and K tails (K 144 is 4.5 k-steps).
+template <int ACT>
+__global__ void __launch_bounds__(PG_THREADS, 1)
+gemm_f32_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+                F32Epi<ACT> epi, int K) {
+  pg_gemm_3xtf32<G_BN>(&tmA, &tmB, epi.M, epi.N, K, epi);
 }
 
 template <int ACT>
-cudaError_t launch_gemm_f32(const float* a, const float* w, const float* bias,
-                            const float* res, float* c, int M, int N, int K, cudaStream_t st) {
-  cudaFuncSetAttribute(gemm_f32_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       G_SMEM);
-  const long blocks = (long)((N + G_BN - 1) / G_BN) * ((M + G_BM - 1) / G_BM);
-  if (blocks >= (1L << 31)) return cudaErrorInvalidConfiguration;
-  gemm_f32_kernel<ACT><<<(unsigned)blocks, G_THREADS, G_SMEM, st>>>(a, w, bias, res, c, M, N,
-                                                                     K);
+cudaError_t launch_gemm_f32(const void* a, const void* w, const float* bias, const float* res,
+                            float* c, int M, int N, int K, int grid, cudaStream_t st) {
+  using Epi = F32Epi<ACT>;
+  constexpr int smem = PgTf32Cfg<G_BN, Epi::kBytes>::kBytes;
+  // the shared-memory attribute, set once per instantiation
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_f32_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  if (grid < 1) return cudaErrorInvalidConfiguration;
+  CUtensorMap ta, tb;
+  cudaError_t e = pg_tmap_cached<float>(&ta, a, M, K, PG_BM);
+  if (e == cudaSuccess) e = pg_tmap_cached<float>(&tb, w, N, K, G_BN);
+  if (e != cudaSuccess) return e;
+  const Epi epi{bias, res, c, M, N};
+  gemm_f32_kernel<ACT><<<grid, PG_THREADS, smem, st>>>(ta, tb, epi, K);
   return cudaGetLastError();
 }
 
@@ -224,21 +220,22 @@ int sp_layernorm_f32(const void* x, const void* w, const void* b, void* y, long 
   return (int)cudaGetLastError();
 }
 
-// act: 0 none, 1 erf GELU, 2 tanh GELU; bias and res may be null.
+// act: 0 none, 1 erf GELU, 2 tanh GELU; bias and res may be null; `bn`
+// (144) and `grid` (min(tiles, SMs)) from kernels.gemm_plan(..., "f32").
 int sp_gemm_f32(const void* a, const void* w, const void* bias, const void* res, void* c,
-                int M, int N, int K, int act, void* stream) {
+                int M, int N, int K, int act, int bn, int grid, void* stream) {
   using namespace spk;
   cudaStream_t st = (cudaStream_t)stream;
-  const float *A = (const float*)a, *W = (const float*)w, *B = (const float*)bias,
-              *R = (const float*)res;
+  const float *B = (const float*)bias, *R = (const float*)res;
   float* C = (float*)c;
+  if (bn != G_BN || M < 1 || N < 1 || K < 1 || K % 4 || N % 4) return (int)cudaErrorInvalidValue;
   switch (act) {
     case G_ACT_NONE:
-      return (int)launch_gemm_f32<G_ACT_NONE>(A, W, B, R, C, M, N, K, st);
+      return (int)launch_gemm_f32<G_ACT_NONE>(a, w, B, R, C, M, N, K, grid, st);
     case G_ACT_GELU_ERF:
-      return (int)launch_gemm_f32<G_ACT_GELU_ERF>(A, W, B, R, C, M, N, K, st);
+      return (int)launch_gemm_f32<G_ACT_GELU_ERF>(a, w, B, R, C, M, N, K, grid, st);
     case G_ACT_GELU_TANH:
-      return (int)launch_gemm_f32<G_ACT_GELU_TANH>(A, W, B, R, C, M, N, K, st);
+      return (int)launch_gemm_f32<G_ACT_GELU_TANH>(a, w, B, R, C, M, N, K, grid, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

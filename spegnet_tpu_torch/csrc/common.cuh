@@ -129,6 +129,14 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
   small = tf32_rna(v - __uint_as_float(big));
 }
 
+// The small part of v when its big part is v truncated to tf32 (low 13 bits
+// cleared): the tensor cores read only an operand's top 19 bits, so v's own
+// bits serve as its big part, and no big copy is written.  small = (v -
+// trunc(v)) rounded to tf32; big + small is within 2^-22 of v.
+__device__ __forceinline__ uint32_t tf32_small(float v) {
+  return tf32_rna(v - __uint_as_float(__float_as_uint(v) & 0xffffe000u));
+}
+
 // c += a b with the 3xTF32 split of both operands.  The tensor cores sum
 // the three products from zero (small ones first) and the result is added
 // to c on the FP32 pipe: their own accumulation truncates, which over a

@@ -1,9 +1,10 @@
 // Persistent, warp-specialised TMA + wgmma GEMM for Hopper, shared by the
 // bf16 GEMM of hiera_block.cu (T-block #1 / #2, the fronts #3, the gen-1
-// block #7 and every dX product of the backwards) and the int8 GEMM of
-// int8_gemm.cu (#10, #11, #12): C[M, N] = A[M, K] W[N, K]^T with both
-// operands row-major, i.e. K-major, the one layout wgmma takes for 8-bit
-// operands.
+// block #7 and every dX product of the backwards), the int8 GEMM of
+// int8_gemm.cu (#10, #11, #12) and, in its 3xTF32 form (pg_gemm_3xtf32,
+// below), the f32 GEMM of block_f32.cu (#7 at f32): C[M, N] = A[M, K]
+// W[N, K]^T with both operands row-major, i.e. K-major, the one layout
+// wgmma takes for 8-bit and tf32 operands.
 //
 // Schedule.  The grid is min(tiles, SMs) (kernels.gemm_plan); block b walks
 // the 128 x BN output tiles b, b + gridDim.x, ... in an N-fastest order, so
@@ -155,6 +156,14 @@ struct PgOp<int8_t> {
   }
 };
 
+// f32 operands (pg_gemm_3xtf32): 32 per 128-byte k-step; only pg_tmap reads
+// this.
+template <>
+struct PgOp<float> {
+  static constexpr int kBK = 32;
+  static constexpr CUtensorMapDataType kTmap = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
 // Shared memory: the ring (STAGES x (128 + BN) rows of 128 bytes), then the
 // two consumers' staging buffers (EPI bytes each), then the barriers.
 template <int BN, int EPI>
@@ -295,6 +304,36 @@ cudaError_t pg_tmap(CUtensorMap* map, const void* ptr, int rows, int K, int box_
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// pg_tmap through a cache of the last 16 maps of this host thread, keyed by
+// (pointer, shape): a forward hands a launcher the same few operands again
+// and again (the caching allocator reuses its blocks), and encoding a map
+// is host time on every call.  A map depends on nothing but its key.
+template <typename T>
+cudaError_t pg_tmap_cached(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+  struct Key {
+    const void* ptr;
+    int rows, K, box_rows;
+  };
+  constexpr int N = 16;
+  thread_local Key keys[N] = {};
+  thread_local CUtensorMap maps[N];
+  thread_local int next = 0;
+  for (int i = 0; i < N; ++i) {
+    const Key& k = keys[i];
+    if (k.ptr == ptr && k.rows == rows && k.K == K && k.box_rows == box_rows) {
+      *map = maps[i];
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t e = pg_tmap<T>(map, ptr, rows, K, box_rows);
+  if (e == cudaSuccess) {
+    keys[next] = Key{ptr, rows, K, box_rows};
+    maps[next] = *map;
+    next = (next + 1) % N;
+  }
+  return e;
+}
+
 // Launches kernel<<<grid, 384>>>(tmA, tmB, args...) with the shared memory
 // of PgCfg<BN, EPI>, after building A's and W's tensor maps.
 template <typename T, int BN, int EPI, typename Kernel, typename... Args>
@@ -310,6 +349,191 @@ cudaError_t pg_launch(Kernel kernel, const void* a, const void* w, int M, int N,
   if (e != cudaSuccess) return e;
   kernel<<<grid, PG_THREADS, smem, stream>>>(ta, tb, args...);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The 3xTF32 form: f32 operands, f32-accurate products (block_f32.cu)
+// ---------------------------------------------------------------------------
+//
+// The schedule above (grid-strided 128 x BN tiles walked N-fastest, one
+// producer thread issuing every k-step of the block's walk into a ring of
+// full / empty mbarriers across tile boundaries, two consumer warpgroups of
+// 64 rows, an epilogue staged outside the ring with its residual prefetched
+// before the k-loop) on f32 operands: a k-step is one 128-byte swizzle row
+// of 32 f32, and every product is 3xTF32: v = big + small, big = v
+// truncated to tf32 and small = the rest rounded to tf32 (common.cuh
+// `tf32_small`); a b ~ big_a big_b + big_a small_b + small_a big_b.  The
+// tensor cores read only an operand's top 19 bits, so an f32 value is its
+// own big part, and each operand element is split once:
+// * W by the producer warpgroup's warps 1-3, once per stage after its TMA
+//   lands: the tile TMA wrote is W's big part, and they write its small
+//   part in a plane beside it, in the same swizzled K-major layout wgmma
+//   reads (tf32 wgmma takes B K-major only, which W[N, K] row-major is);
+//   they then arrive on the stage's `ready` barrier;
+// * A by each consumer, which reads its 64 rows of the stage once into
+//   registers as the big (the raw values) and small A fragments of
+//   WgmmaTf32RS (the layout of an mma.m16n8k8 tf32 A fragment), so A needs
+//   no second plane.
+// Per k-step a consumer issues 12 wgmma m64nBNk8 (small * big for the four
+// k8 slices, then big * small, then big * big), the first with scale-d 0:
+// the step's 32-deep sum starts from zero on the tensor cores, and the
+// consumer adds it to its running f32 accumulators on the FP32 pipe, k-step
+// by k-step in k order.  The tensor cores' own accumulation truncates: an
+// f32 kernel that summed the whole K on them read 3.3e-5 of the output
+// against the 2e-5 limit on an H100; over 32-deep steps the error stays at
+// the level of f32 sums.
+// The sum over K runs in one fixed order, so two calls give the same bits.
+//
+// Budget at BN 144: a stage is A (16 KB) + W big + W small (18 KB each);
+// three stages and two 64 x 72 f32 staging halves fit the 227 KB.  A
+// consumer holds 72 running and 72 fresh accumulators and 32 A-fragment
+// registers of a k-step (PG_CONSUMER_REGS: at 224 the k-loop spilled); BN
+// 192 would need 96 + 96 + 32 and a 64 KB stage, so it is not built.
+
+constexpr int PG_SPLIT = 96;  // producer warps 1-3: the W split pass
+
+// Shared memory: the ring (STAGES x [A | W big | W small]), the two
+// consumers' staging buffers (EPI bytes each), then the full, ready and
+// empty barriers.
+template <int BN, int EPI>
+struct PgTf32Cfg {
+  static constexpr uint32_t kA = PG_BM * PG_ROW;  // the A box of a stage
+  static constexpr uint32_t kW = BN * PG_ROW;     // one W plane
+  static constexpr uint32_t kTx = kA + kW;        // the bytes TMA writes to a stage
+  static constexpr uint32_t kStage = kA + 2 * kW;
+  static constexpr int kFit =
+      (PG_SMEM_MAX - 1024 - 2 * EPI - 3 * PG_MAX_STAGES * 8) / (int)kStage;
+  static constexpr int ST = kFit > PG_MAX_STAGES ? PG_MAX_STAGES : kFit;
+  static constexpr int kBytes = 1024 + ST * (int)kStage + 2 * EPI + 3 * ST * 8;
+  static_assert(ST >= 3 && kBytes <= PG_SMEM_MAX, "shared memory");
+  static_assert(kW % 1024 == 0 && EPI % 1024 == 0, "1024-byte aligned planes and barriers");
+};
+
+// The kernel body on f32 operands; Epi as pg_gemm's, its operator() taking
+// float (&)[BN / 2].
+template <int BN, class Epi>
+__device__ __forceinline__ void pg_gemm_3xtf32(const CUtensorMap* tmA, const CUtensorMap* tmB,
+                                               int M, int N, int K, const Epi& epi) {
+  using Cfg = PgTf32Cfg<BN, Epi::kBytes>;
+  constexpr int ST = Cfg::ST, NACC = BN / 2;
+  constexpr uint32_t STAGE = Cfg::kStage, KA = Cfg::kA, KW = Cfg::kW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* staging = base + ST * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * Epi::kBytes);
+  uint64_t* ready = full + ST;
+  uint64_t* empty = ready + ST;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int n_tiles = (N + BN - 1) / BN;
+  const long tiles = (long)n_tiles * ((M + PG_BM - 1) / PG_BM);
+  const int nk = (K + 31) / 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], PG_SPLIT);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<PG_PRODUCER_REGS>();
+    if (tid == 0) {
+      long it = 0;  // k-steps issued by this block, across its tiles
+      for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (int)(tile / n_tiles) * PG_BM, n0 = (int)(tile % n_tiles) * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = (int)(it % ST);
+          if (it >= ST) mbar_wait(&empty[s], (int)((it / ST - 1) & 1));
+          unsigned char* st = base + s * STAGE;
+          mbar_arrive_expect_tx(&full[s], Cfg::kTx);
+          tma_load_2d(st, tmA, &full[s], kt * 32, m0);
+          tma_load_2d(st + KA, tmB, &full[s], kt * 32, n0);
+        }
+      }
+    } else if (tid >= 32) {
+      // The split pass of every stage, in the loads' order: the small part
+      // of each 16-byte chunk of the W tile, at the same offset of the plane
+      // after it (the swizzle maps both alike).
+      const int sid = tid - 32;
+      long it = 0;
+      for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = (int)(it % ST);
+          mbar_wait(&full[s], (int)((it / ST) & 1));
+          unsigned char* wt = base + s * STAGE + KA;
+          for (int u = sid; u < BN * 8; u += PG_SPLIT) {
+            const float4 v = *reinterpret_cast<const float4*>(wt + u * 16);
+            *reinterpret_cast<uint4*>(wt + KW + u * 16) =
+                make_uint4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z), tf32_small(v.w));
+          }
+          fence_proxy_async();
+          mbar_arrive(&ready[s]);
+        }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<PG_CONSUMER_REGS>();
+  const int cw = wg - 1, w = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // This thread's A rows in the stage's box (r0 and r0 + 8; r0 % 8 == g).
+  const int r0 = cw * 64 + 16 * w + g;
+  unsigned char* my_staging = staging + cw * Epi::kBytes;
+  long it = 0;  // k-steps consumed by this block, across its tiles
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (int)(tile / n_tiles) * PG_BM, n0 = (int)(tile % n_tiles) * BN;
+    epi.prefetch(m0 + cw * 64, n0, my_staging, cw);
+    float d[NACC];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = (int)(it % ST), par = (int)((it / ST) & 1);
+      const unsigned char* st = base + s * STAGE;
+      mbar_wait(&full[s], par);
+      // A fragments of the four k8 slices: (row r0 / r0 + 8, k 8kk + t /
+      // 8kk + t + 4), read from the 128-byte swizzled box: big the value,
+      // small its rest.
+      uint32_t ab[4][4], as[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + (e & 1) * 8, chunk = 2 * kk + (e >> 1);
+          const float v =
+              *reinterpret_cast<const float*>(st + r * PG_ROW + ((chunk ^ g) << 4) + 4 * t);
+          ab[kk][e] = __float_as_uint(v);
+          as[kk][e] = tf32_small(v);
+        }
+      mbar_wait(&ready[s], par);
+      const unsigned char* wb = st + KA;
+      float f[NACC];  // the step's sum, fresh: the first wgmma ignores it
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32RS<BN>::run(f, as[kk], wgmma_desc_sw128(wb + kk * 32), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32RS<BN>::run(f, ab[kk], wgmma_desc_sw128(wb + KW + kk * 32), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32RS<BN>::run(f, ab[kk], wgmma_desc_sw128(wb + kk * 32), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(f);
+      fence_frag(ab);
+      fence_frag(as);
+      // this thread's reads of A come before the TMA that refills the stage
+      fence_proxy_async();
+      mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) d[i] += f[i];
+    }
+    epi(d, m0 + cw * 64, n0, my_staging, cw);
+  }
 }
 
 }  // namespace spk

@@ -69,6 +69,8 @@ struct Act<bf16> {
   __device__ __forceinline__ static float get(Vec& v, int e) { return bf(lanes(v)[e]); }
   // the LayerNorm output as the block keeps it: rounded to bf16
   __device__ __forceinline__ static float keep(float v) { return bf(to_bf(v)); }
+  __device__ __forceinline__ static void set(Vec& v, int e, float y) { lanes(v)[e] = to_bf(y); }
+  __device__ __forceinline__ static Vec zero() { return zero_vec8(); }
 };
 
 template <>
@@ -79,6 +81,10 @@ struct Act<float> {
     return reinterpret_cast<float*>(&v)[e];
   }
   __device__ __forceinline__ static float keep(float v) { return v; }
+  __device__ __forceinline__ static void set(Vec& v, int e, float y) {
+    reinterpret_cast<float*>(&v)[e] = y;
+  }
+  __device__ __forceinline__ static Vec zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 };
 
 // kVec int8 codes of kVec floats, packed for one store.
@@ -93,67 +99,207 @@ __device__ __forceinline__ void q_store(int8_t* dst, const float (&v)[4], float 
   *reinterpret_cast<uint32_t*>(dst) = w;
 }
 
-// One warp per row; C % kVec == 0.  y = keep((x - mu) * rsqrt(var + eps) * w
-// + b), each step rounded as the unfused f32 expression, so the two passes
-// over the row (absmax, then codes) see identical values.
+// y = keep((x - mu) * r * w + b), each step rounded as the unfused f32
+// expression.
 template <typename T>
 __device__ __forceinline__ float ln_val(float x, float mu, float r, float w, float b) {
   return Act<T>::keep(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), r), w), b));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(Q_WARPS * 32)
+// ---------------------------------------------------------------------------
+// LayerNorm + quant: one pass over the row, shaped for latency
+// ---------------------------------------------------------------------------
+//
+// The call moves few bytes (a stage-3 call of a 512^2 batch-8 forward reads
+// 9.4 MB and writes 4.7 MB, ~4 us at the HBM rate), so its time is the
+// latency of a row's chain of reductions, not bandwidth.  A group of G =
+// 2^lg lanes serves a row: lane j holds the row's 16-byte vectors j, j + G,
+// ... (at most NV) in registers, read from HBM once and coalesced across the
+// group; the mean, the variance, the absmax and the codes all come from
+// those registers, each reduction a shuffle tree inside the group (offsets
+// G/2 .. 1, every lane getting the same bits), so no pass goes back to
+// memory.  A warp serves 32 / G rows at once; each group walks its rows
+// grid-strided with the next row's loads issued before the current row's
+// reductions, so two rows per group are in flight.  The LayerNorm weight
+// and bias of the lane's columns are loaded once into registers and reused
+// for every row (WREG); the wide form, for rows longer than 32 NV vectors
+// of the narrow one, reads them per row from L1 instead and loads one row
+// at a time (its row alone fills the registers).  The codes leave as one
+// packed store per vector (8 bytes for bf16), and each group's scale by its
+// lane 0, the warp's groups holding consecutive rows.
+// kernels.layernorm_q8_plan picks G (the fewest lanes that hold a row in NV
+// vectors each) and the form; the grid is the card's resident blocks (SMs x
+// occupancy), no more blocks than rows need.
+//
+// Arithmetic, each step rounded: the lane's sum of its elements in vector
+// order, then the group's tree; mu = sum / C; the variance the same over
+// (x - mu)^2 (no FMA contraction); r = rsqrtf(var / C + eps); y = ln_val,
+// kept in place of x (bf16: rounded to bf16, as the block keeps it); s =
+// max(absmax * f32(1/127), 1e-12); codes rint(y * (1 / s)), ties to even.
+// tests/test_torch_layernorm_q8.py emulates it on the CPU.
+constexpr int LQ_THREADS = 128;
+
+// Sum / max over the G = 2^lg lanes of an aligned group.
+__device__ __forceinline__ float group_sum(float v, int lg) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < (1 << lg)) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group_max(float v, int lg) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < (1 << lg)) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// VE f32 values at src (16-byte aligned) by float4 loads, or zeros.
+template <int VE>
+__device__ __forceinline__ void load_f32(float (&dst)[VE], const float* src, bool in) {
+#pragma unroll
+  for (int e = 0; e < VE; e += 4) {
+    const float4 v =
+        in ? *reinterpret_cast<const float4*>(src + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+    dst[e] = v.x;
+    dst[e + 1] = v.y;
+    dst[e + 2] = v.z;
+    dst[e + 3] = v.w;
+  }
+}
+
+// C % kVec == 0 and C / kVec <= NV << lg.
+template <typename T, int NV, bool WREG>
+__global__ void __launch_bounds__(LQ_THREADS)
 layernorm_q8_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, int8_t* __restrict__ q,
-                    float* __restrict__ scale, long rows, int C, float eps) {
+                    float* __restrict__ scale, long rows, int C, int lg, float eps) {
   using A = Act<T>;
   constexpr int VE = A::kVec;
   using Vec = typename A::Vec;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long row = (long)blockIdx.x * Q_WARPS + warp;
-  if (row >= rows) return;
-  const T* xr = x + row * C;
-  const int nv = C / VE;
-  float s = 0.f;
-  for (int cv = lane; cv < nv; cv += 32) {
-    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
+  const int G = 1 << lg, j = threadIdx.x & (G - 1);
+  const int nvec = C / VE;
+  const float fc = (float)C;
+  const long per_block = LQ_THREADS >> lg;  // rows a block serves at once
+  const long stride = per_block * gridDim.x;
+  long row = (long)blockIdx.x * per_block + (threadIdx.x >> lg);
+  // the warp's first row: the loop runs while it is a row, so the whole
+  // warp takes part in every shuffle (a group past the last row computes on
+  // zeros and stores nothing)
+  long wrow = (long)blockIdx.x * per_block + ((threadIdx.x >> 5) << (5 - lg));
+
+  float wr[WREG ? NV : 1][VE], br[WREG ? NV : 1][VE];
+  if constexpr (WREG) {
 #pragma unroll
-    for (int e = 0; e < VE; ++e) s += A::get(v, e);
-  }
-  const float mu = warp_sum(s) / C;
-  float var = 0.f;
-  for (int cv = lane; cv < nv; cv += 32) {
-    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
-#pragma unroll
-    for (int e = 0; e < VE; ++e) {
-      const float d = A::get(v, e) - mu;
-      var += d * d;
+    for (int i = 0; i < NV; ++i) {
+      const int cv = j + G * i;
+      const bool in = cv < nvec;
+      load_f32<VE>(wr[i], w + (in ? cv * VE : 0), in);
+      load_f32<VE>(br[i], b + (in ? cv * VE : 0), in);
     }
   }
-  const float r = rsqrtf(warp_sum(var) / C + eps);
-  float amax = 0.f;
-  for (int cv = lane; cv < nv; cv += 32) {
-    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
+  auto load_row = [&](Vec(&v)[NV], long r) {
+    const T* xr = x + (r < rows ? r : 0) * C;
 #pragma unroll
-    for (int e = 0; e < VE; ++e) {
-      const int c = cv * VE + e;
-      amax = fmaxf(amax, fabsf(ln_val<T>(A::get(v, e), mu, r, w[c], b[c])));
+    for (int i = 0; i < NV; ++i) {
+      const int cv = j + G * i;
+      v[i] = (r < rows && cv < nvec) ? *reinterpret_cast<const Vec*>(xr + cv * VE) : A::zero();
+    }
+  };
+
+  Vec cur[NV], nxt[NV];
+  if constexpr (WREG) load_row(cur, row);
+  for (; wrow < rows; wrow += stride, row += stride) {
+    if constexpr (WREG)
+      load_row(nxt, row + stride);
+    else
+      load_row(cur, row);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int e = 0; e < VE; ++e) s = __fadd_rn(s, A::get(cur[i], e));
+    const float mu = __fdiv_rn(group_sum(s, lg), fc);
+    float var = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (j + G * i < nvec)
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          const float d = __fsub_rn(A::get(cur[i], e), mu);
+          var = __fadd_rn(var, __fmul_rn(d, d));
+        }
+    const float r = rsqrtf(__fadd_rn(__fdiv_rn(group_sum(var, lg), fc), eps));
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int cv = j + G * i;
+      float wv[VE], bv[VE];
+      if constexpr (WREG) {
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          wv[e] = wr[i][e];
+          bv[e] = br[i][e];
+        }
+      } else {
+        load_f32<VE>(wv, w + (cv < nvec ? cv * VE : 0), cv < nvec);
+        load_f32<VE>(bv, b + (cv < nvec ? cv * VE : 0), cv < nvec);
+      }
+      // past the row: x, w and b are 0, so y is 0 and leaves amax alone
+#pragma unroll
+      for (int e = 0; e < VE; ++e) {
+        const float y = ln_val<T>(A::get(cur[i], e), mu, r, wv[e], bv[e]);
+        A::set(cur[i], e, y);
+        amax = fmaxf(amax, fabsf(y));
+      }
+    }
+    const float sc = q_scale(group_max(amax, lg));
+    const float inv = 1.0f / sc;
+    if (row < rows) {
+      int8_t* qr = q + row * C;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int cv = j + G * i;
+        if (cv < nvec) {
+          float y[VE];
+#pragma unroll
+          for (int e = 0; e < VE; ++e) y[e] = A::get(cur[i], e);
+          q_store(qr + cv * VE, y, inv);
+        }
+      }
+      if (j == 0) scale[row] = sc;
+    }
+    if constexpr (WREG) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) cur[i] = nxt[i];
     }
   }
-  const float sc = q_scale(warp_max(amax));
-  const float inv = 1.0f / sc;
-  int8_t* qr = q + row * C;
-  for (int cv = lane; cv < nv; cv += 32) {
-    Vec v = *reinterpret_cast<const Vec*>(xr + cv * VE);
-    float y[VE];
-#pragma unroll
-    for (int e = 0; e < VE; ++e) {
-      const int c = cv * VE + e;
-      y[e] = ln_val<T>(A::get(v, e), mu, r, w[c], b[c]);
-    }
-    q_store(qr + cv * VE, y, inv);
-  }
-  if (lane == 0) scale[row] = sc;
+}
+
+// The grid: the card's resident blocks of this instantiation (SMs x
+// occupancy, looked up once), no more than the rows need.
+template <typename T, int NV, bool WREG>
+cudaError_t launch_layernorm_q8(const void* x, const void* w, const void* b, void* q,
+                                void* scale, long rows, int C, int lg, float eps,
+                                cudaStream_t st) {
+  static const long resident = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layernorm_q8_kernel<T, NV, WREG>,
+                                                  LQ_THREADS, 0);
+    return (long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  }();
+  if (lg < 0 || lg > 5 || C % Act<T>::kVec || C / Act<T>::kVec > (NV << lg))
+    return cudaErrorInvalidValue;
+  if (rows < 1) return cudaSuccess;
+  const long per_block = LQ_THREADS >> lg;
+  const long need = (rows + per_block - 1) / per_block;
+  const int grid = (int)(need < resident ? need : resident);
+  layernorm_q8_kernel<T, NV, WREG><<<grid, LQ_THREADS, 0, st>>>(
+      (const T*)x, (const float*)w, (const float*)b, (int8_t*)q, (float*)scale, rows, C, lg,
+      eps);
+  return cudaGetLastError();
 }
 
 // One warp per row of a [rows, K] matrix; K % kVec == 0.
@@ -355,20 +501,22 @@ cudaError_t launch_gemm_i8_bn(int bn, int act, int f32, const void* a, const voi
 
 extern "C" {
 
-// f32: x is f32 (else bf16).
+// f32: x is f32 (else bf16); 2^lg lanes per row, nv vectors per lane (the
+// narrow form's 5 in bf16 / 9 in f32, or the wide form's 16 / 12), from
+// kernels.layernorm_q8_plan.
 int sp_layernorm_q8(const void* x, const void* w, const void* b, void* q, void* scale,
-                    long rows, int C, float eps, int f32, void* stream) {
-  const unsigned grid = (unsigned)((rows + spk::Q_WARPS - 1) / spk::Q_WARPS);
+                    long rows, int C, float eps, int f32, int lg, int nv, void* stream) {
+  using namespace spk;
   cudaStream_t st = (cudaStream_t)stream;
-  if (f32)
-    spk::layernorm_q8_kernel<float><<<grid, spk::Q_WARPS * 32, 0, st>>>(
-        (const float*)x, (const float*)w, (const float*)b, (int8_t*)q, (float*)scale, rows, C,
-        eps);
-  else
-    spk::layernorm_q8_kernel<spk::bf16><<<grid, spk::Q_WARPS * 32, 0, st>>>(
-        (const spk::bf16*)x, (const float*)w, (const float*)b, (int8_t*)q, (float*)scale,
-        rows, C, eps);
-  return (int)cudaGetLastError();
+  if (f32 && nv == 9)
+    return (int)launch_layernorm_q8<float, 9, true>(x, w, b, q, scale, rows, C, lg, eps, st);
+  if (f32 && nv == 12)
+    return (int)launch_layernorm_q8<float, 12, false>(x, w, b, q, scale, rows, C, lg, eps, st);
+  if (!f32 && nv == 5)
+    return (int)launch_layernorm_q8<bf16, 5, true>(x, w, b, q, scale, rows, C, lg, eps, st);
+  if (!f32 && nv == 16)
+    return (int)launch_layernorm_q8<bf16, 16, false>(x, w, b, q, scale, rows, C, lg, eps, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 int sp_quant_rows(const void* x, void* q, void* scale, long rows, int K, int f32,

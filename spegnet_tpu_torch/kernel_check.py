@@ -19,8 +19,11 @@ the T-block, the gen-1 block and the fronts share) against its plain
 version at each :data:`WINDOW` geometry, its log-sum-exp included.
 :func:`work` counts each call's FLOPs and bytes for its roofline bound;
 :func:`tn_shapes` and :func:`tn_work` do the same for the weight-gradient
-GEMM (kernels.gemm_tn) inside the backwards.  Used by the CUDA-only tests,
-chip_smoke.py and utils/gemm_tn_bench.py.
+GEMM (kernels.gemm_tn) inside the backwards.  :func:`compare_gemm_f32`
+holds the f32 GEMM alone at every f32 gen-1 product
+(:func:`gemm_f32_shapes`), :func:`compare_lnq8` the int8 LayerNorm + quant
+alone at every :data:`LNQ8` geometry.  Used by the CUDA-only tests,
+chip_smoke.py and utils/gemm_tn_bench.py / gemm_bench.py.
 
 The f32 kernels are held to :data:`F32_REL_LIMIT` against their plain f32
 versions (TF32 off), and their bound is taken at :data:`PEAK_F32`.
@@ -202,6 +205,139 @@ def gemm_work(m: int, n: int, k: int, int8: bool = False, residual: bool = False
     else:
         nbytes = 2.0 * (m * k + n * k) + 2.0 * n
     return 2.0 * m * n * k, nbytes + out_bytes * m * n * (2 if residual else 1)
+
+
+# The f32 GEMM (kernels.gemm_f32, the 3xTF32 form of
+# csrc/gemm_persistent.cuh) at every product of the f32 gen-1 blocks (#7 at
+# f32): the four projections of each :data:`F32_BLOCKS` geometry (512^2) and
+# of the 384^2 f32 gen-1 blocks (stages 1 and 2 there, 2 and 5 blocks);
+# name: (C, tokens per image, blocks per forward); and a shape with M, N and
+# K tails.
+F32_GEMM_GEOMS = {**{n: (c, t, COUNT_F32[n]) for n, (c, _, _, t) in F32_BLOCKS.items()},
+                  "stage1_384_f32": (144, 9216, 2), "stage2_384_f32": (288, 2304, 5)}
+F32_GEMM_PRODUCTS = {"qkv": (3, 1, None, False), "proj": (1, 1, None, True),
+                     "fc1": (4, 1, "erf", False), "fc2": (1, 4, None, True)}
+F32_GEMM_RAGGED = (300, 200, 100)
+
+
+def gemm_f32_shapes(batch: int) -> Dict[str, Tuple[int, int, int, Optional[str], bool]]:
+    """name -> (M, N, K, GELU, residual) of each f32 GEMM of
+    :data:`F32_GEMM_GEOMS` with its epilogue, and ``ragged``
+    (:data:`F32_GEMM_RAGGED`, erf GELU and residual)."""
+    out = {}
+    for geo, (c, n, _) in F32_GEMM_GEOMS.items():
+        for prod, (fn, fk, gelu, res) in F32_GEMM_PRODUCTS.items():
+            out[f"{geo}_{prod}"] = (batch * n, fn * c, fk * c, gelu, res)
+    m, n, k = F32_GEMM_RAGGED
+    out["ragged"] = (m, n, k, "erf", True)
+    return out
+
+
+def gemm_f32_work(m: int, n: int, k: int, residual: bool = False) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one f32 GEMM: 2 M N K; the f32 operands and bias
+    read once, a residual read once, the output written once."""
+    return 2.0 * m * n * k, 4.0 * (m * k + n * k + n) + 4.0 * m * n * (2 if residual else 1)
+
+
+def gemm_f32_calls(name: str, batch: int, g, device):
+    """(kernel call, plain call, F.linear call) of f32 GEMM ``name`` of
+    :func:`gemm_f32_shapes` on seeded f32 operands (weights scaled by K^-1/2,
+    as an nn.Linear's): kernels.gemm_f32 with the epilogue; its plain f32
+    version (F.linear, the GELU, + residual, as ``block_reference``
+    computes them; TF32 off); and the product alone by F.linear, the one
+    PyTorch call that computes it."""
+    m, n, k, gelu, res = gemm_f32_shapes(batch)[name]
+    a = torch.randn((m, k), generator=g).to(device)
+    w = (torch.randn((n, k), generator=g) * k ** -0.5).to(device)
+    bias = (0.1 * torch.randn((n,), generator=g)).to(device)
+    r = torch.randn((m, n), generator=g).to(device) if res else None
+
+    def plain():
+        y = F.linear(a, w, bias)
+        if gelu:
+            y = F.gelu(y, approximate="tanh" if gelu == "tanh" else "none")
+        return y if r is None else r + y
+
+    return (lambda: kernels.gemm_f32(a, w, bias, residual=r, gelu=gelu), plain,
+            lambda: F.linear(a, w, bias))
+
+
+def compare_gemm_f32(name: str, batch: int, g, device) -> Dict[str, object]:
+    """The f32 GEMM ``name`` against its plain f32 version: max |k - p| /
+    max |p| (``rel``, the limit :data:`F32_REL_LIMIT`) and two calls
+    bit-equal (``same``)."""
+    kern, plain, _ = gemm_f32_calls(name, batch, g, device)
+    got, again, want = kern(), kern(), plain()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: f32 GEMM output is not finite")
+    return {"rel": float((got - want).abs().max() / want.abs().max().clamp_min(1e-12)),
+            "same": torch.equal(got, again)}
+
+
+def gemm_f32_ok(res: Dict[str, object]) -> bool:
+    return res["rel"] <= F32_REL_LIMIT and bool(res["same"])
+
+
+# LayerNorm + quant (kernels.layernorm_q8, csrc/int8_gemm.cu) in one int8
+# forward at 512^2 (``int8_encoder``): LN1 / LN2 of the int8 T-blocks at
+# stage 2 and the t23 front's LayerNorm (C 288), of stage 3, the global
+# blocks and the t34 front (C 576), of the int8 gen-1 blocks at stage 4
+# (C 1152); the last also in an f32 int8 forward.  name: (C, rows per image,
+# f32, calls per forward).
+LNQ8 = {"stage2": (288, 4096, False, 11), "stage3": (576, 1024, False, 71),
+        "stage4": (1152, 256, False, 6), "stage4_f32": (1152, 256, True, 6)}
+
+
+def lnq8_bytes(name: str, batch: int) -> float:
+    """Bytes one layernorm_q8 call of ``name`` must move: each row read once
+    (bf16 or f32), its codes and scale written once, the LayerNorm weight and
+    bias read once."""
+    c, n, f32, _ = LNQ8[name]
+    m = batch * n
+    return m * c * (4 if f32 else 2) + m * c + 4.0 * m + 8.0 * c
+
+
+def lnq8_inputs(name: str, batch: int, g, device):
+    """(x, weight, bias) of ``name`` on seeded values (weight ~1 + 0.1 N,
+    bias 0.1 N, as :func:`block_weights`'s LayerNorms)."""
+    c, n, f32, _ = LNQ8[name]
+    x = torch.randn((batch * n, c), generator=g).to(device,
+                                                     torch.float32 if f32 else torch.bfloat16)
+    return (x, _v((c,), g, device, 0.1, torch.float32, 1.0),
+            _v((c,), g, device, 0.1, torch.float32))
+
+
+def compare_lnq8(name: str, batch: int, g, device) -> Dict[str, object]:
+    """kernels.layernorm_q8 at ``name`` against its plain version
+    (``quant_tokens(layer_norm(x))``): the share of codes that differ, the
+    largest code difference, the scales that differ and their largest
+    relative difference, and two calls bit-equal."""
+    x, w, b = lnq8_inputs(name, batch, g, device)
+    q, s = kernels.layernorm_q8(x, w, b, 1e-6)
+    q2, s2 = kernels.layernorm_q8(x, w, b, 1e-6)
+    qp, sp = fbt_i8.quant_tokens(fbt.layer_norm(x, w, b, 1e-6))
+    dq = (q.int() - qp.int()).abs()
+    return {"code_frac": (dq > 0).float().mean().item(), "code_max": int(dq.max().item()),
+            "scale_differ": int((s != sp[:, 0]).sum().item()),
+            "scale_rel": ((s - sp[:, 0]).abs() / sp[:, 0]).max().item(),
+            "same": torch.equal(q, q2) and torch.equal(s, s2)}
+
+
+# A LayerNorm + quant row scale against plain, relative: bf16 rows round
+# the LayerNorm output to bf16, so the absmax and the scale are equal unless
+# the absmax element rounds across a bf16 edge (one step, 2^-8); f32 rows
+# keep the output's last bits, which the mean and the variance summed in
+# another order and rsqrt's rounding move by a few ulps (the scale within
+# 2.4e-7 on an H100 before the row pass was redesigned): 8 ulps.
+LNQ8_SCALE_REL = {False: 2.0 ** -8, True: 2.0 ** -20}
+
+
+def lnq8_ok(res: Dict[str, object], f32: bool) -> bool:
+    """The int8 rule on LayerNorm + quant: codes equal or one code apart on
+    at most :data:`I8_PART_FRAC` of them, scales within
+    :data:`LNQ8_SCALE_REL`, two calls bit-equal."""
+    return (res["code_frac"] <= I8_PART_FRAC and res["code_max"] <= 1
+            and res["scale_rel"] <= LNQ8_SCALE_REL[f32] and bool(res["same"]))
 
 
 # The T-block's saved-residual pair (training under SPEGNET_SAVE_RESIDUALS)

@@ -208,7 +208,7 @@ def load():
         "sp_polyconv1_i8": [p, p, p, p, p, p, p, p, i, i, i, i, p],
         "sp_strip_scales_i8": [p, p, p, i, i, i, i, p],
         "sp_conv2_i8_head": [p, p, p, p, p, p, p, p, p, i, i, i, p],
-        "sp_layernorm_q8": [p, p, p, p, p, l, i, f, i, p],
+        "sp_layernorm_q8": [p, p, p, p, p, l, i, f, i, i, i, p],
         "sp_quant_rows": [p, p, p, l, i, i, p],
         "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
         "sp_lanes_attention": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
@@ -218,7 +218,7 @@ def load():
         "sp_attention_tf32": [p, l, l, l, p, l, l, l, p, l, l, l, p, l, l, l,
                               i, i, i, i, i, i, i, i, i, f, p],
         "sp_layernorm_f32": [p, p, p, p, l, i, f, p],
-        "sp_gemm_f32": [p, p, p, p, p, i, i, i, i, p],
+        "sp_gemm_f32": [p, p, p, p, p, i, i, i, i, i, i, p],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -285,26 +285,20 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 _ACT = {"none": 0, "gelu": 1, "gelu_pre": 2, "gelu_grad": 3}
 
 
-def _tiles(m: int, n: int, name: str) -> None:
-    """The f32 GEMM (csrc/block_f32.cu) runs one block per 128-row by
-    >= 128-column tile on the grid's x axis (limit 2^31 - 1); every GEMM
-    takes M as a 32-bit int."""
-    if m >= 2 ** 31 or -(-m // 128) * -(-n // 128) >= 2 ** 31:
-        raise ValueError(f"{name}: M={m}, N={n} needs 2^31 or more row tiles x column tiles")
-
-
 # The persistent TMA + wgmma GEMM (csrc/gemm_persistent.cuh) behind
-# :func:`gemm` and :func:`gemm_i8`: 128-row output tiles, BN columns of
-# those built for each operand type ("int8_f32": int8 with an f32 output,
-# #12 on f32, which stages twice the bytes).
+# :func:`gemm`, :func:`gemm_i8` and :func:`gemm_f32`: 128-row output tiles,
+# BN columns of those built for each operand type ("int8_f32": int8 with an
+# f32 output, #12 on f32, which stages twice the bytes; "f32": the 3xTF32
+# form, whose BN 192 would not fit its registers and shared memory).
 GEMM_BM = 128
-GEMM_BN = {"bf16": (144, 192), "int8": (144, 192), "int8_f32": (144,)}
+GEMM_BN = {"bf16": (144, 192), "int8": (144, 192), "int8_f32": (144,), "f32": (144,)}
 # The reckoning of :func:`gemm_seconds`: a tile's k-loop at this share of an
-# SM's part of the dense tensor-core rate, then its epilogue's output bytes
-# at the SM's part of the HBM rate (the stores of all SMs share it).
+# SM's part of the dense tensor-core rate (3xTF32: three TF32 products per
+# multiply-add), then its epilogue's output bytes at the SM's part of the HBM
+# rate (the stores of all SMs share it).
 _GEMM_EFF = 0.75
-_GEMM_PEAK = {"bf16": 989e12, "int8": 1979e12, "int8_f32": 1979e12}
-_GEMM_OUT_BYTES = {"bf16": 2, "int8": 2, "int8_f32": 4}
+_GEMM_PEAK = {"bf16": 989e12, "int8": 1979e12, "int8_f32": 1979e12, "f32": 495e12 / 3}
+_GEMM_OUT_BYTES = {"bf16": 2, "int8": 2, "int8_f32": 4, "f32": 4}
 _HBM = 3.35e12
 
 
@@ -339,8 +333,8 @@ def gemm_seconds(m: int, n: int, k: int, bn: int, sms: int, dtype: str = "bf16")
 @functools.lru_cache(maxsize=512)
 def gemm_plan(m: int, n: int, k: int, sms: int, dtype: str = "bf16",
               residual: bool = False) -> GemmPlan:
-    """The plan of the persistent GEMM for ``dtype`` ("bf16", "int8" or
-    "int8_f32"): the tile width of :data:`GEMM_BN` of least
+    """The plan of the persistent GEMM for ``dtype`` ("bf16", "int8",
+    "int8_f32" or "f32"): the tile width of :data:`GEMM_BN` of least
     :func:`gemm_seconds` (within 1e-9 of it, the widest: fewer, larger
     tiles), and min(tiles, ``sms``) blocks.  A bf16 product at width 192
     whose epilogue reads no ``residual`` (fc1 with its GELU, the fronts'
@@ -1096,9 +1090,45 @@ def _act(x: torch.Tensor, name: str) -> int:
     return int(x.dtype == torch.float32)
 
 
+# csrc/int8_gemm.cu's LayerNorm + quant row pass: the vectors a lane holds
+# in its narrow form (bf16 rows of 8 per 16-byte vector, f32 of 4), with
+# the LayerNorm weight and bias in registers, and in its wide form (longer
+# rows, weight and bias read per row).
+LNQ8_NV = {"bf16": 5, "f32": 9}
+LNQ8_WIDE_NV = {"bf16": 16, "f32": 12}
+
+
+class LnQ8Plan(NamedTuple):
+    """Launch plan of the LayerNorm + quant row pass: ``lanes`` (a power of
+    2, at most 32) serve a row, each holding at most ``nv`` of its 16-byte
+    vectors (lane j: vectors j, j + lanes, ...); ``wide``: the form that
+    reads the LayerNorm weight and bias per row."""
+    lanes: int
+    nv: int
+    wide: bool
+
+
+@functools.lru_cache(maxsize=64)
+def layernorm_q8_plan(c: int, f32: bool) -> LnQ8Plan:
+    """The fewest lanes that hold a row of ``c`` (a multiple of 8) in the
+    narrow form's vectors per lane, else in the wide form's; rows past 32
+    wide-form vectors a lane (4096 bf16, 1536 f32 values) raise."""
+    vec, dt = (4, "f32") if f32 else (8, "bf16")
+    if c < 1 or c % 8:
+        raise ValueError(f"layernorm_q8: C={c} must be a positive multiple of 8")
+    nvec = c // vec
+    for nv, wide in ((LNQ8_NV[dt], False), (LNQ8_WIDE_NV[dt], True)):
+        for lg in range(6):
+            if -(-nvec // (1 << lg)) <= nv:
+                return LnQ8Plan(1 << lg, nv, wide)
+    raise ValueError(f"layernorm_q8: C={c} is past {32 * LNQ8_WIDE_NV[dt] * vec}, the longest "
+                     f"{dt} row a group of 32 lanes holds")
+
+
 def layernorm_q8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
     """[rows, C] bf16 or f32 -> LayerNorm (f32 weight/bias, rounded to x's
-    dtype) -> (int8 codes [rows, C], f32 row scales [rows])."""
+    dtype) -> (int8 codes [rows, C], f32 row scales [rows]): one pass over
+    each row in registers (:func:`layernorm_q8_plan`)."""
     f32 = _act(x, "layernorm_q8 x")
     _need(x, "layernorm_q8 x", x.dtype, 2)
     _need(w, "layernorm_q8 weight", torch.float32, 1)
@@ -1106,9 +1136,13 @@ def layernorm_q8(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
     rows, c = x.shape
     if w.numel() != c or b.numel() != c or c % 8:
         raise ValueError(f"layernorm_q8: weight {tuple(w.shape)} vs C={c} (C % 8 == 0)")
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("layernorm_q8: 16-byte loads need 16-byte aligned operands")
+    plan = layernorm_q8_plan(c, bool(f32))
     q, s = _codes(rows, c, x)
     _check(load().sp_layernorm_q8(x.data_ptr(), w.data_ptr(), b.data_ptr(), q.data_ptr(),
-                                   s.data_ptr(), rows, c, eps, f32, _stream(x)),
+                                   s.data_ptr(), rows, c, eps, f32,
+                                   plan.lanes.bit_length() - 1, plan.nv, _stream(x)),
            "sp_layernorm_q8")
     return q, s
 
@@ -1389,7 +1423,9 @@ _GELU_F32 = {None: 0, "erf": 1, "tanh": 2}
 def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
              gelu: Optional[str] = None) -> torch.Tensor:
     """a [M, K] @ w [N, K]^T (+ bias) (-> GELU, "erf" or "tanh") (+ residual),
-    f32, products 3xTF32 (csrc/block_f32.cu)."""
+    f32, products 3xTF32: the persistent TMA + wgmma GEMM in its 3xTF32 form
+    (csrc/gemm_persistent.cuh, csrc/block_f32.cu), planned by
+    :func:`gemm_plan` ("f32")."""
     _need(a, "gemm_f32 a", torch.float32, 2)
     _need(w, "gemm_f32 weight", torch.float32, 2)
     m, k = a.shape
@@ -1399,19 +1435,19 @@ def gemm_f32(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
                          "(K % 4 == 0, N % 4 == 0)")
     if gelu not in _GELU_F32:
         raise ValueError(f"gemm_f32: gelu {gelu!r} (None, 'erf' or 'tanh')")
-    _tiles(m, n, "gemm_f32")
+    plan = gemm_plan(m, n, k, _sm_count(a.device.index), "f32", residual is not None)
     if a.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("gemm_f32: cp.async needs 16-byte aligned operands")
+        raise ValueError("gemm_f32: TMA needs 16-byte aligned operands")
     if bias is not None:
         _need(bias, "gemm_f32 bias", torch.float32, 1)
         if bias.numel() != n:
             raise ValueError("gemm_f32: bias length != N")
     if residual is not None:
         _need(residual, "gemm_f32 residual", torch.float32, 2)
-        if tuple(residual.shape) != (m, n):
-            raise ValueError("gemm_f32: residual shape != [M, N]")
+        if tuple(residual.shape) != (m, n) or residual.data_ptr() % 16:
+            raise ValueError("gemm_f32: residual shape != [M, N] or not 16-byte aligned")
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     _check(load().sp_gemm_f32(a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
-                               c.data_ptr(), m, n, k, _GELU_F32[gelu], _stream(a)),
-           "sp_gemm_f32")
+                               c.data_ptr(), m, n, k, _GELU_F32[gelu], plan.bn, plan.grid,
+                               _stream(a)), "sp_gemm_f32")
     return c

@@ -3,7 +3,7 @@ fused_block_t_i8) and end-to-end times of Hiera-L SPEGNet at 512^2, batch 8,
 on the GPU: the numbers to hold one build of the kernels against another in
 one run (run it from each tree, in turns).
 
-    python -m spegnet_tpu_torch.utils.forward_bench [--batch 8] [--steps 5]
+    python -m spegnet_tpu_torch.utils.forward_bench [--batch 8] [--steps 5] [--f32]
 
 Prints, per block geometry of kernel_check (stage 1-3 and the global blocks
 in bf16, stages 2-3 and the global blocks in int8), the CUDA-events ms of
@@ -12,8 +12,10 @@ and their totals per forward (kernel_check.BLOCK_COUNT) beside the roofline
 bound; then the forward ms/img (CUDA events, seeded random weights and
 inputs) of the bf16 kernel path, the int8 encoder and the speed mode (both
 int8 flags), and the median ms/step of ``--steps`` Trainer steps (forward,
-loss, backward, AdamW) after one warm-up step on a synthetic batch.  Needs a
-CUDA device.
+loss, backward, AdamW) after one warm-up step on a synthetic batch.  With
+``--f32``, instead: the f32 gen-1 block (#7 at f32) per geometry and per f32
+forward, and the f32 forward ms/img (``use_amp: false``, TF32 off) of the
+kernel path.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -101,16 +103,51 @@ def end_to_end(batch: int, steps: int, log: Callable[[str], None] = print) -> No
         f"{float(np.median(times)):.4f})")
 
 
+def f32(batch: int, log: Callable[[str], None] = print) -> None:
+    """The f32 gen-1 block per geometry (events and device ms, per f32
+    forward) and the f32 forward ms/img at 512^2."""
+    import torch
+
+    from spegnet_tpu_torch import kernel_check as kc
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.utils.weights import init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    tot = [0.0, 0.0]
+    with torch.inference_mode():
+        for name in kc.F32_BLOCKS:
+            case = kc.f32_block_case(name, batch, torch.Generator().manual_seed(2), dev)
+            ev, dv = kc.time_ms(case.kernel), kc.device_ms(case.kernel)
+            n = kc.COUNT_F32[name]
+            tot = [tot[0] + ev * n, tot[1] + dv * n]
+            log(f"block fused_block f32 {name:10s} batch {batch}: events {ev:.4f} ms, device "
+                f"{dv:.4f} ms (x{n} per forward)")
+            del case
+        log(f"block fused_block f32 per forward: events {tot[0]:.4f} ms, device {tot[1]:.4f} ms")
+        x = torch.randn(batch, 512, 512, 3, generator=torch.Generator().manual_seed(1)).cuda()
+        model = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="float32"))
+        init_weights(model, torch.Generator().manual_seed(0))
+        model.eval().to_compute("cuda")
+        ms = kc.time_ms(lambda: model(x), iters=3, warmup=1) / batch
+        log(f"e2e forward f32 512^2 batch {batch}: {ms:.4f} ms/img")
+
+
 def main(argv=None) -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--f32", action="store_true", help="the f32 gen-1 block and f32 forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("forward_bench needs a CUDA device")
     print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}", flush=True)
+    if args.f32:
+        f32(args.batch, lambda s: print(s, flush=True))
+        return
     blocks(args.batch, lambda s: print(s, flush=True))
     end_to_end(args.batch, args.steps, lambda s: print(s, flush=True))
 

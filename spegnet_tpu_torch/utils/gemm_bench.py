@@ -7,6 +7,7 @@ out) on the same operands: yardsticks the port never calls.
 
     python -m spegnet_tpu_torch.utils.gemm_bench [--batch 8]
         [--digests OUT.json] [--against REF.json]
+        [--f32] [--lnq8] [--codes OUT.pt] [--codes-against REF.pt]
 
 Prints, per product and epilogue (bias, GELU, residual as the block runs
 it), the launch plan (kernels.gemm_plan), the device ms
@@ -22,7 +23,19 @@ the bf16 and the int8-encoder forwards.  ``--digests`` writes, and
 kernels), the SHA-256 of every output of kernels.gemm / gemm_gelu_pre /
 gemm_gelu_grad / gemm_i8 on seeded inputs at every forward product and at
 the dX products of the block backward (:func:`digests`), which shows
-whether two builds give the same bits.  Needs a CUDA device.
+whether two builds give the same bits.
+
+``--f32`` times instead the f32 GEMM (kernels.gemm_f32, the 3xTF32 form)
+at every product of the f32 gen-1 blocks (kernel_check.gemm_f32_shapes:
+512^2 and 384^2) against F.linear in f32 with TF32 off (cuBLAS's f32 GEMM,
+a yardstick the port never calls) and the bound at kernel_check.PEAK_F32,
+with the per-forward totals.  ``--lnq8`` times the LayerNorm + quant row pass
+(kernels.layernorm_q8) at each kernel_check.LNQ8 geometry against its plain
+version and its bytes bound, with the totals per int8 forward.
+``--codes`` writes (torch.save) and ``--codes-against`` compares with a file
+written before by another build, its codes and scales on seeded rows at
+each LNQ8 geometry: the share of codes that differ, and by how much.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -137,6 +150,108 @@ def run(batch: int, log: Callable[[str], None] = print) -> Dict[str, Dict[str, f
     return tot
 
 
+def run_f32(batch: int, log: Callable[[str], None] = print) -> Dict[str, Dict[str, float]]:
+    """Times every f32 GEMM of kernel_check.gemm_f32_shapes; returns the
+    per-forward totals in ms at 512^2 and 384^2: kernel, F.linear, bound."""
+    import torch
+
+    from spegnet_tpu_torch import kernel_check as kc
+    from spegnet_tpu_torch import kernels
+
+    dev = torch.device("cuda")
+    sms = kernels._sm_count(dev.index or 0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tot = {"512^2": [0.0, 0.0, 0.0], "384^2": [0.0, 0.0, 0.0]}
+    for name, (m, n, k, gelu, res) in kc.gemm_f32_shapes(batch).items():
+        geo = name.rsplit("_", 1)[0]
+        cnt = kc.F32_GEMM_GEOMS[geo][2] if geo in kc.F32_GEMM_GEOMS else 0
+        kern, _, lib = kc.gemm_f32_calls(name, batch, torch.Generator().manual_seed(m + n), dev)
+        k_ms, l_ms = kc.device_ms(kern, iters=10), kc.device_ms(lib, iters=10)
+        ops, nbytes = kc.gemm_f32_work(m, n, k, res)
+        b_ms, by = kc.bound_ms(ops, nbytes, f32=True)
+        if cnt:
+            t = tot["384^2" if "_384_" in name else "512^2"]
+            t[0], t[1], t[2] = t[0] + k_ms * cnt, t[1] + l_ms * cnt, t[2] + b_ms * cnt
+        ep = "+".join(e for e, on in ((gelu or "", gelu), ("residual", res)) if on) or "bias"
+        p = (f" bn {kernels.gemm_plan(m, n, k, sms, 'f32', res).bn}"
+             if "f32" in kernels.GEMM_BN else "")
+        log(f"gemm f32  {name:20s} M {m} N {n} K {k} ({ep}){p}: kernel {k_ms:.4f} ms "
+            f"({ops / k_ms / 1e9:.1f} TFLOP/s, {nbytes / k_ms / 1e6:.1f} GB/s), F.linear f32 "
+            f"{l_ms:.4f} ms ({ops / l_ms / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms ({by}) "
+            f"(x{cnt} per f32 forward)")
+        del kern, lib
+        torch.cuda.empty_cache()
+    out = {}
+    for size, (k_ms, l_ms, b_ms) in tot.items():
+        out[size] = {"kernel": k_ms, "library": l_ms, "bound": b_ms}
+        log(f"gemm f32 per f32 forward at {size}, batch {batch}: kernel {k_ms:.4f} ms, F.linear "
+            f"f32 {l_ms:.4f} ms, bound {b_ms:.4f} ms")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def run_lnq8(batch: int, log: Callable[[str], None] = print) -> Dict[str, float]:
+    """Times kernels.layernorm_q8 at each kernel_check.LNQ8 geometry (device
+    ms) against its plain version and its bytes bound; returns the totals
+    per int8 forward in ms (bf16 rows: kernel, plain, bound)."""
+    import torch
+
+    from spegnet_tpu_torch import kernel_check as kc
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.ops.fused_block_t import layer_norm
+    from spegnet_tpu_torch.ops.fused_block_t_i8 import quant_tokens
+
+    dev = torch.device("cuda")
+    tot = [0.0, 0.0, 0.0]
+    with torch.inference_mode():
+        for name, (c, n, f32, calls) in kc.LNQ8.items():
+            x, w, b = kc.lnq8_inputs(name, batch, torch.Generator().manual_seed(2), dev)
+            k_ms = kc.device_ms(lambda: kernels.layernorm_q8(x, w, b, 1e-6), iters=20)
+            p_ms = kc.device_ms(lambda: quant_tokens(layer_norm(x, w, b, 1e-6)), iters=5)
+            nbytes = kc.lnq8_bytes(name, batch)
+            b_ms = nbytes / kc.PEAK_BYTES * 1e3
+            if not f32:
+                tot = [tot[0] + k_ms * calls, tot[1] + p_ms * calls, tot[2] + b_ms * calls]
+            log(f"layernorm_q8 {name:10s} rows {x.shape[0]} C {c} {'f32' if f32 else 'bf16'}: "
+                f"kernel {k_ms * 1e3:.2f} us ({nbytes / k_ms / 1e6:.1f} GB/s), plain "
+                f"{p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us (bytes) (x{calls} per int8 "
+                f"forward{' in f32' if f32 else ''})")
+            del x, w, b
+    log(f"layernorm_q8 per bf16 int8 forward, batch {batch}: kernel {tot[0]:.4f} ms, plain "
+        f"{tot[1]:.4f} ms, bound {tot[2]:.4f} ms")
+    return {"kernel": tot[0], "plain": tot[1], "bound": tot[2]}
+
+
+def lnq8_codes(batch: int):
+    """name -> (codes, scales) of kernels.layernorm_q8 on the CPU, on seeded
+    rows at each kernel_check.LNQ8 geometry."""
+    import torch
+
+    from spegnet_tpu_torch import kernel_check as kc
+    from spegnet_tpu_torch import kernels
+
+    dev = torch.device("cuda")
+    out = {}
+    for name in kc.LNQ8:
+        x, w, b = kc.lnq8_inputs(name, batch, torch.Generator().manual_seed(4), dev)
+        q, sc = kernels.layernorm_q8(x, w, b, 1e-6)
+        out[name] = (q.cpu(), sc.cpu())
+    return out
+
+
+def compare_codes(got, ref, log: Callable[[str], None] = print) -> None:
+    """The share of codes of ``got`` that differ from ``ref``'s (each
+    :func:`lnq8_codes`), the largest difference, and the scales that differ."""
+    for name, (q, sc) in got.items():
+        rq, rs = ref[name]
+        dq = (q.int() - rq.int()).abs()
+        log(f"layernorm_q8 codes {name:10s}: {float((dq > 0).float().mean()):.3e} of "
+            f"{q.numel()} differ (max {int(dq.max())}), scales differ "
+            f"{int((sc != rs).sum())} of {sc.numel()} (max rel "
+            f"{float(((sc - rs).abs() / rs).max()):.3e})")
+
+
 def digests(batch: int) -> Dict[str, str]:
     """name -> SHA-256 of the output bytes of each GEMM launcher on seeded
     inputs: every forward product of :func:`run` (bf16 and, where the int8
@@ -200,10 +315,29 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--digests", help="write the outputs' SHA-256 here (JSON)")
     ap.add_argument("--against", help="compare the outputs' SHA-256 with this file")
+    ap.add_argument("--f32", action="store_true", help="time the f32 GEMM")
+    ap.add_argument("--lnq8", action="store_true", help="time the LayerNorm + quant pass")
+    ap.add_argument("--codes", help="write the LayerNorm + quant codes here (torch.save)")
+    ap.add_argument("--codes-against", help="compare the codes with this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gemm_bench needs a CUDA device")
     print(f"{torch.cuda.get_device_name(0)}, batch {args.batch}", flush=True)
+    say = lambda s: print(s, flush=True)  # noqa: E731
+    if args.codes or args.codes_against:
+        got = lnq8_codes(args.batch)
+        if args.codes:
+            torch.save(got, args.codes)
+        if args.codes_against:
+            compare_codes(got, torch.load(args.codes_against), say)
+    if args.f32 or args.lnq8:
+        if args.f32:
+            run_f32(args.batch, say)
+        if args.lnq8:
+            run_lnq8(args.batch, say)
+        return
+    if args.codes or args.codes_against:
+        return
     with torch.inference_mode():
         if args.digests or args.against:
             import json
@@ -219,7 +353,7 @@ def main(argv=None) -> None:
                 print(f"gemm digests: {len(ref) - len(differ)} of {len(ref)} outputs "
                       f"bit-equal to {args.against}; differ: {differ}", flush=True)
             return
-        run(args.batch, lambda s: print(s, flush=True))
+        run(args.batch, say)
 
 
 if __name__ == "__main__":

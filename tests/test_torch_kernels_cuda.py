@@ -18,8 +18,11 @@ geometries include the 1024^2 global block, L 4096); the bf16 and int8
 GEMMs just past 65535 row tiles.  In f32 (``use_amp: false``): the gen-1
 block, both attention wrappers and the int8 gen-1 block at every f32
 main-path geometry (kernel_check.F32_REL_LIMIT; the int8 one by the int8
-rule), the f32 GEMM, LayerNorm and attention on ragged shapes, and the f32
-Predictor's launches (JAX's f32 routes: no T-block, no front).
+rule), the f32 GEMM, LayerNorm and attention on ragged shapes, the f32 GEMM
+at every f32 gen-1 product (kernel_check.gemm_f32_shapes, two calls
+bit-equal), the int8 LayerNorm + quant at every kernel_check.LNQ8 geometry
+and at other row lengths (kernel_check.lnq8_ok), and the f32 Predictor's
+launches (JAX's f32 routes: no T-block, no front).
 These need an NVIDIA card with nvcc; elsewhere they skip."""
 
 import pytest
@@ -462,6 +465,46 @@ def test_f32_gemm_and_layernorm_ragged(cuda, gelu):
     lw, lb = torch.randn(100, generator=g).to(cuda), torch.randn(100, generator=g).to(cuda)
     y, yp = kernels.layernorm_f32(a, lw, lb, 1e-6), layer_norm(a, lw, lb, 1e-6)
     assert float((y - yp).abs().max() / yp.abs().max()) <= kernel_check.F32_REL_LIMIT
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.gemm_f32_shapes(1)))
+def test_f32_gemm_matches_plain_and_repeats(cuda, name):
+    """The 3xTF32 GEMM at every product of the f32 gen-1 blocks (512^2 and
+    384^2, batch 1) and a ragged shape, with its epilogue, within
+    F32_REL_LIMIT of its plain f32 version; two calls bit-equal."""
+    res = kernel_check.compare_gemm_f32(name, 1, torch.Generator().manual_seed(0), cuda)
+    torch.cuda.synchronize()
+    assert kernel_check.gemm_f32_ok(res), (name, res)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.LNQ8))
+def test_layernorm_q8_matches_plain(cuda, name):
+    """The LayerNorm + quant row pass at each int8 geometry (C 288 / 576 /
+    1152, bf16, and 1152 in f32) by the int8 rule against its plain
+    version."""
+    res = kernel_check.compare_lnq8(name, 1, torch.Generator().manual_seed(0), cuda)
+    torch.cuda.synchronize()
+    assert kernel_check.lnq8_ok(res, kernel_check.LNQ8[name][2]), (name, res)
+
+
+@pytest.mark.parametrize("c,f32,rows", [(8, False, 3), (144, False, 1001), (2304, False, 777),
+                                        (4096, False, 65), (16, True, 5), (1536, True, 300)])
+def test_layernorm_q8_other_widths(cuda, c, f32, rows):
+    """Rows of one vector up to the wide form's longest, and row counts that
+    leave groups of a warp idle, by the same rule."""
+    from spegnet_tpu_torch.ops.fused_block_t import layer_norm
+    from spegnet_tpu_torch.ops.fused_block_t_i8 import quant_tokens
+
+    g = torch.Generator().manual_seed(c + rows)
+    x = torch.randn((rows, c), generator=g).to(cuda, torch.float32 if f32 else torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    b = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    q, s = kernels.layernorm_q8(x, w, b, 1e-6)
+    qp, sp = quant_tokens(layer_norm(x, w, b, 1e-6))
+    dq = (q.int() - qp.int()).abs()
+    res = {"code_frac": float((dq > 0).float().mean()), "code_max": int(dq.max()),
+           "scale_rel": float(((s - sp[:, 0]).abs() / sp[:, 0]).max()), "same": True}
+    assert kernel_check.lnq8_ok(res, f32), res
 
 
 @pytest.mark.parametrize("l", [1, 20, 100, 484])
