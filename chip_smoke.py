@@ -16,7 +16,10 @@
    may spill at Hiera-L's head dim 72, bf16 or f32, nor any of the window
    attention's six instantiations there, nor the attention backward's nine
    there, and no instantiation of the persistent GEMM, the f32 GEMM or the
-   row pass may spill).
+   row pass may spill); and of the decoder's kernels: the conv frame of
+   csrc/decoder_conv.cuh (bf16 conv1, the border strips, bf16 conv2 + head,
+   the int8 conv2 + head without and with its map), the int8 conv1 and the
+   edge branch's one-tile kernel, none of which may spill.
 3. Compares every kernel with its plain PyTorch version in bf16 at every
    main-path geometry of Hiera-L inference and training, batch 2: the
    forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
@@ -53,7 +56,14 @@
    scales, every strip's activation scale, conv1's activated map after the
    border paste, the logits, and conv2's activated map and logits from the
    conv2 kernel on the plain version's conv1 map and scales -- exact or
-   within one code / one bf16 step by kernel_check.dec_i8_parts_ok; and the
+   within one code / one bf16 step by kernel_check.dec_i8_parts_ok (the
+   chain given make_strips' strips, as the plain version takes them; then
+   on the strip kernel's own strips: the strips by kernel_check.strips_ok,
+   the strip scales exact, conv1's map one code apart, the logits within
+   REL_LIMIT); the bf16 decoder kernels one by one at the same four sizes
+   (conv1 against the plain conv1 map, conv2 + head on the plain map
+   against the plain logits, within REL_LIMIT, two calls bit-equal) and the
+   bf16 block's two calls bit-equal at 512^2 and 384^2; and the
    edge branch of the bf16 block (no model path) at PED block 1's geometry
    at 512^2 and 384^2 within REL_LIMIT (with the forward kernels above).
    Then f32 compute (use_amp: false), batch 2: every f32 kernel against its
@@ -136,7 +146,10 @@
    forward product of a 512^2 forward (utils/gemm_bench.py: device time
    against torch.mm / torch._int_mm, TFLOP/s or TOPS, GB/s, the bound, the
    per-forward totals of #1's, #10's, the bf16 and the int8-encoder
-   forward's GEMMs), and the window attention at each geometry of a 512^2
+   forward's GEMMs), the decoder's kernels piece by piece at 512^2 and
+   384^2 against cuDNN's bf16 convolutions and their bounds
+   (utils/decoder_bench.py; cuDNN's time is the decoder rows' library
+   column), and the window attention at each geometry of a 512^2
    forward and the 1024^2 global block
    (utils/window_attention_bench.py: device ms without and with the
    log-sum-exp, events ms, the host µs a call takes to enqueue, SDPA's
@@ -261,7 +274,7 @@ class Row(NamedTuple):
     replaces: str        # the TPU kernel it replaces
     counter: str         # its wrapper's launch counter
     dtype: str = "bf16"  # the runs its launches are read from: "bf16" or "f32"
-    library: bool = False  # one PyTorch call (SDPA) computes the same function
+    library: bool = False  # PyTorch calls compute the same function (SDPA, cuDNN's convs)
 
 
 KERNELS = {
@@ -272,7 +285,8 @@ KERNELS = {
     "qpool_front": Row("spegnet_tpu_torch/csrc/qpool_front.cu",
                        "spegnet_tpu/ops/fused_block_t.py:634", "qpool_front"),
     "fused_decoder_block": Row("spegnet_tpu_torch/csrc/decoder_block.cu",
-                               "spegnet_tpu/ops/fused_decoder.py:338", "fused_decoder_block"),
+                               "spegnet_tpu/ops/fused_decoder.py:338", "fused_decoder_block",
+                               library=True),
     "fused_block_t_bwd": Row("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
                              "spegnet_tpu/ops/fused_block_t.py:1165", "fused_block_t_bwd"),
     "fused_block_bwd": Row("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
@@ -293,10 +307,10 @@ KERNELS = {
                            library=True),
     "fused_decoder_block_i8": Row("spegnet_tpu_torch/csrc/decoder_i8.cu",
                                   "spegnet_tpu/ops/fused_decoder.py:338",
-                                  "fused_decoder_block_i8"),
+                                  "fused_decoder_block_i8", library=True),
     "fused_decoder_block_edge": Row("spegnet_tpu_torch/csrc/decoder_block.cu",
                                     "spegnet_tpu/ops/fused_decoder.py:338",
-                                    "fused_decoder_block_edge"),
+                                    "fused_decoder_block_edge", library=True),
     "fused_block_t_res": Row("spegnet_tpu_torch/csrc/hiera_block.cu",
                              "spegnet_tpu/ops/fused_block_t.py:362", "fused_block_t_res"),
     "fused_block_t_bwd_res": Row("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
@@ -357,6 +371,7 @@ def main() -> int:
     from spegnet_tpu_torch.engine.predictor import Predictor
     from spegnet_tpu_torch.engine.trainer import Trainer
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.utils import decoder_bench
     from spegnet_tpu_torch.utils.weights import init_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -403,9 +418,13 @@ def main() -> int:
     # ACT) and int8 (BN, ACT, SW_FIRST, output type), and the one-tile-per-block
     # bf16 kernel kept beside it (BN, STAGES, ACT), the f32 GEMM (ACT) and the
     # LayerNorm + quant row pass (T, NV, WREG); none may spill
+    # and the decoder's: the frame of csrc/decoder_conv.cuh (MODE: conv1, the
+    # strips, conv2 + head, the int8 conv2 without / with y2), the int8 conv1
+    # and the Cm 128 one-tile kernel of the edge branch (UP, HEAD, CM, EDGE)
     for kern, n_inst in (("gemm_bf16_kernel", 8), ("gemm_i8_kernel", 14),
                          ("gemm_tma_kernel", 3), ("gemm_f32_kernel", 3),
-                         ("layernorm_q8_kernel", 4)):
+                         ("layernorm_q8_kernel", 4), ("dec_conv_kernel", 5),
+                         ("polyconv1_i8_kernel", 1), ("conv3x3_kernel", 3)):
         usage = kernels.ptxas_usage(kern)
         log(f"ptxas {kern} (template arguments: registers, spill store / load bytes): "
             + ", ".join(f"{w}: {r}, {ss} / {sl}" for w, r, ss, sl in sorted(usage, key=str)))
@@ -462,6 +481,20 @@ def main() -> int:
             f"code / one bf16 step; row quant and GEMM without GELU exact)")
         check(kc.i8_parts_ok(parts), f"{name}: an int8 piece disagrees with plain ({parts})")
     for name in kc.DEC_I8:
+        res = kc.dec_bf16_parts(name, 2, torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        log(f"check {name:10s} bf16 decoder kernels: conv1 rel {res['y1_rel']:.4e}, conv2 + "
+            f"head rel {res['pred_rel']:.4e} (limit {kc.REL_LIMIT}); two calls bit-equal: "
+            f"{res['y1_same']}, {res['pred_same']}")
+        check(kc.dec_bf16_parts_ok(res), f"{name}: a bf16 decoder kernel disagrees ({res})")
+    for name in kc.DECODER:
+        case = kc.decoder_case(name, 2, torch.Generator().manual_seed(1), dev)
+        a, b = case.kernel(), case.kernel()
+        torch.cuda.synchronize()
+        log(f"check {name:10s} fused_decoder_block two calls bit-equal: {torch.equal(a, b)}")
+        check(torch.equal(a, b), f"{name}: two calls of the decoder differ")
+        del case
+    for name in kc.DEC_I8:
         case = kc.dec_i8_case(name, 2, torch.Generator().manual_seed(1), dev)
         err, rel = kc.compare(case)
         torch.cuda.synchronize()
@@ -472,7 +505,9 @@ def main() -> int:
         parts = kc.dec_i8_parts(name, 2, torch.Generator().manual_seed(1), dev)
         torch.cuda.synchronize()
         log(f"check {name:10s} int8 decoder pieces: {parts} (limits share {kc.I8_PART_FRAC}, "
-            f"one code / one bf16 step; scales exact)")
+            f"one code / one bf16 step, scales exact; on the strip kernel's strips: strips "
+            f"one step of max(|v|, peak / 256), conv1's map one code, logits within "
+            f"{kc.REL_LIMIT})")
         check(kc.dec_i8_parts_ok(parts), f"{name}: an int8 decoder piece disagrees ({parts})")
     f32_checks(kc, torch, dev, max_err)
     for name in kc.WINDOW:
@@ -630,7 +665,7 @@ def main() -> int:
             flops, nbytes = kc.work(name.replace("_ties", ""), 8, backward,
                                     res=row.endswith("_res"))
         b_ms, by = kc.bound_ms(flops, nbytes, int8_ops, f32=f32)
-        lib = "" if lib_ms is None else f", library sdpa {lib_ms:.4f} ms"
+        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
         log(f"time {name:10s} {row:21s} batch 8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
             f"ms{lib}, bound {b_ms:.4f} ms ({by}) (x{n} per forward"
             f"{' at 384^2' if row in AT_384 else ' in f32' if f32 else ''})")
@@ -669,6 +704,11 @@ def main() -> int:
                 k_ms, lib_ms = attn_times(case.wrapper, name, case,
                                           sdpa_call(name, kc, torch, F, dev), kc.COUNT_384)
                 account(case.wrapper, name, k_ms, kc.time_ms(case.plain), lib_ms=lib_ms)
+            elif name in kc.DECODER or name in kc.DEC_EDGE:
+                lib = decoder_bench.library_call(name, 8, torch.Generator().manual_seed(2), dev)
+                account(case.wrapper, name, kc.time_ms(case.kernel), kc.time_ms(case.plain),
+                        lib_ms=kc.time_ms(lib))
+                del lib
             else:
                 account(case.wrapper, name, kc.time_ms(case.kernel), kc.time_ms(case.plain))
             del case
@@ -696,9 +736,10 @@ def main() -> int:
             del case
         for name in ("dec_i8", "dec_i8_384"):
             case = kc.dec_i8_case(name, 8, torch.Generator().manual_seed(2), dev)
+            lib = decoder_bench.library_call(name, 8, torch.Generator().manual_seed(2), dev)
             account(case.wrapper, name, kc.time_ms(case.kernel),
-                    kc.time_ms(case.plain, iters=3, warmup=1))
-            del case
+                    kc.time_ms(case.plain, iters=3, warmup=1), lib_ms=kc.time_ms(lib))
+            del case, lib
         for name, make in kc.f32_cases().items():
             case = make(name, 8, torch.Generator().manual_seed(2), dev)
             row = ROW[case.wrapper, "f32"]
@@ -715,7 +756,7 @@ def main() -> int:
                     kc.time_ms(case.plain))
             del case
     for row, (k_dev, s_dev) in attn_dev.items():
-        if KERNELS[row].library:
+        if KERNELS[row].library and row.startswith("fused_attention"):
             log(f"device per forward {row}: kernel {k_dev:.4f} ms, sdpa {s_dev:.4f} ms, events "
                 f"kernel {per[row]['ms']:.4f} ms, sdpa {per[row]['library_ms']:.4f} ms ("
                 f"{'384^2' if row in AT_384 else '512^2 f32'})")
@@ -728,6 +769,7 @@ def main() -> int:
         gemm_tn_bench.run(8, log)
     gemm_bench.run_f32(8, log)
     gemm_bench.run_lnq8(8, log)
+    decoder_bench.run(8, log)
     torch.cuda.empty_cache()
 
     # -- 6. training ------------------------------------------------------------

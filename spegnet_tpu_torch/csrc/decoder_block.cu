@@ -1,9 +1,10 @@
 // PED decoder blocks on Hopper, bf16:
 //
-//   y1   = relu(conv3x3(up2(x) [+ up4(ef)]) * s1 + t1)  sp_upconv3x3_bn_relu
-//                                                       sp_upconv3x3_edge_bn_relu
-//   pred = relu(conv3x3(y1) * s2 + t2) . w_head + b     sp_conv3x3_bn_relu_head
-//   y2   = relu(conv3x3(y1) * s2 + t2)                  sp_conv3x3_bn_relu (Cm 128)
+//   y1   = relu(conv3x3(up2(x)) * s1 + t1)            sp_dec_upconv (Cm 64)
+//   pred = relu(conv3x3(y1) * s2 + t2) . w_head + b   sp_dec_conv_head (Cm 64)
+//   y1   = relu(conv3x3(up2(x) + up4(ef)) * s1 + t1)  sp_upconv3x3_edge_bn_relu (Cm 128)
+//   pred = relu(conv3x3(y1) * s2 + t2) . w_head + b   sp_conv3x3_bn_relu_head (Cm 128)
+//   y2   = relu(conv3x3(y1) * s2 + t2)                sp_conv3x3_bn_relu (Cm 128)
 //
 // Replaces spegnet_tpu/ops/fused_decoder.py `_dec_kernel` (:338) with
 // int8=False: block 2 (Cm 64, no edge branch, with its head) and the edge
@@ -23,16 +24,24 @@
 // applies BN + ReLU, rounds to bf16 and contracts the Cm channels with the
 // 1x1 head in its epilogue.
 //
-// Both convolutions are implicit GEMMs on mma.sync.m16n8k16: a CTA owns a
-// 2-row x TC-pixel output tile times all Cm output channels (8 warps of
-// 16 * MI pixels x Cm channels: TC 128 at Cm 64, 64 at Cm 128).  Per chunk
-// of 32 input channels it stages the tile's input halo (4 x (TC + 2)
-// pixels; for conv1 each halo pixel's bilinear sample is built once, not
-// once per tap) and the chunk's 9 x 32 x Cm weights in shared memory; the 9
-// taps are then shifted ldmatrix reads of the same halo.  Bound on the
-// H100: conv1 is 2 * Cm * 9 * (Cin + Ce) FLOPs per output pixel,
-// tensor-core bound once the halo is staged.
-#include "common.cuh"
+// Block 2, on the main path, runs on the frame of decoder_conv.cuh: TMA
+// (conv2) or producer-built (conv1's bilinear sample) halos in a ring of
+// mbarrier stages, the output channels on the M of m64n128k16 wgmma, the
+// weights resident in shared memory (DC_UP, DC_HEAD).  Bound on the H100:
+// 2 * 64 * 9 * Cin FLOPs per output pixel for conv1 and 2 * 64 * 576 for
+// conv2, at the bf16 tensor-core rate; the bytes (x, y1 written and read,
+// pred) are ~0.2 ms at 512^2 batch 8.
+//
+// The Cm 128 forms (the edge branch; no model path) keep the one-tile
+// kernel below: 9 (Cin + Ce) x 128 bf16 weights do not fit beside a halo
+// ring in shared memory, so the frame's resident weights do not carry over.
+// It is an implicit GEMM on mma.sync.m16n8k16: a CTA owns a 2-row x 64-pixel
+// output tile times all 128 output channels (8 warps of 16 pixels x 128
+// channels).  Per chunk of 32 input channels it stages the tile's input halo
+// (4 x 66 pixels; for conv1 each halo pixel's bilinear sample is built once,
+// not once per tap) and the chunk's 9 x 32 x 128 weights in shared memory;
+// the 9 taps are then shifted ldmatrix reads of the same halo.
+#include "decoder_conv.cuh"
 
 namespace spk {
 namespace {
@@ -44,7 +53,8 @@ constexpr int CONV_THREADS = 256;
 
 template <int CM>
 struct ConvTile {
-  static constexpr int MI = CM == 64 ? 2 : 1;   // 16-pixel m-tiles per warp
+  static_assert(CM == 128, "Cm 64 runs on decoder_conv.cuh");
+  static constexpr int MI = 1;                  // 16-pixel m-tiles per warp
   static constexpr int TC = 4 * 16 * MI;        // output pixels per tile row
   static constexpr int HR = TR + 2, HC = TC + 2;
   static constexpr int WP = CM + 8;             // weight row pitch (elements)
@@ -212,12 +222,39 @@ using spk::bf16;
 
 extern "C" {
 
-// x [B, S, S, Cin] -> y [B, 2S, 2S, 64].
-int sp_upconv3x3_bn_relu(const void* x, const void* w, const void* s, const void* t,
-                         void* y, int B, int S, int Cin, void* stream) {
-  return (int)spk::launch_conv<true, false, 64, false>(
-      (const bf16*)x, (const bf16*)w, (const float*)s, (const float*)t, nullptr, nullptr,
-      (bf16*)y, B, 2 * S, 2 * S, Cin, nullptr, nullptr, 0, (cudaStream_t)stream);
+// x [B, S, S, Cin] (Cin 64 or 128), wt [64, 9 Cin]
+// (rows: output channels, K (dy, dx, ci)) -> y [B, 2S, 2S, 64].
+int sp_dec_upconv(const void* x, const void* wt, const void* s, const void* t, void* y, int B,
+                  int S, int Cin, int grid, void* stream) {
+  spk::DcArgs a{};
+  a.x = x;
+  a.w = wt;
+  a.s = (const float*)s;
+  a.t = (const float*)t;
+  a.out = y;
+  a.B = B;
+  a.H = a.W = 2 * S;
+  a.Cin = Cin;
+  return (int)spk::dc_launch<spk::DC_UP>(a, grid, (cudaStream_t)stream);
+}
+
+// y [B, H, W, 64] (H even), wt [64, 576] -> pred [B, H, W].
+int sp_dec_conv_head(const void* y, const void* wt, const void* s, const void* t,
+                     const void* hw, const void* hb, void* pred, int B, int H, int W, int grid,
+                     void* stream) {
+  spk::DcArgs a{};
+  a.x = y;
+  a.w = wt;
+  a.s = (const float*)s;
+  a.t = (const float*)t;
+  a.hw = (const float*)hw;
+  a.hb = (const float*)hb;
+  a.out = pred;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.Cin = 64;
+  return (int)spk::dc_launch<spk::DC_HEAD>(a, grid, (cudaStream_t)stream);
 }
 
 // x [B, S, S, Cin], ef [B, S/2, S/2, Ce] -> y [B, 2S, 2S, 128].
@@ -230,18 +267,13 @@ int sp_upconv3x3_edge_bn_relu(const void* x, const void* w, const void* ef, cons
       (cudaStream_t)stream);
 }
 
-// y [B, H, W, cm] -> pred [B, H, W] (cm 64 or 128).
+// y [B, H, W, 128] -> pred [B, H, W].
 int sp_conv3x3_bn_relu_head(const void* y, const void* w, const void* s, const void* t,
                             const void* hw, const void* hb, void* pred, int B, int H, int W,
-                            int cm, void* stream) {
-  if (cm == 128)
-    return (int)spk::launch_conv<false, true, 128, false>(
-        (const bf16*)y, (const bf16*)w, (const float*)s, (const float*)t, (const float*)hw,
-        (const float*)hb, (bf16*)pred, B, H, W, 128, nullptr, nullptr, 0,
-        (cudaStream_t)stream);
-  return (int)spk::launch_conv<false, true, 64, false>(
+                            void* stream) {
+  return (int)spk::launch_conv<false, true, 128, false>(
       (const bf16*)y, (const bf16*)w, (const float*)s, (const float*)t, (const float*)hw,
-      (const float*)hb, (bf16*)pred, B, H, W, 64, nullptr, nullptr, 0, (cudaStream_t)stream);
+      (const float*)hb, (bf16*)pred, B, H, W, 128, nullptr, nullptr, 0, (cudaStream_t)stream);
 }
 
 // y [B, H, W, 128] -> y2 [B, H, W, 128].

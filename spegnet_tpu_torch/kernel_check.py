@@ -554,21 +554,92 @@ def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float]:
     return differ.float().mean().item(), steps
 
 
+def dec_bf16_parts(name, batch: int, g, device) -> Dict[str, float]:
+    """Decoder block 2's bf16 kernels one by one at geometry ``name`` of
+    :data:`DEC_I8` (or (S, Cin, Cm) given): conv1 (``kernels.dec_upconv``)
+    against the plain version's activated conv1 map, and conv2 + head
+    (``kernels.dec_conv_head``) on that plain map against the plain logits,
+    each as max |difference| / max |plain|; and whether two calls of each
+    give the same bits."""
+    from spegnet_tpu_torch.ops.fused_upsample_conv import upsample2x_conv3x3
+
+    s, cin, cm = DEC_I8[name] if isinstance(name, str) else name
+    p = decoder_params(cin, cm, g, device)
+    x = torch.randn((batch, s, s, cin), generator=g).to(device, torch.bfloat16)
+    s1, t1 = (v.contiguous() for v in fd.fold_bn(p.b1, *p.bn1))
+    s2, t2 = (v.contiguous() for v in fd.fold_bn(p.b2, *p.bn2))
+    wt1, wt2 = fd._pack_conv_t(p.w1.to(x.dtype)), fd._pack_conv_t(p.w2.to(x.dtype))
+    hw, hb = p.head_w.reshape(-1).float().contiguous(), p.head_b.reshape(-1).float().contiguous()
+    y1 = kernels.dec_upconv(x, wt1, s1, t1)
+    y1_plain = fd._bn_relu(upsample2x_conv3x3(x.permute(0, 3, 1, 2), p.w1.to(x.dtype)), s1, t1)
+    y1_plain = y1_plain.permute(0, 2, 3, 1).contiguous()
+    pred = kernels.dec_conv_head(y1_plain, wt2, s2, t2, hw, hb)
+    pred_plain = fd.decoder_block_plain(x, p)[..., 0]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    return {"y1_rel": rel(y1, y1_plain), "pred_rel": rel(pred, pred_plain),
+            "y1_same": bool(torch.equal(y1, kernels.dec_upconv(x, wt1, s1, t1))),
+            "pred_same": bool(torch.equal(pred, kernels.dec_conv_head(y1_plain, wt2, s2, t2,
+                                                                      hw, hb)))}
+
+
+def dec_bf16_parts_ok(res: Dict[str, float]) -> bool:
+    """Each bf16 decoder kernel within REL_LIMIT of plain, two calls
+    bit-equal."""
+    return (res["y1_rel"] <= REL_LIMIT and res["pred_rel"] <= REL_LIMIT and res["y1_same"]
+            and res["pred_same"])
+
+
+def strips_apart(got: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
+    """Border strips [4, B, 2S, Cm] against their plain version: the share
+    of elements that differ and the largest difference in bf16 steps, an
+    element's step being that of max(|want|, peak / 256), peak the largest
+    |want| of its strip, image and channel.  Two f32 sums of the same bf16
+    products in another order differ by the rounding of their large terms,
+    which is many bf16 steps of a sum that cancels to near zero; measured
+    against 1/256 of the strip's peak it is at most one."""
+    got, want = got.float(), want.float()
+    differ = got != want
+    peak = want.abs().amax(dim=2, keepdim=True)
+    ref = torch.maximum(want.abs(), peak / 256)
+    _, e = torch.frexp(torch.where(ref == 0, torch.ones_like(ref), ref))
+    ulp = torch.ldexp(torch.ones_like(ref), e - 8)
+    steps = ((got - want).abs() / ulp)[differ].max().item() if differ.any() else 0.0
+    return {"frac": differ.float().mean().item(), "steps": steps}
+
+
+def strips_ok(res: Dict[str, float]) -> bool:
+    """The int8-piece rule for the strips (:func:`strips_apart`): equal, or
+    one step apart on at most I8_PART_FRAC of the elements."""
+    return res["frac"] <= I8_PART_FRAC and res["steps"] <= 1.0
+
+
 def dec_i8_parts(name, batch: int, g, device) -> Dict[str, float]:
     """The int8 decoder's pieces through the kernels against the plain int8
-    version on the same input and weights: the x codes (share that differ,
-    largest code difference) and scales (how many differ), the per-strip
-    scales (how many differ, all strips), conv1's activated map after the
-    border paste and the logits of the kernel chain (share of bf16 values
-    that differ, largest difference in bf16 steps), and conv2's activated
-    map and logits from the conv2 kernel run on the plain version's conv1
-    map and strip scales (the same), so that conv2 is held on its own."""
+    version on the same input and weights, the kernel chain given
+    ``make_strips``' strips (as the plain version takes them): the x codes
+    (share that differ, largest code difference) and scales (how many
+    differ), the per-strip scales (how many differ, all strips), conv1's
+    activated map after the border paste and the logits (share of bf16
+    values that differ, largest difference in bf16 steps), and conv2's
+    activated map and logits from the conv2 kernel run on the plain
+    version's conv1 map and strip scales (the same), so that conv2 is held
+    on its own.  Then the chain on the strip kernel's own strips
+    (``own_*``): the strips against make_strips (:func:`strips_apart`), the
+    strip scales (how many differ), conv1's map as conv2's codes (share
+    that differ, largest difference), the logits (share of bf16 values that
+    differ, largest difference over the largest |logit|)."""
     x, q, _ = dec_i8_inputs(name, batch, g, device)
-    got = fd.i8_parts_cuda(x, q)
+    sh = fd.strip_height(x.shape[1])
+    ref = torch.stack(fd.make_strips(x, q.k1, dtype=x.dtype))
+    got = fd.i8_parts_cuda(x, q, strips=ref)
+    own = fd.i8_parts_cuda(x, q)
     want = fd.i8_parts_plain(x, q)
     y2 = torch.empty_like(want["y2"])
-    pred2 = kernels.conv2_i8_head(want["y1"], want["sa"], fd.strip_height(x.shape[1]), q.w2q,
-                                  q.sw2, q.t2, q.hw, q.hb, y2=y2)
+    pred2, _ = kernels.conv2_i8_head(want["y1"], sh, q.w2q, q.sw2, q.t2, q.hw, q.hb,
+                                     sa=want["sa"], y2=y2)
     dq = (got["xq"].int() - want["xq"].int()).abs()
     res = {"x_code_frac": (dq > 0).float().mean().item(), "x_code_max": dq.max().item(),
            "sx_diff": int((got["sx"] != want["sx"]).sum().item()),
@@ -577,16 +648,35 @@ def dec_i8_parts(name, batch: int, g, device) -> Dict[str, float]:
     for key, a, b in (("y1", got["y1"], want["y1"]), ("pred", got["pred"], want["pred"]),
                       ("y2", y2, want["y2"]), ("pred2", pred2, want["pred"])):
         res[f"{key}_frac"], res[f"{key}_steps"] = bf16_steps(a, b)
+    st = strips_apart(own["strips"], ref)
+    res["own_strips_frac"], res["own_strips_steps"] = st["frac"], st["steps"]
+    res["own_sa_diff"] = int((own["sa"] != want["sa"]).sum().item())
+    rows = torch.arange(want["y1"].shape[1], device=x.device) // (2 * sh)
+    ra = (1.0 / want["sa"])[:, rows][:, :, None, None]
+    dc = (torch.round(own["y1"].float() * ra) - torch.round(want["y1"].float() * ra)).abs()
+    res["own_y1_code_frac"] = (dc > 0).float().mean().item()
+    res["own_y1_code_max"] = dc.max().item()
+    dp = (own["pred"].float() - want["pred"].float()).abs()
+    res["own_pred_frac"] = (dp > 0).float().mean().item()
+    res["own_pred_rel"] = (dp.max() / want["pred"].float().abs().max()).item()
     return res
 
 
 def dec_i8_parts_ok(res: Dict[str, float]) -> bool:
     """Each piece exact, or one code / one bf16 step apart on at most
-    I8_PART_FRAC of its elements; a scale differing at all is a fault."""
+    I8_PART_FRAC of its elements; a scale differing at all is a fault.  On
+    the strip kernel's own strips: the strips by :func:`strips_ok`, the
+    strip scales exact, conv1's map one code apart on at most I8_PART_FRAC
+    of its elements, the logits differing on at most I8_PART_FRAC of them
+    and within REL_LIMIT."""
     return (res["x_code_frac"] <= I8_PART_FRAC and res["x_code_max"] <= 1
             and res["sx_diff"] == 0 and res["sa_diff"] == 0
             and all(res[f"{k}_frac"] <= I8_PART_FRAC and res[f"{k}_steps"] <= 1.0
-                    for k in ("y1", "pred", "y2", "pred2")))
+                    for k in ("y1", "pred", "y2", "pred2"))
+            and strips_ok({"frac": res["own_strips_frac"], "steps": res["own_strips_steps"]})
+            and res["own_sa_diff"] == 0
+            and res["own_y1_code_frac"] <= I8_PART_FRAC and res["own_y1_code_max"] <= 1
+            and res["own_pred_frac"] <= I8_PART_FRAC and res["own_pred_rel"] <= REL_LIMIT)
 
 
 def attention_case(name: str, batch: int, g, device) -> Case:

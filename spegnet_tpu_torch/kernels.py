@@ -27,7 +27,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -200,14 +200,15 @@ def load():
         "sp_gemm_tn": [p, p, i, i, i, i, i, i, i, p, p, p, p, p],
         "sp_layernorm_bwd": [p, p, p, p, p, p, p, l, i, p, l, i, f, p],
         "sp_pool4_scatter": [p, l, i, p, l, p, l, i, l, i, p],
-        "sp_upconv3x3_bn_relu": [p, p, p, p, p, i, i, i, p],
+        "sp_dec_upconv": [p, p, p, p, p, i, i, i, i, p],
+        "sp_dec_conv_head": [p, p, p, p, p, p, p, i, i, i, i, p],
         "sp_upconv3x3_edge_bn_relu": [p, p, p, p, p, p, p, i, i, i, i, p],
-        "sp_conv3x3_bn_relu_head": [p, p, p, p, p, p, p, i, i, i, i, p],
+        "sp_conv3x3_bn_relu_head": [p, p, p, p, p, p, p, i, i, i, p],
         "sp_conv3x3_bn_relu": [p, p, p, p, p, i, i, i, p],
-        "sp_quant_image_i8": [p, p, p, p, i, l, p],
-        "sp_polyconv1_i8": [p, p, p, p, p, p, p, p, i, i, i, i, p],
-        "sp_strip_scales_i8": [p, p, p, i, i, i, i, p],
-        "sp_conv2_i8_head": [p, p, p, p, p, p, p, p, p, i, i, i, p],
+        "sp_quant_image_i8": [p, p, p, p, i, i, i, p],
+        "sp_dec_strips": [p, p, p, i, i, i, i, p],
+        "sp_polyconv1_i8": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "sp_conv2_i8_head": [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
         "sp_layernorm_q8": [p, p, p, p, p, l, i, f, i, i, i, p],
         "sp_quant_rows": [p, p, p, l, i, i, p],
         "sp_gemm_i8": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p],
@@ -875,8 +876,65 @@ def pool4_scatter(y: Cols, g: torch.Tensor, out: Cols) -> None:
 
 
 # ---------------------------------------------------------------------------
-# launchers (csrc/decoder_block.cu)
+# launchers (csrc/decoder_block.cu, csrc/decoder_i8.cu)
 # ---------------------------------------------------------------------------
+
+# The conv frame of csrc/decoder_conv.cuh: output tiles of two rows of
+# DEC_TC pixels times the DEC_CM output channels, walked by a persistent grid.
+DEC_TC = 128
+DEC_CM = 64
+# The int8 conv1 (csrc/decoder_i8.cu polyconv1_i8_kernel): tiles of two
+# cell rows of POLY1_TC cells times POLY1_NT of the 4 Cm composed columns,
+# on POLY1_CIN input channels (one 128-byte row of codes a cell).
+POLY1_TC = 64
+POLY1_NT = 128
+POLY1_CIN = 128
+
+
+class DecPlan(NamedTuple):
+    """Launch plan of a persistent decoder kernel: ``tiles`` work tiles
+    walked by ``grid`` blocks, block b taking tiles b, b + grid, ... (for the
+    int8 conv1, block b the tiles b // halves, b // halves + grid // halves,
+    ... of column half b % halves)."""
+    tiles: int
+    grid: int
+    halves: int = 1
+
+
+def dec_conv_plan(b: int, h: int, w: int, sms: int, strip: bool = False) -> DecPlan:
+    """The frame's plan on the 2S grid [h, w] of ``b`` images: two output
+    rows x DEC_TC pixels a tile (``strip``: one strip row a tile, the four
+    strips of an image)."""
+    tiles = b * (4 if strip else h // 2) * -(-w // DEC_TC)
+    return DecPlan(tiles, max(1, min(tiles, sms)))
+
+
+def dec_conv_tiles(b: int, h: int, w: int, strip: bool = False):
+    """(image, first output row -- with ``strip`` the strip's index in
+    (top, bottom, left, right) --, first output column) of each tile in
+    walk order, as ``dc_tile`` decodes them."""
+    per = 4 if strip else h // 2
+    ct = -(-w // DEC_TC)
+    for tile in range(b * per * ct):
+        c, rest = tile % ct, tile // ct
+        r = rest % per
+        yield rest // per, (r if strip else 2 * r), c * DEC_TC
+
+
+def poly1_plan(b: int, s: int, cm: int, sms: int) -> DecPlan:
+    """The int8 conv1's plan: tiles of two cell rows x POLY1_TC cells of each
+    half of the 4 Cm columns; the grid a multiple of the halves."""
+    halves = 4 * cm // POLY1_NT
+    tiles = b * (s // 2) * -(-s // POLY1_TC)
+    return DecPlan(tiles, halves * max(1, min(tiles, sms // halves)), halves)
+
+
+def poly1_tiles(b: int, s: int):
+    """(image, first cell row, first cell) of each conv1 tile of a half."""
+    ct, rows = -(-s // POLY1_TC), s // 2
+    for tile in range(b * rows * ct):
+        yield tile // ct // rows, 2 * ((tile // ct) % rows), (tile % ct) * POLY1_TC
+
 
 def _conv_params(w, s, t, cin, cm, name):
     _need(w, f"{name} weight", ndim=2)
@@ -886,23 +944,69 @@ def _conv_params(w, s, t, cin, cm, name):
         raise ValueError(f"{name}: weight {tuple(w.shape)} vs [9*{cin}, {cm}]")
 
 
+def _dec_weight(w: torch.Tensor, cin: int, name: str, dtype=torch.bfloat16) -> None:
+    _need(w, f"{name} weight", dtype, 2)
+    if tuple(w.shape) != (DEC_CM, 9 * cin):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} vs [{DEC_CM}, 9*{cin}]")
+
+
+def _dec_input(x: torch.Tensor, name: str, dtype=torch.bfloat16) -> Tuple[int, int, int]:
+    """(B, S, Cin) of a square x [B, S, S, Cin] the conv1 kernels take:
+    Cin 64 or 128 (the weights stay in shared memory, in 128-byte rows)."""
+    _need(x, f"{name} x", dtype, 4)
+    b, s, s_, cin = x.shape
+    if s != s_ or cin not in (64, 128):
+        raise ValueError(f"{name}: x {tuple(x.shape)} (square, Cin 64 or 128)")
+    return b, s, cin
+
+
+def dec_upconv(x: torch.Tensor, wt: torch.Tensor, s: torch.Tensor,
+               t: torch.Tensor) -> torch.Tensor:
+    """Decoder block 2's conv1: x [B, S, S, Cin] bf16, wt [64, 9*Cin] (rows
+    the output channels, columns (dy, dx, ci)) -> relu(conv3x3(up2x(x)) * s
+    + t), [B, 2S, 2S, 64]."""
+    b, h, cin = _dec_input(x, "dec_upconv")
+    _dec_weight(wt, cin, "dec_upconv")
+    _f32(s, DEC_CM, "dec_upconv scale")
+    _f32(t, DEC_CM, "dec_upconv shift")
+    y = torch.empty((b, 2 * h, 2 * h, DEC_CM), dtype=x.dtype, device=x.device)
+    plan = dec_conv_plan(b, 2 * h, 2 * h, _sm_count(x.get_device()))
+    _check(load().sp_dec_upconv(x.data_ptr(), wt.data_ptr(), s.data_ptr(), t.data_ptr(),
+                                y.data_ptr(), b, h, cin, plan.grid, _stream(x)),
+           "sp_dec_upconv")
+    return y
+
+
+def dec_conv_head(y: torch.Tensor, wt: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
+                  head_w: torch.Tensor, head_b: torch.Tensor) -> torch.Tensor:
+    """Decoder block 2's conv2 and head: y [B, H, W, 64] bf16 (H even), wt
+    [64, 576] -> relu(conv3x3(y) * s + t) . head_w + head_b, [B, H, W]."""
+    _need(y, "dec_conv_head y", ndim=4)
+    b, h, w_, c = y.shape
+    if c != DEC_CM or h % 2:
+        raise ValueError(f"dec_conv_head: y {tuple(y.shape)} (64 channels, even height)")
+    _dec_weight(wt, c, "dec_conv_head")
+    for v, n, name in ((s, DEC_CM, "scale"), (t, DEC_CM, "shift"), (head_w, DEC_CM, "head weight"),
+                       (head_b, 1, "head bias")):
+        _f32(v, n, f"dec_conv_head {name}")
+    pred = torch.empty((b, h, w_), dtype=y.dtype, device=y.device)
+    plan = dec_conv_plan(b, h, w_, _sm_count(y.get_device()))
+    _check(load().sp_dec_conv_head(y.data_ptr(), wt.data_ptr(), s.data_ptr(), t.data_ptr(),
+                                   head_w.data_ptr(), head_b.data_ptr(), pred.data_ptr(), b, h,
+                                   w_, plan.grid, _stream(y)), "sp_dec_conv_head")
+    return pred
+
+
 def upsample_conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
-                             t: torch.Tensor, ef=None, we=None) -> torch.Tensor:
-    """x [B, S, S, Cin] -> relu(conv3x3(up2x(x)) * s + t), [B, 2S, 2S, 64];
-    with edge features ef [B, S/2, S/2, Ce] and their weights we [9*Ce, 128]:
+                             t: torch.Tensor, ef: torch.Tensor,
+                             we: torch.Tensor) -> torch.Tensor:
+    """The edge branch's conv1: x [B, S, S, Cin], edge features ef [B, S/2,
+    S/2, Ce], weights w [9*Cin, 128] and we [9*Ce, 128] ->
     relu((conv3x3(up2x(x)) + conv3x3(up4x(ef))) * s + t), [B, 2S, 2S, 128]."""
     _need(x, "upconv x", ndim=4)
     b, h, w_, cin = x.shape
     if h != w_ or cin % 32:
         raise ValueError(f"upconv: x {tuple(x.shape)} (square, Cin % 32 == 0)")
-    if ef is None:
-        _conv_params(w, s, t, cin, 64, "upconv")
-        y = torch.empty((b, 2 * h, 2 * h, 64), dtype=x.dtype, device=x.device)
-        _check(load().sp_upconv3x3_bn_relu(x.data_ptr(), w.data_ptr(),
-                                            s.data_ptr(), t.data_ptr(), y.data_ptr(),
-                                            b, h, cin, _stream(x)),
-               "sp_upconv3x3_bn_relu")
-        return y
     _need(ef, "upconv edge features", ndim=4)
     ce = ef.shape[-1]
     if tuple(ef.shape) != (b, h // 2, h // 2, ce) or h % 2 or ce % 32:
@@ -923,19 +1027,19 @@ def upsample_conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
 def conv3x3_bn_relu_head(y: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                          t: torch.Tensor, head_w: torch.Tensor,
                          head_b: torch.Tensor) -> torch.Tensor:
-    """y [B, H, W, Cm] -> relu(conv3x3(y) * s + t) . head_w + head_b, [B, H, W]
-    (Cm 64 or 128)."""
+    """y [B, H, W, 128] -> relu(conv3x3(y) * s + t) . head_w + head_b, [B, H, W]
+    (the edge branch's block with a head; Cm 64 is :func:`dec_conv_head`)."""
     _need(y, "conv_head y", ndim=4)
     b, h, w_, c = y.shape
-    if c not in (64, 128):
-        raise ValueError(f"conv_head: y {tuple(y.shape)} needs 64 or 128 channels")
+    if c != 128:
+        raise ValueError(f"conv_head: y {tuple(y.shape)} needs 128 channels")
     _conv_params(w, s, t, c, c, "conv_head")
     _need(head_w, "conv_head head weight", torch.float32, 1)
     _need(head_b, "conv_head head bias", torch.float32, 1)
     pred = torch.empty((b, h, w_), dtype=y.dtype, device=y.device)
     _check(load().sp_conv3x3_bn_relu_head(
         y.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(),
-        head_w.data_ptr(), head_b.data_ptr(), pred.data_ptr(), b, h, w_, c,
+        head_w.data_ptr(), head_b.data_ptr(), pred.data_ptr(), b, h, w_,
         _stream(y)), "sp_conv3x3_bn_relu_head")
     return pred
 
@@ -955,10 +1059,6 @@ def conv3x3_bn_relu(y: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     return out
 
 
-# ---------------------------------------------------------------------------
-# launchers (csrc/decoder_i8.cu)
-# ---------------------------------------------------------------------------
-
 def _f32(t: torch.Tensor, n: int, name: str) -> None:
     _need(t, name, torch.float32, 1)
     if t.numel() != n:
@@ -966,109 +1066,124 @@ def _f32(t: torch.Tensor, n: int, name: str) -> None:
 
 
 def _images(b: int, name: str) -> None:
-    """The decoder's int8 kernels put the image index on a grid axis whose
+    """The per-image quant kernels put the image index on a grid axis whose
     limit is 65535."""
     if b > 65535:
         raise ValueError(f"{name}: batch {b} > 65535 (the CUDA grid's y / z limit)")
 
 
 def quant_image_i8(x: torch.Tensor):
-    """x [B, ...] bf16 -> (int8 codes of x's shape, f32 scales [B]): one
-    symmetric scale per image, codes round(x / s) by a true division."""
-    _need(x, "quant_image_i8 x")
+    """x [B, S, S, Cin] bf16 -> (int8 codes [B, S + 2, S + 2, Cin] with the
+    border replicated -- the codes are ``[:, 1:-1, 1:-1]`` --, f32 scales
+    [B]): one symmetric scale per image, codes round(x / s) by a true
+    division."""
     b = x.shape[0]
     _images(b, "quant_image_i8")
-    per = x.numel() // b
-    if per % 8:
-        raise ValueError(f"quant_image_i8: {per} elements per image (a multiple of 8)")
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    _need(x, "quant_image_i8 x", ndim=4)
+    _, s, s_, cin = x.shape
+    if s != s_ or s < 2 or cin % 8:
+        raise ValueError(f"quant_image_i8: x {tuple(x.shape)} (square, Cin a multiple of 8)")
+    q = torch.empty((b, s + 2, s + 2, cin), dtype=torch.int8, device=x.device)
     sx = torch.empty((b,), dtype=torch.float32, device=x.device)
     amax = torch.empty_like(sx)
     _check(load().sp_quant_image_i8(x.data_ptr(), q.data_ptr(), sx.data_ptr(),
-                                     amax.data_ptr(), b, per, _stream(x)), "sp_quant_image_i8")
+                                     amax.data_ptr(), b, s, cin, _stream(x)), "sp_quant_image_i8")
     return q, sx
 
 
+def dec_strips(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """The int8 decoder's border strips: the outermost rows and columns of
+    conv3x3(up2x(x)) for x [B, S, S, Cin] bf16 and conv1's weights wt [64,
+    9*Cin] (columns (dy, dx, ci)), the sample built as
+    ops/fused_upsample_conv.border_strips builds it -> [4, B, 2S, 64] bf16
+    (top, bottom, left, right), before conv1's bias and BN."""
+    b, s, cin = _dec_input(x, "dec_strips")
+    _dec_weight(wt, cin, "dec_strips")
+    out = torch.empty((4, b, 2 * s, DEC_CM), dtype=x.dtype, device=x.device)
+    plan = dec_conv_plan(b, 2 * s, 2 * s, _sm_count(x.get_device()), strip=True)
+    _check(load().sp_dec_strips(x.data_ptr(), wt.data_ptr(), out.data_ptr(), b, s, cin,
+                                plan.grid, _stream(x)), "sp_dec_strips")
+    return out
+
+
 def polyconv1_i8(xq: torch.Tensor, sx: torch.Tensor, w1t: torch.Tensor, sw1: torch.Tensor,
-                 t1: torch.Tensor, strips: torch.Tensor):
+                 s1: torch.Tensor, t1: torch.Tensor, strips: torch.Tensor, sh: int):
     """The int8 decoder's conv1 in the polyphase form with the border paste:
-    xq [B, S, S, Cin] int8 (scales sx [B]), w1t [4*Cm, 9*Cin] int8 (scales
-    sw1 [4*Cm]), t1 [Cm], strips [4, B, 2S, Cm] bf16 -> (y1 [B, 2S, 2S, Cm]
-    bf16, [B, 2] f32 maxima of the unpasted rows 0 and 2S-1)."""
+    xq [B, S + 2, S + 2, Cin] int8 (:func:`quant_image_i8`'s codes with
+    their replicated border; Cin 128, scales sx [B]), w1t [4*Cm, 9*Cin]
+    int8 (scales sw1 [4*Cm]), conv1's BN s1, t1 [Cm], the raw strips [4, B,
+    2S, Cm] bf16 (activated by s1, t1 as they are pasted) -> (y1 [B, 2S, 2S,
+    Cm] bf16, f32 [B, S / sh] maxima of each strip of ``sh`` cell rows with
+    one cell row of halo, and of the unpasted rows 0 and 2S-1 in the first
+    and last strip: conv2's activation maxima)."""
     _need(xq, "polyconv1_i8 x", torch.int8, 4)
     _need(w1t, "polyconv1_i8 weight", torch.int8, 2)
     _need(strips, "polyconv1_i8 strips", ndim=4)
     b, s, s_, cin = xq.shape
+    s, s_ = s - 2, s_ - 2
     n4 = w1t.shape[0]
     cm = n4 // 4
-    if s != s_ or cin % 32 or n4 % 128 or tuple(w1t.shape) != (n4, 9 * cin):
+    if s != s_ or cin != POLY1_CIN or tuple(w1t.shape) != (4 * DEC_CM, 9 * cin):
         raise ValueError(f"polyconv1_i8: x {tuple(xq.shape)}, weight {tuple(w1t.shape)} "
-                         "(square, Cin % 32 == 0, 4*Cm % 128 == 0)")
+                         f"(square, Cin {POLY1_CIN}, Cm {DEC_CM})")
+    if s % sh or s % 2:
+        raise ValueError(f"polyconv1_i8: S {s} vs strip height {sh}")
     if tuple(strips.shape) != (4, b, 2 * s, cm):
         raise ValueError(f"polyconv1_i8: strips {tuple(strips.shape)}")
-    if b * s >= 2 ** 31:
-        raise ValueError(f"polyconv1_i8: B * S = {b * s} >= 2^31 (the CUDA grid's x limit)")
     _f32(sx, b, "polyconv1_i8 sx")
     _f32(sw1, n4, "polyconv1_i8 sw1")
+    _f32(s1, cm, "polyconv1_i8 s1")
     _f32(t1, cm, "polyconv1_i8 t1")
     y1 = torch.empty((b, 2 * s, 2 * s, cm), dtype=torch.bfloat16, device=xq.device)
-    edge_max = torch.empty((b, 2), dtype=torch.float32, device=xq.device)
+    amax = torch.empty((b, s // sh), dtype=torch.float32, device=xq.device)
+    plan = poly1_plan(b, s, cm, _sm_count(xq.get_device()))
     _check(load().sp_polyconv1_i8(xq.data_ptr(), sx.data_ptr(), w1t.data_ptr(), sw1.data_ptr(),
-                                   t1.data_ptr(), strips.data_ptr(), y1.data_ptr(),
-                                   edge_max.data_ptr(), b, s, cin, cm, _stream(xq)),
+                                   s1.data_ptr(), t1.data_ptr(), strips.data_ptr(),
+                                   y1.data_ptr(), amax.data_ptr(), b, s, cin, sh, plan.grid,
+                                   _stream(xq)),
            "sp_polyconv1_i8")
-    return y1, edge_max
+    return y1, amax
 
 
-def strip_scales_i8(y1: torch.Tensor, edge_max: torch.Tensor, sh: int) -> torch.Tensor:
-    """conv2's activation scale of each strip of ``sh`` cell rows of y1
-    [B, 2S, 2S, Cm] -> [B, S / sh] f32 (see csrc/decoder_i8.cu)."""
-    _need(y1, "strip_scales_i8 y1", ndim=4)
-    _need(edge_max, "strip_scales_i8 edge maxima", torch.float32, 2)
-    b, s2, _, cm = y1.shape
-    _images(b, "strip_scales_i8")
-    s = s2 // 2
-    if s2 % 2 or s % sh or cm % 8 or tuple(edge_max.shape) != (b, 2):
-        raise ValueError(f"strip_scales_i8: y1 {tuple(y1.shape)}, sh {sh}")
-    sa = torch.empty((b, s // sh), dtype=torch.float32, device=y1.device)
-    _check(load().sp_strip_scales_i8(y1.data_ptr(), edge_max.data_ptr(), sa.data_ptr(), b, s,
-                                      cm, sh, _stream(y1)),
-           "sp_strip_scales_i8")
-    return sa
-
-
-def conv2_i8_head(y1: torch.Tensor, sa: torch.Tensor, sh: int, w2q: torch.Tensor,
-                  sw2: torch.Tensor, t2: torch.Tensor, hw: torch.Tensor,
-                  hb: torch.Tensor, y2: Optional[torch.Tensor] = None) -> torch.Tensor:
+def conv2_i8_head(y1: torch.Tensor, sh: int, w2q: torch.Tensor, sw2: torch.Tensor,
+                  t2: torch.Tensor, hw: torch.Tensor, hb: torch.Tensor, *,
+                  sa: Optional[torch.Tensor] = None, amax: Optional[torch.Tensor] = None,
+                  y2: Optional[torch.Tensor] = None):
     """The int8 decoder's conv2 and head: y1 [B, 2S, 2S, 64] bf16 coded with
-    its strip's scale sa [B, S / sh], w2q [64, 576] int8 (columns (dy, dx,
-    ci), scales sw2 [64]), t2, hw [64], hb [1] f32 -> pred [B, 2S, 2S] bf16.
-    Given ``y2`` (bf16, y1's shape), conv2's activated output is stored
-    there too."""
+    its strip's scale -- ``sa`` [B, S / sh] as given, or that of the maxima
+    ``amax`` (:func:`polyconv1_i8`), max(amax * f32(1/127), 1e-12) --, w2q
+    [64, 576] int8 (columns (dy, dx, ci), scales sw2 [64]), t2, hw [64], hb
+    [1] f32 -> (pred [B, 2S, 2S] bf16, the strip scales).  Given ``y2``
+    (bf16, y1's shape), conv2's activated output is stored there too."""
     _need(y1, "conv2_i8 y1", ndim=4)
     _need(w2q, "conv2_i8 weight", torch.int8, 2)
     b, s2, s2_, cm = y1.shape
-    _images(b, "conv2_i8")
     if y2 is not None:
         _need(y2, "conv2_i8 y2", ndim=4)
         if y2.shape != y1.shape:
             raise ValueError(f"conv2_i8: y2 {tuple(y2.shape)} != y1 {tuple(y1.shape)}")
-    if s2 != s2_ or cm != 64 or tuple(w2q.shape) != (64, 576) or s2 % (2 * sh):
+    if s2 != s2_ or cm != DEC_CM or tuple(w2q.shape) != (64, 576) or s2 % (2 * sh):
         raise ValueError(f"conv2_i8: y1 {tuple(y1.shape)}, weight {tuple(w2q.shape)}, "
                          f"sh {sh} (Cm 64)")
-    _need(sa, "conv2_i8 strip scales", torch.float32, 2)
-    if tuple(sa.shape) != (b, s2 // (2 * sh)):
-        raise ValueError(f"conv2_i8: strip scales {tuple(sa.shape)}")
+    if (sa is None) == (amax is None):
+        raise ValueError("conv2_i8: give the strip scales or the strip maxima")
+    given = sa if sa is not None else amax
+    _need(given, "conv2_i8 strip scales", torch.float32, 2)
+    if tuple(given.shape) != (b, s2 // (2 * sh)):
+        raise ValueError(f"conv2_i8: strip scales {tuple(given.shape)}")
     for v, n, name in ((sw2, 64, "sw2"), (t2, 64, "t2"), (hw, 64, "head weight"),
                        (hb, 1, "head bias")):
         _f32(v, n, f"conv2_i8 {name}")
     pred = torch.empty((b, s2, s2), dtype=torch.bfloat16, device=y1.device)
-    _check(load().sp_conv2_i8_head(y1.data_ptr(), sa.data_ptr(), w2q.data_ptr(),
-                                    sw2.data_ptr(), t2.data_ptr(), hw.data_ptr(), hb.data_ptr(),
-                                    pred.data_ptr(), 0 if y2 is None else y2.data_ptr(), b,
-                                    s2, sh, _stream(y1)),
+    out_sa = torch.empty_like(given) if sa is None else sa
+    plan = dec_conv_plan(b, s2, s2, _sm_count(y1.get_device()))
+    _check(load().sp_conv2_i8_head(y1.data_ptr(), _ptr(amax), _ptr(sa),
+                                    out_sa.data_ptr() if sa is None else None,
+                                    w2q.data_ptr(), sw2.data_ptr(), t2.data_ptr(), hw.data_ptr(),
+                                    hb.data_ptr(), pred.data_ptr(), _ptr(y2), b, s2, sh,
+                                    plan.grid, _stream(y1)),
            "sp_conv2_i8_head")
-    return pred
+    return pred, out_sa
 
 
 # ---------------------------------------------------------------------------

@@ -11,17 +11,20 @@ at 512^2 input).  Layout is channels-last, as in the JAX package: x
 for a CUDA tensor, the Hopper kernels that replace the TPU kernel
 ``_dec_kernel`` (:338):
 
-* bf16, no edge branch (block 2): csrc/decoder_block.cu, exact upsample
-  then convolve (:func:`decoder_block_plain`);
+* bf16, no edge branch (block 2): csrc/decoder_block.cu on the TMA + wgmma
+  frame of csrc/decoder_conv.cuh, exact upsample then convolve
+  (:func:`decoder_block_plain`);
 * bf16 with the edge branch (block 1's geometry; no model route sends a
-  block there, as in the JAX package): the same kernels at Cm 128 with the
-  4x bilinear sample of the edge features as conv1's second input;
+  block there, as in the JAX package): csrc/decoder_block.cu's one-tile
+  kernels at Cm 128 with the 4x bilinear sample of the edge features as
+  conv1's second input;
 * ``int8=True`` (the W8A8 speed mode, ``model.int8_decoder``): a different
   model, defined on the TPU kernel's polyphase form -- x quantized per
   image, conv1 on the composed ``[9 Cin, 4 Cm]`` weights over edge-clamped
   source cells, the exact border strips pasted, conv2 on codes with one
   activation scale per strip of ``sh`` cell rows (:func:`i8_parts_plain`
-  for the arithmetic) -- in csrc/decoder_i8.cu.  The TPU takes it only where
+  for the arithmetic) -- in csrc/decoder_i8.cu, the border strips too
+  (:func:`make_strips` is their plain version).  The TPU takes it only where
   :func:`int8_supported` holds (:582-585 with the model's bf16 gate).
 """
 
@@ -106,6 +109,13 @@ def _pack_conv(w: torch.Tensor) -> torch.Tensor:
     """[Cout, Cin, 3, 3] -> [9*Cin, Cout], rows tap-major (dy, dx, ci)."""
     cout, cin = w.shape[:2]
     return w.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
+
+
+def _pack_conv_t(w: torch.Tensor) -> torch.Tensor:
+    """[Cout, Cin, 3, 3] -> [Cout, 9*Cin], columns tap-major (dy, dx, ci):
+    the K-major weights of csrc/decoder_conv.cuh."""
+    cout, cin = w.shape[:2]
+    return w.permute(0, 2, 3, 1).reshape(cout, 9 * cin).contiguous()
 
 
 def decoder_supported(s: int) -> bool:
@@ -254,6 +264,7 @@ class DecoderI8(NamedTuple):
     t2: torch.Tensor     # [Cm] f32
     hw: torch.Tensor     # [Cm] f32 values of the compute-dtype head weights
     hb: torch.Tensor     # [1] f32
+    k1t: torch.Tensor    # [Cm, 9*Cin] k1 with columns (dy, dx, ci) (the strip kernel's)
 
 
 def params_to(p: DecoderParams, device) -> DecoderParams:
@@ -278,7 +289,8 @@ def pack_i8(p: DecoderParams, dtype: torch.dtype = torch.bfloat16) -> DecoderI8:
     w2q = w2q.reshape(3, 4, cm, 2, cm)[:, 0:3, :, 0].permute(3, 0, 1, 2)
     q = DecoderI8(k1=_hwio(p.w1).to(dtype), s1=pk.s1t1[0, :cm], t1=pk.s1t1[1, :cm],
                   w1t=w1q.t(), sw1=sw1, w2q=w2q.reshape(cm, 9 * cm), sw2=sw2[:cm],
-                  t2=pk.s2t2[1, :cm], hw=pk.h2[:cm, 0].float(), hb=p.head_b.float().reshape(1))
+                  t2=pk.s2t2[1, :cm], hw=pk.h2[:cm, 0].float(), hb=p.head_b.float().reshape(1),
+                  k1t=_pack_conv_t(p.w1.to(dtype)))
     return DecoderI8(*(v.to(device).contiguous() for v in q))
 
 
@@ -390,20 +402,24 @@ def decoder_block_i8_plain(x: torch.Tensor, q: DecoderI8) -> torch.Tensor:
     return i8_parts_plain(x, q)["pred"][..., None]
 
 
-def i8_parts_cuda(x: torch.Tensor, q: DecoderI8) -> Dict[str, torch.Tensor]:
+def i8_parts_cuda(x: torch.Tensor, q: DecoderI8,
+                  strips: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The int8 block through the kernels of csrc/decoder_i8.cu, with the
     intermediate results of :func:`i8_parts_plain` but ``y2``: the per-image
-    quant, conv1 with the border paste in its epilogue (which also keeps
-    the maxima of the unpasted outermost rows), the per-strip scales, and
-    conv2 with the codes made as its halo is staged and the head in its
-    epilogue.  The strips are plain PyTorch, as in the JAX package."""
+    quant (its codes written with a replicated border, conv1's edge-clamped
+    cells; ``xq`` is their interior), the raw border strips [4, B, 2S, Cm]
+    (``strips``, given or from the strip kernel), conv1 with the strips
+    activated and pasted in its epilogue, which also keeps the strip
+    maxima, and conv2 with the codes made as its halo is staged, the scales
+    taken from those maxima, and the head in its epilogue."""
     sh = _strips_of(x.shape[1])
     xq, sx = kernels.quant_image_i8(x)
-    act = activate_strips(make_strips(x, q.k1, dtype=x.dtype), q.s1, q.t1, x.dtype)
-    y1, edge_max = kernels.polyconv1_i8(xq, sx, q.w1t, q.sw1, q.t1, act)
-    sa = kernels.strip_scales_i8(y1, edge_max, sh)
-    pred = kernels.conv2_i8_head(y1, sa, sh, q.w2q, q.sw2, q.t2, q.hw, q.hb)
-    return {"xq": xq, "sx": sx, "y1": y1, "sa": sa, "pred": pred}
+    if strips is None:
+        strips = kernels.dec_strips(x, q.k1t)
+    y1, amax = kernels.polyconv1_i8(xq, sx, q.w1t, q.sw1, q.s1, q.t1, strips, sh)
+    pred, sa = kernels.conv2_i8_head(y1, sh, q.w2q, q.sw2, q.t2, q.hw, q.hb, amax=amax)
+    return {"xq": xq[:, 1:-1, 1:-1], "sx": sx, "strips": strips, "y1": y1, "sa": sa,
+            "pred": pred}
 
 
 def fused_decoder_block(x: torch.Tensor, p: DecoderParams, ef: Optional[torch.Tensor] = None,
@@ -433,18 +449,21 @@ def fused_decoder_block(x: torch.Tensor, p: DecoderParams, ef: Optional[torch.Te
     s1, t1 = fold_bn(p.b1, *p.bn1)
     s2, t2 = fold_bn(p.b2, *p.bn2)
     if ef is None:
-        if cm != 64 or p.head_w is None:
+        if cm != kernels.DEC_CM or p.head_w is None:
             raise ValueError("the decoder kernel without edge branch covers Cm 64 with a head")
         kernels.launches["fused_decoder_block"] += 1
-        y1 = kernels.upsample_conv3x3_bn_relu(x.contiguous(), _pack_conv(p.w1.to(x.dtype)),
-                                              s1.contiguous(), t1.contiguous())
-    else:
-        if cm != 128:
-            raise ValueError("the decoder kernel with edge branch covers Cm 128")
-        kernels.launches["fused_decoder_block_edge"] += 1
-        y1 = kernels.upsample_conv3x3_bn_relu(
-            x.contiguous(), _pack_conv(p.w1.to(x.dtype)), s1.contiguous(), t1.contiguous(),
-            ef=ef.to(x.dtype).contiguous(), we=_pack_conv(p.we.to(x.dtype)))
+        y1 = kernels.dec_upconv(x.contiguous(), _pack_conv_t(p.w1.to(x.dtype)),
+                                s1.contiguous(), t1.contiguous())
+        pred = kernels.dec_conv_head(y1, _pack_conv_t(p.w2.to(x.dtype)), s2.contiguous(),
+                                     t2.contiguous(), p.head_w.reshape(-1).float().contiguous(),
+                                     p.head_b.reshape(-1).float().contiguous())
+        return pred[..., None]
+    if cm != 128:
+        raise ValueError("the decoder kernel with edge branch covers Cm 128")
+    kernels.launches["fused_decoder_block_edge"] += 1
+    y1 = kernels.upsample_conv3x3_bn_relu(
+        x.contiguous(), _pack_conv(p.w1.to(x.dtype)), s1.contiguous(), t1.contiguous(),
+        ef=ef.to(x.dtype).contiguous(), we=_pack_conv(p.we.to(x.dtype)))
     w2 = _pack_conv(p.w2.to(x.dtype))
     if p.head_w is None:
         return kernels.conv3x3_bn_relu(y1, w2, s2.contiguous(), t2.contiguous())

@@ -9,9 +9,11 @@ plain forward, the backward kernels against bf16 autograd of the plain
 forward, for dx and every weight gradient, and the int8 encoder's kernels
 against their plain int8 versions (kernel_check.i8_ok); the int8 decoder
 block at every main-path size and at one with a partial tile and three
-strips, its pieces exact (kernel_check.dec_i8_parts_ok); the decoder's edge
-branch with and without a head; the attention kernel at lengths that are
-not multiples of 16 and on strided views; the int8 Predictor's and the
+strips, its pieces exact (kernel_check.dec_i8_parts_ok), its border strips
+against make_strips (kernel_check.strips_ok); the bf16 decoder's kernels one
+by one at every decoder size and two calls bit-equal at every DECODER and
+DEC_EDGE geometry; the decoder's edge branch with and without a head; the
+attention kernel at lengths that are not multiples of 16 and on strided views; the int8 Predictor's and the
 384^2 Predictor's launches; the T-block's saved-residual pair bit-equal to
 the recompute pair and within the limits of its plain versions (T-block
 geometries include the 1024^2 global block, L 4096); the bf16 and int8
@@ -105,6 +107,35 @@ def test_int8_decoder_matches_plain_int8(cuda, name):
     assert rel <= kernel_check.REL_LIMIT, (name, err, rel)
     parts = kernel_check.dec_i8_parts(geo, 1, torch.Generator().manual_seed(1), cuda)
     assert kernel_check.dec_i8_parts_ok(parts), (name, parts)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.DEC_I8))
+def test_bf16_decoder_kernels_match_plain(cuda, name):
+    """conv1 (the 2x sample built in the kernel) and conv2 + head one by one
+    at every decoder size (S 256 / 192 / 176 / 320), two calls bit-equal."""
+    res = kernel_check.dec_bf16_parts(name, 1, torch.Generator().manual_seed(0), cuda)
+    assert kernel_check.dec_bf16_parts_ok(res), (name, res)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.DECODER) + sorted(kernel_check.DEC_EDGE))
+def test_decoder_two_calls_bit_equal(cuda, name):
+    make = kernel_check.edge_case if name in kernel_check.DEC_EDGE else kernel_check.decoder_case
+    case = make(name, 1, torch.Generator().manual_seed(0), cuda)
+    assert torch.equal(case.kernel(), case.kernel()), name
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.DEC_I8) + ["s24"])
+def test_decoder_strips_match_make_strips(cuda, name):
+    """The strip kernel against make_strips (kernel_check.strips_ok), two
+    calls bit-equal."""
+    from spegnet_tpu_torch.ops import fused_decoder as fd
+
+    geo = (24, 128, 64) if name == "s24" else name
+    x, q, _ = kernel_check.dec_i8_inputs(geo, 1, torch.Generator().manual_seed(0), cuda)
+    got = kernels.dec_strips(x, q.k1t)
+    want = torch.stack(fd.make_strips(x, q.k1, dtype=x.dtype))
+    assert kernel_check.strips_ok(kernel_check.strips_apart(got, want)), name
+    assert torch.equal(got, kernels.dec_strips(x, q.k1t)), name
 
 
 def test_int8_decoder_grid_limits(cuda):
