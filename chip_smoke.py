@@ -12,11 +12,13 @@
    of the attention backward (csrc/attention_window_bwd.cu), of the
    weight-gradient GEMM, of the persistent forward GEMM
    (csrc/gemm_persistent.cuh, bf16 and int8, and its 3xTF32 form, the f32
-   GEMM) and of the int8 LayerNorm + quant row pass (no attention kernel
+   GEMM), of the hand-off GEMM (csrc/gemm_handoff.cuh: fc1 and the fronts'
+   stacked products) and of the int8 LayerNorm + quant
+   row pass (no attention kernel
    may spill at Hiera-L's head dim 72, bf16 or f32, nor any of the window
    attention's six instantiations there, nor the attention backward's nine
-   there, and no instantiation of the persistent GEMM, the f32 GEMM or the
-   row pass may spill); and of the decoder's kernels: the conv frame of
+   there, and no instantiation of the persistent GEMM, the hand-off GEMM,
+   the f32 GEMM or the row pass may spill); and of the decoder's kernels: the conv frame of
    csrc/decoder_conv.cuh (bf16 conv1, the border strips, bf16 conv2 + head,
    the int8 conv2 + head without and with its map), the int8 conv1 and the
    edge branch's one-tile kernel, none of which may spill.
@@ -33,7 +35,14 @@
    weight-gradient GEMM (kernels.gemm_tn) at every weight gradient of those
    backwards (kernel_check.tn_shapes) against its plain version
    (ops/fused_block_t.weight_grad, f32 sums of the bf16 operands) within
-   TN_REL_LIMIT, two calls bit-equal.
+   TN_REL_LIMIT, two calls bit-equal; and the hand-off GEMM alone
+   (kernels.gemm / gemm_gelu_pre on csrc/gemm_handoff.cuh) at every product
+   the plan sends it in a 512^2 forward at batch 8 (kernel_check.GEMM_HO:
+   each stage's fc1 with its GELU and its GELU-pre, the fronts' stacked
+   products) and on ragged shapes (M, N, K tails, N not a multiple of 192,
+   an odd M-tile count) against its plain version
+   (kernels.gemm_plain) within REL_LIMIT, two calls bit-equal, each call a
+   launch of the hand-off kernel.
    Then each int8 kernel of the flagged int8 encoder (model.int8_encoder)
    against its plain int8 version at every int8 geometry of Hiera-L 512^2
    (stages 2-4, the global blocks, t23, t34), batch 2: the whole block by
@@ -98,7 +107,9 @@
    random Hiera-L weights in bf16, with every launch counter zeroed just
    before: every launch counter must equal the per-forward count of
    models/hiera.trunk_routes (42 T-blocks, 3 fronts, 3 gen-1 blocks) and
-   decoder block 2, outputs must be finite and of the expected shapes, and
+   decoder block 2, the hand-off GEMM (kernels.gemm_launches, counted apart
+   from the wrappers that call it) must have launched, outputs must be
+   finite and of the expected shapes, and
    the mask MAE against the plain f32 path (kernels=False, TF32 off) on the
    same weights must be <= 1e-3.
    4b. The same with int8_encoder: every launch counter must equal the
@@ -146,7 +157,10 @@
    forward product of a 512^2 forward (utils/gemm_bench.py: device time
    against torch.mm / torch._int_mm, TFLOP/s or TOPS, GB/s, the bound, the
    per-forward totals of #1's, #10's, the bf16 and the int8-encoder
-   forward's GEMMs), the decoder's kernels piece by piece at 512^2 and
+   forward's GEMMs; and the hand-off GEMM at each of its products beside
+   torch.mm, its plain version and the bound,
+   per product and per forward, utils/gemm_bench.run_handoff, which give
+   its row of the kernels line), the decoder's kernels piece by piece at 512^2 and
    384^2 against cuDNN's bf16 convolutions and their bounds
    (utils/decoder_bench.py; cuDNN's time is the decoder rows' library
    column), and the window attention at each geometry of a 512^2
@@ -225,8 +239,9 @@
 
 Any failed check raises.  The last lines are the kernel table (JSON; the
 f32 rows, KERNELS' dtype "f32", are the f32 kernels behind the same
-wrappers, their launches read from the f32 runs), the nvidia-smi line and {"ok": true, "device":
-{...}}.
+wrappers, their launches read from the f32 runs; the gemm_handoff row is
+the GEMM inside #1, #3 and #7, its launches those of the predict runs),
+the nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -316,6 +331,11 @@ KERNELS = {
     "fused_block_t_bwd_res": Row("spegnet_tpu_torch/csrc/hiera_block_bwd.cu",
                                  "spegnet_tpu/ops/fused_block_t.py:1449",
                                  "fused_block_t_bwd_res"),
+    # fc1 + GELU and the fronts' stacked product inside #1 / #2 / #3 / #7:
+    # its launches from the predict runs, its times per 512^2 forward
+    # (utils/gemm_bench.run_handoff)
+    "gemm_handoff": Row("spegnet_tpu_torch/csrc/gemm_handoff.cuh",
+                        "spegnet_tpu/ops/fused_block_t.py:339", "gemm_handoff"),
     # f32 compute: the f32 kernels behind the same wrappers
     "fused_block_f32": Row("spegnet_tpu_torch/csrc/block_f32.cu",
                            "spegnet_tpu/ops/fused_block.py:99", "fused_block", "f32"),
@@ -415,14 +435,14 @@ def main() -> int:
         check(len(at72) == n72 and all(ss == sl == 0 for _, _, ss, sl in at72),
               f"{kern}<72, *> spills or was not built: {usage}")
     # the persistent GEMM's instantiations (csrc/gemm_persistent.cuh): bf16 (BN,
-    # ACT) and int8 (BN, ACT, SW_FIRST, output type), and the one-tile-per-block
-    # bf16 kernel kept beside it (BN, STAGES, ACT), the f32 GEMM (ACT) and the
+    # ACT) and int8 (BN, ACT, SW_FIRST, output type), the hand-off GEMM beside
+    # it (csrc/gemm_handoff.cuh: ACT), the f32 GEMM (ACT) and the
     # LayerNorm + quant row pass (T, NV, WREG); none may spill
     # and the decoder's: the frame of csrc/decoder_conv.cuh (MODE: conv1, the
     # strips, conv2 + head, the int8 conv2 without / with y2), the int8 conv1
     # and the Cm 128 one-tile kernel of the edge branch (UP, HEAD, CM, EDGE)
     for kern, n_inst in (("gemm_bf16_kernel", 8), ("gemm_i8_kernel", 14),
-                         ("gemm_tma_kernel", 3), ("gemm_f32_kernel", 3),
+                         ("gemm_handoff_kernel", 3), ("gemm_f32_kernel", 3),
                          ("layernorm_q8_kernel", 4), ("dec_conv_kernel", 5),
                          ("polyconv1_i8_kernel", 1), ("conv3x3_kernel", 3)):
         usage = kernels.ptxas_usage(kern)
@@ -453,6 +473,16 @@ def main() -> int:
         check(errs[worst][1] <= kc.BWD_REL_LIMIT,
               f"{name}: backward {worst} disagrees with plain autograd ({errs[worst][1]:.3e})")
     tn_checks(kc, kernels, torch, dev)
+    # the hand-off GEMM alone at every product the plan sends it (batch 8)
+    # and on ragged shapes
+    for name in kc.GEMM_HO:
+        res = kc.compare_gemm_ho(name, 8, torch.Generator().manual_seed(1), dev)
+        torch.cuda.synchronize()
+        max_err["gemm_handoff"] = max(max_err["gemm_handoff"], res["max_abs"])
+        log(f"check {name:16s} gemm_handoff M N K epilogue {kc.gemm_ho_shape(name, 8)}: "
+            f"max_abs {res['max_abs']:.4e} rel {res['rel']:.4e} (limit {kc.REL_LIMIT}), two "
+            f"calls bit-equal {res['same']}, launches {res['launched']} of 2")
+        check(kc.gemm_ho_ok(res), f"{name}: the hand-off GEMM disagrees ({res})")
     for name in kc.RES:
         res = kc.compare_res(kc.res_case(name, 8, torch.Generator().manual_seed(1), dev))
         torch.cuda.synchronize()
@@ -537,6 +567,7 @@ def main() -> int:
                           model=model)
     launches, launches_f32 = {}, {}   # per run: launch counts of the bf16 / f32 runs
     seg, edge, launches["predict"] = predict_checked(predictor, images, 512, False, torch)
+    check(launches["predict"]["gemm_handoff"] > 0, "the main path ran no hand-off GEMM")
     x = torch.from_numpy(np.stack([predictor.processor.process_array(a)
                                    for a in images])).to(dev)
     seg32, edge32 = f32_masks(state, x, torch, dev)
@@ -766,6 +797,9 @@ def main() -> int:
 
     with torch.inference_mode():
         gemm_bench.run(8, log)
+        ho = gemm_bench.run_handoff(8, log)
+        per["gemm_handoff"].update(ms=ho["kernel"], plain_ms=ho["plain"], ops_ms=ho["ops_ms"],
+                                   bytes_ms=ho["bytes_ms"])
         gemm_tn_bench.run(8, log)
     gemm_bench.run_f32(8, log)
     gemm_bench.run_lnq8(8, log)
@@ -911,6 +945,8 @@ def predict_checked(predictor, images, size: int, int8: bool, torch, int8_dec: b
             decoder_supported(size // 2))
     log(f"{tag}: launches {got} (expected {want})")
     check(got == want, f"{tag}: launches differ from the routes")
+    got.update(kernels.gemm_launches)
+    log(f"{tag}: hand-off GEMM launches {kernels.gemm_launches['gemm_handoff']}")
     n = len(images)
     check(seg.shape == (n, size, size) and edge.shape == (n, size // 8, size // 8),
           f"{tag}: output shapes {seg.shape} {edge.shape}")

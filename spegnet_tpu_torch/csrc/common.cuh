@@ -346,6 +346,23 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
 }
 
+// gelu_tanh with its tanh on the SFU: 0.5 x (1 + tanh(u)) = x / (1 +
+// exp(-2u)), the exponential by ex2.approx and the reciprocal by
+// rcp.approx (relative error ~2^-21): the bf16 GEMM epilogues' GELU
+// (hiera_block.cu), two MUFU instructions where tanhf takes ~20 on the FMA
+// pipe.  About 0.004% of the outputs rounded to bf16 differ from
+// gelu_tanh's, by one step.  tanh.approx.f32 (one MUFU instruction) is not
+// used: its absolute error, ~2^-11, makes 1 + tanh(u) wrong for u below ~-2
+// (0.13% of the outputs differed, and the 512^2 training gradient's cosine
+// to f32 fell from 0.91 to 0.26 on an H100).
+__device__ __forceinline__ float gelu_tanh_sfu(float x) {
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(-2.8853900817779268f * u));  // exp(-2u)
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.0f + e));
+  return x * r;
+}
+
 // jax.nn.gelu(approximate=False), torch's F.gelu: 0.5 x (1 + erf(x / sqrt(2))).
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));

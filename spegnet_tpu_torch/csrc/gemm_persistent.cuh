@@ -31,8 +31,8 @@
 // 128 / 192 tiles and left N = 576 at 1.45 waves of 132 SMs (the int8 one
 // ran mma.sync).  The plan picks BN 144 (every Hiera width is a multiple of
 // 144) or 192 per product from the wave count; the bf16 products of width
-// 192 without a residual keep the one-tile kernel, measured faster there
-// (kernels.gemm_plan).  The feed of operand tiles from L2 (~65 GB/s per SM
+// 192 without a residual go to gemm_handoff.cuh instead, whose epilogue runs
+// beside the next tile's wgmma (kernels.gemm_plan).  The feed of operand tiles from L2 (~65 GB/s per SM
 // measured, PERF.md) holds the k-loop near 60% of the bf16 rate.
 #pragma once
 

@@ -207,6 +207,71 @@ def gemm_work(m: int, n: int, k: int, int8: bool = False, residual: bool = False
     return 2.0 * m * n * k, nbytes + out_bytes * m * n * (2 if residual else 1)
 
 
+# The hand-off GEMM (csrc/gemm_handoff.cuh): every product of a 512^2
+# forward that kernels.gemm_plan sends it (each stage's fc1 with its GELU,
+# and with the GELU-pre epilogue of the backward's recompute; the fronts'
+# stacked qkv + shortcut product with its bias), and ragged shapes (M, N, K
+# tails, an odd M-tile count, N not a multiple of 192).  name: (M at batch
+# 1, N, K, epilogue); M scales with the batch but in the ragged cases.
+GEMM_HO = {**{f"stage{s + 1}_fc1{ep}": ((128 >> s) ** 2, 4 * (144 << s), 144 << s, act)
+              for s in range(4) for ep, act in (("", "gelu"), ("_pre", "gelu_pre"))},
+           "t12_qkv_sc": (16384, 1152, 144, "none"), "t23_qkv_sc": (4096, 2304, 288, "none"),
+           "t34_qkv_sc": (1024, 4608, 576, "none"),
+           "ragged_gelu": (4099, 1160, 200, "gelu"), "ragged_pre": (4099, 1160, 72, "gelu_pre"),
+           "ragged_odd": (17000, 384, 72, "gelu"),
+           "ragged_none": (33001, 2304, 200, "none")}
+
+
+def gemm_ho_shape(name: str, batch: int) -> Tuple[int, int, int, str]:
+    """(M, N, K, epilogue) of :data:`GEMM_HO` case ``name`` at ``batch``."""
+    m, n, k, act = GEMM_HO[name]
+    return (m if name.startswith("ragged") else batch * m), n, k, act
+
+
+def gemm_ho_calls(name: str, batch: int, g, device, mod=None):
+    """(kernel call, plain call, torch.mm call) of :data:`GEMM_HO` case
+    ``name`` on seeded bf16 operands (weights scaled by K^-1/2):
+    kernels.gemm / gemm_gelu_pre (of ``mod``, another tree's kernels
+    module, if given), kernels.gemm_plain, and torch.mm of the operands (a
+    yardstick)."""
+    m, n, k, act = gemm_ho_shape(name, batch)
+    a = torch.randn((m, k), generator=g).to(device, torch.bfloat16)
+    w = (torch.randn((n, k), generator=g) * k ** -0.5).to(device, torch.bfloat16)
+    b = (0.1 * torch.randn((n,), generator=g)).to(device, torch.bfloat16)
+    mod = mod or kernels
+    mm = lambda: torch.mm(a, w.t())  # noqa: E731
+    if act == "gelu_pre":
+        return (lambda: mod.gemm_gelu_pre(a, w, b),
+                lambda: kernels.gemm_plain(a, w, b, pre=True), mm)
+    return (lambda: mod.gemm(a, w, b, gelu=act == "gelu"),
+            lambda: kernels.gemm_plain(a, w, b, gelu=act == "gelu"), mm)
+
+
+def compare_gemm_ho(name: str, batch: int, g, device) -> Dict[str, object]:
+    """The hand-off GEMM at case ``name`` against its plain version: max |k
+    - p| and max |k - p| / max |p| over its outputs, whether the plan sent
+    the product to the hand-off kernel, and whether two calls gave the same
+    bits."""
+    kern, plain, _ = gemm_ho_calls(name, batch, g, device)
+    m, n, k, _ = gemm_ho_shape(name, batch)
+    sms = kernels._sm_count(device.index or 0)
+    routed = kernels.gemm_plan(m, n, k, sms).handoff
+    before = kernels.gemm_launches["gemm_handoff"]
+    got, again, want = kern(), kern(), plain()
+    launched = kernels.gemm_launches["gemm_handoff"] - before
+    got, again, want = (t if isinstance(t, tuple) else (t,) for t in (got, again, want))
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+    peak = max(float(y.float().abs().max()) for y in want)
+    return {"max_abs": err, "rel": err / peak, "routed": routed, "launched": launched,
+            "same": all(torch.equal(x, y) for x, y in zip(got, again))}
+
+
+def gemm_ho_ok(res: Dict[str, object]) -> bool:
+    """Within REL_LIMIT, two calls bit-equal, and the product went to the
+    hand-off kernel, twice."""
+    return res["rel"] <= REL_LIMIT and res["same"] and res["routed"] and res["launched"] == 2
+
+
 # The f32 GEMM (kernels.gemm_f32, the 3xTF32 form of
 # csrc/gemm_persistent.cuh) at every product of the f32 gen-1 blocks (#7 at
 # f32): the four projections of each :data:`F32_BLOCKS` geometry (512^2) and

@@ -15,7 +15,8 @@ of ops/pallas_attention.py and ``fused_block`` on f32 have none: their
 backward recomputes through the plain version, as the JAX package's does);
 ``fused_block_t_res`` / ``fused_block_t_bwd_res`` count the T-block calls
 that took the saved-residual pair instead of ``fused_block_t`` /
-``fused_block_t_bwd``; ``reset_launches`` clears it.
+``fused_block_t_bwd``; ``gemm_launches`` counts the hand-off GEMM's
+launches inside them; ``reset_launches`` clears both.
 """
 
 from __future__ import annotations
@@ -57,12 +58,18 @@ launches = {
     "fused_block_t_bwd_res": 0,
 }
 
+# Launches of the hand-off GEMM (csrc/gemm_handoff.cuh) by :func:`gemm` and
+# :func:`gemm_gelu_pre`: a kernel inside the wrappers above, counted apart
+# from them.
+gemm_launches = {"gemm_handoff": 0}
+
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, gemm_launches):
+        for k in d:
+            d[k] = 0
 
 
 def _digest() -> str:
@@ -304,16 +311,16 @@ _HBM = 3.35e12
 
 
 class GemmPlan(NamedTuple):
-    """Launch plan of the persistent GEMM for A[M, K] W[N, K]^T: tiles of
-    128 x ``bn``, ``m_tiles`` x ``n_tiles`` of them (N fastest), walked by
-    ``grid`` blocks, block b taking tiles b, b + grid, ...; with
-    ``one_tile`` csrc/hiera_block.cu's ``gemm_tma_kernel`` instead, one
-    block per tile (grid = tiles)."""
+    """Launch plan of the forward GEMM for A[M, K] W[N, K]^T: tiles of 128 x
+    ``bn``, ``m_tiles`` x ``n_tiles`` of them (N fastest), walked by
+    ``grid`` blocks, block b taking tiles b, b + grid, ...; on the
+    persistent kernel (csrc/gemm_persistent.cuh), or with
+    ``handoff`` on the hand-off kernel (csrc/gemm_handoff.cuh)."""
     bn: int
     m_tiles: int
     n_tiles: int
     grid: int
-    one_tile: bool = False
+    handoff: bool = False
 
     @property
     def tiles(self) -> int:
@@ -334,15 +341,15 @@ def gemm_seconds(m: int, n: int, k: int, bn: int, sms: int, dtype: str = "bf16")
 @functools.lru_cache(maxsize=512)
 def gemm_plan(m: int, n: int, k: int, sms: int, dtype: str = "bf16",
               residual: bool = False) -> GemmPlan:
-    """The plan of the persistent GEMM for ``dtype`` ("bf16", "int8",
+    """The plan of the forward GEMM for ``dtype`` ("bf16", "int8",
     "int8_f32" or "f32"): the tile width of :data:`GEMM_BN` of least
     :func:`gemm_seconds` (within 1e-9 of it, the widest: fewer, larger
     tiles), and min(tiles, ``sms``) blocks.  A bf16 product at width 192
     whose epilogue reads no ``residual`` (fc1 with its GELU, the fronts'
-    stacked product) takes the one-tile-per-block kernel, which measured
-    3-15% faster there (H100, utils/gemm_bench.py).  Every output tile is
-    computed by one block; the sums run over K in k order whatever the plan,
-    so the results do not depend on it."""
+    stacked product) takes the hand-off kernel, whose epilogue warps run
+    beside the next tile's MMAs; every other product the persistent
+    kernel.  Every output tile is computed by one block; the sums run over
+    K in k order whatever the plan, so the results do not depend on it."""
     if m < 1 or n < 1 or k < 1 or m >= 2 ** 31:
         raise ValueError(f"gemm: M={m}, N={n}, K={k}")
     cost = {bn: gemm_seconds(m, n, k, bn, sms, dtype) for bn in GEMM_BN[dtype]}
@@ -351,9 +358,8 @@ def gemm_plan(m: int, n: int, k: int, sms: int, dtype: str = "bf16",
     m_tiles, n_tiles = -(-m // GEMM_BM), -(-n // bn)
     if m_tiles * n_tiles >= 2 ** 31:
         raise ValueError(f"gemm: M={m}, N={n} needs 2^31 or more tiles")
-    if dtype == "bf16" and bn == 192 and not residual:
-        return GemmPlan(bn, m_tiles, n_tiles, m_tiles * n_tiles, True)
-    return GemmPlan(bn, m_tiles, n_tiles, min(m_tiles * n_tiles, sms))
+    return GemmPlan(bn, m_tiles, n_tiles, min(m_tiles * n_tiles, sms),
+                    dtype == "bf16" and bn == 192 and not residual)
 
 
 def _gemm(a, w, bias, residual, act, aux=None):
@@ -379,15 +385,30 @@ def _gemm(a, w, bias, residual, act, aux=None):
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     _check(load().sp_gemm(a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
                            c.data_ptr(), _ptr(aux), m, n, k, _ACT[act], plan.bn, plan.grid,
-                           int(plan.one_tile), _stream(a)), "sp_gemm")
+                           int(plan.handoff), _stream(a)), "sp_gemm")
+    if plan.handoff:
+        gemm_launches["gemm_handoff"] += 1
     return c
+
+
+def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias=None, gelu: bool = False,
+               pre: bool = False):
+    """The plain version of :func:`gemm` without a residual (and, with
+    ``pre``, of :func:`gemm_gelu_pre`): the f32 product of the bf16
+    operands (+ bias) (-> tanh GELU) rounded to a's dtype."""
+    v = a.float() @ w.float().t()
+    if bias is not None:
+        v = v + bias.float()
+    if pre:
+        return v.to(a.dtype), torch.nn.functional.gelu(v, approximate="tanh").to(a.dtype)
+    return (torch.nn.functional.gelu(v, approximate="tanh") if gelu else v).to(a.dtype)
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, bias=None, residual=None,
          gelu: bool = False) -> torch.Tensor:
     """a [M, K] @ w[N, K]^T (+ bias) (-> tanh GELU) (+ residual), bf16
-    (the persistent TMA + wgmma GEMM, csrc/hiera_block.cu, or its
-    one-tile-per-block kernel, as :func:`gemm_plan` says)."""
+    (the persistent TMA + wgmma GEMM, csrc/hiera_block.cu, or the hand-off
+    GEMM, as :func:`gemm_plan` says)."""
     return _gemm(a, w, bias, residual, "gelu" if gelu else "none")
 
 

@@ -6,8 +6,8 @@ stacked products), beside torch.mm (bf16) or torch._int_mm (int8, int32
 out) on the same operands: yardsticks the port never calls.
 
     python -m spegnet_tpu_torch.utils.gemm_bench [--batch 8]
-        [--digests OUT.json] [--against REF.json]
-        [--f32] [--lnq8] [--codes OUT.pt] [--codes-against REF.pt]
+        [--digests OUT.json] [--against REF.json] [--tree TREE]
+        [--handoff] [--f32] [--lnq8] [--codes OUT.pt] [--codes-against REF.pt]
 
 Prints, per product and epilogue (bias, GELU, residual as the block runs
 it), the launch plan (kernels.gemm_plan), the device ms
@@ -23,7 +23,17 @@ the bf16 and the int8-encoder forwards.  ``--digests`` writes, and
 kernels), the SHA-256 of every output of kernels.gemm / gemm_gelu_pre /
 gemm_gelu_grad / gemm_i8 on seeded inputs at every forward product and at
 the dX products of the block backward (:func:`digests`), which shows
-whether two builds give the same bits.
+whether two builds give the same bits.  ``--tree TREE`` loads
+another tree's ``spegnet_tpu_torch/kernels.py`` (for example the parent
+commit unpacked with ``git archive``; it builds its own library) and times
+its launcher beside this tree's on the same operands, in turns, at every
+product.
+
+``--handoff`` times the hand-off GEMM (csrc/gemm_handoff.cuh) at every
+product it takes (kernel_check.GEMM_HO) and, with ``--tree``, the other
+tree's launcher on the same operands, in turns, beside torch.mm, the plain
+version and the bound, with the totals per 512^2 forward
+(:func:`run_handoff`).
 
 ``--f32`` times instead the f32 GEMM (kernels.gemm_f32, the 3xTF32 form)
 at every product of the f32 gen-1 blocks (kernel_check.gemm_f32_shapes:
@@ -50,10 +60,23 @@ TOTALS = {"#1 fused_block_t": ("bf16", ("stage1", "stage2", "stage3")),
           "int8-encoder forward": ("mixed", ())}
 
 
-def _bf16_call(m, n, k, gelu, res, g, dev):
+def alternate(old, new, rounds: int = 2):
+    """Device ms of two calls measured in turns (old, new, new, old, ...),
+    each the mean of its rounds."""
+    from spegnet_tpu_torch import kernel_check as kc
+
+    t = {0: [], 1: []}
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            t[i].append(kc.device_ms((old, new)[i], iters=10))
+    return sum(t[0]) / rounds, sum(t[1]) / rounds
+
+
+def _bf16_call(m, n, k, gelu, res, g, dev, kernels=None):
     import torch
 
-    from spegnet_tpu_torch import kernels
+    if kernels is None:
+        from spegnet_tpu_torch import kernels
 
     a = torch.randn((m, k), generator=g).to(dev, torch.bfloat16)
     w = (torch.randn((n, k), generator=g) * k ** -0.5).to(dev, torch.bfloat16)
@@ -73,11 +96,13 @@ def _bf16_call(m, n, k, gelu, res, g, dev):
     return kern, lambda: torch.mm(a, w.t()), err
 
 
-def _i8_call(m, n, k, gelu, res, g, dev):
+def _i8_call(m, n, k, gelu, res, g, dev, kernels=None):
     import torch
 
-    from spegnet_tpu_torch import kernels
     from spegnet_tpu_torch.ops.fused_block_t_i8 import qdot
+
+    if kernels is None:
+        from spegnet_tpu_torch import kernels
 
     a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(dev)
     w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(dev)
@@ -100,9 +125,12 @@ def _i8_call(m, n, k, gelu, res, g, dev):
     return kern, lambda: torch._int_mm(a, w.t()), err
 
 
-def run(batch: int, log: Callable[[str], None] = print) -> Dict[str, Dict[str, float]]:
+def run(batch: int, log: Callable[[str], None] = print,
+        other=None) -> Dict[str, Dict[str, float]]:
     """Times every product and returns the per-forward totals in ms of each
-    row of :data:`TOTALS`: kernel, yardstick and bound."""
+    row of :data:`TOTALS`: kernel, yardstick and bound (and, given ``other``,
+    another tree's kernels module, its launcher's time on the same operands,
+    in turns with this tree's)."""
     import torch
 
     from spegnet_tpu_torch import kernel_check as kc
@@ -120,7 +148,16 @@ def run(batch: int, log: Callable[[str], None] = print) -> Dict[str, Dict[str, f
             g = torch.Generator().manual_seed(m + n + k)
             make = _i8_call if dt == "int8" else _bf16_call
             kern, lib, err = make(m, n, k, gelu, res, g, dev)
-            k_ms = kc.device_ms(kern, iters=10)
+            old = ""
+            if other is not None:
+                okern = make(m, n, k, gelu, res, torch.Generator().manual_seed(m + n + k), dev,
+                             other)[0]
+                o_ms, k_ms = alternate(okern, kern)
+                t = times.setdefault((dt, geo, "other"), [0.0])
+                t[0] += o_ms
+                old = f"other tree {o_ms:.4f} ms, "
+            else:
+                k_ms = kc.device_ms(kern, iters=10)
             l_ms = kc.device_ms(lib, iters=10)
             ops, nbytes = kc.gemm_work(m, n, k, dt == "int8", res)
             b_ms, by = (kc.bound_ms(0.0, nbytes, ops) if dt == "int8"
@@ -130,7 +167,7 @@ def run(batch: int, log: Callable[[str], None] = print) -> Dict[str, Dict[str, f
             unit = "TOPS" if dt == "int8" else "TFLOP/s"
             p = f" {plan(m, n, k, sms, dt, res)}" if plan else ""
             ep = "+".join(e for e, on in (("gelu", gelu), ("residual", res)) if on) or "bias"
-            log(f"gemm {dt:4s} {name:13s} M {m} N {n} K {k} ({ep}){p}: kernel {k_ms:.4f} ms "
+            log(f"gemm {dt:4s} {name:13s} M {m} N {n} K {k} ({ep}){p}: {old}kernel {k_ms:.4f} ms "
                 f"({ops / k_ms / 1e9:.1f} {unit}, {nbytes / k_ms / 1e6:.1f} GB/s), "
                 f"{'torch._int_mm' if dt == 'int8' else 'torch.mm'} {l_ms:.4f} ms "
                 f"({ops / l_ms / 1e9:.1f} {unit}), bound {b_ms:.4f} ms ({by}), {err} "
@@ -145,8 +182,72 @@ def run(batch: int, log: Callable[[str], None] = print) -> Dict[str, Dict[str, f
             keys = [(dt, geo) for geo in geos]
         s = [sum(times[key][i] * kc.GEMM_COUNT[key[1]] for key in keys) for i in range(3)]
         tot[row] = {"kernel": s[0], "library": s[1], "bound": s[2]}
-        log(f"gemm per forward at batch {batch}, {row}: kernel {s[0]:.4f} ms, "
+        old = ""
+        if other is not None:
+            tot[row]["other"] = sum(times[key + ("other",)][0] * kc.GEMM_COUNT[key[1]]
+                                    for key in keys)
+            old = f"other tree {tot[row]['other']:.4f} ms, "
+        log(f"gemm per forward at batch {batch}, {row}: {old}kernel {s[0]:.4f} ms, "
             f"yardstick {s[1]:.4f} ms, bound {s[2]:.4f} ms")
+    return tot
+
+
+def run_handoff(batch: int, log: Callable[[str], None] = print,
+                other=None) -> Dict[str, float]:
+    """Times the hand-off GEMM at each kernel_check.GEMM_HO product (device
+    ms) and, given ``other`` (another tree's kernels module), that tree's
+    launcher on the same operands, in turns; beside torch.mm, the plain
+    version (kernels.gemm_plain) and the bound (kernel_check.gemm_work).
+    Returns the totals per 512^2 forward at ``batch`` (the fc1 products
+    and the fronts' stacked ones, kernel_check.GEMM_COUNT calls each): ms of
+    "kernel", "other", "library", "plain", "bound", "ops_ms", "bytes_ms"."""
+    import torch
+
+    from spegnet_tpu_torch import kernel_check as kc
+    from spegnet_tpu_torch import kernels
+
+    dev = torch.device("cuda")
+    sms = kernels._sm_count(dev.index or 0)
+    tot = dict.fromkeys(("kernel", "other", "library", "plain", "bound", "ops_ms",
+                         "bytes_ms"), 0.0)
+    for name in kc.GEMM_HO:
+        m, n, k, act = kc.gemm_ho_shape(name, batch)
+        geo = name.split("_")[0]
+        count = kc.GEMM_COUNT.get(geo, 0) if act != "gelu_pre" else 0
+        g = lambda: torch.Generator().manual_seed(m + n + k)  # noqa: E731
+        kern, plain, mm = kc.gemm_ho_calls(name, batch, g(), dev)
+        times = {}
+        differ = ""
+        if other is not None:
+            okern = kc.gemm_ho_calls(name, batch, g(), dev, mod=other)[0]
+            times["other"], times["kernel"] = alternate(okern, kern)
+            mine, theirs = kern(), okern()
+            mine, theirs = (x if isinstance(x, tuple) else (x,) for x in (mine, theirs))
+            differ = "outputs differing from the other tree's: " + ", ".join(
+                f"{float((x != y).float().mean()):.3e}" for x, y in zip(mine, theirs)) + "; "
+            del mine, theirs
+        else:
+            times["kernel"] = kc.device_ms(kern, iters=10)
+        times["library"] = kc.device_ms(mm, iters=10)
+        times["plain"] = kc.device_ms(plain, iters=3)
+        ops, nbytes = kc.gemm_work(m, n, k, out_bytes=4 if act == "gelu_pre" else 2)
+        b_ms, by = kc.bound_ms(ops, nbytes)
+        plan = kernels.gemm_plan(m, n, k, sms)
+        old = f"other tree {times['other']:.4f} ms, " if other is not None else ""
+        log(f"gemm handoff {name:15s} M {m} N {n} K {k} ({act}) {plan}: {old}kernel "
+            f"{times['kernel']:.4f} ms ({ops / times['kernel'] / 1e9:.1f} TFLOP/s), torch.mm "
+            f"{times['library']:.4f} ms, plain {times['plain']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({by}); {differ}(x{count} per forward)")
+        for key in ("kernel", "other", "library", "plain"):
+            tot[key] += times.get(key, 0.0) * count
+        tot["bound"] += b_ms * count
+        tot["ops_ms" if by == "operations" else "bytes_ms"] += b_ms * count
+        del kern, plain, mm
+        torch.cuda.empty_cache()
+    old = f"other tree {tot['other']:.4f} ms, " if other is not None else ""
+    log(f"gemm handoff per forward at batch {batch} (fc1 and the fronts' stacked products): "
+        f"{old}kernel {tot['kernel']:.4f} ms, torch.mm {tot['library']:.4f} ms, plain "
+        f"{tot['plain']:.4f} ms, bound {tot['bound']:.4f} ms")
     return tot
 
 
@@ -315,6 +416,8 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--digests", help="write the outputs' SHA-256 here (JSON)")
     ap.add_argument("--against", help="compare the outputs' SHA-256 with this file")
+    ap.add_argument("--tree", help="time this other tree's launchers beside this tree's")
+    ap.add_argument("--handoff", action="store_true", help="time the hand-off GEMM")
     ap.add_argument("--f32", action="store_true", help="time the f32 GEMM")
     ap.add_argument("--lnq8", action="store_true", help="time the LayerNorm + quant pass")
     ap.add_argument("--codes", help="write the LayerNorm + quant codes here (torch.save)")
@@ -338,7 +441,17 @@ def main(argv=None) -> None:
         return
     if args.codes or args.codes_against:
         return
+    other = None
+    if args.tree:
+        from pathlib import Path
+
+        from spegnet_tpu_torch.utils.window_ab import other_kernels
+
+        other = other_kernels(Path(args.tree))
     with torch.inference_mode():
+        if args.handoff:
+            run_handoff(args.batch, say, other)
+            return
         if args.digests or args.against:
             import json
 
@@ -353,7 +466,7 @@ def main(argv=None) -> None:
                 print(f"gemm digests: {len(ref) - len(differ)} of {len(ref)} outputs "
                       f"bit-equal to {args.against}; differ: {differ}", flush=True)
             return
-        run(args.batch, say)
+        run(args.batch, say, other)
 
 
 if __name__ == "__main__":

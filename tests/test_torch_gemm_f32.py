@@ -84,7 +84,7 @@ def test_f32_plan_covers_every_output_once(m, n, k, residual):
     walk; the grid is min(tiles, SMs), the busiest block takes ceil(tiles /
     grid) tiles, the tile width is the one the kernel is built for."""
     plan = kernels.gemm_plan(m, n, k, SMS, "f32", residual)
-    assert plan.bn == 144 and not plan.one_tile
+    assert plan.bn == 144 and not plan.handoff
     assert plan.m_tiles == -(-m // kernels.GEMM_BM) and plan.n_tiles == -(-n // plan.bn)
     assert plan.grid == min(plan.tiles, SMS)
     seen = np.zeros((plan.m_tiles, plan.n_tiles), np.int64)

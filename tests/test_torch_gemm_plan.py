@@ -12,7 +12,8 @@ codes), zero-filled past K, M and N, then the epilogue rounds them.
   block's walk, for bf16 and int8 (and int8 with an f32 output), with and
   without a residual, at M, N and K tails and M past 2^23; the tile width
   is the least of the plan's reckoning (kernels.gemm_seconds), and the
-  one-tile-per-block kernel takes the bf16 products it is kept for; the ring's full / empty barrier phases
+  hand-off kernel (csrc/gemm_handoff.cuh) takes the bf16 products of width
+  192 without a residual; the ring's full / empty barrier phases
   (a simulation of the mbarriers) hand each consumer wait the load of the
   same (tile, k-step) across tile boundaries, at every ring depth the
   kernel may take.
@@ -85,13 +86,13 @@ def walks(plan):
 @pytest.mark.parametrize("m,n,k", SHAPES)
 def test_plan_covers_every_output_once(m, n, k, dtype, residual):
     """Every output element lies in exactly one tile of exactly one block's
-    walk; the grid is min(tiles, SMs) (one block per tile for the
-    one-tile-per-block kernel), the busiest block takes ceil(tiles / grid)
-    tiles, and the tile width is one the kernel is built for."""
+    walk; the grid is min(tiles, SMs) (the hand-off kernel's too), the
+    busiest block takes ceil(tiles / grid) tiles, and the tile width is one
+    the kernel is built for."""
     plan = kernels.gemm_plan(m, n, k, SMS, dtype, residual)
     assert plan.bn in kernels.GEMM_BN[dtype]
     assert plan.m_tiles == -(-m // kernels.GEMM_BM) and plan.n_tiles == -(-n // plan.bn)
-    assert plan.grid == (plan.tiles if plan.one_tile else min(plan.tiles, SMS))
+    assert plan.grid == min(plan.tiles, SMS)
     assert plan.tiles < 2 ** 31
     seen = np.zeros((plan.m_tiles, plan.n_tiles), np.int64)
     longest = 0
@@ -114,16 +115,15 @@ def test_plan_is_the_reckonings_least(m, n, k, dtype):
     """The tile width minimises kernels.gemm_seconds over kernels.GEMM_BN,
     the widest within 1e-9 of the least; at the T-block's stage-3 proj and
     fc2 (N 576, M 8192: 1.45 waves of 192-wide tiles) that is 144.  The
-    one-tile-per-block kernel takes exactly the bf16 products of width 192
-    whose epilogue reads no residual, whatever the residual does to the
-    width."""
+    hand-off kernel takes exactly the bf16 products of width 192 whose
+    epilogue reads no residual, whatever the residual does to the width."""
     for residual in (False, True):
         plan = kernels.gemm_plan(m, n, k, SMS, dtype, residual)
         cost = {bn: kernels.gemm_seconds(m, n, k, bn, SMS, dtype)
                 for bn in kernels.GEMM_BN[dtype]}
         best = min(cost.values())
         assert plan.bn == max(bn for bn, c in cost.items() if c <= best * (1 + 1e-9))
-        assert plan.one_tile == (dtype == "bf16" and plan.bn == 192 and not residual)
+        assert plan.handoff == (dtype == "bf16" and plan.bn == 192 and not residual)
     if (m, n, k) == (8192, 576, 576):
         assert plan.bn == 144
 

@@ -17,7 +17,8 @@ attention kernel at lengths that are not multiples of 16 and on strided views; t
 384^2 Predictor's launches; the T-block's saved-residual pair bit-equal to
 the recompute pair and within the limits of its plain versions (T-block
 geometries include the 1024^2 global block, L 4096); the bf16 and int8
-GEMMs just past 65535 row tiles.  In f32 (``use_amp: false``): the gen-1
+GEMMs just past 65535 row tiles; the hand-off GEMM at every product it
+takes and on ragged shapes (kernel_check.GEMM_HO).  In f32 (``use_amp: false``): the gen-1
 block, both attention wrappers and the int8 gen-1 block at every f32
 main-path geometry (kernel_check.F32_REL_LIMIT; the int8 one by the int8
 rule), the f32 GEMM, LayerNorm and attention on ragged shapes, the f32 GEMM
@@ -290,6 +291,18 @@ def test_gemm_matches_mm_and_repeats(cuda, m, n, k):
         assert torch.equal(got, again), what
         rel = float((got.float() - want).abs().max() / want.abs().max())
         assert rel <= kernel_check.REL_LIMIT, (what, rel)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_check.GEMM_HO))
+def test_handoff_gemm_matches_plain_and_repeats(cuda, name):
+    """The hand-off GEMM (csrc/gemm_handoff.cuh) at every product the plan
+    sends it in a 512^2 forward (batch 8: each stage's fc1 with its GELU and
+    its GELU-pre, the fronts' stacked products) and on ragged shapes (M, N
+    and K tails, N not a multiple of 192, an odd M-tile count): within
+    REL_LIMIT of kernels.gemm_plain, two calls bit-equal, each a launch of
+    the hand-off kernel."""
+    res = kernel_check.compare_gemm_ho(name, 8, torch.Generator().manual_seed(0), cuda)
+    assert kernel_check.gemm_ho_ok(res), (name, res)
 
 
 @pytest.mark.parametrize("head", [False, True])
