@@ -234,14 +234,46 @@
    and in [0, 1], the card's metrics equal to the port's CPU metrics on the
    same quantized predictions within 1e-5, forward and metrics ms/image;
    then the bf16 config at 384^2, and the f32 config at 512^2.
-8. No module of JAX, flax, optax or the JAX package was imported by any of
+8. Data parallelism, remat, the config's batch, the model report (Hiera-L,
+   seeded random weights, bf16):
+   (a) a Trainer under DistributedDataParallel with one rank over NCCL
+       (a file store in a temporary directory; the group left after)
+       against the plain Trainer, 512^2 batch 8: the loss bit-equal, every
+       gradient bucket unchanged by the reduction (a comm hook), and the
+       plain Trainer's clip and AdamW on the DDP step's gradients giving
+       its parameters and running statistics bit for bit (two backwards of
+       one step differ: the bilinear upsample backward adds with atomics);
+       launches = the training routes;
+   (b) two ranks spawned on the one card over gloo (a file store): the DDP
+       step at global batch 8 and at its first 7 samples (the pad weighted
+       0), against one process on the same global batch (the tail padded
+       with its weights, as the global program sees it): the loss, the
+       clipped gradients' cosine, the parameter update and the running
+       statistics within DDP_*_LIMIT (2.5x the worst first reading), each
+       rank's launches = the routes at batch 4;
+   (c) the Evaluator over the two ranks (batch 8) against one (batch 4) on
+       8 synthetic samples: the per-sample metrics within METRIC_TOL;
+   (d) the Predictor over the two ranks (batch 8) against one (batch 4) on
+       8 PNG images: the binary masks (written by data/png.py: the card's
+       machine has no OpenCV) byte for byte, the summary counts;
+   (e) training.remat on against off at 384^2 batch 8: the losses equal,
+       the whole model's gradient cosine to the off run no lower than a
+       second off run's less REMAT_COS_SLACK, the trunk's gradients for one
+       cotangent bit-equal wherever two off runs are; 3 steps per mode:
+       peak memory lower with remat, ms/step, launches = the routes with
+       fused_attention_lanes twice per step under remat;
+   (f) the config's batch 42 at 512^2 with remat at its default (on): two
+       Trainer steps, ms/step, peak memory <= PEAK_LIMIT_GB, launches = the
+       routes; then the model report (utils/model_info.py) at 512^2.
+9. No module of JAX, flax, optax or the JAX package was imported by any of
    the above.
 
 Any failed check raises.  The last lines are the kernel table (JSON; the
 f32 rows, KERNELS' dtype "f32", are the f32 kernels behind the same
 wrappers, their launches read from the f32 runs; the gemm_handoff row is
-the GEMM inside #1, #3 and #7, its launches those of the predict runs),
-the nvidia-smi line and {"ok": true, "device": {...}}.
+the GEMM inside #1, #3 and #7, its launches those of the predict runs;
+the bf16 rows' launches include phase 8's runs, both ranks' of 8b), the
+nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -895,6 +927,13 @@ def main() -> int:
     evaluate_phase(state, torch, dev, 512, ((False, False), (True, False), (True, True)))
     evaluate_phase(state, torch, dev, 384, ((False, False),))
     evaluate_phase(state, torch, dev, 512, ((False, False),), dtype="float32")
+
+    # -- 8. data parallelism, remat, batch 42, the model report ------------------
+    ddp_one_rank(master, torch, launches)
+    ddp_two_ranks(torch, launches)
+    remat_phase(master, torch, launches)
+    batch42_phase(master, torch, launches)
+    model_report()
 
     jax_side = sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "spegnet_tpu"))
@@ -1628,6 +1667,480 @@ def yardsticks(kc, kernels, F, torch, dev) -> None:
                 f"{l_ms:.4f} ms{rate}")
         del q4, qkv
         torch.cuda.empty_cache()
+
+
+# -- 8. data parallelism, remat, the config's batch, the model report ----------
+
+# Tolerances of the 2-rank step against the 1-rank step on the same global
+# batch (phase 8b): 2.5x the worst reading of the first chip run (an H100
+# 80GB HBM3 at 700 W: loss 6.0e-8 relative, cosine 1 - 1.007e-3, update
+# 0.1314, running statistics 2.885e-6), the convention of the backward
+# limit (PERF.md section 2).  The two steps differ by summation order (the
+# BatchNorm statistics summed over the ranks, the gradients' all-reduce) and
+# by the atomics of the bilinear upsample backward, which make two runs of
+# one step differ too; AdamW's first step, lr * g / (|g| + eps), turns the
+# small gradients' noise into a tenth of the update.
+DDP_LOSS_REL_LIMIT = 1.5e-7
+DDP_COSINE_LIMIT = 1 - 2.5e-3
+DDP_UPDATE_REL_LIMIT = 0.33
+DDP_STATS_REL_LIMIT = 7.2e-6
+RANK_TIMEOUT = 420   # seconds the spawned ranks of phase 8b-8d may take
+# Slack of the whole model's gradient cosine, remat against off, below that
+# of two off runs (phase 8e): they differ by the order of atomic adds only.
+REMAT_COS_SLACK = 1e-4
+PEAK_LIMIT_GB = 80.0
+
+
+def master_state(torch):
+    """Phase 6's weights: seeded random Hiera-L SPEGNet (CPU init)."""
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.utils.weights import init_weights
+
+    return init_weights(SPEGNet(SPEGNetConfig(variant="large")),
+                        torch.Generator().manual_seed(0)).state_dict()
+
+
+def bf16_model(master):
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+
+    m = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="bfloat16"))
+    m.load_state_dict(master)
+    return m
+
+
+def phase8_batches():
+    """The train batches of phase 8 (8 and its first 7 samples) and the eval
+    batch (8 samples whose ground truths all fit the 512 canvas)."""
+    import dataclasses
+
+    from spegnet_tpu_torch.data.pipeline import synthetic_eval_batch, synthetic_train_batch
+
+    b8 = synthetic_train_batch(8, np.random.default_rng(23))
+    b7 = dataclasses.replace(b8, **{f.name: getattr(b8, f.name)[:7]
+                                    for f in dataclasses.fields(b8) if f.name != "sample_w"})
+    ev = synthetic_eval_batch(8, np.random.default_rng(29), 512, gt_range=(384, 512),
+                              buckets=(512,))
+    return b8, b7, ev
+
+
+def step_capture(trainer, batch, torch, raw: bool = False):
+    """One Trainer step -> (global loss, the clipped gradients (with
+    ``raw``: the reduced gradients before the clip), updated parameters, BN
+    running statistics, launch counts)."""
+    from spegnet_tpu_torch import kernels
+
+    grads = {}
+    hold = (trainer, "clip_and_step") if raw else (trainer.optimizer, "step")
+    call = getattr(*hold)
+
+    def captured(*a, **k):
+        grads.update({n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()})
+        return call(*a, **k)
+
+    setattr(*hold, captured)
+    kernels.reset_launches()
+    res = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return {"loss": res["metrics"]["loss"], "rows": res["rows"], "grads": grads,
+            "params": {n: p.detach().clone() for n, p in trainer.model.named_parameters()},
+            "stats": {n: b.clone() for n, b in trainer.model.named_buffers() if "running" in n},
+            "launches": dict(kernels.launches)}
+
+
+def step_readings(a, b, start):
+    """How far step ``a`` is from step ``b`` (the reference), both from the
+    weights ``start``: the loss, the clipped gradients' cosine, the
+    parameter update (|pa - pb| / |pb - p0| over all parameters) and the BN
+    running statistics (max |diff| / max |b|)."""
+    du = ub = 0.0
+    for n, pb in b["params"].items():
+        p0 = start[n]
+        du += float(((a["params"][n].double() - pb.double()) ** 2).sum())
+        ub += float(((pb.double() - p0.double()) ** 2).sum())
+    stats = max(float((a["stats"][n] - s).abs().max() / s.abs().max().clamp(min=1e-30))
+                for n, s in b["stats"].items())
+    return {"loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grad_cosine": grad_cosine(a["grads"], b["grads"]),
+            "update_rel": float(np.sqrt(du / max(ub, 1e-300))), "stats_rel": stats}
+
+
+def ddp_one_rank(master, torch, launches) -> None:
+    """8a: a Trainer under DistributedDataParallel with one rank over NCCL
+    against the plain Trainer, same weights, 512^2 batch 8: the loss
+    bit-equal, every gradient bucket unchanged by the reduction, and the
+    plain Trainer's clip and AdamW on the DDP step's gradients giving the
+    DDP step's parameters and running statistics bit for bit (0 tensors
+    differ).  The gradients themselves are compared through the buckets:
+    two backwards of one step differ (the bilinear upsample backward adds
+    with atomics)."""
+    import tempfile
+
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    from spegnet_tpu_torch.engine.trainer import Trainer
+    from spegnet_tpu_torch.parallel.mesh import (
+        create_mesh,
+        destroy_distributed,
+        init_distributed,
+    )
+
+    b8 = phase8_batches()[0]
+    plain = Trainer(train_config(8), None, device="cuda", model=bf16_model(master))
+    with tempfile.TemporaryDirectory() as tmp:
+        dev = init_distributed("cuda", f"file://{tmp}/store", 0, 1, 0, 1)
+        try:
+            backend = torch.distributed.get_backend()
+            ddp = Trainer(train_config(8), None, device=str(dev), model=bf16_model(master),
+                          mesh=create_mesh({"data": 1}, 1))
+            buckets = []
+
+            def hook(state, bucket):
+                before = bucket.buffer().clone()
+
+                def done(fut):
+                    after = fut.value()
+                    after = after[0] if isinstance(after, list) else after
+                    buckets.append(bool(torch.equal(before, after)))
+                    return after
+
+                return default_hooks.allreduce_hook(None, bucket).then(done)
+
+            ddp.ddp.register_comm_hook(None, hook)
+            t0 = time.perf_counter()
+            got = step_capture(ddp, b8, torch, raw=True)
+            secs = time.perf_counter() - t0
+        finally:
+            destroy_distributed()
+    launches["ddp_1rank"] = got["launches"]
+    want = train_launches(512, 8, steps=1)
+    ld = plain.forward_loss(*plain.to_device(b8))
+    loss = ld["loss"].item()
+    del ld
+    for n, p in plain.model.named_parameters():
+        p.grad = got["grads"][n]
+    plain.clip_and_step()
+    diff_p = sum(int(not torch.equal(p, got["params"][n]))
+                 for n, p in plain.model.named_parameters())
+    diff_s = sum(int(not torch.equal(b, got["stats"][n]))
+                 for n, b in plain.model.named_buffers() if n in got["stats"])
+    log(f"8a DDP 1 rank ({backend}) 512^2 batch 8: step {secs:.3f} s; loss {got['loss']!r} vs "
+        f"plain {loss!r}; {len(buckets)} buckets, unchanged by the reduction "
+        f"{sum(buckets)}; parameters differing from the plain step on the same gradients "
+        f"{diff_p} of {len(got['params'])}, running statistics {diff_s} of "
+        f"{len(got['stats'])}; launches {got['launches']} (expected {want})")
+    check(backend == "nccl", f"8a: backend {backend}, not NCCL")
+    check(got["loss"] == loss, f"8a: DDP loss {got['loss']!r} != plain {loss!r}")
+    check(buckets and all(buckets), f"8a: the reduction changed {buckets.count(False)} buckets")
+    check(diff_p == 0 and diff_s == 0, f"8a: {diff_p} parameters, {diff_s} statistics differ")
+    check(got["launches"] == want, "8a: DDP train launches differ from the routes")
+    del plain, ddp, got
+    torch.cuda.empty_cache()
+
+
+def _save_binary(self, filename, seg, edge, original) -> None:
+    """PredictionResultManager.save_prediction's binary masks through
+    data/png.py (the card's machine has no OpenCV for the heatmaps and
+    overlays)."""
+    from spegnet_tpu_torch.data.png import write_png
+
+    base = Path(filename).stem
+    for root, pred in ((self.seg_dir, seg), (self.edge_dir, edge)):
+        write_png(root / "binary" / f"{base}.png", (np.squeeze(pred) * 255).astype(np.uint8))
+
+
+def rank8(rank: int, world: int, tmp: str) -> None:
+    """8b-8d in one of ``world`` spawned ranks sharing the card over gloo;
+    rank 0 then leaves the group and runs the one-rank references."""
+    import torch
+
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.engine.evaluator import Evaluator
+    from spegnet_tpu_torch.engine.predictor import PredictionResultManager, Predictor
+    from spegnet_tpu_torch.engine.trainer import Trainer
+    from spegnet_tpu_torch.parallel import sharding
+    from spegnet_tpu_torch.parallel.mesh import (
+        create_mesh,
+        destroy_distributed,
+        init_distributed,
+    )
+    from spegnet_tpu_torch.utils.run_manager import DirectoryManager
+
+    tmp = Path(tmp)
+    PredictionResultManager.save_prediction = _save_binary
+    dev = init_distributed("cuda", f"file://{tmp}/store", rank, world, rank, world)
+    backend = torch.distributed.get_backend()
+    mesh = create_mesh({"data": world}, world)
+    master = master_state(torch)
+    b8, b7, evb = phase8_batches()
+    mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
+          "image_processing": {"target_size": 512}}
+    out, counts = {"backend": backend}, []
+    steps = {}
+    for tag, batch in (("8", b8), ("7", b7)):
+        tr = Trainer(train_config(8), None, device=str(dev), model=bf16_model(master),
+                     mesh=mesh)
+        t0 = time.perf_counter()
+        got = step_capture(tr, batch, torch)
+        out[f"step_s_{tag}"] = time.perf_counter() - t0
+        counts.append(got.pop("launches"))
+        steps[tag] = got if rank == 0 else None
+        del tr, got
+        torch.cuda.empty_cache()
+    ev = Evaluator(None, None, mc, batch_size=8, device=str(dev), model=bf16_model(master),
+                   mesh=mesh)
+    ev.evaluate(None, "synthetic", loader=[evb])
+    out["eval2"] = ev.sample_metrics["synthetic"]
+    del ev
+    dm = DirectoryManager("predict", base_dir=str(tmp / "pred2"), timestamp="run")
+    pred = Predictor(None, mc, dm, batch_size=8, device=str(dev), model=bf16_model(master),
+                     mesh=mesh)
+    out["pred2"] = pred.predict_directory(str(tmp / "imgs"))
+    del pred
+    torch.cuda.empty_cache()
+    destroy_distributed()
+    (tmp / f"launches{rank}.json").write_text(json.dumps(counts))
+    if rank:
+        return
+    # the references: one process, the same global batches (the tail batch
+    # padded with its weights, as the global program sees it)
+    padded, w = sharding.pad_batch(b7, world)
+    padded.sample_w = w
+    start = {n: t.cuda() for n, t in master.items()}
+    for tag, batch in (("8", b8), ("7", padded)):
+        tr = Trainer(train_config(8), None, device=str(dev), model=bf16_model(master))
+        ref = step_capture(tr, batch, torch)
+        out[f"rows_{tag}"] = (steps[tag]["rows"], ref["rows"])
+        out[f"readings_{tag}"] = step_readings(steps[tag], ref, start)
+        del tr, ref
+        steps[tag] = None
+        torch.cuda.empty_cache()
+    ev = Evaluator(None, None, mc, batch_size=4, device=str(dev), model=bf16_model(master))
+    ev.evaluate(None, "synthetic", loader=[sharding.shard_batch(evb, i, 2) for i in range(2)])
+    out["eval1"] = ev.sample_metrics["synthetic"]
+    del ev
+    dm = DirectoryManager("predict", base_dir=str(tmp / "pred1"), timestamp="run")
+    pred = Predictor(None, mc, dm, batch_size=4, device=str(dev), model=bf16_model(master))
+    out["pred1"] = pred.predict_directory(str(tmp / "imgs"))
+    (tmp / "rank0.json").write_text(json.dumps(out))
+
+
+def ddp_two_ranks(torch, launches) -> None:
+    """8b-8d: two ranks spawned on the card (gloo, a file store), against
+    one process on the same global batches, as the module docstring says."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from spegnet_tpu_torch.data.png import write_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "imgs").mkdir()
+        rng = np.random.default_rng(31)
+        for i in range(8):
+            write_png(tmp / "imgs" / f"p{i}.png", rng.integers(0, 256, (512, 512, 3),
+                                                               dtype=np.uint8))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(rank8, args=(2, str(tmp)), nprocs=2, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=10):
+                check(time.perf_counter() - t0 < RANK_TIMEOUT,
+                      f"8b: the ranks took more than {RANK_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        secs = time.perf_counter() - t0
+        out = json.loads((tmp / "rank0.json").read_text())
+        per_rank = [json.loads((tmp / f"launches{r}.json").read_text()) for r in range(2)]
+        files = {}
+        for tag in ("pred1", "pred2"):
+            root = tmp / tag / "prediction" / "runs" / "run_run" / "results"
+            files[tag] = {str(p.relative_to(root)): p.read_bytes() for p in root.rglob("*.png")}
+    want = train_launches(512, 4, steps=1)
+    launches["ddp_2rank"] = {}
+    for r, runs in enumerate(per_rank):
+        for c in runs:
+            check(c == want, f"8b: rank {r} launches {c} differ from the routes at batch 4 "
+                  f"({want})")
+            for k, v in c.items():
+                launches["ddp_2rank"][k] = launches["ddp_2rank"].get(k, 0) + v
+    log(f"8b 2 ranks on one card ({out['backend']}): {secs:.1f} s for 8b-8d with the "
+        f"spawn; DDP step {out['step_s_8']:.3f} s (batch 8), {out['step_s_7']:.3f} s (7); "
+        f"rows (2 ranks, 1 rank) {out['rows_8']}, {out['rows_7']}; launches per rank and "
+        f"step = the routes at batch 4")
+    limits = {"loss_rel": DDP_LOSS_REL_LIMIT, "update_rel": DDP_UPDATE_REL_LIMIT,
+              "stats_rel": DDP_STATS_REL_LIMIT}
+    for tag in ("8", "7"):
+        r = out[f"readings_{tag}"]
+        log(f"8b batch {tag} vs 1 rank: loss rel {r['loss_rel']:.3e} (limit "
+            f"{DDP_LOSS_REL_LIMIT}), clipped gradient cosine {r['grad_cosine']:.6f} (limit "
+            f"{DDP_COSINE_LIMIT}), update rel {r['update_rel']:.3e} (limit "
+            f"{DDP_UPDATE_REL_LIMIT}), running statistics rel {r['stats_rel']:.3e} (limit "
+            f"{DDP_STATS_REL_LIMIT})")
+        check(out["backend"] == "gloo", f"8b: backend {out['backend']}")
+        check(out[f"rows_{tag}"][0] == out[f"rows_{tag}"][1] == int(tag),
+              f"8b: rows {out[f'rows_{tag}']}")
+        check(r["grad_cosine"] >= DDP_COSINE_LIMIT
+              and all(r[k] <= v for k, v in limits.items()), f"8b batch {tag}: {r}")
+    e1, e2 = out["eval1"], out["eval2"]
+    check(sorted(e1) == sorted(e2) == [f"synthetic_{i}" for i in range(8)],
+          f"8c: samples {sorted(e1)} / {sorted(e2)}")
+    worst = max(abs(e2[n][k] - v) for n, m in e1.items() for k, v in m.items())
+    log(f"8c evaluate 2 ranks (batch 8) vs 1 (batch 4), 8 samples: max |metric diff| "
+        f"{worst:.3e} (limit {METRIC_TOL})")
+    check(worst <= METRIC_TOL, f"8c: metrics differ by {worst}")
+    same = sorted(k for k in files["pred1"] if files["pred2"].get(k) == files["pred1"][k])
+    log(f"8d predict 2 ranks (batch 8) vs 1 (batch 4), 8 images: {len(files['pred2'])} / "
+        f"{len(files['pred1'])} PNGs, {len(same)} byte-equal; summary counts "
+        f"{out['pred2']['total_predictions']} / {out['pred1']['total_predictions']}")
+    check(len(files["pred1"]) == 16 and files["pred1"].keys() == files["pred2"].keys()
+          and len(same) == 16, "8d: the PNGs differ")
+    check(out["pred2"]["total_predictions"] == out["pred1"]["total_predictions"] == 8,
+          "8d: summary counts")
+
+
+def remat_phase(master, torch, launches) -> None:
+    """8e: training.remat on against off at 384^2 batch 8 (38 decomposed
+    blocks on fused_attention_lanes).  Two backwards of one step differ (the
+    decoder's bilinear upsample backward adds with atomics), so: the whole
+    model's loss equal and its gradient's cosine to the off run's no lower
+    than a second off run's less REMAT_COS_SLACK; the trunk's gradients for
+    one fixed cotangent on its stage outputs (cuDNN deterministic, as phase
+    6(d)) bit-equal wherever two off runs are, the others' cosine no lower
+    than the two off runs' less RES_COS_SLACK; then 3 steps per mode on a
+    Trainer of its own: peak memory lower with remat, ms/step, launches =
+    the routes with the lanes forward twice per step under remat."""
+    import dataclasses
+
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.data.pipeline import synthetic_train_batch
+    from spegnet_tpu_torch.engine.trainer import Trainer
+
+    batch = synthetic_train_batch(8, np.random.default_rng(37), 384)
+    conf = train_config(8, 384)
+    tr = Trainer(conf, None, device="cuda", model=bf16_model(master))
+    check(tr.model.config.remat is False, "8e: remat on at batch 8")
+    losses, grads = {}, {}
+    for run, remat in (("a", False), ("b", False), ("remat", True)):
+        tr.model.config = dataclasses.replace(tr.model.config, remat=remat)
+        tr.optimizer.zero_grad(set_to_none=True)
+        ld = tr.forward_loss(*tr.to_device(batch))
+        ld["loss"].backward()
+        losses[run] = ld["loss"].item()
+        grads[run] = {n: p.grad.detach().float().clone() for n, p in tr.model.named_parameters()}
+        del ld
+    base, cos = grad_cosine(grads["b"], grads["a"]), grad_cosine(grads["remat"], grads["a"])
+    log(f"8e 384^2 batch 8, whole model: losses {losses}; gradient cosine remat to off "
+        f"{cos:.6f}, off to off {base:.6f} (slack {REMAT_COS_SLACK})")
+    check(losses["remat"] == losses["a"] == losses["b"], f"8e: losses differ {losses}")
+    check(cos >= base - REMAT_COS_SLACK, "8e: remat moved the gradient")
+    del grads
+    tr.model.config = dataclasses.replace(tr.model.config, remat=False)
+    trunk = tr.model.encoder.encoder
+    names, params = zip(*trunk.named_parameters())
+    x = tr._prep(tr.to_device(batch)[0])
+    g = torch.Generator().manual_seed(43)
+    cot, tg = None, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for run, remat in (("a", False), ("b", False), ("remat", True)):
+            feats = trunk(x, kernels=True, dtype=torch.bfloat16, remat=remat)
+            if cot is None:
+                cot = [torch.randn(f.shape, generator=g).to(f.device, f.dtype) for f in feats]
+            tg[run] = [t.float() for t in torch.autograd.grad(feats, params, cot)]
+            del feats
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    varies, differ = [], []
+    for name, ga, gb, gr in zip(names, tg["a"], tg["b"], tg["remat"]):
+        if torch.equal(ga, gb):
+            if not torch.equal(gr, ga):
+                differ.append((name, int((gr != ga).sum())))
+        else:
+            varies.append((name, grad_cosine({"g": gr}, {"g": ga}),
+                           grad_cosine({"g": gb}, {"g": ga})))
+    log(f"8e trunk gradients (one cotangent, cuDNN deterministic): {len(names) - len(varies)} "
+        f"of {len(names)} equal across two off runs, of them {len(differ)} differ under remat "
+        f"{differ[:5]}; the others (cosine remat to off, off to off): {varies}")
+    check(not differ, f"8e: remat changed trunk gradients: {differ[:5]}")
+    check(all(c1 >= c0 - RES_COS_SLACK for _, c1, c0 in varies),
+          f"8e: a varying trunk gradient moved under remat: {varies}")
+    del tr, tg, x, cot
+    torch.cuda.empty_cache()
+    peaks = {}
+    for remat in (False, True):
+        conf["training"]["remat"] = remat
+        tr = Trainer(conf, None, device="cuda", model=bf16_model(master))
+        check(tr.model.config.remat is remat, "8e: the Trainer did not set remat")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        kernels.reset_launches()
+        steps = [tr.train_step(batch) for _ in range(3)]
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = dict(kernels.launches)
+        launches[f"train_384_remat_{int(remat)}"] = counts
+        want = train_launches(384, 8)
+        if remat:
+            want["fused_attention_lanes"] *= 2
+        ms = [1e3 * (s["timing"]["forward_time"] + s["timing"]["backward_time"])
+              for s in steps[1:]]
+        log(f"8e 384^2 batch 8 remat {remat}: losses {[s['metrics']['loss'] for s in steps]}, "
+            f"ms/step after warm-up {[round(v, 3) for v in ms]}, peak memory "
+            f"{peaks[remat]:.2f} GiB ({held:.2f} held before the steps); launches {counts} "
+            f"(expected {want})")
+        check(counts == want, f"8e remat {remat}: launches differ from the routes")
+        del tr, steps
+        torch.cuda.empty_cache()
+    check(peaks[True] < peaks[False], f"8e: peak with remat {peaks}")
+
+
+def batch42_phase(master, torch, launches) -> None:
+    """8f: the config's batch 42 at 512^2 with remat at its default (on):
+    two Trainer steps, ms/step, peak memory <= PEAK_LIMIT_GB, launches = the
+    routes."""
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.data.pipeline import synthetic_train_batch
+    from spegnet_tpu_torch.engine.trainer import Trainer
+
+    batch = synthetic_train_batch(42, np.random.default_rng(41))
+    tr = Trainer(train_config(42), None, device="cuda", model=bf16_model(master))
+    check(tr.model.config.remat, "8f: remat is off at batch 42")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    kernels.reset_launches()
+    steps = [tr.train_step(batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches["train_42"] = dict(kernels.launches)
+    want = train_launches(512, 42, steps=2)
+    ms = [1e3 * (s["timing"]["forward_time"] + s["timing"]["backward_time"]) for s in steps]
+    losses = [s["metrics"]["loss"] for s in steps]
+    log(f"8f 512^2 batch 42, remat on: losses {losses}, ms/step {[round(v, 3) for v in ms]} "
+        f"(the first with its warm-up), peak memory {peak:.2f} GB (limit {PEAK_LIMIT_GB}; "
+        f"{held:.2f} GB held before the steps, the smoke's earlier phases' included); "
+        f"launches {launches['train_42']} (expected {want})")
+    check(all(np.isfinite(losses)), "8f: non-finite loss")
+    check(peak <= PEAK_LIMIT_GB, f"8f: peak {peak:.2f} GB")
+    check(launches["train_42"] == want, "8f: launches differ from the routes")
+    del tr, steps
+    torch.cuda.empty_cache()
+
+
+def model_report() -> None:
+    """The model report of utils/model_info.py at 512^2."""
+    from spegnet_tpu_torch.utils.model_info import model_complexity
+
+    info = model_complexity({"encoder": {"variant": "large"}}, 512)
+    log(f"model report 512^2: {info['params']} parameters ({info['params'] / 1e6:.2f} M), "
+        f"{info['flops'] / 1e9:.2f} GFLOPs forward at batch 1 (FlopCounterMode on the meta "
+        f"device)")
+    check(info["params"] > 0 and info["flops"] > 0, f"model report {info}")
 
 
 if __name__ == "__main__":

@@ -9,12 +9,21 @@
 
 All three run on the card (``--device cuda``, the default; they fail
 without one) unless ``--device cpu`` asks for the CPU.  ``train`` resumes
-from the config's ``training.resume_from`` when it is set and needs
-``training.val_ratio: 0`` (validation is not ported yet).  For evaluate and
+from the config's ``training.resume_from`` when it is set, and validates
+after every epoch when ``training.val_ratio`` > 0.  For evaluate and
 predict the checkpoint's embedded model config overlays the YAML's
 ``model`` section.  ``evaluate`` reads every ``{root}/test/{Imgs,GT}`` of
 ``evaluation.datasets`` and writes ``metrics_summary.json`` beside the
-per-dataset trees.
+per-dataset trees.  Every run first logs the model report
+(utils/model_info.py).
+
+Data parallelism: under ``torchrun --nproc_per_node=N -m spegnet_tpu_torch
+...`` each process joins the group first (parallel/mesh.init_distributed;
+``--device cuda`` is then ``cuda:LOCAL_RANK``) and the config's
+``parallel.mesh`` (default ``{data: -1}``, every process) divides each
+batch over the ranks.  Rank 0 creates the run directory and writes the logs,
+metrics and checkpoints; the other ranks write into the same tree (their
+predictions and per-sample evaluation files) and log warnings only.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 from pathlib import Path
 
@@ -46,21 +56,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def train(config, dir_manager, device: str) -> None:
+def train(config, dir_manager, device: str, mesh) -> None:
     from spegnet_tpu_torch.engine.trainer import Trainer
 
     dataset_paths = config["training"]["datasets"]
     if not dataset_paths:
         raise ValueError("No dataset paths provided in config")
     logging.info(f"Training on datasets: {dataset_paths}")
-    trainer = Trainer(config, dir_manager, device=device)
+    trainer = Trainer(config, dir_manager, device=device, mesh=mesh)
     resume_path = config["training"].get("resume_from")
     if resume_path:
         trainer.load_checkpoint(resume_path, resume=True)
     trainer.train(dataset_paths)
 
 
-def evaluate(config, model_path: Path, dir_manager, device: str) -> None:
+def evaluate(config, model_path: Path, dir_manager, device: str, mesh) -> None:
     from spegnet_tpu_torch.data.dataset import get_test_datasets
     from spegnet_tpu_torch.engine.evaluator import Evaluator
 
@@ -69,7 +79,7 @@ def evaluate(config, model_path: Path, dir_manager, device: str) -> None:
         model_path=str(model_path), dir_manager=dir_manager, model_config=config["model"],
         batch_size=config["evaluation"]["batch_size"],
         save_visualizations=config["evaluation"].get("save_visualizations", True),
-        canvas_buckets=config["training"].get("canvas_buckets"), device=device)
+        canvas_buckets=config["training"].get("canvas_buckets"), device=device, mesh=mesh)
     all_metrics = {}
     for name, dataset in datasets.items():
         logging.info(f"Evaluating on {name}")
@@ -78,55 +88,101 @@ def evaluate(config, model_path: Path, dir_manager, device: str) -> None:
         logging.info(f"S_alpha {metrics['s_alpha']:.4f}, weighted F {metrics['weighted_f']:.4f}, "
                      f"MAE {metrics['mae']:.4f}, E_phi {metrics['e_phi']:.4f}, "
                      f"mean F {metrics['mean_f']:.4f}")
+    if mesh.rank:
+        return
     metrics_path = dir_manager.run_dirs.root / "metrics_summary.json"
     with open(metrics_path, "w") as f:
         json.dump(all_metrics, f, indent=4)
     logging.info(f"Metrics saved to {metrics_path}")
 
 
-def predict(config, model_path: Path, input_path: Path, dir_manager, device: str) -> None:
+def predict(config, model_path: Path, input_path: Path, dir_manager, device: str,
+            mesh) -> None:
     from spegnet_tpu_torch.engine.predictor import Predictor
 
     predictor = Predictor(model_path=str(model_path), model_config=config["model"],
                           dir_manager=dir_manager,
-                          batch_size=config["prediction"].get("batch_size"), device=device)
+                          batch_size=config["prediction"].get("batch_size"), device=device,
+                          mesh=mesh)
     output_size = config["prediction"].get("output_size")
     if input_path.is_dir():
         results = predictor.predict_directory(str(input_path), output_size)
         logging.info(f"Processed {results['total_predictions']} images")
-    else:
+    elif mesh.rank == 0:
+        # one image does not divide over the ranks: rank 0 writes it
         seg, edge, original = predictor.predict_single(str(input_path), output_size)
         predictor.result_manager.save_prediction(input_path.name, seg, edge, original)
         logging.info("Processing complete, results saved")
 
 
+def print_model_info(config) -> None:
+    """The model report (utils/model_info.py), as ``main.py`` logs it; a
+    failure is a warning."""
+    try:
+        from spegnet_tpu_torch.utils.model_info import print_model_info as _pmi
+
+        _pmi(config["model"], config["model"].get("image_processing", {}).get("target_size",
+                                                                               512))
+    except Exception as e:
+        logging.warning(f"Could not complete model analysis: {e}")
+
+
+def run_directories(mode: str, rank: int):
+    """The run's DirectoryManager: rank 0 makes the timestamped tree and the
+    other ranks open the same one."""
+    import torch.distributed as dist
+
+    from spegnet_tpu_torch.utils.run_manager import DirectoryManager
+
+    if not dist.is_initialized():
+        return DirectoryManager(mode)
+    stamp = [DirectoryManager(mode).timestamp if rank == 0 else None]
+    dist.broadcast_object_list(stamp, 0)
+    return DirectoryManager(mode, timestamp=stamp[0])
+
+
 def main(argv=None) -> None:
+    from spegnet_tpu_torch.parallel.mesh import (
+        destroy_distributed,
+        init_distributed,
+        mesh_from_config,
+    )
+
     try:
         import yaml
 
         from spegnet_tpu_torch.config import load_config, overlay_checkpoint_config
         from spegnet_tpu_torch.engine.model_loader import load_checkpoint_config
-        from spegnet_tpu_torch.utils.run_manager import DirectoryManager, setup_logging
+        from spegnet_tpu_torch.utils.run_manager import setup_logging
 
         args = parse_args(argv)
-        dir_manager = DirectoryManager(args.mode)
-        setup_logging(dir_manager)
+        device, rank = args.device, 0
+        if "WORLD_SIZE" in os.environ:   # under torchrun: join the group first
+            device = str(init_distributed(args.device))
+            rank = int(os.environ["RANK"])
+        dir_manager = run_directories(args.mode, rank)
+        setup_logging(dir_manager if rank == 0 else None)
         config = load_config(args.config)
+        mesh = mesh_from_config(config.get("parallel"))
         if args.mode in ("evaluate", "predict"):
             model_path = args.model or DEFAULT_MODEL_PATH
             config = overlay_checkpoint_config(config, load_checkpoint_config(str(model_path)))
-        logging.info(f"Running in {args.mode} mode (PyTorch port)")
+        logging.info(f"Running in {args.mode} mode (PyTorch port), mesh {mesh.shape}")
         logging.info("Configuration:\n" + yaml.dump(config, default_flow_style=False))
+        if rank == 0:
+            print_model_info(config)
         if args.mode == "train":
-            train(config, dir_manager, args.device)
+            train(config, dir_manager, device, mesh)
         elif args.mode == "evaluate":
-            evaluate(config, model_path, dir_manager, args.device)
+            evaluate(config, model_path, dir_manager, device, mesh)
         else:
-            predict(config, model_path, args.input, dir_manager, args.device)
+            predict(config, model_path, args.input, dir_manager, device, mesh)
         logging.info("Process completed successfully")
     except Exception as e:
         logging.error(f"Error occurred: {e}", exc_info=True)
         sys.exit(1)
+    finally:
+        destroy_distributed()
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 :func:`read_png` decodes non-interlaced 8-bit PNGs (grayscale, RGB,
 palette, grayscale + alpha, RGBA; every row filter) into what Pillow's
 ``Image.open(path).convert(mode)`` gives for mode "RGB" or "L";
-:func:`write_png` writes 8-bit grayscale or RGB.  The input pipeline uses
+:func:`write_png` writes 8-bit grayscale or RGB; :func:`png_hw` reads the
+size from the header.  The input pipeline uses
 Pillow where it is installed and this codec where it is not
 (data/pipeline.py ``_decode``).
 """
@@ -61,6 +62,16 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
         out[y] = cur
         prev = out[y]
     return out
+
+
+def png_hw(path) -> tuple:
+    """(height, width) of a PNG from its IHDR chunk, without decoding it."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
 
 
 def read_png(path, mode: str = "RGB") -> np.ndarray:

@@ -13,6 +13,13 @@ overlay}/`` PNGs, and ``{dataset}/evaluation_summary.json`` with the
 dataset means, the timing (CUDA events around the forward and the metrics
 on the card) and the bucket counts.  ``dir_manager=None`` keeps everything
 in memory (:attr:`Evaluator.sample_metrics`, :attr:`Evaluator.summaries`).
+
+Under data parallelism (``mesh``, parallel/mesh.py; JAX's ``Evaluator``
+with a mesh, :121-146) ``batch_size`` is rounded up to a multiple of the
+data axis, each rank runs its rows of every batch (decoding only those;
+padding rows carry no weight) and writes their per-sample files, and the
+per-sample metrics are gathered in dataset order, from which rank 0 writes
+the summaries (every rank returns the same means).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from spegnet_tpu_torch.engine.model_loader import load_checkpoint
 from spegnet_tpu_torch.losses import resize_logits_to_canvas
 from spegnet_tpu_torch.metrics.torch_metrics import compute_batch_metrics, quantize_predictions
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+from spegnet_tpu_torch.parallel import sharding
+from spegnet_tpu_torch.parallel.mesh import Mesh, create_mesh, require_group
 from spegnet_tpu_torch.utils.device import f32_precision, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -113,20 +122,27 @@ class ResultManager:
 class Evaluator:
     """``model``: an already-built SPEGNet to use instead of loading
     ``model_path``.  ``device`` None is the card (raises without one); pass
-    "cpu" to run on the CPU."""
+    "cpu" to run on the CPU.  ``mesh``: the data-parallel mesh (default: one
+    data axis over the processes of the active group)."""
 
     def __init__(self, model_path: Optional[str], dir_manager, model_config: Dict,
                  batch_size: int, save_visualizations: bool = True,
                  canvas_buckets=DEFAULT_CANVAS_BUCKETS, device: Optional[str] = None,
-                 model: Optional[SPEGNet] = None):
+                 model: Optional[SPEGNet] = None, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
-        self.batch_size = batch_size
+        mesh = mesh or create_mesh()
+        require_group(mesh)
+        self.shard = (mesh.rank, mesh.data)
+        self.batch_size = -(-batch_size // mesh.data) * mesh.data
+        if self.batch_size != batch_size:
+            logger.info(f"Eval batch size rounded up to {self.batch_size} "
+                        f"(multiple of data axis {mesh.data})")
         self.buckets = tuple(canvas_buckets)
         if model is None:
             model = SPEGNet(SPEGNetConfig.from_dict(model_config))
             state_dict, _ = load_checkpoint(model_path)
             model.load_state_dict(state_dict, strict=True)
-        self.model = model.eval().to_compute(self.device)
+        self.model = sharding.replicated(model.eval().to_compute(self.device))
         f32_precision(model.config.dtype)
         img_cfg = model_config.get("image_processing", {})
         self.target_size = img_cfg.get("target_size", 512)
@@ -181,7 +197,7 @@ class Evaluator:
     def _warmup(self):
         """One pass on a zero batch at the target canvas: builds the kernels
         (and packs the int8 weights) before anything is timed."""
-        s, b = self.target_size, self.batch_size
+        s, b = self.target_size, self.batch_size // self.shard[1]
         self.step(EvalBatch(np.zeros((b, s, s, 3), np.float32), np.zeros((b, s, s), np.float32),
                             np.full((b, 2), s, np.int32), np.zeros((b, s, s), np.float32),
                             np.zeros((b, s, s), np.int32), np.zeros((b,), np.float32),
@@ -194,20 +210,23 @@ class Evaluator:
     # -- datasets ----------------------------------------------------------
     def evaluate(self, dataset: Optional[CODDataset], dataset_name: str,
                  loader: Optional[Iterable[EvalBatch]] = None) -> Dict[str, float]:
-        """Mean metrics of a dataset (or of the batches of ``loader``)."""
+        """Mean metrics of a dataset (or of the batches of ``loader``, whole
+        batches of ``batch_size`` rows of which each rank takes its own)."""
         if self.result_manager is not None:
             self.result_manager.setup_dataset_directories(dataset_name)
-        totals = {k: 0.0 for k in METRIC_KEYS}
-        counts = {"good": 0, "medium": 0, "bad": 0}
-        per_sample = self.sample_metrics.setdefault(dataset_name, {})
         timing = {"inference_times": [], "processing_times": [], "forward_ms": [],
                   "metrics_ms": []}
-        n_samples = 0
+        records = []   # (dataset index, (name, metrics)) of this rank's samples
         start = time.time()
+        rank, ranks = self.shard
+        whole = loader is not None
         if loader is None:
             loader = eval_loader(dataset, self.processor, self.batch_size, self.buckets,
-                                 with_originals=self.save_visualizations)
-        for batch in loader:
+                                 with_originals=self.save_visualizations, shard=self.shard)
+        for step, batch in enumerate(loader):
+            if whole and ranks > 1:
+                batch = sharding.shard_batch(batch, rank, ranks)
+            first = step * self.batch_size + rank * batch.images.shape[0]
             t_batch = time.time()
             seg, pred_c, edge_c, stages, (f_ms, m_ms) = self.step(batch)
             timing["inference_times"].append(time.time() - t_batch)
@@ -216,12 +235,8 @@ class Evaluator:
             for i in range(batch.images.shape[0]):
                 if batch.sample_mask[i] == 0:
                     continue
-                n_samples += 1
                 metrics = {_DEVICE_TO_API[k]: float(seg[k][i]) for k in seg}
-                for k in METRIC_KEYS:
-                    totals[k] += metrics[k]
-                per_sample[batch.names[i]] = metrics
-                category = ResultManager.determine_quality_category(metrics)
+                records.append((first + i, (batch.names[i], metrics)))
                 if self.save_visualizations:
                     h, w = batch.mask_hw[i]
                     orig = (batch.originals[i] if batch.originals
@@ -231,8 +246,17 @@ class Evaluator:
                         edge_c[i, :h, :w], [s[i] for s in stages], orig)
                 elif self.result_manager is not None:
                     self.result_manager.save_metrics(dataset_name, batch.names[i], metrics)
-                counts[category] += 1
             timing["processing_times"].append(time.time() - t_batch)
+        totals = {k: 0.0 for k in METRIC_KEYS}
+        counts = {"good": 0, "medium": 0, "bad": 0}
+        per_sample = self.sample_metrics.setdefault(dataset_name, {})
+        samples = sharding.gather_in_order(records)
+        for name, metrics in samples:
+            for k in METRIC_KEYS:
+                totals[k] += metrics[k]
+            per_sample[name] = metrics
+            counts[ResultManager.determine_quality_category(metrics)] += 1
+        n_samples = len(samples)
         avg = {k: v / max(n_samples, 1) for k, v in totals.items()}
         self._save_summary(dataset_name, avg, counts, timing, n_samples,
                            time.time() - start)
@@ -255,7 +279,7 @@ class Evaluator:
         summary = {"metrics": metrics, "timing": t,
                    "categories": {"counts": dict(counts), "total": sum(counts.values())}}
         self.summaries[dataset_name] = summary
-        if self.result_manager is not None:
+        if self.result_manager is not None and self.shard[0] == 0:
             out = (self.result_manager.dataset_dirs[dataset_name]["root"]
                    / "evaluation_summary.json")
             with open(out, "w") as f:

@@ -6,6 +6,12 @@ heatmap / overlay) and ``prediction_summary.json``.  The model runs on
 ``device`` (the card unless the caller asks for the CPU) in the config's
 compute dtype through the kernel path; OpenCV and Pillow are imported only
 where files are written or decoded.
+
+Under data parallelism (``mesh``, parallel/mesh.py; JAX's ``Predictor``
+with a mesh, :84-112) ``batch_size`` is rounded up to a multiple of the
+data axis and each rank decodes, predicts and writes the PNGs of its rows
+of every chunk of the directory; rank 0 writes ``prediction_summary.json``
+from every rank's records.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ from spegnet_tpu_torch.data.pipeline import ImageProcessor
 from spegnet_tpu_torch.engine.model_loader import load_checkpoint
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 from spegnet_tpu_torch.ops.resize import resize_bilinear
+from spegnet_tpu_torch.parallel import sharding
+from spegnet_tpu_torch.parallel.mesh import Mesh, create_mesh, require_group
+from spegnet_tpu_torch.parallel.sharding import rows_of
 from spegnet_tpu_torch.utils.device import f32_precision, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -64,9 +73,12 @@ class PredictionResultManager:
     def update_timing(self, phase: str, dt: float):
         self.timings[phase].append(dt)
 
-    def summarize(self) -> Dict:
-        n = len(list((self.seg_dir / "binary").glob("*.png")))
-        avg = {p: (float(np.mean(t)) if t else 0.0) for p, t in self.timings.items()}
+    def summarize(self, chunks: List[Tuple[int, Dict[str, float]]], write: bool = True) -> Dict:
+        """The summary of ``chunks`` ((images, {phase: seconds}) per chunk of
+        every rank), written to ``prediction_summary.json`` with ``write``."""
+        n = sum(c for c, _ in chunks)
+        timings = {p: [t[p] for _, t in chunks] for p in self.timings}
+        avg = {p: (float(np.mean(t)) if t else 0.0) for p, t in timings.items()}
         total = sum(avg.values())
         summary = {
             "total_predictions": n,
@@ -74,6 +86,8 @@ class PredictionResultManager:
             "total_time_per_image": total,
             "total_processing_time": total * n,
         }
+        if not write:
+            return summary
         with open(self.run_dirs.root / "prediction_summary.json", "w") as f:
             json.dump(summary, f, indent=4)
         self.log_message(
@@ -94,12 +108,19 @@ class Predictor:
     ``model_path`` (it is moved to ``device`` and cast for compute).
     ``dir_manager`` None keeps results in memory: :meth:`predict_arrays`
     only, no output tree.  ``device`` None is the card (raises without
-    one); pass "cpu" to run on the CPU."""
+    one); pass "cpu" to run on the CPU.  ``mesh``: the data-parallel mesh
+    (default: one data axis over the processes of the active group)."""
 
     def __init__(self, model_path: Optional[str], model_config: Dict, dir_manager,
                  batch_size: int = 1, device: Optional[str] = None,
-                 model: Optional[SPEGNet] = None):
-        self.batch_size = batch_size or 1
+                 model: Optional[SPEGNet] = None, mesh: Optional[Mesh] = None):
+        mesh = mesh or create_mesh()
+        require_group(mesh)
+        self.shard = (mesh.rank, mesh.data)
+        self.batch_size = -(-(batch_size or 1) // mesh.data) * mesh.data
+        if self.batch_size != (batch_size or 1):
+            logger.info(f"Prediction batch size rounded up to {self.batch_size} "
+                        f"(multiple of data axis {mesh.data})")
         self.device = resolve_device(device)
         img_cfg = model_config.get("image_processing", {})
         self.target_size = img_cfg.get("target_size", 512)
@@ -112,7 +133,7 @@ class Predictor:
             model = SPEGNet(SPEGNetConfig.from_dict(model_config))
             state_dict, _ = load_checkpoint(model_path)
             model.load_state_dict(state_dict, strict=True)
-        self.model = model.eval().to_compute(self.device)
+        self.model = sharding.replicated(model.eval().to_compute(self.device))
         f32_precision(model.config.dtype)
         self.result_manager = None
         if dir_manager is not None:
@@ -160,23 +181,28 @@ class Predictor:
     def predict_batch(self, image_paths: List[str],
                       output_size: Optional[Tuple[int, int]] = None,
                       num_workers: int = 4) -> Dict:
-        """One forward per ``batch_size`` chunk; decoding and PNG writes run
-        in a thread pool."""
+        """One forward per ``batch_size`` chunk (this rank's rows of it);
+        decoding and PNG writes run in a thread pool."""
         self.result_manager.log_message(
             f"Starting batch prediction of {len(image_paths)} images "
             f"with batch size {self.batch_size}")
-        saves = []
+        rank, ranks = self.shard
+        saves, records = [], []
         with ThreadPoolExecutor(max(num_workers, 1)) as pool:
             for i in range(0, len(image_paths), self.batch_size):
-                chunk = image_paths[i: i + self.batch_size]
+                chunk = image_paths[i: i + self.batch_size][rows_of(rank, ranks,
+                                                                    self.batch_size)]
+                if not chunk:
+                    continue
+                dt = {}
                 t0 = time.time()
                 loaded = list(pool.map(lambda p: (self.processor.process_image(p),
                                                   self.processor.load_original(p)), chunk))
                 images = np.stack([im for im, _ in loaded]).astype(np.float32)
-                self.result_manager.update_timing("preprocessing", time.time() - t0)
+                dt["preprocessing"] = time.time() - t0
                 t0 = time.time()
                 seg, edge = self.forward(images)
-                self.result_manager.update_timing("inference", time.time() - t0)
+                dt["inference"] = time.time() - t0
                 t0 = time.time()
                 for j, path in enumerate(chunk):
                     s, e = seg[j], edge[j]
@@ -184,10 +210,14 @@ class Predictor:
                         s, e = _resize_map(s, output_size), _resize_map(e, output_size)
                     saves.append(pool.submit(self.result_manager.save_prediction,
                                              Path(path).name, s, e, loaded[j][1]))
-                self.result_manager.update_timing("postprocessing", time.time() - t0)
+                dt["postprocessing"] = time.time() - t0
+                for phase, v in dt.items():
+                    self.result_manager.update_timing(phase, v)
+                records.append((i + rank, (len(chunk), dt)))
             for f in saves:
                 f.result()
-        return self.result_manager.summarize()
+        return self.result_manager.summarize(sharding.gather_in_order(records),
+                                             write=rank == 0)
 
     def predict_directory(self, input_dir: str,
                           output_size: Optional[Tuple[int, int]] = None,

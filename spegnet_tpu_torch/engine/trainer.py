@@ -26,10 +26,31 @@ global-norm clip and three AdamW groups.  Behaviour as the JAX trainer's:
   without that.
 
 ``dir_manager=None`` keeps metrics and checkpoints in memory.
+
+Data parallelism (the config's ``parallel.mesh``, parallel/mesh.py; the
+JAX trainer's ``data`` axis): in a torch.distributed group the model runs
+under DistributedDataParallel (``find_unused_parameters=False``: a parameter
+that gets no gradient is named and refused), each rank on its rows of each
+global batch (the loaders' ``shard``; a whole batch given to
+:meth:`Trainer.train_step` is padded and sharded here, as JAX's
+``_put_train_batch``).  The tail batch is padded to a multiple of the ranks
+with zero-weight rows (parallel/sharding.pad_batch); each rank's loss is
+its rows' sum(w l) / W over the global batch's weight W, scaled by the
+ranks to undo DDP's average, so the summed gradient is that of JAX's global
+weighted mean; BatchNorm takes the global batch's statistics
+(models/cfi.BatchNorm2d).  The clip stays local (every rank holds the same
+reduced gradients).  Validation is sharded and padded the same way and its
+per-sample metrics gathered in dataset order, so the plateau step, the best
+model and the early stop are one decision on every rank.  Rank 0 alone
+writes metrics.json and checkpoints; a resume loads on every rank.
+
+``training.remat`` (default: batch per rank > 16, JAX's rule) recomputes
+the trunk's decomposed blocks in the backward (models/hiera.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import time
@@ -40,6 +61,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.nn.parallel import DistributedDataParallel
 
 from spegnet_tpu_torch.data.dataset import concat_train_datasets, train_val_split
 from spegnet_tpu_torch.data.pipeline import (
@@ -53,6 +75,8 @@ from spegnet_tpu_torch.losses import LossConfig, cod_loss, resize_logits_to_canv
 from spegnet_tpu_torch.metrics.torch_metrics import compute_batch_metrics, quantize_predictions
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 from spegnet_tpu_torch.ops import wide
+from spegnet_tpu_torch.parallel import sharding
+from spegnet_tpu_torch.parallel.mesh import Mesh, grouped, mesh_from_config, require_group
 from spegnet_tpu_torch.utils.device import f32_precision, resolve_device
 from spegnet_tpu_torch.utils.weights import init_weights
 
@@ -188,6 +212,12 @@ class TrainingMonitor:
                         f"Time: {timing['epoch_time']:.2f}s")
 
 
+def remat_for(training: Dict, data_axis: int) -> bool:
+    """``training.remat``, else whether the batch per rank exceeds 16 (the
+    JAX trainer's rule, spegnet_tpu/engine/trainer.py:193-195)."""
+    return bool(training.get("remat", -(-training["batch_size"] // data_axis) > 16))
+
+
 def _sam2_trunk(path: str) -> Dict[str, torch.Tensor]:
     """``image_encoder.trunk.*`` of a SAM2 checkpoint under the port's
     ``encoder.encoder.*`` names (the same Hiera parameter names)."""
@@ -204,12 +234,18 @@ class Trainer:
     """``model``: an already-built SPEGNet (else one is built from the
     config with seeded random weights, plus the SAM2 trunk when the
     config's encoder checkpoint exists).  ``device`` None is the card
-    (raises without one); pass "cpu" to train on the CPU."""
+    (raises without one); pass "cpu" to train on the CPU.  ``mesh``: the
+    data-parallel mesh (default: the config's ``parallel.mesh`` over the
+    processes of the active group); a data axis above 1 needs the group
+    (parallel/mesh.init_distributed)."""
 
     def __init__(self, config: Dict, dir_manager=None, device: Optional[str] = None,
-                 model: Optional[SPEGNet] = None):
+                 model: Optional[SPEGNet] = None, mesh: Optional[Mesh] = None):
         self.config = config["training"]
         self.model_config = config["model"]
+        self.mesh = mesh or mesh_from_config(config.get("parallel"))
+        require_group(self.mesh)
+        self.data_axis, self.rank = self.mesh.data, self.mesh.rank
         self.device = resolve_device(device)
         if model is None:
             model = init_weights(SPEGNet(SPEGNetConfig.from_dict(self.model_config)),
@@ -225,7 +261,15 @@ class Trainer:
                 logger.info(f"Loaded pretrained encoder from {ckpt}")
             elif ckpt:
                 logger.warning(f"Encoder checkpoint {ckpt} not found - training from scratch")
+        model.config = dataclasses.replace(model.config,
+                                           remat=remat_for(self.config, self.data_axis))
         self.model = model.to(self.device)
+        self.ddp = self.model
+        if grouped():
+            self.ddp = DistributedDataParallel(
+                self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                find_unused_parameters=False, broadcast_buffers=False)
+        self._grads_checked = not grouped()
         f32_precision(model.config.dtype)
         self.loss_cfg = LossConfig.from_dict(self.config.get("loss", {}))
         self.batch_size = self.config["batch_size"]
@@ -242,7 +286,7 @@ class Trainer:
             tuple(img_cfg.get("normalize_std", (0.229, 0.224, 0.225))))
         self.mean = torch.as_tensor(self.processor.mean, device=self.device)
         self.std = torch.as_tensor(self.processor.std, device=self.device)
-        self.monitor = TrainingMonitor(dir_manager)
+        self.monitor = TrainingMonitor(dir_manager if self.rank == 0 else None)
         self._init_optimizer()
 
     def _init_optimizer(self):
@@ -284,12 +328,46 @@ class Trainer:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device, non_blocking=True)
                 for a in arrays]
 
-    def forward_loss(self, images, masks, edges, mask_hw, edge_hw) -> Dict[str, torch.Tensor]:
-        """The forward in train mode and the loss (device tensors)."""
+    def local_batch(self, batch: TrainBatch) -> TrainBatch:
+        """This rank's rows of a whole batch (``sample_w`` None) under a data
+        axis above 1: padded to a multiple of it, then sharded
+        (parallel/sharding.py); a rank's share (a sharded loader's batch) or
+        a batch of one process as it is."""
+        if batch.sample_w is not None or self.data_axis == 1:
+            return batch
+        padded, w = sharding.pad_batch(batch, self.data_axis)
+        padded.sample_w = w
+        return sharding.shard_batch(padded, self.rank, self.data_axis)
+
+    def weights(self, batch: TrainBatch):
+        """(the rows' sample weights on the device, the global batch's weight
+        summed over the ranks), or (None, None) for a batch of one process."""
+        if batch.sample_w is None:
+            return None, None
+        w = torch.from_numpy(np.ascontiguousarray(batch.sample_w)).to(self.device)
+        return w, sharding.all_reduce_sum(w.sum())
+
+    def forward_loss(self, images, masks, edges, mask_hw, edge_hw, sample_w=None,
+                     weight_total=None) -> Dict[str, torch.Tensor]:
+        """The forward in train mode (through DDP in a process group) and the
+        loss (device tensors): the batch mean, or with ``sample_w`` this
+        rank's share of the global batch's weighted mean (losses.cod_loss)."""
         self.model.train()
-        out = self.model(self._prep(images))
+        out = self.ddp(self._prep(images))
         return cod_loss(out["predictions"], out["edge"], masks, edges, mask_hw, edge_hw,
-                        self.loss_cfg)
+                        self.loss_cfg, sample_w, weight_total)
+
+    def _check_grads(self) -> None:
+        """After the first backward under DDP: every parameter has a
+        gradient (DDP runs with find_unused_parameters=False)."""
+        if self._grads_checked:
+            return
+        missing = [n for n, p in self.model.named_parameters()
+                   if p.requires_grad and p.grad is None]
+        if missing:
+            raise RuntimeError(f"{len(missing)} parameters got no gradient, which "
+                               f"DistributedDataParallel cannot reduce: {missing[:8]}")
+        self._grads_checked = True
 
     def clip_and_step(self) -> None:
         """Global-norm clip (optax's formula) and the AdamW step at the
@@ -305,25 +383,31 @@ class Trainer:
             group["lr"] = lrs[group["name"]]
         self.optimizer.step()
 
-    def train_step(self, batch: TrainBatch) -> Dict[str, Dict[str, float]]:
-        """One step on a host batch -> {"metrics": losses, "timing": seconds}.
-        The forward (+ loss) and backward (+ clip and optimizer) times are
-        CUDA-event times on the card, host clock times on the CPU."""
+    def train_step(self, batch: TrainBatch) -> Dict[str, Any]:
+        """One step on a host batch (a whole batch, or this rank's share of
+        one) -> {"metrics": the global batch's losses, "timing": seconds,
+        "rows": its samples}.  The forward (+ loss) and backward (+ clip and
+        optimizer) times are CUDA-event times on the card, host clock times
+        on the CPU."""
         t0 = time.perf_counter()
+        batch = self.local_batch(batch)
         dev = self.to_device(batch)
+        w, total = self.weights(batch)
         cuda = self.device.type == "cuda"
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
         t1 = time.perf_counter()
-        ld = self.forward_loss(*dev)
+        ld = self.forward_loss(*dev, w, total)
         if cuda:
             ev[1].record()
         t2 = time.perf_counter()
         self.optimizer.zero_grad(set_to_none=True)
-        ld["loss"].backward()
+        # DDP averages the ranks' gradients: scaled by the ranks, they sum
+        (ld["loss"] * self.data_axis if self.data_axis > 1 else ld["loss"]).backward()
+        self._check_grads()
         self.clip_and_step()
-        metrics = {k: float(v.detach()) for k, v in ld.items()}
+        metrics = self._global_losses(ld, w)
         t3 = time.perf_counter()
         if cuda:
             ev[2].record()
@@ -333,10 +417,22 @@ class Trainer:
             fwd, bwd = t2 - t1, t3 - t2
         timing = {"data_time": t1 - t0, "forward_time": fwd, "backward_time": bwd,
                   "batch_time": time.perf_counter() - t0}
-        return {"metrics": metrics, "timing": timing}
+        rows = batch.images.shape[0] if total is None else int(total.item())
+        return {"metrics": metrics, "timing": timing, "rows": rows}
+
+    @staticmethod
+    def _global_losses(ld: Dict[str, torch.Tensor], w) -> Dict[str, float]:
+        """The losses as floats; with sample weights, the ranks' shares
+        summed: the global batch's weighted means."""
+        keys = list(ld)
+        vals = torch.stack([ld[k].detach() for k in keys])
+        if w is not None:
+            vals = sharding.all_reduce_sum(vals)
+        return dict(zip(keys, vals.tolist()))
 
     @torch.no_grad()
-    def val_step(self, images, masks, edges, mask_hw, edge_hw, dst, nearest_idx):
+    def val_step(self, images, masks, edges, mask_hw, edge_hw, dst, nearest_idx,
+                 sample_w=None, weight_total=None):
         """The forward in eval mode, as ``val_step`` (:381) applies the model
         without ``train``, the loss, and the metrics of the quantized masks
         and edge maps on the canvas (device tensors) -> (loss dict, seg
@@ -349,7 +445,7 @@ class Trainer:
         try:
             out = self.model(self._prep(images))
             ld = cod_loss(out["predictions"], out["edge"], masks, edges, mask_hw, edge_hw,
-                          self.loss_cfg)
+                          self.loss_cfg, sample_w, weight_total)
             canvas = tuple(masks.shape[1:3])
             pred_c, valid = resize_logits_to_canvas(out["predictions"][-1].float(), mask_hw,
                                                     canvas)
@@ -364,25 +460,38 @@ class Trainer:
 
     def validate(self, loader, epoch: int) -> Dict[str, float]:
         """Mean loss and metrics over the ValBatches of ``loader`` (``validate``
-        :575), with the JAX trainer's keys.  On one card every row of a batch
-        is a sample: the JAX trainer's tail padding (``_pad_batch``) exists to
-        divide a batch over a device mesh."""
+        :575), with the JAX trainer's keys: each batch's loss weighted by its
+        samples, the metrics averaged over the samples.  Under a data axis
+        above 1 each rank runs its rows of each batch (padded as
+        :meth:`local_batch` pads) and the metrics of every real row are
+        gathered in dataset order, so every rank reads the same means."""
         self.monitor.start_epoch()
         self.model.eval()
+        records, offset = [], 0
         try:
             for batch in loader:
                 t0 = time.perf_counter()
-                ld, seg, edge_m = self.val_step(*self.to_device(batch))
-                metrics = {k: float(v) for k, v in ld.items()}
-                for key, rows in (("s_alpha", seg["sm"]), ("weighted_f", seg["wfm"]),
-                                  ("mae", seg["mae"]), ("e_phi", seg["em"]),
-                                  ("mean_f", seg["fm"]), ("edge_mae", edge_m["mae"]),
-                                  ("edge_f", edge_m["fm"])):
-                    metrics[key] = float(rows.mean())
-                self.monitor.update_batch(metrics, {"batch_time": time.perf_counter() - t0},
-                                          batch.images.shape[0])
+                batch = self.local_batch(batch)
+                w, total = self.weights(batch)
+                ld, seg, edge_m = self.val_step(*self.to_device(batch), w, total)
+                cols = {key: rows.cpu().numpy() for key, rows in (
+                    ("s_alpha", seg["sm"]), ("weighted_f", seg["wfm"]), ("mae", seg["mae"]),
+                    ("e_phi", seg["em"]), ("mean_f", seg["fm"]), ("edge_mae", edge_m["mae"]),
+                    ("edge_f", edge_m["fm"]))}
+                n = batch.images.shape[0]
+                first = offset + self.rank * n
+                records += [(first + j, {k: float(v[j]) for k, v in cols.items()})
+                            for j in range(n) if w is None or batch.sample_w[j] > 0]
+                offset += n * self.data_axis
+                rows = n if total is None else int(total.item())
+                self.monitor.update_batch(self._global_losses(ld, w),
+                                          {"batch_time": time.perf_counter() - t0}, rows)
         finally:
             self.model.train()
+        samples = sharding.gather_in_order(records)
+        if samples:
+            self.monitor.update_batch({k: float(np.mean([r[k] for r in samples]))
+                                       for k in samples[0]}, {}, len(samples))
         stats = self.monitor.get_current_stats()
         logger.info(f"Validation {epoch + 1}/{self.num_epochs}: wF={stats['weighted_f']:.4f} "
                     f"Sa={stats['s_alpha']:.4f} MAE={stats['mae']:.4f}")
@@ -396,7 +505,7 @@ class Trainer:
         self.monitor.start_epoch()
         for i, batch in enumerate(loader):
             res = self.train_step(batch)
-            self.monitor.update_batch(res["metrics"], res["timing"], batch.images.shape[0])
+            self.monitor.update_batch(res["metrics"], res["timing"], res["rows"])
             if i % 10 == 0:
                 m = res["metrics"]
                 logger.info(f"Epoch {epoch + 1}/{self.num_epochs} step {i}: "
@@ -424,7 +533,7 @@ class Trainer:
         for epoch in range(self.start_epoch, self.num_epochs):
             loader = train_loader(train_ds, self.processor, self.batch_size, self.buckets,
                                   shuffle=True, seed=epoch, num_workers=num_workers,
-                                  image_u8=wire_u8)
+                                  image_u8=wire_u8, shard=(self.rank, self.data_axis))
             self.train_epoch(loader, epoch)
             self.monitor.save_epoch(epoch, "train")
             train_metrics = self.monitor.get_current_stats()
@@ -447,7 +556,7 @@ class Trainer:
 
     def _val_loader(self, val_ds, num_workers: int):
         return val_loader(val_ds, self.processor, self.batch_size, self.buckets,
-                          num_workers=num_workers)
+                          num_workers=num_workers, shard=(self.rank, self.data_axis))
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -464,7 +573,7 @@ class Trainer:
     def save_checkpoint(self, epoch: int, metrics: Dict[str, float],
                         is_best: bool) -> Optional[Path]:
         """model_best.pth / checkpoint_{epoch:03d}.pth in the run's checkpoint
-        directory (None without one)."""
+        directory (None without one, as on every rank but 0)."""
         if self.monitor.checkpoint_dir is None:
             return None
         name = "model_best.pth" if is_best else f"checkpoint_{epoch:03d}.pth"
@@ -477,8 +586,9 @@ class Trainer:
 
     def load_checkpoint(self, path: str, resume: bool = True) -> None:
         """Model weights, and with ``resume`` the optimizer, scheduler and
-        epoch (training continues at the next epoch)."""
-        ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+        epoch (training continues at the next epoch); every rank loads it
+        onto its own device."""
+        ckpt = torch.load(str(path), map_location=self.device, weights_only=False)
         self.model.load_state_dict(ckpt["model_state_dict"])
         if resume:
             self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])

@@ -126,11 +126,15 @@ def resize_logits_to_canvas(logits: torch.Tensor, hw: torch.Tensor, canvas_hw):
 def cod_loss(predictions: Sequence[torch.Tensor], edge_logits: torch.Tensor,
              masks: torch.Tensor, edges: torch.Tensor, mask_hw: torch.Tensor,
              edge_hw: torch.Tensor, cfg: LossConfig,
-             sample_weight: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             sample_weight: Optional[torch.Tensor] = None,
+             weight_total: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The training loss: 3 scales of [B, h_s, w_s, 1] logits and the edge
     logits [B, he, we, 1] against canvas ground truths [B, Hc, Wc] of
     per-sample sizes mask_hw / edge_hw [B, 2].  ``sample_weight`` [B] makes
-    the batch means weighted means."""
+    the batch means weighted means, sum(w l) / max(sum(w), 1); with
+    ``weight_total`` the sum of the weights of the whole global batch, of
+    which these rows are one rank's share, the denominator is
+    max(weight_total, 1), so the ranks' losses sum to the global mean."""
     canvas_hw = tuple(masks.shape[1:3])
     dt = wide(predictions[0]).dtype
     masks = masks.to(dt)
@@ -151,7 +155,7 @@ def cod_loss(predictions: Sequence[torch.Tensor], edge_logits: torch.Tensor,
         seg_mean, edge_mean = seg.mean(), edge.mean()
     else:
         w = sample_weight.to(dt)
-        denom = torch.clamp(w.sum(), min=1.0)
+        denom = torch.clamp(w.sum() if weight_total is None else weight_total.to(dt), min=1.0)
         seg_mean, edge_mean = (seg * w).sum() / denom, (edge * w).sum() / denom
     return {"loss": seg_mean + cfg.edge_weight * edge_mean, "seg_loss": seg_mean,
             "edge_loss": edge_mean}

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from spegnet_tpu_torch.models.layers import Conv2d, Linear, cast
 from spegnet_tpu_torch.ops import wide
+from spegnet_tpu_torch.parallel import sharding
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -34,7 +35,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     the *biased* variance mean(x^2) - mean^2 in f32 over N, H, W; the
     normalization in the input dtype, cast where the JAX package casts;
     running statistics updated with momentum 0.1 (flax's 0.9) from that
-    biased variance -- torch's own BatchNorm would use the unbiased one."""
+    biased variance -- torch's own BatchNorm would use the unbiased one.
+
+    In a process group of more than one rank (data parallelism) the
+    statistics are the global batch's, as under the JAX package's pjit
+    (PARITY.md #5): each rank's sums of x and x^2 and its count, in f32 (f64
+    for f64 input), summed over the ranks by the differentiable all-reduce,
+    so the backward carries the other ranks' terms; padding rows count, as
+    in JAX (PARITY.md #4)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -42,8 +50,17 @@ class BatchNorm2d(nn.BatchNorm2d):
             t = wide(self.bias) - wide(self.running_mean) * s
             return torch.addcmul(t[:, None, None], x, s[:, None, None]).to(x.dtype)
         x32 = wide(x)
-        mean = x32.mean((0, 2, 3))
-        var = (x32 * x32).mean((0, 2, 3)) - mean * mean
+        if sharding.active_world() > 1:
+            count = torch.full((1,), x.numel() // x.shape[1], dtype=x32.dtype,
+                               device=x.device)
+            sums = sharding.all_reduce(torch.cat([x32.sum((0, 2, 3)),
+                                                  (x32 * x32).sum((0, 2, 3)), count]))
+            c = x.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = sums[c:2 * c] / sums[-1] - mean * mean
+        else:
+            mean = x32.mean((0, 2, 3))
+            var = (x32 * x32).mean((0, 2, 3)) - mean * mean
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)

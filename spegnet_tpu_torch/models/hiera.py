@@ -35,16 +35,35 @@ and gen-1 block, in f32 the int8 gen-1 block.  Their quantized weights are
 packed once per block and kept until the block's parameters are reloaded,
 it changes mode, or the compute dtype or device changes.  The decomposed
 path has no int8 form.
+
+``remat=True`` (training, models/spegnet.py; the JAX package's
+``Hiera.remat``, :752-758, :937-940) recomputes the decomposed blocks in
+the backward pass (non-reentrant ``torch.utils.checkpoint``), keeping only
+the outputs of their matmuls (``aten.mm`` / ``aten.addmm``), as JAX's
+``dots_with_no_batch_dims_saveable`` keeps its dots.  The kernel blocks stay
+as they are: the T-block, the transition front and the gen-1 block keep only
+their input and weights for a backward that recomputes (their autograd
+Functions; the f32 gen-1 block's backward recomputes through the plain
+block), so an outer checkpoint would only run their forward kernel twice
+(spegnet_tpu/engine/trainer.py:186-192).  A checkpointed block whose
+attention is ``fused_attention_lanes`` launches that kernel again in the
+backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from spegnet_tpu_torch.models.layers import Conv2d, Linear, cast
 from spegnet_tpu_torch.ops import fused_block as fb
@@ -234,7 +253,15 @@ def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
     allocated).  A route is the launch counter of its wrapper, except
     "plain".  With ``train_batch``, the routes of a training forward of that
     many images: a T-block that ``fused_block_t.save_residuals`` sends to the
-    saved-residual pair is "fused_block_t_res"."""
+    saved-residual pair is "fused_block_t_res".
+
+    Under data parallelism each rank runs the trunk on its own rows, so
+    ``train_batch`` is the batch per rank, and every route is the one of a
+    single process at that batch.  JAX's gates differ there on purpose: on
+    a mesh of more than one device its gen-1 block and lanes attention take
+    the decomposed XLA path (``spmd_safe``, spegnet_tpu/ops/fused_block_t.py
+    :162-166), where the port keeps them on their kernels per rank, as JAX's
+    shard_map'd kernels see local shapes."""
     h, w = (hw, hw) if isinstance(hw, int) else hw
     morton = takes_morton(cfg, h, w, dtype)
     out, last = [], len(cfg.stages)
@@ -250,6 +277,24 @@ def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
         if sp.q_pool:
             h, w = h // 2, w // 2
     return out
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The remat policy: keep the matmul outputs, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _decomposed(blk: "MultiScaleBlock", x: torch.Tensor, approx_gelu: bool, kernels: bool,
+                remat: bool) -> torch.Tensor:
+    """A decomposed block, recomputed in the backward under ``remat``."""
+    if not remat:
+        return blk(x, approx_gelu, kernels)
+    return checkpoint(blk, x, approx_gelu, kernels, use_reentrant=False,
+                      context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                   _save_dots))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -481,7 +526,10 @@ class Hiera(nn.Module):
         self.blocks = nn.ModuleList(MultiScaleBlock(s, cfg.mlp_ratio) for s in self.specs)
 
     def forward(self, x: torch.Tensor, kernels: bool = True,
-                dtype: torch.dtype = torch.float32, int8: bool = False) -> List[torch.Tensor]:
+                dtype: torch.dtype = torch.float32, int8: bool = False,
+                remat: bool = False) -> List[torch.Tensor]:
+        """``remat``: recompute the decomposed blocks in the backward (module
+        docstring)."""
         if x.shape[1] % 32 or x.shape[2] % 32:
             raise ValueError("Input spatial dims must be divisible by 32")
         approx_gelu = dtype == torch.bfloat16
@@ -491,14 +539,14 @@ class Hiera(nn.Module):
         if not kernels:
             outputs = []
             for blk in self.blocks:
-                x = blk(x, approx_gelu)
+                x = _decomposed(blk, x, approx_gelu, False, remat)
                 if blk.spec.stage_end:
                     outputs.append(x)
             return outputs
-        return self._forward_kernels(x, approx_gelu, int8)
+        return self._forward_kernels(x, approx_gelu, int8, remat)
 
     def _forward_kernels(self, x: torch.Tensor, approx_gelu: bool,
-                         int8: bool = False) -> List[torch.Tensor]:
+                         int8: bool = False, remat: bool = False) -> List[torch.Tensor]:
         """The trunk through the wrappers of :func:`trunk_routes`.  ``lay`` is
         the window of x's window-major token layout [B, N, C] (0: raster), or
         None while x is NHWC.  The Morton path (:func:`takes_morton`) starts
@@ -527,7 +575,7 @@ class Hiera(nn.Module):
             else:
                 if lay is not None:
                     x, lay = from_w(x, lay, (h, w)), None
-                x = blk(x, approx_gelu, kernels=True)
+                x = _decomposed(blk, x, approx_gelu, True, remat)
                 h, w = x.shape[1:3]
             if sp.stage_end:
                 outputs.append(x if lay is None else from_w(x, lay, (h, w)))

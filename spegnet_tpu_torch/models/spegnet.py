@@ -46,14 +46,25 @@ class SPEGNetConfig:
     # and not train`` / ``int8_decoder and not train``.
     int8_encoder: bool = False
     int8_decoder: bool = False
+    # Recompute the trunk's decomposed blocks in the backward (models/hiera.py;
+    # the trainer sets it from training.remat, else batch per rank > 16).
+    remat: bool = False
 
     @classmethod
     def from_dict(cls, model_config: Dict[str, Any]) -> "SPEGNetConfig":
+        """The model section of a config.  ``spatial_axis`` (the JAX
+        package's sequence parallelism over a mesh axis) is not ported and
+        raises NotImplementedError."""
         enc = model_config.get("encoder", {})
+        if model_config.get("spatial_axis"):
+            raise NotImplementedError(
+                f"model.spatial_axis = {model_config['spatial_axis']!r}: spatial (sequence) "
+                "parallelism is not ported; the port runs data parallelism only")
         return cls(variant=enc.get("variant", "large"),
                    compute_dtype=model_config.get("compute_dtype", "float32"),
                    int8_encoder=bool(model_config.get("int8_encoder", False)),
-                   int8_decoder=bool(model_config.get("int8_decoder", False)))
+                   int8_decoder=bool(model_config.get("int8_decoder", False)),
+                   remat=bool(model_config.get("remat", False)))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -76,7 +87,9 @@ class SPEGNet(nn.Module):
     ``config.int8_encoder`` an eval-mode forward on the kernel path runs the
     W8A8 encoder blocks (models/hiera.py ``block_route``), with
     ``config.int8_decoder`` decoder block 2 in its W8A8 mode (bf16 compute,
-    block 2's input channels a multiple of 128, as the TPU's gates)."""
+    block 2's input channels a multiple of 128, as the TPU's gates).  With
+    ``config.remat`` a training forward recomputes the trunk's decomposed
+    blocks in the backward (models/hiera.py)."""
 
     def __init__(self, config: SPEGNetConfig = SPEGNetConfig(), kernels: bool = True):
         super().__init__()
@@ -114,7 +127,9 @@ class SPEGNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, Any]:
         dt = self.config.dtype
         feats = self.encoder.encoder(x, kernels=self.kernels, dtype=dt,
-                                     int8=self.config.int8_encoder and not self.training)
+                                     int8=self.config.int8_encoder and not self.training,
+                                     remat=self.config.remat and self.training
+                                     and torch.is_grad_enabled())
         s2, s3, s4 = (f.permute(0, 3, 1, 2) for f in feats[1:4])
         fused = self.fusion([s2, s3, s4])
         context = self.context(fused)

@@ -34,11 +34,12 @@ class RunDirectories:
 
 
 class DirectoryManager:
-    """Creates the timestamped run directory tree for a mode."""
+    """Creates the timestamped run directory tree for a mode (``timestamp``:
+    open the tree of that run, as the ranks of a data-parallel run do)."""
 
-    def __init__(self, mode: str, base_dir: str = "results"):
+    def __init__(self, mode: str, base_dir: str = "results", timestamp: Optional[str] = None):
         self.mode = RunMode[mode.upper()].value
-        self.timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        self.timestamp = timestamp or datetime.now().strftime("%Y%m%d_%H%M%S")
         self.base_dir = Path(base_dir)
         self.run_dirs = self._setup_directories()
 
@@ -66,13 +67,16 @@ class DirectoryManager:
                 if getattr(self.run_dirs, f.name) is not None}
 
 
-def setup_logging(dir_manager: DirectoryManager) -> None:
-    """Console + per-run file logging."""
+def setup_logging(dir_manager: Optional[DirectoryManager]) -> None:
+    """Console + per-run file logging; without a directory manager (the
+    ranks of a data-parallel run but rank 0) warnings on the console only."""
+    handlers = [logging.StreamHandler()]
+    if dir_manager is not None:
+        handlers.append(logging.FileHandler(dir_manager.run_dirs.log_file))
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s - %(message)s",
-        level=logging.INFO,
+        level=logging.INFO if dir_manager is not None else logging.WARNING,
         datefmt="%Y-%m-%d %H:%M:%S",
-        handlers=[logging.FileHandler(dir_manager.run_dirs.log_file),
-                  logging.StreamHandler()],
+        handlers=handlers,
         force=True,
     )
