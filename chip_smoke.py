@@ -20,8 +20,11 @@
    there, and no instantiation of the persistent GEMM, the hand-off GEMM,
    the f32 GEMM or the row pass may spill); and of the decoder's kernels: the conv frame of
    csrc/decoder_conv.cuh (bf16 conv1, the border strips, bf16 conv2 + head,
-   the int8 conv2 + head without and with its map), the int8 conv1 and the
-   edge branch's one-tile kernel, none of which may spill.
+   the int8 conv2 + head without and with its map), the int8 conv1, the
+   frame's Cm 128 form of the edge branch (csrc/decoder_block.cu
+   dec128_kernel: conv1, conv2 + head, conv2, at tile widths 128 and 96) and
+   the LayerNorm backward (csrc/hiera_block_bwd.cu layernorm_bwd_kernel),
+   none of which may spill.
 3. Compares every kernel with its plain PyTorch version in bf16 at every
    main-path geometry of Hiera-L inference and training, batch 2: the
    forward kernels (at 512^2 stages 1-4, the global blocks, the t12/t23/t34
@@ -74,7 +77,12 @@
    against the plain logits, within REL_LIMIT, two calls bit-equal) and the
    bf16 block's two calls bit-equal at 512^2 and 384^2; and the
    edge branch of the bf16 block (no model path) at PED block 1's geometry
-   at 512^2 and 384^2 within REL_LIMIT (with the forward kernels above).
+   at 512^2 and 384^2, without and with a head, within REL_LIMIT, two calls
+   bit-equal; and the LayerNorm backward alone (kernels.layernorm_bwd) at
+   each C of a training step (kernel_check.LN_BWD: 144 / 288 / 576 / 1152),
+   batch 2 and 8, without and with dres, against its plain version
+   (ops/fused_block_t._layer_norm_bwd in f32) within BWD_REL_LIMIT, dx, dw
+   and db, two calls bit-equal.
    Then f32 compute (use_amp: false), batch 2: every f32 kernel against its
    plain f32 version within kernel_check.F32_REL_LIMIT (2e-5) -- the gen-1
    block at stage 1 / 2 / 4 of 512^2, fused_attention_lanes at L 64, 256,
@@ -472,11 +480,14 @@ def main() -> int:
     # LayerNorm + quant row pass (T, NV, WREG); none may spill
     # and the decoder's: the frame of csrc/decoder_conv.cuh (MODE: conv1, the
     # strips, conv2 + head, the int8 conv2 without / with y2), the int8 conv1
-    # and the Cm 128 one-tile kernel of the edge branch (UP, HEAD, CM, EDGE)
+    # and the frame's Cm 128 form of the edge branch (MODE: conv1 over up2(x)
+    # + up4(ef), conv2 + head, conv2; TC: 128, 96); and the LayerNorm
+    # backward (NV: 1-5, the narrow form; 16, the wide)
     for kern, n_inst in (("gemm_bf16_kernel", 8), ("gemm_i8_kernel", 14),
                          ("gemm_handoff_kernel", 3), ("gemm_f32_kernel", 3),
                          ("layernorm_q8_kernel", 4), ("dec_conv_kernel", 5),
-                         ("polyconv1_i8_kernel", 1), ("conv3x3_kernel", 3)):
+                         ("polyconv1_i8_kernel", 1), ("dec128_kernel", 6),
+                         ("layernorm_bwd_kernel", 6)):
         usage = kernels.ptxas_usage(kern)
         log(f"ptxas {kern} (template arguments: registers, spill store / load bytes): "
             + ", ".join(f"{w}: {r}, {ss} / {sl}" for w, r, ss, sl in sorted(usage, key=str)))
@@ -549,6 +560,30 @@ def main() -> int:
             f"head rel {res['pred_rel']:.4e} (limit {kc.REL_LIMIT}); two calls bit-equal: "
             f"{res['y1_same']}, {res['pred_same']}")
         check(kc.dec_bf16_parts_ok(res), f"{name}: a bf16 decoder kernel disagrees ({res})")
+    # the edge branch with its head (without it: the cases above), two calls
+    # bit-equal either way
+    for name in kc.DEC_EDGE:
+        for head in (False, True):
+            case = kc.edge_case(name, 2, torch.Generator().manual_seed(1), dev, head=head)
+            err, rel = kc.compare(case)
+            a, b = case.kernel(), case.kernel()
+            torch.cuda.synchronize()
+            max_err[case.wrapper] = max(max_err[case.wrapper], err)
+            log(f"check {name:12s} {case.wrapper} head {head}: max_abs {err:.4e} rel "
+                f"{rel:.4e} (limit {kc.REL_LIMIT}), two calls bit-equal {torch.equal(a, b)}")
+            check(rel <= kc.REL_LIMIT and torch.equal(a, b),
+                  f"{name}: the edge branch disagrees with plain ({rel:.3e}) or repeats badly")
+            del case, a, b
+    # the LayerNorm backward alone at every C of a training step
+    for name in kc.LN_BWD:
+        for batch in (2, 8):
+            for dres in (False, True):
+                res = kc.compare_ln_bwd(name, batch, dres, torch.Generator().manual_seed(1), dev)
+                torch.cuda.synchronize()
+                log(f"check {name:8s} layernorm_bwd C {kc.LN_BWD[name][0]} batch {batch} dres "
+                    f"{dres}: rel dx {res['dx']:.2e} dw {res['dw']:.2e} db {res['db']:.2e} "
+                    f"(limit {kc.BWD_REL_LIMIT}), two calls bit-equal {res['same']}")
+                check(kc.ln_bwd_ok(res), f"{name}: the LayerNorm backward disagrees ({res})")
     for name in kc.DECODER:
         case = kc.decoder_case(name, 2, torch.Generator().manual_seed(1), dev)
         a, b = case.kernel(), case.kernel()

@@ -254,66 +254,254 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part, int splits,
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm backward.  rows kernel (a warp per row): recompute the f32 row
-// statistics from bf16 x as the forward does, dx = rstd * (dy*w - mean(dy*w)
-// - xhat * mean(dy*w*xhat)) (+ dres), rounded to bf16; (mean, rstd) saved
-// for the column kernel, which writes per-split partial sums of dy * xhat
-// (dw) and dy (db) for reduce_splits_kernel.
+// LayerNorm backward: one pass over the rows, each input read once
 // ---------------------------------------------------------------------------
+//
+// dx = bf16(r (dy w - mean(dy w) - xhat mean(dy w xhat)) (+ dres)), dw =
+// sum dy xhat and db = sum dy over the rows, in f32, for bf16 rows x, dy,
+// dres of C = 8 nvec columns; xhat = (x - mu) r with the f32 statistics
+// recomputed from x (mean, then the centred variance).  It is the
+// backward of the forward's LayerNorm in the block backward's chains
+// (LN1 / LN2 of #4-#7: spegnet_tpu/ops/fused_block_t.py `_ln_bwd`, :1141,
+// inside `_bwd_kernel` :1165, `_qpool_bwd_kernel` :833, `_bwd_kernel_res`
+// :1449 and fused_block.py's backward).
+//
+// Bound on the H100: bytes.  x, dy (and dres) are read and dx written once,
+// 6-8 bytes an element, a few flops each.  A group of G = 2^lg lanes serves
+// a row: lane j holds the row's 16-byte vectors j, j + G, ... (at most NV)
+// of x, dy and dres in registers, read once with coalesced 16-byte loads,
+// and every row reduction (the sum, the centred variance, the pair m1 / m2)
+// is a shuffle tree inside the group, so no pass goes back to memory and no
+// [rows] statistics buffer exists.  A CTA walks a contiguous strip of rows,
+// its groups taking rows strip0 + group, + groups, ...; a group loads
+// dres with x and dy, so that its load overlaps the row's reductions (a
+// prefetch of the next row as well measured slower on an H100: its
+// registers cost more occupancy than it hid latency).  Each lane keeps the
+// f32 sums of dy xhat and dy of its columns over the strip in registers
+// (the wide form, for rows past 32 x 5 vectors: in the warp's slice of
+// shared memory, which only that lane touches); at the end of the strip
+// the warp's groups are added by a shuffle tree (offsets 16 .. G), the
+// warps in order through shared memory, and the CTA writes one [2C]
+// partial row.  reduce_rows_kernel then adds the partial rows in a fixed
+// order, 32 warps to a column (a column's ~512 partial rows walked by one
+// thread, as reduce_splits_kernel does, was a large share of a call).  No
+// atomics: two calls give the same bits.  The weight w (f32) is read per
+// vector from L1.  kernels.layernorm_bwd_plan picks G, NV, the form and
+// the strips.
+//
+// Arithmetic, each step rounded (no FMA contraction): the lane's sum of its
+// elements in vector order, then the group's tree; mu = sum / C; the
+// variance the same over (x - mu)^2; r = rsqrtf(var / C + eps); xhat = (x -
+// mu) r; g = dy w; m1 = tree(sum g) / C, m2 = tree(sum g xhat) / C; dx =
+// r ((g - m1) - xhat m2) (+ dres) rounded to bf16.  tests/test_torch_
+// layernorm_bwd.py emulates it on the CPU.
+constexpr int LB_THREADS = 128;
+constexpr int LB_RWARPS = 32;  // reduce_rows_kernel: warps a block, 32 columns
 
-__global__ void layernorm_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                                          const bf16* __restrict__ dy,
-                                          const bf16* __restrict__ dres, bf16* __restrict__ dx,
-                                          float2* __restrict__ stats, long rows, int C,
-                                          float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long row = (long)blockIdx.x * 8 + warp;
-  if (row >= rows) return;
-  const bf16* xr = x + row * C;
-  const bf16* gr = dy + row * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += bf(xr[c]);
-  const float mu = warp_sum(s) / C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = bf(xr[c]) - mu;
-    v += d * d;
-  }
-  const float r = rsqrtf(warp_sum(v) / C + eps);
-  float m1 = 0.f, m2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float gw = bf(gr[c]) * w[c];
-    m1 += gw;
-    m2 += gw * (bf(xr[c]) - mu) * r;
-  }
-  m1 = warp_sum(m1) / C;
-  m2 = warp_sum(m2) / C;
-  bf16* dr = dx + row * C;
-  for (int c = lane; c < C; c += 32) {
-    const float xh = (bf(xr[c]) - mu) * r;
-    float val = r * (bf(gr[c]) * w[c] - m1 - xh * m2);
-    if (dres) val += bf(dres[row * C + c]);
-    dr[c] = to_bf(val);
-  }
-  if (lane == 0) stats[row] = make_float2(mu, r);
+__device__ __forceinline__ float lb_group_sum(float v, int lg) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < (1 << lg)) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
-__global__ void layernorm_bwd_cols_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                                          const float2* __restrict__ stats, long rows, int C,
-                                          long r_split, float* __restrict__ part) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const long rb = (long)blockIdx.y * r_split, re = lmin(rows, rb + r_split);
-  float dw = 0.f, db = 0.f;
-  for (long r = rb; r < re; ++r) {
-    const float2 st = stats[r];
-    const float gv = bf(dy[r * C + c]);
-    dw += gv * (bf(x[r * C + c]) - st.x) * st.y;
-    db += gv;
+// The 8 f32 LayerNorm weights of vector cv.
+__device__ __forceinline__ void lb_weights(float (&wv)[8], const float* __restrict__ w, int cv) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(w + cv * 8));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(w + cv * 8 + 4));
+  wv[0] = a.x; wv[1] = a.y; wv[2] = a.z; wv[3] = a.w;
+  wv[4] = b.x; wv[5] = b.y; wv[6] = b.z; wv[7] = b.w;
+}
+
+// part [gridDim.x][2C]: the CTA's [dw; db] over its strip of r_strip rows.
+// Shared memory: [4 warps][2C] f32.
+template <int NV>
+__global__ void __launch_bounds__(LB_THREADS)
+layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                     const bf16* __restrict__ dy, const bf16* __restrict__ dres,
+                     bf16* __restrict__ dx, float* __restrict__ part, long rows, int C, int lg,
+                     long r_strip, float eps) {
+  constexpr bool WIDE = NV > 5;
+  extern __shared__ float red[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = 1 << lg, j = tid & (G - 1), group = tid >> lg, groups = LB_THREADS >> lg;
+  const int nvec = C / 8;
+  const float fc = (float)C;
+  const long r0 = (long)blockIdx.x * r_strip, r1 = lmin(rows, r0 + r_strip);
+  float* wred = red + warp * 2 * C;
+  float adw[WIDE ? 1 : NV][8], adb[WIDE ? 1 : NV][8];
+#pragma unroll
+  for (int i = 0; i < (WIDE ? 1 : NV); ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) adw[i][e] = adb[i][e] = 0.f;
+  if constexpr (WIDE) {
+    // one group a warp (G 32): the lane's columns of the warp's slice are its own
+    for (int i = 0; i < NV; ++i) {
+      const int cv = j + G * i;
+      if (cv < nvec)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) wred[cv * 8 + e] = wred[C + cv * 8 + e] = 0.f;
+    }
   }
-  float* out = part + (long)blockIdx.y * 2 * C;
-  out[c] = dw;
-  out[C + c] = db;
+
+  // every lane of a warp runs the same passes, so the whole warp takes part
+  // in every shuffle (a group past the strip computes on zeros, stores and
+  // sums nothing)
+  for (long base = r0; base < r1; base += groups) {
+    const long row = base + group;
+    const bool live = row < r1;
+    const long off = (live ? row : r0) * C;
+    // x, dy and (the narrow form) dres of the row
+    uint4 xv[NV], gv[NV], rv[WIDE ? 1 : NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int cv = j + G * i;
+      const bool in = live && cv < nvec;
+      xv[i] = in ? *reinterpret_cast<const uint4*>(x + off + cv * 8) : zero_vec8();
+      gv[i] = in ? *reinterpret_cast<const uint4*>(dy + off + cv * 8) : zero_vec8();
+      if constexpr (!WIDE)
+        rv[i] = in && dres ? *reinterpret_cast<const uint4*>(dres + off + cv * 8) : zero_vec8();
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s = __fadd_rn(s, bf(lanes(xv[i])[e]));
+    const float mu = __fdiv_rn(lb_group_sum(s, lg), fc);
+    float var = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (j + G * i < nvec)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = __fsub_rn(bf(lanes(xv[i])[e]), mu);
+          var = __fadd_rn(var, __fmul_rn(d, d));
+        }
+    const float r = rsqrtf(__fadd_rn(__fdiv_rn(lb_group_sum(var, lg), fc), eps));
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int cv = j + G * i;
+      if (cv < nvec) {
+        float wv[8];
+        lb_weights(wv, w, cv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float xh = __fmul_rn(__fsub_rn(bf(lanes(xv[i])[e]), mu), r);
+          const float g = __fmul_rn(bf(lanes(gv[i])[e]), wv[e]);
+          m1 = __fadd_rn(m1, g);
+          m2 = __fadd_rn(m2, __fmul_rn(g, xh));
+        }
+      }
+    }
+    m1 = __fdiv_rn(lb_group_sum(m1, lg), fc);
+    m2 = __fdiv_rn(lb_group_sum(m2, lg), fc);
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int cv = j + G * i;
+        if (cv >= nvec) continue;
+        float wv[8];
+        lb_weights(wv, w, cv);
+        uint4 rd = zero_vec8();
+        if constexpr (WIDE) {
+          if (dres) rd = *reinterpret_cast<const uint4*>(dres + off + cv * 8);
+        } else {
+          rd = rv[i];
+        }
+        uint4 o;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float gy = bf(lanes(gv[i])[e]);
+          const float xh = __fmul_rn(__fsub_rn(bf(lanes(xv[i])[e]), mu), r);
+          float v = __fmul_rn(r, __fsub_rn(__fsub_rn(__fmul_rn(gy, wv[e]), m1), __fmul_rn(xh, m2)));
+          if (dres) v = __fadd_rn(v, bf(lanes(rd)[e]));
+          lanes(o)[e] = to_bf(v);
+          if constexpr (WIDE) {
+            wred[cv * 8 + e] = __fadd_rn(wred[cv * 8 + e], __fmul_rn(gy, xh));
+            wred[C + cv * 8 + e] = __fadd_rn(wred[C + cv * 8 + e], gy);
+          } else {
+            adw[i][e] = __fadd_rn(adw[i][e], __fmul_rn(gy, xh));
+            adb[i][e] = __fadd_rn(adb[i][e], gy);
+          }
+        }
+        *reinterpret_cast<uint4*>(dx + off + cv * 8) = o;
+      }
+    }
+  }
+
+  if constexpr (!WIDE) {
+    // the warp's groups in a fixed tree (offsets 16 .. G), then its first
+    // group writes the warp's sums
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          if (o >= G) {
+            adw[i][e] = __fadd_rn(adw[i][e], __shfl_xor_sync(0xffffffffu, adw[i][e], o));
+            adb[i][e] = __fadd_rn(adb[i][e], __shfl_xor_sync(0xffffffffu, adb[i][e], o));
+          }
+    if (lane < G)
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int cv = j + G * i;
+        if (cv < nvec)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            wred[cv * 8 + e] = adw[i][e];
+            wred[C + cv * 8 + e] = adb[i][e];
+          }
+      }
+  }
+  __syncthreads();
+  float* out = part + (long)blockIdx.x * 2 * C;
+  for (int c = tid; c < 2 * C; c += LB_THREADS) {
+    float v = red[c];
+#pragma unroll
+    for (int k = 1; k < LB_THREADS / 32; ++k) v = __fadd_rn(v, red[k * 2 * C + c]);
+    out[c] = v;
+  }
+}
+
+// out[c] = sum over the rows k of part [rows, len] in a fixed order: warp w
+// of the block of columns c adds rows w, w + LB_RWARPS, ... in turn, then
+// the warps' sums are added in warp order.
+__global__ void __launch_bounds__(LB_RWARPS * 32)
+reduce_rows_kernel(const float* __restrict__ part, int rows, int len, float* __restrict__ out) {
+  __shared__ float sums[LB_RWARPS][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < len) {
+#pragma unroll 4
+    for (int k = warp; k < rows; k += LB_RWARPS) s = __fadd_rn(s, __ldg(part + (long)k * len + c));
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < len) {
+    float v = sums[0][lane];
+#pragma unroll
+    for (int k = 1; k < LB_RWARPS; ++k) v = __fadd_rn(v, sums[k][lane]);
+    out[c] = v;
+  }
+}
+
+template <int NV>
+cudaError_t launch_layernorm_bwd(const void* x, const void* w, const void* dy, const void* dres,
+                                 void* dx, float* part, long rows, int C, int lg, long r_strip,
+                                 int ctas, float eps, cudaStream_t st) {
+  const int smem = (LB_THREADS / 32) * 2 * C * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        layernorm_bwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  layernorm_bwd_kernel<NV><<<ctas, LB_THREADS, smem, st>>>(
+      (const bf16*)x, (const float*)w, (const bf16*)dy, (const bf16*)dres, (bf16*)dx, part, rows,
+      C, lg, r_strip, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -364,24 +552,39 @@ int sp_gemm_tn(const void* a, const void* b, int M, int N, int K, int tk, int mt
   return (int)cudaGetLastError();
 }
 
-// LayerNorm backward over rows of C: dx (bf16, + dres when non-null), and
-// dwb = [dw; db] (2C f32).  stats [rows] float2 and part [splits, 2C] f32
-// are scratch; rows are cut into splits of r_split.
+// LayerNorm backward over bf16 rows of C (C % 8 == 0, 16-byte aligned
+// rows): dx (bf16, + dres when non-null) and dwb = [dw; db] (2C f32).  The
+// plan (kernels.layernorm_bwd_plan): groups of 2^lg lanes a row, nv vectors
+// a lane (1-5, the narrow form; 16, the wide form, lg 5), ctas strips of
+// r_strip rows; part [ctas, 2C] f32 scratch (with one CTA, dwb itself).
 int sp_layernorm_bwd(const void* x, const void* w, const void* dy, const void* dres, void* dx,
-                     void* stats, void* part, long r_split, int splits, void* dwb, long rows,
-                     int C, float eps, void* stream) {
+                     void* part, long rows, int C, int lg, int nv, long r_strip, int ctas,
+                     void* dwb, float eps, void* stream) {
+  using namespace spk;
   cudaStream_t st = (cudaStream_t)stream;
-  spk::layernorm_bwd_rows_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-      (const bf16*)x, (const float*)w, (const bf16*)dy, (const bf16*)dres, (bf16*)dx,
-      (float2*)stats, rows, C, eps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  spk::layernorm_bwd_cols_kernel<<<dim3((C + 127) / 128, splits), 128, 0, st>>>(
-      (const bf16*)x, (const bf16*)dy, (const float2*)stats, rows, C, r_split, (float*)part);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  spk::reduce_splits_kernel<<<(2 * C + 255) / 256, 256, 0, st>>>((const float*)part, splits,
-                                                                  2L * C, (float*)dwb);
+  if (rows < 1 || C < 8 || C % 8 || lg < 0 || lg > 5 || ctas < 1 || r_strip < 1 ||
+      r_strip % (LB_THREADS >> lg) || (long)(ctas - 1) * r_strip >= rows ||
+      (long)ctas * r_strip < rows || C / 8 > (nv << lg) || (nv == 16 && lg != 5) ||
+      !((nv >= 1 && nv <= 5) || nv == 16) || (ctas == 1 && part != dwb))
+    return (int)cudaErrorInvalidValue;
+  float* p = (float*)part;
+  cudaError_t e;
+#define SPK_LB_CASE(NVV)                                                                     \
+  case NVV:                                                                                  \
+    e = launch_layernorm_bwd<NVV>(x, w, dy, dres, dx, p, rows, C, lg, r_strip, ctas, eps, st); \
+    break;
+  switch (nv) {
+    SPK_LB_CASE(1)
+    SPK_LB_CASE(2)
+    SPK_LB_CASE(3)
+    SPK_LB_CASE(4)
+    SPK_LB_CASE(5)
+    default:
+      e = launch_layernorm_bwd<16>(x, w, dy, dres, dx, p, rows, C, lg, r_strip, ctas, eps, st);
+  }
+#undef SPK_LB_CASE
+  if (e != cudaSuccess || ctas == 1) return (int)e;
+  reduce_rows_kernel<<<(2 * C + 31) / 32, LB_RWARPS * 32, 0, st>>>(p, ctas, 2 * C, (float*)dwb);
   return (int)cudaGetLastError();
 }
 

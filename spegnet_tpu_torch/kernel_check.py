@@ -405,6 +405,57 @@ def lnq8_ok(res: Dict[str, object], f32: bool) -> bool:
             and res["scale_rel"] <= LNQ8_SCALE_REL[f32] and bool(res["same"]))
 
 
+# The LayerNorm backward (kernels.layernorm_bwd) at each C of a 512^2
+# training step: name: (C, rows per image, calls per step with dres,
+# without).  LN1 and LN2 of every block backward (#5 / #6 / #7, with dres:
+# 2 blocks at C 144, 5 at 288, 35 at 576 (stage 3 and the global blocks),
+# 3 at 1152) and LN1 of each front (#4, without: t12, t23, t34).
+LN_BWD = {"stage1": (144, 16384, 4, 1), "stage2": (288, 4096, 10, 1),
+          "stage3": (576, 1024, 70, 1), "stage4": (1152, 256, 6, 0)}
+
+
+def ln_bwd_inputs(name: str, batch: int, g, device):
+    """(x, weight, dy, dres) of ``name``: rows N(0, 1) plus a per-row offset,
+    weight ~1 + 0.1 N, dy and dres N(0, 1)."""
+    c, n, _, _ = LN_BWD[name]
+    m = batch * n
+    x = (torch.randn((m, c), generator=g) + torch.randn((m, 1), generator=g)).to(
+        device, torch.bfloat16)
+    return (x, _v((c,), g, device, 0.1, torch.float32, 1.0),
+            _v((m, c), g, device, 1.0), _v((m, c), g, device, 1.0))
+
+
+def ln_bwd_bytes(name: str, batch: int, dres: bool) -> float:
+    """Bytes one call must move: x, dy (and dres) read once, dx written once
+    (bf16), the weight read and dw, db written once (f32)."""
+    c, n, _, _ = LN_BWD[name]
+    return (6.0 + 2 * dres) * batch * n * c + 12.0 * c
+
+
+def compare_ln_bwd(name: str, batch: int, dres: bool, g, device) -> Dict[str, object]:
+    """kernels.layernorm_bwd at ``name`` against its plain version
+    (ops/fused_block_t._layer_norm_bwd in f32 on the same bf16 rows, + dres):
+    max|k - p| / max|p| of dx, dw and db, and two calls bit-equal."""
+    x, w, dy, dr = ln_bwd_inputs(name, batch, g, device)
+    dr = dr if dres else None
+    got = kernels.layernorm_bwd(x, w, dy, 1e-6, dres=dr)
+    again = kernels.layernorm_bwd(x, w, dy, 1e-6, dres=dr)
+    dxp, dwp, dbp = fbt._layer_norm_bwd(x, w, dy.float(), 1e-6)
+    if dr is not None:
+        dxp = dxp + dr.float()
+    out = {k: _rel(a, b)[1] for k, a, b in zip(("dx", "dw", "db"), got, (dxp, dwp, dbp))}
+    out["finite"] = all(bool(torch.isfinite(t).all()) for t in got)
+    out["same"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    return out
+
+
+def ln_bwd_ok(res: Dict[str, object]) -> bool:
+    """dx, dw and db within :data:`BWD_REL_LIMIT`, finite, two calls
+    bit-equal."""
+    return (bool(res["finite"]) and bool(res["same"])
+            and max(res["dx"], res["dw"], res["db"]) <= BWD_REL_LIMIT)
+
+
 # The T-block's saved-residual pair (training under SPEGNET_SAVE_RESIDUALS)
 # at its 512^2 geometries.
 RES = ("stage1", "stage2", "stage3", "global")

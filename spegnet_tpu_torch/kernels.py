@@ -205,13 +205,13 @@ def load():
         "sp_attention_bwd": [p, l, p, l, p, l, p, l, p, l, p, p, p, l, p, l, p, l,
                              i, i, i, i, i, ll, f, p],
         "sp_gemm_tn": [p, p, i, i, i, i, i, i, i, p, p, p, p, p],
-        "sp_layernorm_bwd": [p, p, p, p, p, p, p, l, i, p, l, i, f, p],
+        "sp_layernorm_bwd": [p, p, p, p, p, p, l, i, i, i, l, i, p, f, p],
         "sp_pool4_scatter": [p, l, i, p, l, p, l, i, l, i, p],
         "sp_dec_upconv": [p, p, p, p, p, i, i, i, i, p],
         "sp_dec_conv_head": [p, p, p, p, p, p, p, i, i, i, i, p],
-        "sp_upconv3x3_edge_bn_relu": [p, p, p, p, p, p, p, i, i, i, i, p],
-        "sp_conv3x3_bn_relu_head": [p, p, p, p, p, p, p, i, i, i, p],
-        "sp_conv3x3_bn_relu": [p, p, p, p, p, i, i, i, p],
+        "sp_upconv3x3_edge_bn_relu": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "sp_conv3x3_bn_relu_head": [p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "sp_conv3x3_bn_relu": [p, p, p, p, p, i, i, i, i, i, p],
         "sp_quant_image_i8": [p, p, p, p, i, i, i, p],
         "sp_dec_strips": [p, p, p, i, i, i, i, p],
         "sp_polyconv1_i8": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p],
@@ -851,10 +851,63 @@ def gemm_tn(a: torch.Tensor, b: torch.Tensor):
     return out, cs
 
 
+# csrc/hiera_block_bwd.cu's LayerNorm backward: a group of lanes a row, each
+# lane at most LNB_NV_SHORT of the row's 16-byte vectors where a group of up
+# to 32 lanes holds the row so, else 32 lanes of at most LNB_NV (the narrow
+# form) or LNB_WIDE_NV (the wide form, its column sums in shared memory); a
+# CTA of LNB_THREADS threads walks a strip of at least LNB_PASSES passes of
+# its groups, the grid at most LNB_PER_SM CTAs a streaming multiprocessor.
+LNB_NV_SHORT = 3
+LNB_NV = 5
+LNB_WIDE_NV = 16
+LNB_THREADS = 128
+LNB_PASSES = 2
+LNB_PER_SM = 4
+
+
+class LnBwdPlan(NamedTuple):
+    """Launch plan of the LayerNorm backward: ``lanes`` (a power of 2, at
+    most 32) serve a row, lane j holding its 16-byte vectors j, j + lanes,
+    ... (at most ``nv``); ``wide``: the form with its column sums in shared
+    memory; ``ctas`` CTAs, CTA k walking rows [k strip, (k + 1) strip)."""
+    lanes: int
+    nv: int
+    wide: bool
+    strip: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def layernorm_bwd_plan(rows: int, c: int, sms: int) -> LnBwdPlan:
+    """The fewest lanes that hold a bf16 row of ``c`` (a multiple of 8) in
+    LNB_NV_SHORT vectors each; else 32 lanes of ceil(vectors / 32) <= LNB_NV
+    (the narrow form) or LNB_WIDE_NV (the wide form); rows past 32 *
+    LNB_WIDE_NV vectors raise.  Strips: a multiple of a CTA's groups, at
+    least LNB_PASSES passes of them where the rows allow, at most ``sms`` *
+    LNB_PER_SM CTAs, none empty."""
+    if c < 8 or c % 8 or rows < 1:
+        raise ValueError(f"layernorm_bwd: C={c} must be a positive multiple of 8, rows {rows}")
+    nvec = c // 8
+    lanes = next((1 << lg for lg in range(6) if -(-nvec // (1 << lg)) <= LNB_NV_SHORT), 32)
+    nv = -(-nvec // lanes)
+    if nv > LNB_WIDE_NV:
+        raise ValueError(f"layernorm_bwd: C={c} is past {32 * LNB_WIDE_NV * 8}, the longest "
+                         "row a warp holds")
+    wide = nv > LNB_NV
+    if wide:
+        nv = LNB_WIDE_NV
+    groups = LNB_THREADS // lanes
+    ctas = max(1, min(sms * LNB_PER_SM, -(-rows // (groups * LNB_PASSES))))
+    strip = -(-(-(-rows // ctas)) // groups) * groups
+    return LnBwdPlan(lanes, nv, wide, strip, -(-rows // strip))
+
+
 def layernorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float,
                   dres=None):
     """LayerNorm backward on [rows, C] bf16 with f32 weight: (dx bf16, plus
-    ``dres`` when given; dweight f32; dbias f32)."""
+    ``dres`` when given; dweight f32; dbias f32), one pass over the rows
+    (:func:`layernorm_bwd_plan`); the per-CTA partial sums are added in a
+    fixed order, so two calls give the same bits."""
     _need(x, "layernorm_bwd x", ndim=2)
     _need(dy, "layernorm_bwd dy", ndim=2)
     _need(w, "layernorm_bwd weight", torch.float32, 1)
@@ -865,17 +918,18 @@ def layernorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float
         _need(dres, "layernorm_bwd dres", ndim=2)
         if tuple(dres.shape) != (rows, c):
             raise ValueError("layernorm_bwd: dres shape")
-    r_split = max(64, -(-rows // 1024))
-    splits = -(-rows // r_split)
+    if any(t is not None and t.data_ptr() % 16 for t in (x, dy, dres, w)):
+        raise ValueError("layernorm_bwd: 16-byte loads need 16-byte aligned operands")
+    plan = layernorm_bwd_plan(rows, c, _sm_count(x.get_device()))
     dx = torch.empty_like(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    stats = torch.empty((rows, 2), **f32)
-    part = torch.empty((splits, 2 * c), **f32)
-    dwb = torch.empty((2 * c,), **f32)
+    dwb = torch.empty((2 * c,), dtype=torch.float32, device=x.device)
+    part = dwb if plan.ctas == 1 else torch.empty((plan.ctas, 2 * c), dtype=torch.float32,
+                                                  device=x.device)
     _check(load().sp_layernorm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), _ptr(dres),
-                                    dx.data_ptr(), stats.data_ptr(), part.data_ptr(),
-                                    r_split, splits, dwb.data_ptr(), rows, c, eps,
-                                    _stream(x)), "sp_layernorm_bwd")
+                                    dx.data_ptr(), part.data_ptr(), rows, c,
+                                    plan.lanes.bit_length() - 1, plan.nv, plan.strip,
+                                    plan.ctas, dwb.data_ptr(), eps, _stream(x)),
+           "sp_layernorm_bwd")
     return dx, dwb[:c], dwb[c:]
 
 
@@ -1018,64 +1072,128 @@ def dec_conv_head(y: torch.Tensor, wt: torch.Tensor, s: torch.Tensor, t: torch.T
     return pred
 
 
+# The Cm 128 form of the conv frame (csrc/decoder_block.cu dec128_kernel,
+# the edge branch): tiles of two rows of DEC128_TCS pixels times all
+# DEC128_CM outputs, the weights streamed a chunk of DEC128_KC input
+# channels a stage, packed as the stage holds them.
+DEC128_TCS = (128, 96)
+DEC128_CM = 128
+DEC128_KC = 16
+
+
+class Dec128Plan(NamedTuple):
+    """Launch plan of the Cm 128 conv kernel: tiles of two rows x ``tc``
+    pixels, ``tiles`` of them walked by ``grid`` blocks (block b the tiles
+    b, b + grid, ...), the tile walk as :func:`dec128_tiles` lists it."""
+    tc: int
+    tiles: int
+    grid: int
+
+
+def dec128_plan(b: int, h: int, w: int, sms: int) -> Dec128Plan:
+    """The tile width of DEC128_TCS that computes the fewest columns of the
+    width ``w`` (the wider on a tie), on the [h, w] output grid of ``b``
+    images."""
+    tc = min(DEC128_TCS, key=lambda c: (-(-w // c) * c, -c))
+    tiles = b * (h // 2) * -(-w // tc)
+    return Dec128Plan(tc, tiles, max(1, min(tiles, sms)))
+
+
+def dec128_tiles(b: int, h: int, w: int, tc: int):
+    """(image, first output row, first output column) of each tile in walk
+    order, as ``dec128_kernel``'s ``tile_of`` decodes them."""
+    ct = -(-w // tc)
+    for tile in range(b * (h // 2) * ct):
+        rest = tile // ct
+        yield rest // (h // 2), 2 * (rest % (h // 2)), (tile % ct) * tc
+
+
+def pack_dec128(w: torch.Tensor) -> torch.Tensor:
+    """[128, Cin, 3, 3] conv weights -> [Cin / 16, 9, 2, 128, 8]: per chunk of
+    16 input channels, per tap (dy, dx), its two planes of 8 channels, each
+    [output channel][8 inputs] -- the weights of one ring stage of the Cm
+    128 kernel, in the order it holds them."""
+    cm, cin = w.shape[:2]
+    if cm != DEC128_CM or cin % DEC128_KC or tuple(w.shape[2:]) != (3, 3):
+        raise ValueError(f"pack_dec128: weight {tuple(w.shape)} vs [128, Cin % 16 == 0, 3, 3]")
+    return (w.permute(2, 3, 1, 0).reshape(9, cin // 16, 2, 8, cm)
+            .permute(1, 0, 2, 4, 3).contiguous())
+
+
+def _dec128_weight(w: torch.Tensor, cin: int, name: str) -> None:
+    _need(w, f"{name} weight", ndim=5)
+    if tuple(w.shape) != (cin // DEC128_KC, 9, 2, DEC128_CM, 8):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} vs pack_dec128's for Cin {cin}")
+
+
 def upsample_conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                              t: torch.Tensor, ef: torch.Tensor,
                              we: torch.Tensor) -> torch.Tensor:
     """The edge branch's conv1: x [B, S, S, Cin], edge features ef [B, S/2,
-    S/2, Ce], weights w [9*Cin, 128] and we [9*Ce, 128] ->
+    S/2, Ce], weights w and we packed by :func:`pack_dec128` ->
     relu((conv3x3(up2x(x)) + conv3x3(up4x(ef))) * s + t), [B, 2S, 2S, 128]."""
     _need(x, "upconv x", ndim=4)
     b, h, w_, cin = x.shape
-    if h != w_ or cin % 32:
-        raise ValueError(f"upconv: x {tuple(x.shape)} (square, Cin % 32 == 0)")
+    if h != w_ or cin % DEC128_KC or h % 2:
+        raise ValueError(f"upconv: x {tuple(x.shape)} (square, even, Cin % 16 == 0)")
     _need(ef, "upconv edge features", ndim=4)
     ce = ef.shape[-1]
-    if tuple(ef.shape) != (b, h // 2, h // 2, ce) or h % 2 or ce % 32:
+    if tuple(ef.shape) != (b, h // 2, h // 2, ce) or ce % DEC128_KC or ce < DEC128_KC:
         raise ValueError(f"upconv: ef {tuple(ef.shape)} vs x {tuple(x.shape)} "
-                         "(half the side, Ce % 32 == 0)")
-    _conv_params(w, s, t, cin, 128, "upconv")
-    _need(we, "upconv edge weight", ndim=2)
-    if tuple(we.shape) != (9 * ce, 128):
-        raise ValueError(f"upconv: edge weight {tuple(we.shape)} vs [9*{ce}, 128]")
-    y = torch.empty((b, 2 * h, 2 * h, 128), dtype=x.dtype, device=x.device)
+                         "(half the side, Ce % 16 == 0)")
+    _dec128_weight(w, cin, "upconv")
+    _dec128_weight(we, ce, "upconv edge")
+    _f32(s, DEC128_CM, "upconv scale")
+    _f32(t, DEC128_CM, "upconv shift")
+    y = torch.empty((b, 2 * h, 2 * h, DEC128_CM), dtype=x.dtype, device=x.device)
+    plan = dec128_plan(b, 2 * h, 2 * h, _sm_count(x.get_device()))
     _check(load().sp_upconv3x3_edge_bn_relu(x.data_ptr(), w.data_ptr(), ef.data_ptr(),
                                              we.data_ptr(), s.data_ptr(), t.data_ptr(),
-                                             y.data_ptr(), b, h, cin, ce, _stream(x)),
+                                             y.data_ptr(), b, h, cin, ce, plan.tc, plan.grid,
+                                             _stream(x)),
            "sp_upconv3x3_edge_bn_relu")
     return y
+
+
+def _dec128_y(y: torch.Tensor, w: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
+              name: str) -> Tuple[int, int, int]:
+    _need(y, f"{name} y", ndim=4)
+    b, h, w_, c = y.shape
+    if c != DEC128_CM or h % 2:
+        raise ValueError(f"{name}: y {tuple(y.shape)} (128 channels, even height)")
+    _dec128_weight(w, c, name)
+    _f32(s, DEC128_CM, f"{name} scale")
+    _f32(t, DEC128_CM, f"{name} shift")
+    return b, h, w_
 
 
 def conv3x3_bn_relu_head(y: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                          t: torch.Tensor, head_w: torch.Tensor,
                          head_b: torch.Tensor) -> torch.Tensor:
-    """y [B, H, W, 128] -> relu(conv3x3(y) * s + t) . head_w + head_b, [B, H, W]
-    (the edge branch's block with a head; Cm 64 is :func:`dec_conv_head`)."""
-    _need(y, "conv_head y", ndim=4)
-    b, h, w_, c = y.shape
-    if c != 128:
-        raise ValueError(f"conv_head: y {tuple(y.shape)} needs 128 channels")
-    _conv_params(w, s, t, c, c, "conv_head")
-    _need(head_w, "conv_head head weight", torch.float32, 1)
-    _need(head_b, "conv_head head bias", torch.float32, 1)
+    """y [B, H, W, 128] (H even), w packed by :func:`pack_dec128` ->
+    relu(conv3x3(y) * s + t) . head_w + head_b, [B, H, W] (the edge
+    branch's block with a head; Cm 64 is :func:`dec_conv_head`)."""
+    b, h, w_ = _dec128_y(y, w, s, t, "conv_head")
+    _f32(head_w, DEC128_CM, "conv_head head weight")
+    _f32(head_b, 1, "conv_head head bias")
     pred = torch.empty((b, h, w_), dtype=y.dtype, device=y.device)
+    plan = dec128_plan(b, h, w_, _sm_count(y.get_device()))
     _check(load().sp_conv3x3_bn_relu_head(
         y.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(),
-        head_w.data_ptr(), head_b.data_ptr(), pred.data_ptr(), b, h, w_,
+        head_w.data_ptr(), head_b.data_ptr(), pred.data_ptr(), b, h, w_, plan.tc, plan.grid,
         _stream(y)), "sp_conv3x3_bn_relu_head")
     return pred
 
 
 def conv3x3_bn_relu(y: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                     t: torch.Tensor) -> torch.Tensor:
-    """y [B, H, W, 128] -> relu(conv3x3(y) * s + t), [B, H, W, 128]."""
-    _need(y, "conv y", ndim=4)
-    b, h, w_, c = y.shape
-    if c != 128:
-        raise ValueError(f"conv: y {tuple(y.shape)} needs 128 channels")
-    _conv_params(w, s, t, c, c, "conv")
+    """y [B, H, W, 128] (H even), w packed by :func:`pack_dec128` ->
+    relu(conv3x3(y) * s + t), [B, H, W, 128]."""
+    b, h, w_ = _dec128_y(y, w, s, t, "conv")
     out = torch.empty_like(y)
+    plan = dec128_plan(b, h, w_, _sm_count(y.get_device()))
     _check(load().sp_conv3x3_bn_relu(y.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(),
-                                      out.data_ptr(), b, h, w_, _stream(y)),
+                                      out.data_ptr(), b, h, w_, plan.tc, plan.grid, _stream(y)),
            "sp_conv3x3_bn_relu")
     return out
 

@@ -15,9 +15,9 @@ for a CUDA tensor, the Hopper kernels that replace the TPU kernel
   frame of csrc/decoder_conv.cuh, exact upsample then convolve
   (:func:`decoder_block_plain`);
 * bf16 with the edge branch (block 1's geometry; no model route sends a
-  block there, as in the JAX package): csrc/decoder_block.cu's one-tile
-  kernels at Cm 128 with the 4x bilinear sample of the edge features as
-  conv1's second input;
+  block there, as in the JAX package): csrc/decoder_block.cu's Cm 128 form
+  of the frame (TMA + wgmma, the weights streamed through its ring) with
+  the 4x bilinear sample of the edge features as conv1's second input;
 * ``int8=True`` (the W8A8 speed mode, ``model.int8_decoder``): a different
   model, defined on the TPU kernel's polyphase form -- x quantized per
   image, conv1 on the composed ``[9 Cin, 4 Cm]`` weights over edge-clamped
@@ -103,12 +103,6 @@ def decoder_block_plain(x: torch.Tensor, p: DecoderParams,
     pred = (torch.einsum("bchw,c->bhw", y2.float(), p.head_w.reshape(-1).float())
             + p.head_b.float())
     return pred.to(dt)[..., None]
-
-
-def _pack_conv(w: torch.Tensor) -> torch.Tensor:
-    """[Cout, Cin, 3, 3] -> [9*Cin, Cout], rows tap-major (dy, dx, ci)."""
-    cout, cin = w.shape[:2]
-    return w.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
 
 
 def _pack_conv_t(w: torch.Tensor) -> torch.Tensor:
@@ -462,9 +456,9 @@ def fused_decoder_block(x: torch.Tensor, p: DecoderParams, ef: Optional[torch.Te
         raise ValueError("the decoder kernel with edge branch covers Cm 128")
     kernels.launches["fused_decoder_block_edge"] += 1
     y1 = kernels.upsample_conv3x3_bn_relu(
-        x.contiguous(), _pack_conv(p.w1.to(x.dtype)), s1.contiguous(), t1.contiguous(),
-        ef=ef.to(x.dtype).contiguous(), we=_pack_conv(p.we.to(x.dtype)))
-    w2 = _pack_conv(p.w2.to(x.dtype))
+        x.contiguous(), kernels.pack_dec128(p.w1.to(x.dtype)), s1.contiguous(), t1.contiguous(),
+        ef=ef.to(x.dtype).contiguous(), we=kernels.pack_dec128(p.we.to(x.dtype)))
+    w2 = kernels.pack_dec128(p.w2.to(x.dtype))
     if p.head_w is None:
         return kernels.conv3x3_bn_relu(y1, w2, s2.contiguous(), t2.contiguous())
     pred = kernels.conv3x3_bn_relu_head(

@@ -15,6 +15,13 @@ Per input size (x1 [B, S, S, 128], S = size / 2, Cm 64), device ms
   four thin f32 cuDNN convs, their plain version), conv1 with the paste
   (``kernels.polyconv1_i8``), conv2 + head (``kernels.conv2_i8_head``), and
   the block through ``fused_decoder_block``;
+* the edge branch's Cm 128 kernels (csrc/decoder_block.cu ``dec128_kernel``,
+  no model path) at each kernel_check.DEC_EDGE geometry whose 2S is the
+  size: conv1 over up2(x) + up4(ef) (``kernels.upsample_conv3x3_bn_relu``),
+  conv2 (``conv3x3_bn_relu``), conv2 + head (``conv3x3_bn_relu_head``) and
+  the block through ``fused_decoder_block`` (without its head, as PED block
+  1 runs), beside cuDNN's convs of the same block (``--against`` a tree
+  with the one-tile Cm 128 kernel: its launchers on row-packed weights);
 * cuDNN in bf16, channels-last, as the yardstick the port never calls:
   ``F.interpolate`` then ``F.conv2d`` for conv1, ``F.conv2d`` for conv2, and
   the 1x1 head as a third ``F.conv2d`` (no BN: the convolutions alone);
@@ -25,8 +32,9 @@ Per input size (x1 [B, S, S, 128], S = size / 2, Cm 64), device ms
 ``--against TREE`` loads another tree's ``spegnet_tpu_torch/kernels.py``
 under a module name of its own (it builds its own library, e.g. the parent
 commit unpacked with ``git archive``) and times its decoder kernels on the
-same inputs, in turns with this tree's (this, other, other, this), and
-holds the int8 pieces of the two builds bit for bit given ``make_strips``'
+same inputs, in turns with this tree's (this, other, other, this) -- the
+edge branch's through the other tree's launchers, its weights packed as that
+tree's fused_decoder_block packs them -- and holds the int8 pieces of the two builds bit for bit given ``make_strips``'
 strips: x codes, sx, y1, the strip scales, pred.  ``--digests`` writes, and
 ``--digests-against`` compares with a file written before, the SHA-256 of
 those pieces at every kernel_check.DEC_I8 geometry (batch 2, seed 1).
@@ -134,35 +142,92 @@ def pieces(kernels, kc, fd, s: int, batch: int, dev, other=None) -> Dict[str, Ca
         "cuDNN block": lib,
     }
     if other is not None:
-        w1, w2 = fd._pack_conv(p.w1.to(x.dtype)), fd._pack_conv(p.w2.to(x.dtype))
-        oy1 = other.upsample_conv3x3_bn_relu(x, w1, s1, t1)
+        oy1 = other.dec_upconv(x, wt1, s1, t1)
         oxq, osx = other.quant_image_i8(x)
-        act = fd.activate_strips(fd.make_strips(x, q.k1, dtype=x.dtype), q.s1, q.t1, x.dtype)
-        oy1q, emax = other.polyconv1_i8(oxq, osx, q.w1t, q.sw1, q.t1, act)
-        osa = other.strip_scales_i8(oy1q, emax, sh)
-
-        def old_i8():
-            xq_, sx_ = other.quant_image_i8(x)
-            a_ = fd.activate_strips(fd.make_strips(x, q.k1, dtype=x.dtype), q.s1, q.t1, x.dtype)
-            y_, e_ = other.polyconv1_i8(xq_, sx_, q.w1t, q.sw1, q.t1, a_)
-            sa_ = other.strip_scales_i8(y_, e_, sh)
-            return other.conv2_i8_head(y_, sa_, sh, q.w2q, q.sw2, q.t2, q.hw, q.hb)
-
+        ostrips = other.dec_strips(x, q.k1t)
+        oy1q, oamax = other.polyconv1_i8(oxq, osx, q.w1t, q.sw1, q.s1, q.t1, ostrips, sh)
         out.update({
-            "old bf16 conv1": lambda: other.upsample_conv3x3_bn_relu(x, w1, s1, t1),
-            "old bf16 conv2+head": lambda: other.conv3x3_bn_relu_head(oy1, w2, s2, t2, hw, hb),
-            # as the parent's fused_decoder_block: the weights packed per call
-            "old bf16 block": lambda: other.conv3x3_bn_relu_head(
-                other.upsample_conv3x3_bn_relu(x, fd._pack_conv(p.w1.to(x.dtype)), s1, t1),
-                fd._pack_conv(p.w2.to(x.dtype)), s2, t2, hw, hb),
+            "old bf16 conv1": lambda: other.dec_upconv(x, wt1, s1, t1),
+            "old bf16 conv2+head": lambda: other.dec_conv_head(oy1, wt2, s2, t2, hw, hb),
             "old int8 quant": lambda: other.quant_image_i8(x),
-            "old int8 conv1": lambda: other.polyconv1_i8(oxq, osx, q.w1t, q.sw1, q.t1, act),
-            "old int8 strip scales": lambda: other.strip_scales_i8(oy1q, emax, sh),
-            "old int8 conv2+head": lambda: other.conv2_i8_head(oy1q, osa, sh, q.w2q, q.sw2, q.t2,
-                                                               q.hw, q.hb),
-            "old int8 block": old_i8,
+            "old int8 strips": lambda: other.dec_strips(x, q.k1t),
+            "old int8 conv1": lambda: other.polyconv1_i8(oxq, osx, q.w1t, q.sw1, q.s1, q.t1,
+                                                         ostrips, sh),
+            "old int8 conv2+head": lambda: other.conv2_i8_head(oy1q, sh, q.w2q, q.sw2, q.t2,
+                                                               q.hw, q.hb, amax=oamax),
         })
     return out
+
+
+def _pack_rows(w):
+    """[Cout, Cin, 3, 3] -> [9 Cin, Cout], rows tap-major (dy, dx, ci): the
+    Cm 128 weights of the one-tile kernel the edge branch ran on before the
+    Cm 128 frame (for ``--against`` a tree that has it)."""
+    return w.permute(2, 3, 1, 0).reshape(9 * w.shape[1], w.shape[0]).contiguous()
+
+
+def edge_pieces(kernels, kc, fd, name: str, batch: int, dev,
+                other=None) -> Dict[str, Callable]:
+    """name -> zero-argument call of each edge-branch piece at
+    kernel_check.DEC_EDGE geometry ``name``; with ``other`` its pieces under
+    ``old `` names."""
+    import torch
+
+    g = torch.Generator().manual_seed(2)
+    s, cin, ce, cm = kc.DEC_EDGE[name]
+    p = kc.decoder_params(cin, cm, g, dev, ce=ce, head=True)
+    x = torch.randn((batch, s, s, cin), generator=g).to(dev, torch.bfloat16)
+    ef = torch.randn((batch, s // 2, s // 2, ce), generator=g).to(dev, torch.bfloat16)
+    s1, t1 = (v.contiguous() for v in fd.fold_bn(p.b1, *p.bn1))
+    s2, t2 = (v.contiguous() for v in fd.fold_bn(p.b2, *p.bn2))
+    hw = p.head_w.reshape(-1).float().contiguous()
+    hb = p.head_b.reshape(-1).float().contiguous()
+    bf = torch.bfloat16
+    w1, we, w2 = (kernels.pack_dec128(v.to(bf)) for v in (p.w1, p.we, p.w2))
+    y1 = kernels.upsample_conv3x3_bn_relu(x, w1, s1, t1, ef, we)
+    pb = p._replace(head_w=None, head_b=None)
+    we_cl = p.we.to(bf).contiguous(memory_format=torch.channels_last)
+    lib = library(x, pb)
+    out = {
+        "edge conv1": lambda: kernels.upsample_conv3x3_bn_relu(x, w1, s1, t1, ef, we),
+        "edge conv2": lambda: kernels.conv3x3_bn_relu(y1, w2, s2, t2),
+        "edge conv2+head": lambda: kernels.conv3x3_bn_relu_head(y1, w2, s2, t2, hw, hb),
+        "edge block": lambda: fd.fused_decoder_block(x, pb, ef),
+        "cuDNN edge block": lambda: lib(ef, we_cl),
+    }
+    if other is not None:
+        # a tree with the Cm 128 frame takes its packing, an older one rows
+        pack = getattr(other, "pack_dec128", _pack_rows)
+        o1, oe, o2 = (pack(v.to(bf)) for v in (p.w1, p.we, p.w2))
+        oy1 = other.upsample_conv3x3_bn_relu(x, o1, s1, t1, ef=ef, we=oe)
+        out.update({
+            "old edge conv1": lambda: other.upsample_conv3x3_bn_relu(x, o1, s1, t1, ef=ef, we=oe),
+            "old edge conv2": lambda: other.conv3x3_bn_relu(oy1, o2, s2, t2),
+            "old edge conv2+head": lambda: other.conv3x3_bn_relu_head(oy1, o2, s2, t2, hw, hb),
+            # as that tree's fused_decoder_block: the weights packed per call
+            "old edge block": lambda: other.conv3x3_bn_relu(
+                other.upsample_conv3x3_bn_relu(x, pack(p.w1.to(bf)), s1, t1, ef=ef,
+                                               we=pack(p.we.to(bf))),
+                pack(p.w2.to(bf)), s2, t2),
+        })
+    return out
+
+
+def edge_bounds(kc, name: str, batch: int) -> Dict[str, tuple]:
+    """(ms, side) of each edge piece's bound at DEC_EDGE geometry ``name``:
+    the products at the bf16 peak, each input read and output written once."""
+    s, cin, ce, cm = kc.DEC_EDGE[name]
+    px = batch * (2 * s) ** 2
+    x_bytes = batch * (s * s * cin + (s // 2) ** 2 * ce) * 2
+    conv2 = (2.0 * px * 9 * cm * cm, px * cm * 2 + 9 * cm * cm * 2)
+    return {
+        "edge conv1": kc.bound_ms(2.0 * px * 9 * (cin + ce) * cm,
+                                  x_bytes + 9 * (cin + ce) * cm * 2 + px * cm * 2),
+        "edge conv2": kc.bound_ms(conv2[0], conv2[1] + px * cm * 2),
+        "edge conv2+head": kc.bound_ms(conv2[0], conv2[1] + px * 2),
+        "edge block": kc.bound_ms(*kc.work(name, batch)),
+        "cuDNN edge block": kc.bound_ms(*kc.work(name, batch)),
+    }
 
 
 def bounds(kc, s: int, batch: int) -> Dict[str, tuple]:
@@ -226,10 +291,9 @@ def i8_bits(kernels, kc, fd, name: str, dev, other=None) -> Dict[str, object]:
         got = fd.i8_parts_cuda(x, q, strips=torch.stack(raw))
         return {k: got[k] for k in ("xq", "sx", "y1", "sa", "pred")}
     xq, sx = other.quant_image_i8(x)
-    act = fd.activate_strips(raw, q.s1, q.t1, x.dtype)
-    y1, emax = other.polyconv1_i8(xq, sx, q.w1t, q.sw1, q.t1, act)
-    sa = other.strip_scales_i8(y1, emax, sh)
-    pred = other.conv2_i8_head(y1, sa, sh, q.w2q, q.sw2, q.t2, q.hw, q.hb)
+    y1, amax = other.polyconv1_i8(xq, sx, q.w1t, q.sw1, q.s1, q.t1, torch.stack(raw), sh)
+    pred, sa = other.conv2_i8_head(y1, sh, q.w2q, q.sw2, q.t2, q.hw, q.hb, amax=amax)
+    xq = xq[:, 1:-1, 1:-1]
     return {"xq": xq, "sx": sx, "y1": y1, "sa": sa, "pred": pred}
 
 
@@ -237,10 +301,36 @@ def digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
+def _timed(kc, calls: Dict[str, Callable], bnd: Dict[str, tuple], turns: bool, tag: str,
+           log) -> Dict[str, float]:
+    """Device ms of each call (the least of its rounds; with ``turns`` the
+    ``old `` calls in turns with the others: this, other, other, this),
+    logged beside the other tree's and the bound; returns {piece: ms}."""
+    names = [n for n in calls if not n.startswith("old ")]
+    order = [names, [n for n in calls if n.startswith("old ")]] if turns else [names]
+    ms = {}
+    for rnd in (order + order[::-1]) if turns else order:
+        for n in rnd:
+            ms.setdefault(n, []).append(kc.device_ms(calls[n], iters=10, warmup=2))
+    out = {n: min(v) for n, v in ms.items()}
+    for n in names:
+        b = bnd.get(n)
+        old = out.get(f"old {n}")
+        log(f"{tag} {n:24s}: device {out[n]:.4f} ms"
+            + (f" (runs {', '.join(f'{v:.4f}' for v in ms[n])})" if turns else "")
+            + ("" if old is None else f"; parent {old:.4f} ms (runs "
+               f"{', '.join(f'{v:.4f}' for v in ms['old ' + n])})")
+            + ("" if b is None else f"; bound {b[0]:.4f} ms ({b[1]})"))
+    for n in calls:
+        if n.startswith("old ") and n[4:] not in calls:
+            log(f"{tag} {n:24s}: device {out[n]:.4f} ms")
+    return out
+
+
 def run(batch: int = 8, log=print, sizes=(512, 384), against: Path = None,
         digests: Path = None, digests_against: Path = None) -> Dict[str, Dict[str, float]]:
     """Time every piece at each input size (see the module docstring);
-    returns {size: {piece: device ms}}."""
+    returns {size or edge geometry: {piece: device ms}}."""
     import torch
 
     from spegnet_tpu_torch import kernel_check as kc
@@ -254,27 +344,16 @@ def run(batch: int = 8, log=print, sizes=(512, 384), against: Path = None,
         for size in sizes:
             s = size // 2
             calls = pieces(kernels, kc, fd, s, batch, dev, other)
-            bnd = bounds(kc, s, batch)
-            names = [n for n in calls if not n.startswith("old ")]
-            ms = {}
-            order = [names, [n for n in calls if n.startswith("old ")]] if other else [names]
-            for rnd in (order + order[::-1]) if other else order:
-                for n in rnd:
-                    ms.setdefault(n, []).append(kc.device_ms(calls[n], iters=10, warmup=2))
-            out[size] = {n: min(v) for n, v in ms.items()}
-            for n in names:
-                b = bnd.get(n)
-                old = out[size].get(f"old {n}")
-                log(f"decoder {size}^2 batch {batch} {n:24s}: device {out[size][n]:.4f} ms"
-                    + (f" (runs {', '.join(f'{v:.4f}' for v in ms[n])})" if other else "")
-                    + ("" if old is None else f"; parent {old:.4f} ms (runs "
-                       f"{', '.join(f'{v:.4f}' for v in ms['old ' + n])})")
-                    + ("" if b is None else f"; bound {b[0]:.4f} ms ({b[1]})"))
-            for n in calls:
-                if n.startswith("old ") and n[4:] not in calls:
-                    log(f"decoder {size}^2 batch {batch} {n:24s}: device {out[size][n]:.4f} ms")
+            out[size] = _timed(kc, calls, bounds(kc, s, batch), other is not None,
+                               f"decoder {size}^2 batch {batch}", log)
             del calls
             torch.cuda.empty_cache()
+            for name in (n for n, v in kc.DEC_EDGE.items() if 4 * v[0] == size):
+                calls = edge_pieces(kernels, kc, fd, name, batch, dev, other)
+                out[name] = _timed(kc, calls, edge_bounds(kc, name, batch), other is not None,
+                                   f"decoder {name} batch {batch}", log)
+                del calls
+                torch.cuda.empty_cache()
         if other is not None:
             for name in kc.DEC_I8:
                 new, old = (i8_bits(kernels, kc, fd, name, dev, o) for o in (None, other))

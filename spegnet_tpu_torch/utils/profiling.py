@@ -123,8 +123,8 @@ def main(argv=None) -> None:
 # launcher in kernels.py -> the device kernels it launches (profiler names)
 HELPERS = {
     "layernorm": ("layernorm_kernel",),
-    "layernorm_bwd": ("layernorm_bwd_rows_kernel", "layernorm_bwd_cols_kernel",
-                      "reduce_splits_kernel"),
+    # one pass over the rows, then its CTAs' partial rows summed
+    "layernorm_bwd": ("layernorm_bwd_kernel", "reduce_rows_kernel"),
     "quant_rows": ("quant_rows_kernel",),
     "pool4_rows": ("pool4_rows_kernel",),
     "pool4_scatter": ("pool4_scatter_kernel",),

@@ -12,7 +12,9 @@ block at every main-path size and at one with a partial tile and three
 strips, its pieces exact (kernel_check.dec_i8_parts_ok), its border strips
 against make_strips (kernel_check.strips_ok); the bf16 decoder's kernels one
 by one at every decoder size and two calls bit-equal at every DECODER and
-DEC_EDGE geometry; the decoder's edge branch with and without a head; the
+DEC_EDGE geometry; the decoder's edge branch with and without a head, at
+both tile widths of its Cm 128 kernels; the LayerNorm backward at every C of
+a training step and at other row lengths; the
 attention kernel at lengths that are not multiples of 16 and on strided views; the int8 Predictor's and the
 384^2 Predictor's launches; the T-block's saved-residual pair bit-equal to
 the recompute pair and within the limits of its plain versions (T-block
@@ -311,6 +313,50 @@ def test_decoder_edge_branch_small(cuda, head):
                                   head=head)
     err, rel = kernel_check.compare(case)
     assert rel <= kernel_check.REL_LIMIT, (head, err, rel)
+
+
+@pytest.mark.parametrize("geom", [(32, 32, 16, 128), (48, 64, 32, 128), "dec_edge",
+                                  "dec_edge_384"])
+@pytest.mark.parametrize("head", [False, True])
+def test_decoder_edge_branch_tile_widths(cuda, geom, head):
+    """The Cm 128 kernels at both tile widths (kernels.dec128_plan: 96 for
+    a 2S of 64 (ragged), 96 and 192, 128 for 256) with and without the head,
+    within REL_LIMIT, two calls bit-equal."""
+    case = kernel_check.edge_case(geom, 1, torch.Generator().manual_seed(0), cuda, head=head)
+    err, rel = kernel_check.compare(case)
+    a, b = case.kernel(), case.kernel()
+    torch.cuda.synchronize()
+    assert rel <= kernel_check.REL_LIMIT and torch.equal(a, b), (geom, head, err, rel)
+
+
+@pytest.mark.parametrize("dres", [False, True])
+@pytest.mark.parametrize("name", sorted(kernel_check.LN_BWD))
+def test_layernorm_bwd_matches_plain(cuda, name, dres):
+    """The LayerNorm backward at each C of a training step against
+    ops/fused_block_t._layer_norm_bwd (dx, dw, db within BWD_REL_LIMIT), two
+    calls bit-equal."""
+    res = kernel_check.compare_ln_bwd(name, 1, dres, torch.Generator().manual_seed(0), cuda)
+    torch.cuda.synchronize()
+    assert kernel_check.ln_bwd_ok(res), (name, res)
+
+
+@pytest.mark.parametrize("c,rows", [(8, 5), (144, 1), (1160, 77), (1288, 40), (4096, 33)])
+def test_layernorm_bwd_other_widths(cuda, c, rows):
+    """One vector up to the wide form's longest row, and row counts that
+    leave groups idle."""
+    from spegnet_tpu_torch.ops.fused_block_t import _layer_norm_bwd
+
+    g = torch.Generator().manual_seed(c + rows)
+    x = torch.randn((rows, c), generator=g).to(cuda, torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    dy = torch.randn((rows, c), generator=g).to(cuda, torch.bfloat16)
+    dr = torch.randn((rows, c), generator=g).to(cuda, torch.bfloat16)
+    got = kernels.layernorm_bwd(x, w, dy, 1e-6, dres=dr)
+    want = list(_layer_norm_bwd(x, w, dy.float(), 1e-6))
+    want[0] = want[0] + dr.float()
+    for a, b in zip(got, want):
+        rel = float((a.float() - b).abs().max() / b.abs().max())
+        assert rel <= kernel_check.BWD_REL_LIMIT, (c, rows, rel)
 
 
 def test_int8_decoder_refuses_non_bf16(cuda):
