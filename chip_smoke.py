@@ -242,8 +242,8 @@
    and in [0, 1], the card's metrics equal to the port's CPU metrics on the
    same quantized predictions within 1e-5, forward and metrics ms/image;
    then the bf16 config at 384^2, and the f32 config at 512^2.
-8. Data parallelism, remat, the config's batch, the model report (Hiera-L,
-   seeded random weights, bf16):
+8. Data parallelism, remat, the config's batch, sequence parallelism, the
+   model report (Hiera-L, seeded random weights, bf16):
    (a) a Trainer under DistributedDataParallel with one rank over NCCL
        (a file store in a temporary directory; the group left after)
        against the plain Trainer, 512^2 batch 8: the loss bit-equal, every
@@ -272,7 +272,26 @@
        fused_attention_lanes twice per step under remat;
    (f) the config's batch 42 at 512^2 with remat at its default (on): two
        Trainer steps, ms/step, peak memory <= PEAK_LIMIT_GB, launches = the
-       routes; then the model report (utils/model_info.py) at 512^2.
+       routes;
+   (g) sequence parallelism: two ranks spawned on the card over gloo,
+       {"data": 1, "sp": 2} (model.spatial_axis "sp"), Hiera-L bf16 at
+       1024^2, against one process's kernel path and against one process
+       on the two ranks' routes (the S = 2 plan run whole, its gathers
+       no-ops): predict batch 2 (each rank's launches = trunk_routes
+       under S = 2: 39 T-blocks, 3 fronts, 3 gen-1, 3 global_ref, decoder
+       0; the stage outputs before block 23, the first global block,
+       bit-equal or within REL_LIMIT of the kernel path's; mask MAE <=
+       MASK_MAE_LIMIT; ms/img and peak memory per rank beside one
+       process's), evaluate 4 samples (mask MAE <= MASK_MAE_LIMIT against
+       the kernel path, per-sample metrics within METRIC_TOL of the two
+       ranks' routes in one process; against the kernel path printed),
+       one train step batch 2 (loss, clipped gradients' cosine, update,
+       running statistics within SP_*_LIMIT of the kernel path's; the
+       loss and statistics bit-equal to the two ranks' routes in one
+       process, the cosine and update within SP_EMU_*_LIMIT; the ranks'
+       parameters bit-equal; launches = the training routes under S = 2;
+       peak memory per rank beside one process's);
+   then the model report (utils/model_info.py) at 512^2.
 9. No module of JAX, flax, optax or the JAX package was imported by any of
    the above.
 
@@ -280,7 +299,7 @@ Any failed check raises.  The last lines are the kernel table (JSON; the
 f32 rows, KERNELS' dtype "f32", are the f32 kernels behind the same
 wrappers, their launches read from the f32 runs; the gemm_handoff row is
 the GEMM inside #1, #3 and #7, its launches those of the predict runs;
-the bf16 rows' launches include phase 8's runs, both ranks' of 8b), the
+the bf16 rows' launches include phase 8's runs, both ranks' of 8b and 8g), the
 nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
@@ -963,11 +982,12 @@ def main() -> int:
     evaluate_phase(state, torch, dev, 384, ((False, False),))
     evaluate_phase(state, torch, dev, 512, ((False, False),), dtype="float32")
 
-    # -- 8. data parallelism, remat, batch 42, the model report ------------------
+    # -- 8. data parallelism, remat, batch 42, sequence parallelism, the report --
     ddp_one_rank(master, torch, launches)
     ddp_two_ranks(torch, launches)
     remat_phase(master, torch, launches)
     batch42_phase(master, torch, launches)
+    sp_two_ranks(torch, launches)
     model_report()
 
     jax_side = sorted(k for k in sys.modules
@@ -1215,12 +1235,13 @@ def residual_steps(make_trainer, batch, torch, launches) -> None:
     torch.cuda.empty_cache()
 
 
-def train_launches(size: int, batch: int, steps: int = 3, dtype=None):
+def train_launches(size: int, batch: int, steps: int = 3, dtype=None, sp=None):
     """Every launch counter after ``steps`` Trainer steps of ``batch`` images
     at ``size``^2 in compute dtype ``dtype`` (default bf16): the training
-    routes (models/hiera.trunk_routes under the current SAVE_RESIDUALS)
-    forward, and in bf16 backward (in f32 the backwards recompute through
-    the plain versions, as in JAX, and count nothing)."""
+    routes (models/hiera.trunk_routes under the current SAVE_RESIDUALS, and
+    a spatial axis of size ``sp``) forward, and in bf16 backward (in f32 the
+    backwards recompute through the plain versions, as in JAX, and count
+    nothing)."""
     import torch
 
     from spegnet_tpu_torch import kernels
@@ -1229,8 +1250,8 @@ def train_launches(size: int, batch: int, steps: int = 3, dtype=None):
     dtype = dtype or torch.bfloat16
     want = {w: 0 for w in kernels.launches}
     for w, n in Counter(trunk_routes(HIERA_VARIANTS["large"], size // 4, dtype, False,
-                                     train_batch=batch)).items():
-        if w != "plain":
+                                     train_batch=batch, sp=sp)).items():
+        if w not in ("plain", "global_ref"):
             want[w] = steps * n
             bwd = w.replace("_res", "") + "_bwd" + ("_res" if w.endswith("_res") else "")
             if bwd in want and dtype == torch.bfloat16:
@@ -2034,6 +2055,310 @@ def ddp_two_ranks(torch, launches) -> None:
           and len(same) == 16, "8d: the PNGs differ")
     check(out["pred2"]["total_predictions"] == out["pred1"]["total_predictions"] == 8,
           "8d: summary counts")
+
+
+# Phase 8g, sequence parallelism: two ranks on the card split Hiera-L's
+# Morton trunk at 1024^2 ({"data": 1, "sp": 2}, model.spatial_axis "sp").
+# Its train step against one process on the same batch 2 is held to 2.5x
+# the worst reading of the first chip runs, the convention of
+# DDP_*_LIMIT (an H100 80GB HBM3 at 700 W): against one process's kernel
+# path loss 3.316e-4 relative, cosine 1 - 8.351e-2, update 0.7517,
+# running statistics 3.880e-2 -- there the three global blocks run plain
+# instead of #1, and the bf16 gradient of these random weights is that
+# noisy (the kernel path's cosine to f32 is 0.91 at 512^2); against one
+# process on the two ranks' routes (the S = 2 plan run whole, its gathers
+# no-ops) loss and statistics bit-equal, cosine 1 - 9.89e-4, update
+# 0.1874, the worst of three runs (1 - 4.37e-4 / 2.92e-4 / 9.89e-4, 0.1415
+# / 0.1333 / 0.1874: the gathers' backward sums dK / dV in another order,
+# the upsample backward's atomics vary from run to run, and AdamW's first
+# step magnifies the small gradients' noise, as in 8b).
+SP_SIZE = 1024
+SP_LOSS_REL_LIMIT = 8.3e-4
+SP_COSINE_LIMIT = 1 - 2.09e-1
+SP_UPDATE_REL_LIMIT = 1.88
+SP_STATS_REL_LIMIT = 9.7e-2
+SP_EMU_COSINE_LIMIT = 1 - 2.5e-3
+SP_EMU_UPDATE_REL_LIMIT = 0.47
+SP_TIMED = 3   # timed predict calls of batch 2 after the counted one
+
+
+def _sp_images():
+    rng = np.random.default_rng(47)
+    return [rng.integers(0, 256, (SP_SIZE, SP_SIZE, 3), dtype=np.uint8) for _ in range(2)]
+
+
+def _sp_batches():
+    """Phase 8g's train batch (2) and eval batch (4 samples), 1024^2."""
+    from spegnet_tpu_torch.data.pipeline import synthetic_eval_batch, synthetic_train_batch
+
+    return (synthetic_train_batch(2, np.random.default_rng(53), SP_SIZE, gt_range=(768, 1024)),
+            synthetic_eval_batch(4, np.random.default_rng(59), SP_SIZE, gt_range=(768, 1024),
+                                 buckets=(SP_SIZE,)))
+
+
+def sp_runs(master, mesh, dev, torch, emulate: bool = False) -> dict:
+    """8g's predict, evaluate and train step in this process, with the
+    spatial axis over ``mesh`` (None: one process without it; with
+    ``emulate``, one process on the routes of two ranks: a spatial group of
+    one runs the S = 2 plan whole, its gathers no-ops): launches,
+    global-block calls, stage outputs, masks, ms/img, peak memory, metrics
+    and the eval logits, the step and the parameters' digest after it."""
+    import hashlib
+
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.engine.evaluator import Evaluator
+    from spegnet_tpu_torch.engine.predictor import Predictor
+    from spegnet_tpu_torch.engine.trainer import Trainer
+    from spegnet_tpu_torch.models import hiera
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.ops import fused_block_t as fbt
+    from spegnet_tpu_torch.parallel.mesh import TokenShard
+
+    spatial = "sp" if mesh is not None or emulate else None
+    trunk_plan = hiera.trunk_plan
+    if emulate:
+        hiera.trunk_plan = lambda *a, sp=None, **k: trunk_plan(*a, sp=2, **k)
+    mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
+          "image_processing": {"target_size": SP_SIZE}, "spatial_axis": spatial}
+
+    def model():
+        m = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="bfloat16",
+                                  spatial_axis=spatial))
+        m.load_state_dict(master)
+        return m
+
+    glob = Counter()
+    block_global_sp = fbt.block_global_sp
+    fbt.block_global_sp = lambda *a, **k: glob.update(["global_ref"]) or block_global_sp(*a, **k)
+    out = {}
+    try:
+        images = _sp_images()
+        pred = Predictor(None, mc, None, batch_size=2, device=str(dev), model=model(), mesh=mesh)
+        x = torch.from_numpy(np.stack([pred.processor.process_array(a) for a in images])).to(dev)
+        shard = (pred.model.token_shard or TokenShard(None, 0, 1)) if spatial else None
+        with torch.inference_mode():
+            feats = pred.model.encoder.encoder(x, kernels=True, dtype=torch.bfloat16,
+                                               shard=shard)
+        out["feats"] = [f.cpu() for f in feats[:3]]
+        del feats
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        glob.clear()
+        out["seg"], _ = pred.predict_arrays(images)
+        torch.cuda.synchronize()
+        out["predict_launches"] = {**kernels.launches, **glob}
+        out["predict_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        ms = []
+        for _ in range(SP_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict_arrays(images)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / len(images))
+        out["ms_per_img"] = ms
+        del pred
+        torch.cuda.empty_cache()
+        b2, evb = _sp_batches()
+        kernels.reset_launches()
+        ev = Evaluator(None, None, mc, batch_size=4, device=str(dev), model=model(), mesh=mesh)
+        logits = []
+        ev.model.register_forward_hook(
+            lambda m, i, o: logits.append(o["predictions"][-1].float().cpu()))
+        ev.evaluate(None, "synthetic", loader=[evb])
+        out["eval_launches"] = dict(kernels.launches)
+        out["eval"] = ev.sample_metrics["synthetic"]
+        out["eval_logits"] = logits[0]
+        del ev
+        torch.cuda.empty_cache()
+        conf = train_config(2, SP_SIZE)
+        conf["model"]["spatial_axis"] = spatial
+        tr = Trainer(conf, None, device=str(dev), model=model(), mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        glob.clear()
+        t0 = time.perf_counter()
+        step = step_capture(tr, b2, torch)
+        out["step_s"] = time.perf_counter() - t0
+        out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        step["launches"].update(glob)
+        out["step"] = step
+        digest = hashlib.sha256()
+        for _, p in sorted(tr.model.named_parameters()):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        out["digest"] = digest.hexdigest()
+        out["train_rows"] = step["rows"]
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        fbt.block_global_sp = block_global_sp
+        hiera.trunk_plan = trunk_plan
+    return out
+
+
+def rank8g(rank: int, world: int, tmp: str) -> None:
+    """8g in one of ``world`` spawned ranks sharing the card over gloo
+    ({"data": 1, "sp": world}); rank 0 then leaves the group and runs the
+    one-process references."""
+    import torch
+
+    from spegnet_tpu_torch.parallel.mesh import (
+        create_mesh,
+        destroy_distributed,
+        init_distributed,
+    )
+
+    tmp = Path(tmp)
+    dev = init_distributed("cuda", f"file://{tmp}/store", rank, world, rank, world)
+    backend = torch.distributed.get_backend()
+    mesh = create_mesh({"data": 1, "sp": world}, world, "sp")
+    master = master_state(torch)
+    sp = sp_runs(master, mesh, dev, torch)
+    destroy_distributed()
+    keep = ("predict_launches", "eval_launches", "predict_peak_gb", "train_peak_gb",
+            "ms_per_img", "digest", "step_s")
+    (tmp / f"sp{rank}.json").write_text(json.dumps(
+        {**{k: sp[k] for k in keep}, "train_launches": sp["step"]["launches"],
+         "backend": backend}))
+    if rank:
+        return
+    one = sp_runs(master, None, dev, torch)
+    emu = sp_runs(master, None, dev, torch, emulate=True)
+    start = {n: t.cuda() for n, t in master.items()}
+    feats = [float((a.float() - b.float()).abs().max()) for a, b in zip(sp["feats"], one["feats"])]
+
+    def eval_diff(a, b):
+        return max(abs(a["eval"][n][k] - v) for n, m in b["eval"].items() for k, v in m.items())
+
+    def sig(t):
+        return torch.sigmoid(t).numpy()
+
+    res = {"feats_max_abs": feats,
+           "feats_rel": [e / max(float(b.float().abs().max()), 1e-12)
+                         for e, b in zip(feats, one["feats"])],
+           "feats_equal": [bool(torch.equal(a, b)) for a, b in zip(sp["feats"], one["feats"])],
+           "feats_equal_emu": [bool(torch.equal(a, b)) for a, b in zip(sp["feats"], emu["feats"])],
+           "mask_mae": float(np.abs(sp["seg"] - one["seg"]).mean()),
+           "mask_max": float(np.abs(sp["seg"] - one["seg"]).max()),
+           "mask_max_emu": float(np.abs(sp["seg"] - emu["seg"]).max()),
+           "eval_worst": eval_diff(sp, one),
+           "eval_worst_emu": eval_diff(sp, emu),
+           "eval_mask_mae": float(np.abs(sig(sp["eval_logits"]) - sig(one["eval_logits"])).mean()),
+           "eval_logits_max_emu": float((sp["eval_logits"] - emu["eval_logits"]).abs().max()),
+           "eval_prob_range": [float(np.ptp(sig(one["eval_logits"][i])))
+                               for i in range(len(one["eval_logits"]))],
+           "eval_samples": [sorted(sp["eval"]), sorted(one["eval"]), sorted(emu["eval"])],
+           "readings": step_readings(sp["step"], one["step"], start),
+           "readings_emu": step_readings(sp["step"], emu["step"], start),
+           "emu_launches": [emu["predict_launches"], emu["step"]["launches"]],
+           "rows": [sp["train_rows"], one["train_rows"]],
+           "one": {k: one[k] for k in ("predict_launches", "predict_peak_gb", "train_peak_gb",
+                                       "ms_per_img", "step_s")},
+           "one_train_launches": one["step"]["launches"]}
+    (tmp / "sp_rank0.json").write_text(json.dumps(res))
+
+
+def sp_two_ranks(torch, launches) -> None:
+    """8g: sequence parallelism, two ranks spawned on the card (gloo, a file
+    store, {"data": 1, "sp": 2}), against one process, as the module
+    docstring says."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from spegnet_tpu_torch import kernel_check as kc
+    from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, trunk_routes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(rank8g, args=(2, str(tmp)), nprocs=2, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=10):
+                check(time.perf_counter() - t0 < RANK_TIMEOUT,
+                      f"8g: the ranks took more than {RANK_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        secs = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"sp{r}.json").read_text()) for r in range(2)]
+        res = json.loads((tmp / "sp_rank0.json").read_text())
+    cfg = HIERA_VARIANTS["large"]
+    routes = Counter(trunk_routes(cfg, SP_SIZE // 4, torch.bfloat16, False, sp=2))
+    routes.pop("plain", None)
+    want = {w: 0 for w in ranks[0]["predict_launches"]}
+    want.update(routes)
+    want_train = train_launches(SP_SIZE, 2, steps=1, sp=2)
+    want_train["global_ref"] = routes["global_ref"]
+    launches["sp_2rank"] = {}
+    for r, got in enumerate(ranks):
+        log(f"8g rank {r} ({got['backend']}) predict 1024^2 batch 2: launches "
+            f"{got['predict_launches']} (expected {want})")
+        check(got["backend"] == "gloo", f"8g: backend {got['backend']}")
+        check(got["predict_launches"] == want, f"8g: rank {r} predict launches differ from the "
+              "routes under S = 2")
+        check(got["eval_launches"] == {k: v * 2 for k, v in want.items()
+                                       if k != "global_ref"},
+              f"8g: rank {r} evaluate launches {got['eval_launches']} (warm-up + 1 batch)")
+        check(got["train_launches"] == want_train,
+              f"8g: rank {r} train launches {got['train_launches']} (expected {want_train})")
+        for run in ("predict_launches", "eval_launches", "train_launches"):
+            for k, v in got[run].items():
+                launches["sp_2rank"][k] = launches["sp_2rank"].get(k, 0) + v
+    one = res["one"]
+    log(f"8g 2 ranks on one card: {secs:.1f} s with the spawn and the one-process "
+        f"references; one process's predict launches {one['predict_launches']}")
+    log(f"8g stage outputs 1-3 (before block 23, the first global block: stages 1 and 2) "
+        f"vs one process: max |diff| {res['feats_max_abs']} (relative {res['feats_rel']}), "
+        f"bit-equal {res['feats_equal']}")
+    log(f"8g predict batch 2: mask MAE vs one process {res['mask_mae']:.4e} (limit "
+        f"{MASK_MAE_LIMIT}), max {res['mask_max']:.4e}; ms/img per rank "
+        f"{[g['ms_per_img'] for g in ranks]} vs one process {one['ms_per_img']}; peak memory "
+        f"per rank {[round(g['predict_peak_gb'], 3) for g in ranks]} GB vs one process "
+        f"{one['predict_peak_gb']:.3f} GB")
+    log(f"8g one process on the routes of two ranks (the S = 2 plan whole): launches "
+        f"{res['emu_launches'][0]}; train {res['emu_launches'][1]}; stage outputs bit-equal "
+        f"to the ranks' {res['feats_equal_emu']}, masks max |diff| {res['mask_max_emu']:.3e}")
+    log(f"8g evaluate 4 samples: max |metric diff| vs one process on the routes of two ranks "
+        f"{res['eval_worst_emu']:.3e} (limit {METRIC_TOL}; logits max |diff| "
+        f"{res['eval_logits_max_emu']:.3e}); vs one process's kernel path {res['eval_worst']:.3e} "
+        f"(masks MAE {res['eval_mask_mae']:.4e}, limit {MASK_MAE_LIMIT}; each sample's "
+        f"probabilities span {res['eval_prob_range']}: the metrics normalize each map by its "
+        f"range)")
+    r = res["readings"]
+    limits = {"loss_rel": SP_LOSS_REL_LIMIT, "update_rel": SP_UPDATE_REL_LIMIT,
+              "stats_rel": SP_STATS_REL_LIMIT}
+    log(f"8g train step batch 2 vs one process: loss rel {r['loss_rel']:.3e} (limit "
+        f"{SP_LOSS_REL_LIMIT}), clipped gradient cosine {r['grad_cosine']:.6f} (limit "
+        f"{SP_COSINE_LIMIT}), update rel {r['update_rel']:.3e} (limit {SP_UPDATE_REL_LIMIT}), "
+        f"running statistics rel {r['stats_rel']:.3e} (limit {SP_STATS_REL_LIMIT}); step s "
+        f"per rank {[round(g['step_s'], 3) for g in ranks]} vs {one['step_s']:.3f}; peak memory "
+        f"per rank {[round(g['train_peak_gb'], 3) for g in ranks]} GB vs one process "
+        f"{one['train_peak_gb']:.3f} GB; the ranks' parameters bit-equal "
+        f"{ranks[0]['digest'] == ranks[1]['digest']}")
+    e = res["readings_emu"]
+    log(f"8g train step vs one process on the routes of two ranks: loss rel "
+        f"{e['loss_rel']:.3e} (equal), clipped gradient cosine {e['grad_cosine']:.6f} (limit "
+        f"{SP_EMU_COSINE_LIMIT}), update rel {e['update_rel']:.3e} (limit "
+        f"{SP_EMU_UPDATE_REL_LIMIT}), running statistics rel {e['stats_rel']:.3e} (equal)")
+    # every kernel before block 23 works per row or per window, so bit-equal
+    # is expected; else the per-kernel limit
+    check(all(res["feats_equal"][:2]) or max(res["feats_rel"][:2]) <= kc.REL_LIMIT,
+          f"8g: stage outputs before the first global block differ {res['feats_rel']}")
+    check(res["mask_mae"] <= MASK_MAE_LIMIT, f"8g: mask MAE {res['mask_mae']:.3e}")
+    check(all(ss == [f"synthetic_{i}" for i in range(4)] for ss in res["eval_samples"]),
+          f"8g: samples {res['eval_samples']}")
+    check(res["eval_mask_mae"] <= MASK_MAE_LIMIT, f"8g: eval mask MAE {res['eval_mask_mae']}")
+    check(res["eval_worst_emu"] <= METRIC_TOL, f"8g: metrics differ by {res['eval_worst_emu']}")
+    check(res["rows"] == [2, 2], f"8g: rows {res['rows']}")
+    check(ranks[0]["digest"] == ranks[1]["digest"], "8g: the ranks' parameters differ")
+    check(r["grad_cosine"] >= SP_COSINE_LIMIT and all(r[k] <= v for k, v in limits.items()),
+          f"8g train step vs one process: {r}")
+    check(e["loss_rel"] == 0 and e["stats_rel"] == 0 and e["grad_cosine"] >= SP_EMU_COSINE_LIMIT
+          and e["update_rel"] <= SP_EMU_UPDATE_REL_LIMIT,
+          f"8g train step vs one process on the routes of two ranks: {e}")
 
 
 def remat_phase(master, torch, launches) -> None:

@@ -24,6 +24,12 @@ Data parallelism: under ``torchrun --nproc_per_node=N -m spegnet_tpu_torch
 batch over the ranks.  Rank 0 creates the run directory and writes the logs,
 metrics and checkpoints; the other ranks write into the same tree (their
 predictions and per-sample evaluation files) and log warnings only.
+
+Sequence parallelism: ``model.spatial_axis: sp`` with ``parallel.mesh:
+{data: D, sp: S}`` under ``torchrun --nproc_per_node=D*S`` splits the Morton
+trunk's tokens over the S ranks of each data index (models/hiera.py
+``trunk_plan``); those ranks take the same rows, and the one of spatial
+index 0 writes their predictions and per-sample files.
 """
 
 from __future__ import annotations
@@ -108,10 +114,12 @@ def predict(config, model_path: Path, input_path: Path, dir_manager, device: str
     if input_path.is_dir():
         results = predictor.predict_directory(str(input_path), output_size)
         logging.info(f"Processed {results['total_predictions']} images")
-    elif mesh.rank == 0:
-        # one image does not divide over the ranks: rank 0 writes it
+    elif mesh.data_index == 0:
+        # one image does not divide over the data axis: data index 0 (its
+        # spatial group) predicts it and rank 0 writes it
         seg, edge, original = predictor.predict_single(str(input_path), output_size)
-        predictor.result_manager.save_prediction(input_path.name, seg, edge, original)
+        if mesh.rank == 0:
+            predictor.result_manager.save_prediction(input_path.name, seg, edge, original)
         logging.info("Processing complete, results saved")
 
 
@@ -163,10 +171,11 @@ def main(argv=None) -> None:
         dir_manager = run_directories(args.mode, rank)
         setup_logging(dir_manager if rank == 0 else None)
         config = load_config(args.config)
-        mesh = mesh_from_config(config.get("parallel"))
         if args.mode in ("evaluate", "predict"):
             model_path = args.model or DEFAULT_MODEL_PATH
             config = overlay_checkpoint_config(config, load_checkpoint_config(str(model_path)))
+        mesh = mesh_from_config(config.get("parallel"),
+                                spatial_axis=config["model"].get("spatial_axis"))
         logging.info(f"Running in {args.mode} mode (PyTorch port), mesh {mesh.shape}")
         logging.info("Configuration:\n" + yaml.dump(config, default_flow_style=False))
         if rank == 0:

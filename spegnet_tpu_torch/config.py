@@ -46,8 +46,9 @@ def _apply_defaults(cfg: Dict[str, Any]) -> Dict[str, Any]:
 
 
 # Inference-mode switches of the model section: how to run the weights, not
-# what they are, so the user's YAML keeps them over a checkpoint's.
-INFERENCE_KEYS = ("int8_encoder", "int8_decoder")
+# what they are, so the user's YAML keeps them over a checkpoint's (the
+# spatial axis must name an axis of the user's parallel.mesh).
+INFERENCE_KEYS = ("int8_encoder", "int8_decoder", "spatial_axis")
 
 
 def overlay_checkpoint_config(cfg: Dict[str, Any],

@@ -16,10 +16,13 @@ in memory (:attr:`Evaluator.sample_metrics`, :attr:`Evaluator.summaries`).
 
 Under data parallelism (``mesh``, parallel/mesh.py; JAX's ``Evaluator``
 with a mesh, :121-146) ``batch_size`` is rounded up to a multiple of the
-data axis, each rank runs its rows of every batch (decoding only those;
-padding rows carry no weight) and writes their per-sample files, and the
-per-sample metrics are gathered in dataset order, from which rank 0 writes
-the summaries (every rank returns the same means).
+data axis, each data index runs its rows of every batch (decoding only
+those; padding rows carry no weight) and writes their per-sample files, and
+the per-sample metrics are gathered in dataset order, from which rank 0
+writes the summaries (every rank returns the same means).  Under a spatial
+axis (``model.spatial_axis``) the ranks of a spatial group run the same
+rows, splitting the trunk's tokens (models/hiera.py); the group's rank of
+spatial index 0 writes the files and gives the records.
 """
 
 from __future__ import annotations
@@ -122,8 +125,9 @@ class ResultManager:
 class Evaluator:
     """``model``: an already-built SPEGNet to use instead of loading
     ``model_path``.  ``device`` None is the card (raises without one); pass
-    "cpu" to run on the CPU.  ``mesh``: the data-parallel mesh (default: one
-    data axis over the processes of the active group)."""
+    "cpu" to run on the CPU.  ``mesh``: the data-parallel (and spatial) mesh
+    (default: one data axis over the processes of the active group); the
+    model takes its spatial group from it."""
 
     def __init__(self, model_path: Optional[str], dir_manager, model_config: Dict,
                  batch_size: int, save_visualizations: bool = True,
@@ -132,7 +136,8 @@ class Evaluator:
         self.device = resolve_device(device)
         mesh = mesh or create_mesh()
         require_group(mesh)
-        self.shard = (mesh.rank, mesh.data)
+        self.mesh = mesh
+        self.shard = (mesh.data_index, mesh.data)
         self.batch_size = -(-batch_size // mesh.data) * mesh.data
         if self.batch_size != batch_size:
             logger.info(f"Eval batch size rounded up to {self.batch_size} "
@@ -143,6 +148,7 @@ class Evaluator:
             state_dict, _ = load_checkpoint(model_path)
             model.load_state_dict(state_dict, strict=True)
         self.model = sharding.replicated(model.eval().to_compute(self.device))
+        self.model.shard_tokens(mesh.token_shard)
         f32_precision(model.config.dtype)
         img_cfg = model_config.get("image_processing", {})
         self.target_size = img_cfg.get("target_size", 512)
@@ -219,6 +225,7 @@ class Evaluator:
         records = []   # (dataset index, (name, metrics)) of this rank's samples
         start = time.time()
         rank, ranks = self.shard
+        writes = self.mesh.sp_index == 0
         whole = loader is not None
         if loader is None:
             loader = eval_loader(dataset, self.processor, self.batch_size, self.buckets,
@@ -232,7 +239,7 @@ class Evaluator:
             timing["inference_times"].append(time.time() - t_batch)
             timing["forward_ms"].append(f_ms)
             timing["metrics_ms"].append(m_ms)
-            for i in range(batch.images.shape[0]):
+            for i in range(batch.images.shape[0] if writes else 0):
                 if batch.sample_mask[i] == 0:
                     continue
                 metrics = {_DEVICE_TO_API[k]: float(seg[k][i]) for k in seg}
@@ -279,7 +286,7 @@ class Evaluator:
         summary = {"metrics": metrics, "timing": t,
                    "categories": {"counts": dict(counts), "total": sum(counts.values())}}
         self.summaries[dataset_name] = summary
-        if self.result_manager is not None and self.shard[0] == 0:
+        if self.result_manager is not None and self.mesh.rank == 0:
             out = (self.result_manager.dataset_dirs[dataset_name]["root"]
                    / "evaluation_summary.json")
             with open(out, "w") as f:

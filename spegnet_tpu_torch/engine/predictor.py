@@ -9,9 +9,12 @@ where files are written or decoded.
 
 Under data parallelism (``mesh``, parallel/mesh.py; JAX's ``Predictor``
 with a mesh, :84-112) ``batch_size`` is rounded up to a multiple of the
-data axis and each rank decodes, predicts and writes the PNGs of its rows
-of every chunk of the directory; rank 0 writes ``prediction_summary.json``
-from every rank's records.
+data axis and each data index decodes, predicts and writes the PNGs of its
+rows of every chunk of the directory; rank 0 writes
+``prediction_summary.json`` from every data index's records.  Under a
+spatial axis (``model.spatial_axis``) the ranks of a spatial group take the
+same rows and split the trunk's tokens (models/hiera.py); the group's rank
+of spatial index 0 writes its PNGs and records.
 """
 
 from __future__ import annotations
@@ -108,15 +111,17 @@ class Predictor:
     ``model_path`` (it is moved to ``device`` and cast for compute).
     ``dir_manager`` None keeps results in memory: :meth:`predict_arrays`
     only, no output tree.  ``device`` None is the card (raises without
-    one); pass "cpu" to run on the CPU.  ``mesh``: the data-parallel mesh
-    (default: one data axis over the processes of the active group)."""
+    one); pass "cpu" to run on the CPU.  ``mesh``: the data-parallel (and
+    spatial) mesh (default: one data axis over the processes of the active
+    group); the model takes its spatial group from it."""
 
     def __init__(self, model_path: Optional[str], model_config: Dict, dir_manager,
                  batch_size: int = 1, device: Optional[str] = None,
                  model: Optional[SPEGNet] = None, mesh: Optional[Mesh] = None):
         mesh = mesh or create_mesh()
         require_group(mesh)
-        self.shard = (mesh.rank, mesh.data)
+        self.mesh = mesh
+        self.shard = (mesh.data_index, mesh.data)
         self.batch_size = -(-(batch_size or 1) // mesh.data) * mesh.data
         if self.batch_size != (batch_size or 1):
             logger.info(f"Prediction batch size rounded up to {self.batch_size} "
@@ -134,6 +139,7 @@ class Predictor:
             state_dict, _ = load_checkpoint(model_path)
             model.load_state_dict(state_dict, strict=True)
         self.model = sharding.replicated(model.eval().to_compute(self.device))
+        self.model.shard_tokens(mesh.token_shard)
         f32_precision(model.config.dtype)
         self.result_manager = None
         if dir_manager is not None:
@@ -181,12 +187,13 @@ class Predictor:
     def predict_batch(self, image_paths: List[str],
                       output_size: Optional[Tuple[int, int]] = None,
                       num_workers: int = 4) -> Dict:
-        """One forward per ``batch_size`` chunk (this rank's rows of it);
-        decoding and PNG writes run in a thread pool."""
+        """One forward per ``batch_size`` chunk (this data index's rows of
+        it); decoding and PNG writes run in a thread pool."""
         self.result_manager.log_message(
             f"Starting batch prediction of {len(image_paths)} images "
             f"with batch size {self.batch_size}")
         rank, ranks = self.shard
+        writes = self.mesh.sp_index == 0
         saves, records = [], []
         with ThreadPoolExecutor(max(num_workers, 1)) as pool:
             for i in range(0, len(image_paths), self.batch_size):
@@ -204,7 +211,7 @@ class Predictor:
                 seg, edge = self.forward(images)
                 dt["inference"] = time.time() - t0
                 t0 = time.time()
-                for j, path in enumerate(chunk):
+                for j, path in enumerate(chunk if writes else ()):
                     s, e = seg[j], edge[j]
                     if output_size:
                         s, e = _resize_map(s, output_size), _resize_map(e, output_size)
@@ -213,11 +220,12 @@ class Predictor:
                 dt["postprocessing"] = time.time() - t0
                 for phase, v in dt.items():
                     self.result_manager.update_timing(phase, v)
-                records.append((i + rank, (len(chunk), dt)))
+                if writes:
+                    records.append((i + rank, (len(chunk), dt)))
             for f in saves:
                 f.result()
         return self.result_manager.summarize(sharding.gather_in_order(records),
-                                             write=rank == 0)
+                                             write=self.mesh.rank == 0)
 
     def predict_directory(self, input_dir: str,
                           output_size: Optional[Tuple[int, int]] = None,

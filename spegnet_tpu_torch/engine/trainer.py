@@ -44,8 +44,32 @@ per-sample metrics gathered in dataset order, so the plateau step, the best
 model and the early stop are one decision on every rank.  Rank 0 alone
 writes metrics.json and checkpoints; a resume loads on every rank.
 
+Sequence parallelism (``model.spatial_axis`` naming a ``parallel.mesh``
+axis of size S beside ``data`` of size D, over D S processes; JAX's
+``spatial_axis``): the S ranks of a spatial group take the rows of their
+data index and split the Morton trunk's tokens (models/hiera.py
+``trunk_plan``); the K / V of a global block and the trunk's outputs are
+all-gathered over the group, and everything after the trunk runs whole on
+each rank of it.  The gradient rule, one for every parameter: every
+collective is differentiated as the global program whose objective is the
+sum of all D S ranks' losses -- the backward of each all-gather (the K / V
+gather, where each rank's queries give part of every key's gradient, and
+the stage outputs' gather, whose consumers every rank of the group computes
+alike) and of the BatchNorm statistics' all-reduce sums the cotangents over
+the ranks it joined.  The ranks of a spatial group compute the same loss,
+so that sum counts every sample S times; DDP's average over the D S ranks
+divides it back, so the loss scaling stays the data axis D, the T-blocks'
+weight gradients end up summed over the group as JAX's ``psum(g, data +
+tok)`` sums them (spegnet_tpu/ops/fused_block_t.py:1652-1658), and the
+replicated parameters' S equal gradients average to one.  The global
+BatchNorm statistics sum x, x^2 and the count over all ranks, S copies of
+each sample in each, so their ratios are the global batch's; the sample
+weights W and the reported losses, which need no gradient, are summed over
+the data group (one rank per data index) instead.
+
 ``training.remat`` (default: batch per rank > 16, JAX's rule) recomputes
-the trunk's decomposed blocks in the backward (models/hiera.py).
+the trunk's decomposed blocks in the backward (models/hiera.py), the global
+blocks under sequence parallelism among them.
 """
 
 from __future__ import annotations
@@ -237,15 +261,18 @@ class Trainer:
     (raises without one); pass "cpu" to train on the CPU.  ``mesh``: the
     data-parallel mesh (default: the config's ``parallel.mesh`` over the
     processes of the active group); a data axis above 1 needs the group
-    (parallel/mesh.init_distributed)."""
+    (parallel/mesh.init_distributed), as does a spatial axis above 1, whose
+    group the model is given."""
 
     def __init__(self, config: Dict, dir_manager=None, device: Optional[str] = None,
                  model: Optional[SPEGNet] = None, mesh: Optional[Mesh] = None):
         self.config = config["training"]
         self.model_config = config["model"]
-        self.mesh = mesh or mesh_from_config(config.get("parallel"))
+        self.mesh = mesh or mesh_from_config(config.get("parallel"),
+                                             spatial_axis=self.model_config.get("spatial_axis"))
         require_group(self.mesh)
-        self.data_axis, self.rank = self.mesh.data, self.mesh.rank
+        # a spatial group's ranks take the same rows: those of their data index
+        self.data_axis, self.data_index = self.mesh.data, self.mesh.data_index
         self.device = resolve_device(device)
         if model is None:
             model = init_weights(SPEGNet(SPEGNetConfig.from_dict(self.model_config)),
@@ -263,7 +290,7 @@ class Trainer:
                 logger.warning(f"Encoder checkpoint {ckpt} not found - training from scratch")
         model.config = dataclasses.replace(model.config,
                                            remat=remat_for(self.config, self.data_axis))
-        self.model = model.to(self.device)
+        self.model = model.to(self.device).shard_tokens(self.mesh.token_shard)
         self.ddp = self.model
         if grouped():
             self.ddp = DistributedDataParallel(
@@ -286,7 +313,7 @@ class Trainer:
             tuple(img_cfg.get("normalize_std", (0.229, 0.224, 0.225))))
         self.mean = torch.as_tensor(self.processor.mean, device=self.device)
         self.std = torch.as_tensor(self.processor.std, device=self.device)
-        self.monitor = TrainingMonitor(dir_manager if self.rank == 0 else None)
+        self.monitor = TrainingMonitor(dir_manager if self.mesh.rank == 0 else None)
         self._init_optimizer()
 
     def _init_optimizer(self):
@@ -337,15 +364,16 @@ class Trainer:
             return batch
         padded, w = sharding.pad_batch(batch, self.data_axis)
         padded.sample_w = w
-        return sharding.shard_batch(padded, self.rank, self.data_axis)
+        return sharding.shard_batch(padded, self.data_index, self.data_axis)
 
     def weights(self, batch: TrainBatch):
         """(the rows' sample weights on the device, the global batch's weight
-        summed over the ranks), or (None, None) for a batch of one process."""
+        summed over the data group), or (None, None) for a batch of one
+        process."""
         if batch.sample_w is None:
             return None, None
         w = torch.from_numpy(np.ascontiguousarray(batch.sample_w)).to(self.device)
-        return w, sharding.all_reduce_sum(w.sum())
+        return w, sharding.all_reduce_sum(w.sum(), self.mesh.data_group)
 
     def forward_loss(self, images, masks, edges, mask_hw, edge_hw, sample_w=None,
                      weight_total=None) -> Dict[str, torch.Tensor]:
@@ -403,7 +431,8 @@ class Trainer:
             ev[1].record()
         t2 = time.perf_counter()
         self.optimizer.zero_grad(set_to_none=True)
-        # DDP averages the ranks' gradients: scaled by the ranks, they sum
+        # DDP averages the D S ranks' gradients: scaled by D, they sum over the
+        # data axis (a spatial group's S counts of each sample: module docstring)
         (ld["loss"] * self.data_axis if self.data_axis > 1 else ld["loss"]).backward()
         self._check_grads()
         self.clip_and_step()
@@ -420,14 +449,13 @@ class Trainer:
         rows = batch.images.shape[0] if total is None else int(total.item())
         return {"metrics": metrics, "timing": timing, "rows": rows}
 
-    @staticmethod
-    def _global_losses(ld: Dict[str, torch.Tensor], w) -> Dict[str, float]:
-        """The losses as floats; with sample weights, the ranks' shares
-        summed: the global batch's weighted means."""
+    def _global_losses(self, ld: Dict[str, torch.Tensor], w) -> Dict[str, float]:
+        """The losses as floats; with sample weights, the data indices'
+        shares summed: the global batch's weighted means."""
         keys = list(ld)
         vals = torch.stack([ld[k].detach() for k in keys])
         if w is not None:
-            vals = sharding.all_reduce_sum(vals)
+            vals = sharding.all_reduce_sum(vals, self.mesh.data_group)
         return dict(zip(keys, vals.tolist()))
 
     @torch.no_grad()
@@ -479,9 +507,10 @@ class Trainer:
                     ("e_phi", seg["em"]), ("mean_f", seg["fm"]), ("edge_mae", edge_m["mae"]),
                     ("edge_f", edge_m["fm"]))}
                 n = batch.images.shape[0]
-                first = offset + self.rank * n
+                first = offset + self.data_index * n
                 records += [(first + j, {k: float(v[j]) for k, v in cols.items()})
-                            for j in range(n) if w is None or batch.sample_w[j] > 0]
+                            for j in range(n) if (w is None or batch.sample_w[j] > 0)
+                            and self.mesh.sp_index == 0]
                 offset += n * self.data_axis
                 rows = n if total is None else int(total.item())
                 self.monitor.update_batch(self._global_losses(ld, w),
@@ -533,7 +562,7 @@ class Trainer:
         for epoch in range(self.start_epoch, self.num_epochs):
             loader = train_loader(train_ds, self.processor, self.batch_size, self.buckets,
                                   shuffle=True, seed=epoch, num_workers=num_workers,
-                                  image_u8=wire_u8, shard=(self.rank, self.data_axis))
+                                  image_u8=wire_u8, shard=(self.data_index, self.data_axis))
             self.train_epoch(loader, epoch)
             self.monitor.save_epoch(epoch, "train")
             train_metrics = self.monitor.get_current_stats()
@@ -556,7 +585,7 @@ class Trainer:
 
     def _val_loader(self, val_ds, num_workers: int):
         return val_loader(val_ds, self.processor, self.batch_size, self.buckets,
-                          num_workers=num_workers, shard=(self.rank, self.data_axis))
+                          num_workers=num_workers, shard=(self.data_index, self.data_axis))
 
     # ------------------------------------------------------------------
     # checkpoints

@@ -36,6 +36,14 @@ packed once per block and kept until the block's parameters are reloaded,
 it changes mode, or the compute dtype or device changes.  The decomposed
 path has no int8 form.
 
+``shard`` (sequence parallelism, ``model.spatial_axis``; the JAX package's
+``spatial_axis``, :720-744): the S ranks of a spatial group split the bf16
+Morton trunk into S contiguous token ranges, whole windows and pool groups
+each, so the T-block and the front run their kernels on local rows with no
+halo; global blocks gather K and V over the group; what JAX's gates refuse
+at the local token count, and everything after the trunk, runs whole on
+every rank (:func:`trunk_plan`).
+
 ``remat=True`` (training, models/spegnet.py; the JAX package's
 ``Hiera.remat``, :752-758, :937-940) recomputes the decomposed blocks in
 the backward pass (non-reentrant ``torch.utils.checkpoint``), keeping only
@@ -54,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from typing import List, Optional, Tuple
 
 import torch
@@ -86,6 +95,10 @@ from spegnet_tpu_torch.ops.fused_block_t import (
 )
 from spegnet_tpu_torch.ops.pallas_attention import fused_attention_lanes, lanes_supported
 from spegnet_tpu_torch.ops.resize import resize_bicubic
+from spegnet_tpu_torch.parallel.mesh import TokenShard
+from spegnet_tpu_torch.parallel.sharding import gather_tokens
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +200,8 @@ def block_route(spec: BlockSpec, l: int, n_tok: int, last_stage: bool, int8: boo
     return "fused_block" if last_stage else "fused_block_t"
 
 
-def grid_route(spec: BlockSpec, h: int, w: int, dtype: torch.dtype, int8: bool) -> str:
+def grid_route(spec: BlockSpec, h: int, w: int, dtype: torch.dtype, int8: bool,
+               t_block: bool = True) -> str:
     """The route of one block on an h x w patch grid outside the Morton
     path, by the JAX package's gates for compute dtype ``dtype``: in bf16
     the transition front where ``use_qpool_t`` holds
@@ -197,7 +211,11 @@ def grid_route(spec: BlockSpec, h: int, w: int, dtype: torch.dtype, int8: bool) 
     dtype; each in its int8 form under ``int8`` where the int8 gate allows
     (:543, :488-491, :597); else the decomposed block, whose attention is
     ``fused_attention_lanes`` where ``lanes_supported`` holds (:296-300) and
-    "plain" otherwise (the Q-pool blocks, whose q is shorter than k)."""
+    "plain" otherwise (the Q-pool blocks, whose q is shorter than k).
+    ``t_block`` False closes the T-block (JAX's ``can_t``, :854-856, under a
+    spatial axis of one process or outside the Morton trunk of a larger
+    one); the transition front's gate does not look at the spatial axis
+    (:509-517)."""
     ws = spec.window
     l = ws * ws if ws else h * w
     n_tok = h * w
@@ -211,7 +229,7 @@ def grid_route(spec: BlockSpec, h: int, w: int, dtype: torch.dtype, int8: bool) 
             return "qpool_front"
         return "plain"
     if spec.dim == spec.dim_out and divisible:
-        if bf16 and fbt.supported(spec.dim, spec.heads, l, n_tok):
+        if t_block and bf16 and fbt.supported(spec.dim, spec.heads, l, n_tok):
             if int8 and fbt_i8.supported_i8(spec.dim, spec.heads, l, n_tok):
                 return "fused_block_t_i8"
             return "fused_block_t"
@@ -244,16 +262,92 @@ def takes_morton(cfg: HieraConfig, h: int, w: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 and morton_grid(cfg, h, w)
 
 
+def sp_takes_morton(h: int, w: int, dtype: torch.dtype) -> bool:
+    """Whether the trunk runs in Morton order under a spatial axis above 1
+    (JAX's ``use_z`` there, spegnet_tpu/models/hiera.py:806-813): bf16 on a
+    square 2^k patch grid.  Unlike :func:`takes_morton` it does not ask every
+    window to fit its grid: a block whose gate refuses leaves the order, and
+    a later one may take it again, as in JAX."""
+    return dtype == torch.bfloat16 and h == w and _pow2(h)
+
+
+def trunk_plan(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
+               train_batch: Optional[int] = None,
+               sp: Optional[int] = None) -> List[Tuple[str, bool]]:
+    """(route, sharded) of every block: the route of :func:`trunk_routes`
+    and whether the block runs on this rank's token shard (sequence
+    parallelism) or on the whole input.
+
+    ``sp`` None: no spatial axis, every block whole.  ``sp`` S (the config
+    names ``model.spatial_axis``; S its size in the mesh) follows JAX's gates
+    under that axis (spegnet_tpu/models/hiera.py:806-866):
+
+    * S = 1: no Morton order and no T-block (``use_z`` and ``can_t`` need
+      the axis unset or above 1); the rest as :func:`grid_route`;
+    * S > 1 on a :func:`sp_takes_morton` grid: the Morton trunk split into S
+      contiguous token ranges.  A transition takes the front in the order
+      (:829-839), a non-pooling block the T-block (:854-866), where the
+      tokens divide over S and the kernel's gate holds at the *local* count
+      h w / S; a global block takes "global_ref" (:853, :897-908:
+      ops/fused_block_t.block_global_sp, plain PyTorch with K / V gathered,
+      not a kernel counter) wherever the tokens divide.  Those run sharded;
+      any other block leaves the order and runs whole on the route
+      :func:`grid_route` gives without the T-block, as JAX's NHWC path
+      there; a later block may shard again.  The int8 token routes are off,
+      as JAX's (:409, :488, :920); the int8 gen-1 block and front of the
+      NHWC path are not;
+    * S > 1 elsewhere (f32, a grid that is not 2^k): every block whole, on
+      the routes of one process without the axis.
+
+    Deliberate differences from JAX under the axis: what runs whole runs on
+    every rank of the spatial group on the same data (JAX lets GSPMD shard
+    it: its T-blocks on the window-major layout of a grid that is not 2^k,
+    and every NHWC block by H), and the decoder after the trunk is whole per
+    rank too (models/spegnet.py)."""
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    if sp is None or sp > 1 and not sp_takes_morton(h, w, dtype):
+        return [(r, False) for r in trunk_routes(cfg, (h, w), dtype, int8, train_batch)]
+    out, in_z = [], False
+    for spec in block_specs(cfg):
+        ws, n = spec.window, h * w
+        l = ws * ws if ws else n
+        local = sp > 1 and n % sp == 0
+        if (in_z and spec.q_pool and spec.dim != spec.dim_out and ws > 1 and ws % 2 == 0
+                and _pow2(ws) and ws <= h and local
+                and fbt.qpool_supported(spec.dim, spec.heads, l, n // sp)):
+            out.append(("qpool_front", True))
+        else:
+            glob = ws == 0
+            in_z = (local and not spec.q_pool and spec.dim == spec.dim_out
+                    and (glob or (h % ws == 0 and w % ws == 0 and _pow2(ws)
+                                  and fbt.supported(spec.dim, spec.heads, l, n // sp))))
+            if not in_z:
+                out.append((grid_route(spec, h, w, dtype, int8, t_block=False), False))
+            elif glob:
+                out.append(("global_ref", True))
+            elif train_batch is not None and fbt.save_residuals(train_batch, n // sp):
+                out.append(("fused_block_t_res", True))
+            else:
+                out.append(("fused_block_t", True))
+        if spec.q_pool:
+            h, w = h // 2, w // 2
+    return out
+
+
 def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
-                 train_batch: Optional[int] = None) -> List[str]:
+                 train_batch: Optional[int] = None, sp: Optional[int] = None) -> List[str]:
     """The route of every block of the trunk for a patch grid ``hw`` (an int
     for a square grid, or (h, w)) in compute dtype ``dtype``:
     :func:`block_route` on the Morton path (:func:`takes_morton`),
     :func:`grid_route` elsewhere (a shape computation: nothing is
     allocated).  A route is the launch counter of its wrapper, except
-    "plain".  With ``train_batch``, the routes of a training forward of that
-    many images: a T-block that ``fused_block_t.save_residuals`` sends to the
-    saved-residual pair is "fused_block_t_res".
+    "plain" and "global_ref".  With ``train_batch``, the routes of a
+    training forward of that many images: a T-block that
+    ``fused_block_t.save_residuals`` sends to the saved-residual pair is
+    "fused_block_t_res".  ``sp``: the size of the spatial axis when the
+    config names one (:func:`trunk_plan`); the kernels' gates then see the
+    local token count, as ``_save_res_ok(b, n_loc)`` does
+    (spegnet_tpu/ops/fused_block_t.py:1715-1717).
 
     Under data parallelism each rank runs the trunk on its own rows, so
     ``train_batch`` is the batch per rank, and every route is the one of a
@@ -263,18 +357,20 @@ def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
     :162-166), where the port keeps them on their kernels per rank, as JAX's
     shard_map'd kernels see local shapes."""
     h, w = (hw, hw) if isinstance(hw, int) else hw
+    if sp is not None:
+        return [r for r, _ in trunk_plan(cfg, (h, w), dtype, int8, train_batch, sp)]
     morton = takes_morton(cfg, h, w, dtype)
     out, last = [], len(cfg.stages)
-    for sp in block_specs(cfg):
+    for spec in block_specs(cfg):
         if morton:
-            l = sp.window * sp.window if sp.window else h * w
-            out.append(block_route(sp, l, h * w, sp.stage == last, int8))
+            l = spec.window * spec.window if spec.window else h * w
+            out.append(block_route(spec, l, h * w, spec.stage == last, int8))
         else:
-            out.append(grid_route(sp, h, w, dtype, int8))
+            out.append(grid_route(spec, h, w, dtype, int8))
         if (train_batch is not None and out[-1] == "fused_block_t"
                 and fbt.save_residuals(train_batch, h * w)):
             out[-1] = "fused_block_t_res"
-        if sp.q_pool:
+        if spec.q_pool:
             h, w = h // 2, w // 2
     return out
 
@@ -285,6 +381,23 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _save_dots(ctx, op, *args, **kwargs):
     """The remat policy: keep the matmul outputs, recompute the rest."""
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _global_sp(blk: "MultiScaleBlock", x: torch.Tensor, shard: TokenShard, approx_gelu: bool,
+               remat: bool) -> torch.Tensor:
+    """A global block on this rank's token shard (``fused_block_t.block_global_sp``),
+    recomputed in the backward under ``remat`` as the decomposed blocks are:
+    it is plain PyTorch, as JAX's in-layout XLA reference that ``nn.remat``
+    wraps there."""
+    def run(t):
+        return fbt.block_global_sp(t, blk.block_weights(t.dtype), blk.spec.heads,
+                                   blk.attn.head_dim ** -0.5, 1e-6, approx_gelu, shard)
+
+    if not remat:
+        return run(x)
+    return checkpoint(run, x, use_reentrant=False,
+                      context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                   _save_dots))
 
 
 def _decomposed(blk: "MultiScaleBlock", x: torch.Tensor, approx_gelu: bool, kernels: bool,
@@ -524,12 +637,17 @@ class Hiera(nn.Module):
         ws0 = cfg.window_spec[0]
         self.pos_embed_window = nn.Parameter(torch.zeros(1, cfg.embed_dim, ws0, ws0))
         self.blocks = nn.ModuleList(MultiScaleBlock(s, cfg.mlp_ratio) for s in self.specs)
+        self._sp_logged = set()   # the plans under a spatial axis already logged
 
     def forward(self, x: torch.Tensor, kernels: bool = True,
                 dtype: torch.dtype = torch.float32, int8: bool = False,
-                remat: bool = False) -> List[torch.Tensor]:
+                remat: bool = False, shard: Optional[TokenShard] = None) -> List[torch.Tensor]:
         """``remat``: recompute the decomposed blocks in the backward (module
-        docstring)."""
+        docstring).  ``shard``: the spatial group when the model names a
+        spatial axis (its size 1 without one in the mesh); the kernel path
+        then splits the Morton trunk's tokens over it (:func:`trunk_plan`),
+        and every output is whole on every rank.  The plain path
+        (``kernels=False``) computes the whole input on every rank."""
         if x.shape[1] % 32 or x.shape[2] % 32:
             raise ValueError("Input spatial dims must be divisible by 32")
         approx_gelu = dtype == torch.bfloat16
@@ -543,26 +661,51 @@ class Hiera(nn.Module):
                 if blk.spec.stage_end:
                     outputs.append(x)
             return outputs
-        return self._forward_kernels(x, approx_gelu, int8, remat)
+        return self._forward_kernels(x, approx_gelu, int8, remat, shard)
 
     def _forward_kernels(self, x: torch.Tensor, approx_gelu: bool,
-                         int8: bool = False, remat: bool = False) -> List[torch.Tensor]:
-        """The trunk through the wrappers of :func:`trunk_routes`.  ``lay`` is
+                         int8: bool = False, remat: bool = False,
+                         shard: Optional[TokenShard] = None) -> List[torch.Tensor]:
+        """The trunk through the wrappers of :func:`trunk_plan`.  ``lay`` is
         the window of x's window-major token layout [B, N, C] (0: raster), or
         None while x is NHWC.  The Morton path (:func:`takes_morton`) starts
         in Morton order, one window of the whole grid, which keeps every
         window of the trunk consecutive, so it never changes layout;
         elsewhere a block changes it only when its route needs windows it
-        does not keep."""
+        does not keep.
+
+        Under a spatial axis above 1 a sharded block runs on x's rows
+        [s N / S, (s + 1) N / S) in Morton order (``part``), rank s of the
+        group: whole windows and 2x2 pool groups, so no halo.  A block that
+        runs whole, each stage output and the trunk's exit all-gather the
+        rows over the group (parallel/sharding.gather_tokens); the whole
+        input is taken in Morton order and sliced where a sharded run
+        starts."""
         _, h, w, _ = x.shape
-        routes = trunk_routes(self.config, (h, w), x.dtype, int8)
-        lay = None
-        if takes_morton(self.config, h, w, x.dtype):
+        sp = None if shard is None else shard.size
+        plan = trunk_plan(self.config, (h, w), x.dtype, int8, sp=sp)
+        whole = [i for i, (_, sharded) in enumerate(plan) if not sharded]
+        if sp is not None and whole and (h, w, x.dtype, int8, sp) not in self._sp_logged:
+            self._sp_logged.add((h, w, x.dtype, int8, sp))
+            logger.info(f"spatial axis of {sp}, grid {(h, w)}, {x.dtype}: blocks {whole} run "
+                        f"whole on every rank of the spatial group, on routes "
+                        f"{[plan[i][0] for i in whole]} (models/hiera.trunk_plan)")
+        lay, part = None, False
+        if sp is None and takes_morton(self.config, h, w, x.dtype):
             x, lay = to_z(x), h
         outputs = []
-        for blk, route in zip(self.blocks, routes):
+        for blk, (route, sharded) in zip(self.blocks, plan):
             sp = blk.spec
-            if route in TOKEN_ROUTES:
+            if sharded and not part:
+                if lay != h:
+                    x, lay = to_z(x if lay is None else from_w(x, lay, (h, w))), h
+                n = x.shape[1] // shard.size
+                x, part = x[:, shard.index * n:(shard.index + 1) * n], True
+            elif part and not sharded:
+                x, part = gather_tokens(x, shard), False
+            if route == "global_ref":
+                x = _global_sp(blk, x, shard, approx_gelu, remat)
+            elif route in TOKEN_ROUTES:
                 if not keeps_windows(lay, sp.window):
                     x = to_w(x if lay is None else from_w(x, lay, (h, w)), sp.window)
                     lay = sp.window
@@ -578,5 +721,6 @@ class Hiera(nn.Module):
                 x = _decomposed(blk, x, approx_gelu, True, remat)
                 h, w = x.shape[1:3]
             if sp.stage_end:
-                outputs.append(x if lay is None else from_w(x, lay, (h, w)))
+                out = gather_tokens(x, shard) if part else x
+                outputs.append(out if lay is None else from_w(out, lay, (h, w)))
         return outputs

@@ -27,6 +27,7 @@ import torch.nn as nn
 from spegnet_tpu_torch.models.cfi import AdaptiveAttentionFusion, EfficientASPP
 from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, Hiera
 from spegnet_tpu_torch.models.ped import BoundaryAwareDecoder, EdgeDetectionModule
+from spegnet_tpu_torch.parallel.mesh import TokenShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,22 +50,21 @@ class SPEGNetConfig:
     # Recompute the trunk's decomposed blocks in the backward (models/hiera.py;
     # the trainer sets it from training.remat, else batch per rank > 16).
     remat: bool = False
+    # The parallel.mesh axis whose ranks split the Morton trunk's tokens
+    # (sequence parallelism, models/hiera.py ``trunk_plan``); the engines
+    # hand the model its group (SPEGNet.shard_tokens).
+    spatial_axis: Optional[str] = None
 
     @classmethod
     def from_dict(cls, model_config: Dict[str, Any]) -> "SPEGNetConfig":
-        """The model section of a config.  ``spatial_axis`` (the JAX
-        package's sequence parallelism over a mesh axis) is not ported and
-        raises NotImplementedError."""
+        """The model section of a config."""
         enc = model_config.get("encoder", {})
-        if model_config.get("spatial_axis"):
-            raise NotImplementedError(
-                f"model.spatial_axis = {model_config['spatial_axis']!r}: spatial (sequence) "
-                "parallelism is not ported; the port runs data parallelism only")
         return cls(variant=enc.get("variant", "large"),
                    compute_dtype=model_config.get("compute_dtype", "float32"),
                    int8_encoder=bool(model_config.get("int8_encoder", False)),
                    int8_decoder=bool(model_config.get("int8_decoder", False)),
-                   remat=bool(model_config.get("remat", False)))
+                   remat=bool(model_config.get("remat", False)),
+                   spatial_axis=model_config.get("spatial_axis") or None)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -89,12 +89,21 @@ class SPEGNet(nn.Module):
     ``config.int8_decoder`` decoder block 2 in its W8A8 mode (bf16 compute,
     block 2's input channels a multiple of 128, as the TPU's gates).  With
     ``config.remat`` a training forward recomputes the trunk's decomposed
-    blocks in the backward (models/hiera.py)."""
+    blocks in the backward (models/hiera.py).
+
+    With ``config.spatial_axis`` the trunk runs under sequence parallelism
+    over the group :meth:`shard_tokens` was given (none: a spatial axis of
+    size 1, JAX's routes there), and decoder block 2 takes the decomposed
+    path, as JAX's ``fused_ok=cfg.spatial_axis is None``
+    (spegnet_tpu/models/spegnet.py:102-106).  Everything after the trunk
+    runs whole on every rank of the group, where JAX lets GSPMD shard the
+    decoder's H: a deliberate difference."""
 
     def __init__(self, config: SPEGNetConfig = SPEGNetConfig(), kernels: bool = True):
         super().__init__()
         self.config = config
         self.kernels = kernels
+        self.token_shard: Optional[TokenShard] = None
         self.encoder = HieraEncoder(config.variant)
         ch = HIERA_VARIANTS[config.variant].channels
         self.fusion = AdaptiveAttentionFusion(ch[1:4], config.fusion_channels)
@@ -124,17 +133,26 @@ class SPEGNet(nn.Module):
                 m.to(self.config.dtype)
         return self
 
+    def shard_tokens(self, shard: Optional[TokenShard]) -> "SPEGNet":
+        """The spatial group whose ranks split the trunk's tokens
+        (parallel/mesh.Mesh.token_shard; None for a spatial axis of size
+        1).  Every rank of the group must run the same forwards."""
+        self.token_shard = shard
+        return self
+
     def forward(self, x: torch.Tensor) -> Dict[str, Any]:
         dt = self.config.dtype
+        spatial = self.config.spatial_axis is not None
+        shard = (self.token_shard or TokenShard(None, 0, 1)) if spatial else None
         feats = self.encoder.encoder(x, kernels=self.kernels, dtype=dt,
                                      int8=self.config.int8_encoder and not self.training,
                                      remat=self.config.remat and self.training
-                                     and torch.is_grad_enabled())
+                                     and torch.is_grad_enabled(), shard=shard)
         s2, s3, s4 = (f.permute(0, 3, 1, 2) for f in feats[1:4])
         fused = self.fusion([s2, s3, s4])
         context = self.context(fused)
         edge_map, edge_features = self.edge_detector(context)
-        preds = self.decoder(context, edge_features, kernels=self.kernels,
+        preds = self.decoder(context, edge_features, kernels=self.kernels and not spatial,
                              int8=self.config.int8_decoder and not self.training)
 
         def nhwc(t):

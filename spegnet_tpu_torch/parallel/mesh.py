@@ -2,14 +2,24 @@
 spegnet_tpu/parallel/mesh.py).
 
 The JAX package lays its chips out as a ``jax.sharding.Mesh`` with a
-``data`` axis (batch parallelism) and an optional ``model`` axis
-(tensor-parallel encoder matmuls).  Here the "devices" of the mesh are the
-processes of the torch.distributed group, one card (or the CPU) each:
-``WORLD_SIZE`` under ``torchrun``, 1 without it.  Only the ``data`` axis is
-ported: it is DistributedDataParallel over every process.  A ``model`` axis
-larger than 1 raises NotImplementedError, as does ``model.spatial_axis``
-(models/spegnet.SPEGNetConfig); so does a ``data`` axis that would leave a
-process out, since each process runs the same program on its own rows.
+``data`` axis (batch parallelism), an optional ``model`` axis
+(tensor-parallel encoder matmuls) and, for sequence parallelism, the axis
+that ``model.spatial_axis`` names (the token dim of the Morton trunk split
+over it, spegnet_tpu/models/hiera.py:720-744).  Here the "devices" of the
+mesh are the processes of the torch.distributed group, one card (or the
+CPU) each: ``WORLD_SIZE`` under ``torchrun``, 1 without it.  Ranks are laid
+out as JAX lays out its devices, ``devices[:total].reshape(sizes)`` in the
+spec's order, so for ``{"data": D, "sp": S}`` rank = d S + s (:func:`layout`).
+
+Two axes are ported: ``data``, DistributedDataParallel over every process
+(each data index takes its rows of the batch), and the spatial axis, whose
+S processes of one data index take the same rows and split the trunk's
+tokens (models/hiera.py).  Each process holds its data index, its spatial
+index and two sub-groups of the torch.distributed group: its spatial group
+(the ranks of its data index) and its data group (the ranks of its spatial
+index).  A ``model`` axis larger than 1 raises NotImplementedError, as does
+any other axis above 1; so does a mesh that would leave a process out, since
+each process runs the same program on its share.
 
 :func:`init_distributed` joins the group that ``torchrun`` describes in the
 environment (or the one its arguments give) and picks the backend: NCCL
@@ -23,7 +33,9 @@ import dataclasses
 import logging
 import math
 import os
-from typing import Dict, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -33,14 +45,62 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis sizes (``shape``, in the spec's order) and this process's rank."""
+    """Axis sizes (``shape``, in the spec's order), this process's rank, the
+    spatial axis (``model.spatial_axis``, None without one) and, under a
+    spatial axis above 1 in a process group, this process's spatial and data
+    sub-groups (else None: no spatial group, and the data group is the
+    whole group)."""
 
     shape: Dict[str, int]
     rank: int = 0
+    spatial_axis: Optional[str] = None
+    sp_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def data(self) -> int:
         return int(self.shape.get("data", 1))
+
+    @property
+    def sp(self) -> int:
+        """The spatial axis's size S (1 without one)."""
+        return int(self.shape.get(self.spatial_axis, 1)) if self.spatial_axis else 1
+
+    def coords(self) -> Dict[str, int]:
+        """This process's index along each axis."""
+        idx = np.unravel_index(self.rank, tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.shape, idx)}
+
+    @property
+    def data_index(self) -> int:
+        return self.coords().get("data", 0)
+
+    @property
+    def sp_index(self) -> int:
+        return self.coords().get(self.spatial_axis, 0) if self.spatial_axis else 0
+
+    @property
+    def token_shard(self) -> Optional["TokenShard"]:
+        """What the model needs of the spatial group (models/spegnet.py
+        ``SPEGNet.shard_tokens``), None for S = 1."""
+        if self.sp == 1:
+            return None
+        return TokenShard(self.sp_group, self.sp_index, self.sp)
+
+
+class TokenShard(NamedTuple):
+    """A spatial group as the model sees it: the process group of the S
+    ranks that split the trunk's tokens, this rank's index in it and S."""
+
+    group: Any
+    index: int
+    size: int
+
+
+def layout(shape: Dict[str, int]) -> np.ndarray:
+    """The ranks arranged as the mesh's axes: JAX's device order,
+    ``devices[:total].reshape(sizes)`` (spegnet_tpu/parallel/mesh.py:40)."""
+    return np.arange(math.prod(shape.values())).reshape(tuple(shape.values()))
 
 
 def world_size() -> int:
@@ -52,12 +112,15 @@ def world_size() -> int:
 
 
 def create_mesh(axes: Optional[Dict[str, int]] = None,
-                world: Optional[int] = None) -> Mesh:
-    """A mesh from an axis spec like {"data": -1} over ``world`` processes
-    (default :func:`world_size`), by the JAX package's rules: one -1 axis
-    absorbs the processes the fixed axes leave; two -1 axes, fixed axes
-    that do not divide the processes, or a mesh larger than them raise
-    ValueError."""
+                world: Optional[int] = None, spatial_axis: Optional[str] = None) -> Mesh:
+    """A mesh from an axis spec like {"data": -1} or {"data": 2, "sp": 2}
+    over ``world`` processes (default :func:`world_size`), by the JAX
+    package's rules: one -1 axis absorbs the processes the fixed axes leave;
+    two -1 axes, fixed axes that do not divide the processes, or a mesh
+    larger than them raise ValueError.  ``spatial_axis`` (the model's
+    ``spatial_axis``) names the one axis besides ``data`` that may exceed 1.
+    Under a spatial axis above 1 the spatial and data sub-groups are made
+    here: every process must make the same meshes in the same order."""
     n = world_size() if world is None else int(world)
     axes = dict(axes or {"data": -1})
     sizes = list(axes.values())
@@ -72,17 +135,50 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
     total = math.prod(shape.values())
     if total > n:
         raise ValueError(f"Mesh {shape} needs {total} devices, have {n}")
+    if spatial_axis == "data":
+        raise ValueError("model.spatial_axis names the data axis: the spatial axis splits "
+                         "tokens over processes that share their rows, so it must be an "
+                         "axis of its own (e.g. parallel.mesh {data: D, sp: S})")
     for name, size in shape.items():
-        if name != "data" and size > 1:
+        if name == "model" and size > 1:
             raise NotImplementedError(
-                f"parallel.mesh axis {name!r} = {size}: the port runs data parallelism only; "
-                "tensor-parallel ('model') and spatial axes are not ported")
-    if shape.get("data", 1) != n:
+                f"parallel.mesh axis 'model' = {size}: the tensor-parallel axis is not "
+                "ported; the port runs the data and spatial (sequence) axes")
+        if name not in ("data", spatial_axis) and size > 1:
+            raise NotImplementedError(
+                f"parallel.mesh axis {name!r} = {size}: no part of the port splits over it "
+                f"(the data axis, and the spatial axis model.spatial_axis names, "
+                f"{spatial_axis!r}, are the axes ported)")
+    if total != n:
         raise ValueError(
-            f"parallel.mesh data = {shape.get('data', 1)} but the torch.distributed world "
+            f"parallel.mesh {shape} covers {total} processes but the torch.distributed world "
             f"has {n} processes: every process takes a share of the batch (set data to "
-            f"{n} or -1, or launch that many processes)")
-    return Mesh(shape, dist.get_rank() if grouped() else 0)
+            f"{n // max(total // shape.get('data', 1), 1)} or -1, or launch that many "
+            "processes)")
+    mesh = Mesh(shape, dist.get_rank() if grouped() else 0,
+                spatial_axis if spatial_axis in shape else None)
+    if grouped() and mesh.sp > 1:
+        mesh = dataclasses.replace(mesh, sp_group=_subgroup(mesh, mesh.spatial_axis),
+                                   data_group=_subgroup(mesh, "data"))
+    return mesh
+
+
+def axis_groups(shape: Dict[str, int], axis: str) -> List[List[int]]:
+    """The ranks of each group along ``axis`` (those that differ in that
+    axis's index only), in index order: the lines of :func:`layout`; each
+    rank alone when the mesh has no such axis."""
+    ranks = layout(shape)
+    if axis not in shape:
+        return ranks.reshape(-1, 1).tolist()
+    ranks = np.moveaxis(ranks, list(shape).index(axis), -1)
+    return ranks.reshape(-1, shape[axis]).tolist()
+
+
+def _subgroup(mesh: Mesh, axis: str):
+    """This process's process group along ``axis``; every process makes
+    every group of the axis, as new_group requires."""
+    mine, _ = dist.new_subgroups_by_enumeration(axis_groups(mesh.shape, axis))
+    return mine
 
 
 def grouped() -> bool:
@@ -91,18 +187,22 @@ def grouped() -> bool:
 
 
 def require_group(mesh: Mesh) -> None:
-    """A data axis above 1 runs only in the process group that divides the
-    batch: without it every process would take itself for rank 0."""
-    if mesh.data > 1 and not grouped():
-        raise RuntimeError(f"a data axis of {mesh.data} needs a torch.distributed group: "
-                           "launch with torchrun (parallel/mesh.init_distributed)")
+    """A data or spatial axis above 1 runs only in the process group that
+    divides the work: without it every process would take itself for rank
+    0."""
+    for name, size in (("data", mesh.data), ("spatial", mesh.sp)):
+        if size > 1 and not grouped():
+            raise RuntimeError(f"a {name} axis of {size} needs a torch.distributed group: "
+                               "launch with torchrun (parallel/mesh.init_distributed)")
 
 
 def mesh_from_config(parallel_cfg: Optional[Dict] = None,
-                     world: Optional[int] = None) -> Mesh:
-    """The mesh of the config's ``parallel.mesh`` (default {"data": -1})."""
+                     world: Optional[int] = None,
+                     spatial_axis: Optional[str] = None) -> Mesh:
+    """The mesh of the config's ``parallel.mesh`` (default {"data": -1});
+    ``spatial_axis``: the config's ``model.spatial_axis``."""
     spec = (parallel_cfg or {}).get("mesh", {"data": -1})
-    return create_mesh(spec, world)
+    return create_mesh(spec, world, spatial_axis)
 
 
 def init_distributed(device: str = "cuda", init_method: Optional[str] = None,

@@ -1,5 +1,5 @@
-"""Batch sharding, replication and the collectives of data parallelism
-(port of spegnet_tpu/parallel/sharding.py, data axis only).
+"""Batch sharding, replication and the collectives of data and sequence
+parallelism (port of spegnet_tpu/parallel/sharding.py).
 
 Under pjit the JAX package writes the global program and shards the batch's
 leading axis over ``data`` (``batch_sharding``: ``P("data", ...)``); XLA
@@ -7,15 +7,26 @@ then inserts the all-reduces.  Here every rank runs the same program on its
 own rows and the collectives are explicit:
 
 * :func:`pad_batch` / :func:`shard_batch`: the global batch padded to a
-  multiple of the data axis (the JAX trainer's ``_pad_batch``), then rank r's
-  contiguous rows [r B / n, (r + 1) B / n), the split ``P("data")`` gives;
+  multiple of the data axis (the JAX trainer's ``_pad_batch``), then data
+  index d's contiguous rows [d B / n, (d + 1) B / n), the split ``P("data")``
+  gives (every rank of a spatial group takes the rows of its data index);
 * :func:`replicated`: parameters and buffers broadcast from rank 0;
 * :func:`all_reduce`: a sum over the ranks that autograd differentiates (its
   backward sums the gradients over the ranks), for statistics of the global
   batch inside the forward (models/cfi.BatchNorm2d);
+* :func:`gather_tokens`: the token shards of a spatial group joined on
+  every rank of it (models/hiera.py), differentiable; :func:`all_reduce_sum`
+  over a sub-group (the data group's sample weights and losses);
 * :func:`gather_in_order`: per-sample records of every rank, in dataset
   order, on every rank (pickled through the host, which gloo needs for
   anything but all-reduce and broadcast of CUDA tensors).
+
+The gradient rule of the collectives (engine/trainer.py): every collective's
+backward is that of the global program whose objective is the sum of every
+rank's loss, so an all-reduce's and an all-gather's backward both sum the
+cotangents over the ranks they joined.  Each rank of a spatial group
+computes the same loss, so that sum counts every sample S times, and the
+trainer's average over the D S ranks divides it back.
 """
 
 from __future__ import annotations
@@ -27,7 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from spegnet_tpu_torch.parallel.mesh import grouped
+from spegnet_tpu_torch.parallel.mesh import TokenShard, grouped
 
 
 def active_world() -> int:
@@ -55,7 +66,8 @@ def pad_batch(batch: Any, n: int) -> Tuple[Any, np.ndarray]:
 
 
 def rows_of(rank: int, n: int, rows: int) -> slice:
-    """Rank ``rank``'s rows of a batch of ``rows`` (a multiple of ``n``)."""
+    """Data index ``rank``'s rows of a batch of ``rows`` (a multiple of
+    ``n``, the data axis)."""
     if rows % n:
         raise ValueError(f"{rows} rows do not divide over {n} ranks")
     per = rows // n
@@ -63,7 +75,7 @@ def rows_of(rank: int, n: int, rows: int) -> slice:
 
 
 def shard_batch(batch: Any, rank: int, n: int) -> Any:
-    """Rank ``rank``'s contiguous rows of every array and list field of a
+    """Data index ``rank``'s contiguous rows of every array and list field of a
     batch dataclass whose leading size is a multiple of ``n``."""
     rows = batch.images.shape[0]
     sl = rows_of(rank, n, rows)
@@ -94,12 +106,49 @@ def all_reduce(t: torch.Tensor) -> torch.Tensor:
     return _all_reduce(t)
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum of a tensor that needs no gradient over the ranks (a copy)."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of a tensor that needs no gradient over the ranks of ``group``
+    (default: every rank), a copy."""
     t = t.detach().clone()
     if active_world() > 1:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
+
+
+class _GatherTokens(torch.autograd.Function):
+    """All-gather along dim 1 over ``group``; the backward sums the
+    cotangents over the group (an all-reduce) and keeps this rank's slice.
+    Built from all_gather and all_reduce, which gloo (CPU and CUDA tensors)
+    and NCCL both run."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, size):
+        ctx.group, ctx.index, ctx.size = group, index, size
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        n = g.shape[1] // ctx.size
+        return g[:, ctx.index * n:(ctx.index + 1) * n], None, None, None
+
+
+def gather_tokens(x: torch.Tensor, shard: TokenShard) -> torch.Tensor:
+    """[B, n, C] token shards of the S ranks of a spatial group (mesh.py
+    ``TokenShard``) -> [B, S n, C] on each, in index order.  The backward sums
+    the cotangents over the group and keeps this rank's rows: the K / V
+    gather of a global block, where each rank's queries give a part of
+    every key's gradient, and the gather of the trunk's stage outputs, whose
+    consumers every rank of the group computes alike (the trainer divides
+    that S-fold sum back; module docstring).  A group of one gathers
+    nothing."""
+    if shard.size == 1:
+        return x
+    return _GatherTokens.apply(x, shard.group, shard.index, shard.size)
 
 
 def gather_in_order(records: Iterable[Tuple[int, Any]]) -> List[Any]:

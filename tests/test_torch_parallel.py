@@ -5,8 +5,8 @@ spawns (a file store under tmp_path; tests/torch_parallel_workers.py).
 
 * ``create_mesh`` / ``mesh_from_config``: JAX's sizes on the conftest's 8
   virtual CPU devices, and JAX's ValueError where JAX raises; the port also
-  refuses a data axis that leaves processes out, a ``model`` axis above 1
-  and ``model.spatial_axis`` by name;
+  refuses a data axis that leaves processes out and a ``model`` axis above
+  1 by name, and accepts ``model.spatial_axis`` (tests/test_torch_spatial.py);
 * ``pad_batch`` equals the JAX trainer's ``_pad_batch`` field by field with
   the same weights, and ``shard_batch`` gives each rank the rows
   ``P("data")`` places on its device;
@@ -123,8 +123,12 @@ def test_mesh_from_config_and_spatial_axis():
     assert tmesh.mesh_from_config({}).shape == {"data": 1}   # no torchrun: one process
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tmesh.mesh_from_config({"mesh": {"data": 2}})
-    with pytest.raises(NotImplementedError, match="spatial_axis"):
-        SPEGNetConfig.from_dict({"encoder": {"variant": "test"}, "spatial_axis": "data"})
+    # model.spatial_axis is carried and its axis accepted beside data
+    # (sequence parallelism, tests/test_torch_spatial.py)
+    cfg = SPEGNetConfig.from_dict({"encoder": {"variant": "test"}, "spatial_axis": "sp"})
+    assert cfg.spatial_axis == "sp"
+    mesh = tmesh.mesh_from_config({"mesh": {"data": 1, "sp": 2}}, 2, cfg.spatial_axis)
+    assert mesh.shape == {"data": 1, "sp": 2} and (mesh.data, mesh.sp) == (1, 2)
 
 
 # -- padding and sharding --------------------------------------------------------
