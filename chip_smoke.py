@@ -291,6 +291,24 @@
        process, the cosine and update within SP_EMU_*_LIMIT; the ranks'
        parameters bit-equal; launches = the training routes under S = 2;
        peak memory per rank beside one process's);
+   (h) the model (tensor-parallel) axis: two ranks spawned on the card over
+       gloo, {"data": 1, "model": 2}, Hiera-L bf16, each holding half of
+       the encoder's qkv, proj, fc1 and fc2, against one process on the same
+       weights and batches: one train step at 384^2 batch 4 (the lanes
+       attention on H / 2 heads, the gen-1 and T-blocks on gathered
+       weights) and one at 512^2 batch 2 (every block on a kernel with
+       gathered weights, the fronts' tails Megatron-style): launches = the
+       training routes, loss, clipped gradients' cosine (gathered), update
+       and running statistics within TP_*_LIMIT, the replicated parameters
+       bit-equal across the ranks, peak memory per rank beside one
+       process's and the prediction; the 512^2 step's checkpoint (gathered,
+       the reference schema) loaded into one process, whose next step is
+       held to the same limits against the ranks'; predict 512^2 batch 2
+       (launches = the routes, mask MAE <= MASK_MAE_LIMIT) and evaluate 4
+       samples (metrics within METRIC_TOL);
+   (i) the CAMO edge processor (utils/camo_edges.py) on the card against
+       its CPU run on 16 seeded synthetic 512^2 masks: edges and validity
+       bit-equal, ms per mask;
    then the model report (utils/model_info.py) at 512^2.
 9. No module of JAX, flax, optax or the JAX package was imported by any of
    the above.
@@ -299,7 +317,7 @@ Any failed check raises.  The last lines are the kernel table (JSON; the
 f32 rows, KERNELS' dtype "f32", are the f32 kernels behind the same
 wrappers, their launches read from the f32 runs; the gemm_handoff row is
 the GEMM inside #1, #3 and #7, its launches those of the predict runs;
-the bf16 rows' launches include phase 8's runs, both ranks' of 8b and 8g), the
+the bf16 rows' launches include phase 8's runs, both ranks' of 8b, 8g and 8h), the
 nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
@@ -988,6 +1006,8 @@ def main() -> int:
     remat_phase(master, torch, launches)
     batch42_phase(master, torch, launches)
     sp_two_ranks(torch, launches)
+    tp_two_ranks(torch, launches)
+    camo_edges_phase(torch)
     model_report()
 
     jax_side = sorted(k for k in sys.modules
@@ -1796,6 +1816,7 @@ def step_capture(trainer, batch, torch, raw: bool = False):
     setattr(*hold, captured)
     kernels.reset_launches()
     res = trainer.train_step(batch)
+    delattr(*hold)   # no cycle through the closure: the trainer frees when dropped
     torch.cuda.synchronize()
     return {"loss": res["metrics"]["loss"], "rows": res["rows"], "grads": grads,
             "params": {n: p.detach().clone() for n, p in trainer.model.named_parameters()},
@@ -2490,6 +2511,356 @@ def batch42_phase(master, torch, launches) -> None:
     check(launches["train_42"] == want, "8f: launches differ from the routes")
     del tr, steps
     torch.cuda.empty_cache()
+
+
+# Phase 8h, the model (tensor-parallel) axis: two ranks on the card split
+# Hiera-L's qkv, attention proj, fc1 and fc2 ({"data": 1, "model": 2}).
+# Each train step against one process on the same batch is held to 2.5x the
+# worst reading of the first chip run, the convention of DDP_*_LIMIT (an
+# H100 80GB HBM3 at 700 W: loss 1.451e-3 relative and statistics 0.1204 at
+# 512^2, cosine 1 - 0.2140 and update 0.6826 at 384^2).  Those readings are
+# this bf16 gradient's noise (one process's own cosine to f32 is ~0.9): the
+# row-parallel sums round once in f32 where one process rounds each GEMM
+# to bf16, and the difference grows through the trunk, as 8g's global
+# blocks' did.  So each step's gradient is also held against the plain f32
+# path's: its cosine no lower than one process's less COSINE_MARGIN.
+TP_STEPS = ((384, 4), (512, 2))   # (size, batch) of the two train steps
+TP_LOSS_REL_LIMIT = 3.7e-3
+TP_COSINE_LIMIT = 1 - 5.36e-1
+TP_UPDATE_REL_LIMIT = 1.71
+TP_STATS_REL_LIMIT = 0.31
+# predicted per-rank saving of peak memory in a train step at M = 2
+# (PERF.md): half of the 210.9 M sharded parameters' f32 weight, gradient,
+# two AdamW moments and AdamW's temporary, less DDP's gradient buckets
+TP_SAVING_PREDICTED_GB = 1.66
+
+
+def _tp_batches():
+    """8h's train batches (384^2 batch 4, 512^2 batch 2 and a second 512^2
+    batch 2 for the step after the checkpoint), predict images (2, 512^2)
+    and eval batch (4 samples, 512^2)."""
+    from spegnet_tpu_torch.data.pipeline import synthetic_eval_batch, synthetic_train_batch
+
+    rng = np.random.default_rng(61)
+    train = {384: synthetic_train_batch(4, rng, 384, gt_range=(288, 512)),
+             512: synthetic_train_batch(2, rng, 512)}
+    nxt = synthetic_train_batch(2, rng, 512)
+    images = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8) for _ in range(2)]
+    ev = synthetic_eval_batch(4, np.random.default_rng(67), 512, gt_range=(384, 512),
+                              buckets=(512,))
+    return train, nxt, images, ev
+
+
+def _full_step(step, trainer):
+    """A step_capture result with every shard gathered over the model group
+    (a collective), on the host."""
+    from spegnet_tpu_torch.parallel.sharding import gather_param
+
+    shard = trainer.mesh.model_shard
+
+    def full(d):
+        return {n: (t if shard is None else gather_param(n, t, shard)).cpu()
+                for n, t in d.items()}
+
+    return {**step, "grads": full(step["grads"]), "params": full(step["params"]),
+            "stats": {n: t.cpu() for n, t in step["stats"].items()}}
+
+
+def tp_runs(master, mesh, dev, torch, tmp: Path, ckpt=None) -> dict:
+    """8h's train steps, predict and evaluate in this process on ``mesh``
+    (None: one process): each step with its gradients and parameters
+    gathered, launches and peak memory; the masks and launches of predict;
+    the per-sample metrics.  Under the model axis the 512^2 step's
+    checkpoint is written (rank 0) to tmp/tp_ckpt.pth and a next step taken;
+    with ``ckpt`` a one-process Trainer resumed from it takes that step."""
+    import gc
+    import hashlib
+
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.data.pipeline import ImageProcessor
+    from spegnet_tpu_torch.engine.evaluator import Evaluator
+    from spegnet_tpu_torch.engine.predictor import Predictor
+    from spegnet_tpu_torch.engine.trainer import Trainer
+    from spegnet_tpu_torch.parallel.sharding import shard_dim
+
+    train, nxt, images, evb = _tp_batches()
+    out = {}
+    # the trunk's stage outputs at 512^2 (inference): the sharded model's
+    # against one process's
+    m = bf16_model(master).shard_model(None if mesh is None else mesh.model_shard).to(dev)
+    x = torch.from_numpy(np.stack([ImageProcessor(512).process_array(a) for a in images]))
+    with torch.inference_mode():
+        feats = m.eval().encoder.encoder(x.to(dev), kernels=True, dtype=torch.bfloat16)
+    out["feats"] = [f.float().cpu() for f in feats]
+    del m, feats
+    for size, b in TP_STEPS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = Trainer(train_config(b, size), None, device=str(dev), model=bf16_model(master),
+                     mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        step = step_capture(tr, train[size], torch)
+        out[f"step_s_{size}"] = time.perf_counter() - t0
+        out[f"peak_{size}"] = torch.cuda.max_memory_allocated() / 1e9
+        out[f"held_{size}"] = held
+        out[f"step_{size}"] = _full_step(step, tr)
+        del step
+        if mesh is not None:
+            digest = hashlib.sha256()
+            for n, p in sorted(tr.model.named_parameters()):
+                if shard_dim(n) is None:
+                    digest.update(p.detach().cpu().numpy().tobytes())
+            out[f"replicated_digest_{size}"] = digest.hexdigest()
+        if size == 512 and mesh is not None:
+            state = tr.checkpoint_state(0, {})
+            if mesh.rank == 0:
+                torch.save(state, tmp / "tp_ckpt.pth")
+            del state
+            out["next"] = _full_step(step_capture(tr, nxt, torch), tr)
+        del tr
+        torch.cuda.empty_cache()
+        if size == 512 and ckpt is not None:
+            gc.collect()
+            tr = Trainer(train_config(b, size), None, device=str(dev), model=bf16_model(master))
+            tr.load_checkpoint(str(ckpt), resume=True)
+            out["ckpt_params"] = {n: p.detach().cpu().clone()
+                                  for n, p in tr.model.named_parameters()}
+            out["next"] = _full_step(step_capture(tr, nxt, torch), tr)
+            del tr
+            torch.cuda.empty_cache()
+    mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
+          "image_processing": {"target_size": 512}}
+    pred = Predictor(None, mc, None, batch_size=2, device=str(dev), model=bf16_model(master),
+                     mesh=mesh)
+    pred.predict_arrays(images)    # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out["seg"], _ = pred.predict_arrays(images)
+    torch.cuda.synchronize()
+    out["predict_launches"] = dict(kernels.launches)
+    del pred
+    kernels.reset_launches()
+    ev = Evaluator(None, None, mc, batch_size=4, device=str(dev), model=bf16_model(master),
+                   mesh=mesh)
+    ev.evaluate(None, "synthetic", loader=[evb])
+    out["eval_launches"] = dict(kernels.launches)
+    out["eval"] = ev.sample_metrics["synthetic"]
+    del ev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_grad(master, batch, size: int, dev, torch) -> dict:
+    """The plain f32 path's gradient (TF32 off) of ``batch`` on the weights
+    ``master``, on the host: the accuracy anchor of 8h's steps."""
+    from spegnet_tpu_torch.engine.trainer import Trainer
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+
+    m = SPEGNet(SPEGNetConfig(variant="large"), kernels=False)
+    m.load_state_dict(master)
+    tr = Trainer(train_config(batch.images.shape[0], size), None, device=str(dev), model=m)
+    ld = tr.forward_loss(*tr.to_device(batch))
+    ld["loss"].backward()
+    grads = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+    del tr, ld, m
+    torch.cuda.empty_cache()
+    return grads
+
+
+def rank8h(rank: int, world: int, tmp: str) -> None:
+    """8h in one of ``world`` spawned ranks sharing the card over gloo
+    ({"data": 1, "model": world}); rank 0 then leaves the group and runs the
+    one-process references."""
+    import torch
+
+    from spegnet_tpu_torch.parallel.mesh import (
+        create_mesh,
+        destroy_distributed,
+        init_distributed,
+    )
+
+    tmp = Path(tmp)
+    dev = init_distributed("cuda", f"file://{tmp}/store", rank, world, rank, world)
+    backend = torch.distributed.get_backend()
+    mesh = create_mesh({"data": 1, "model": world}, world)
+    master = master_state(torch)
+    tp = tp_runs(master, mesh, dev, torch, tmp)
+    destroy_distributed()
+    keep = [k for k in tp if k.startswith(("peak_", "held_", "step_s_", "replicated_digest_"))]
+    (tmp / f"tp{rank}.json").write_text(json.dumps(
+        {**{k: tp[k] for k in keep}, "backend": backend,
+         "predict_launches": tp["predict_launches"], "eval_launches": tp["eval_launches"],
+         "train_launches": {s: tp[f"step_{s}"]["launches"] for s, _ in TP_STEPS}}))
+    if rank:
+        return
+    one = tp_runs(master, None, dev, torch, tmp, ckpt=tmp / "tp_ckpt.pth")
+    start = {n: t for n, t in master.items()}
+    res = {f"readings_{s}": step_readings(tp[f"step_{s}"], one[f"step_{s}"], start)
+           for s, _ in TP_STEPS}
+    res["readings_ckpt"] = step_readings(one["next"], tp["next"], one["ckpt_params"])
+    res["rows"] = [[tp[f"step_{s}"]["rows"], one[f"step_{s}"]["rows"]] for s, _ in TP_STEPS]
+    res["mask_mae"] = float(np.abs(tp["seg"] - one["seg"]).mean())
+    res["eval_worst"] = max(abs(tp["eval"][n][k] - v) for n, m in one["eval"].items()
+                            for k, v in m.items())
+    res["eval_samples"] = [sorted(tp["eval"]), sorted(one["eval"])]
+    res["one"] = {k: one[k] for k in one if k.startswith(("peak_", "held_", "step_s_"))}
+    res["feats_rel"] = [float((a - b).abs().max() / b.abs().max()) for a, b in
+                        zip(tp["feats"], one["feats"])]
+    res["feats_equal"] = [bool(torch.equal(a, b)) for a, b in zip(tp["feats"], one["feats"])]
+    train = _tp_batches()[0]
+    for size, _ in TP_STEPS:   # last: the f32 Trainer turns TF32 off process-wide
+        g32 = f32_grad(master, train[size], size, dev, torch)
+        res[f"cos_f32_{size}"] = [grad_cosine(tp[f"step_{size}"]["grads"], g32),
+                                  grad_cosine(one[f"step_{size}"]["grads"], g32)]
+    (tmp / "tp_rank0.json").write_text(json.dumps(res))
+
+
+def tp_two_ranks(torch, launches) -> None:
+    """8h: the model axis, two ranks spawned on the card (gloo, a file
+    store, {"data": 1, "model": 2}), against one process, as the module
+    docstring says."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, gathered_blocks, trunk_routes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(rank8h, args=(2, str(tmp)), nprocs=2, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=10):
+                check(time.perf_counter() - t0 < RANK_TIMEOUT,
+                      f"8h: the ranks took more than {RANK_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        secs = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"tp{r}.json").read_text()) for r in range(2)]
+        res = json.loads((tmp / "tp_rank0.json").read_text())
+    cfg = HIERA_VARIANTS["large"]
+    routes = Counter(trunk_routes(cfg, 512 // 4, torch.bfloat16, False))
+    routes.pop("plain", None)
+    want = {w: 0 for w in ranks[0]["predict_launches"]}
+    want.update(routes)
+    want["fused_decoder_block"] = 1
+    launches["tp_2rank"] = {}
+    log(f"8h 2 ranks on one card ({ranks[0]['backend']}), {{data: 1, model: 2}}: {secs:.1f} s "
+        f"with the spawn and the one-process references; blocks whose heads 2 does not "
+        f"divide (gathered qkv): {gathered_blocks(cfg, 2)}")
+    for r, got in enumerate(ranks):
+        check(got["backend"] == "gloo", f"8h: backend {got['backend']}")
+        check(got["predict_launches"] == want,
+              f"8h: rank {r} predict launches {got['predict_launches']} (expected {want})")
+        check(got["eval_launches"] == {k: v * 2 for k, v in want.items()},
+              f"8h: rank {r} evaluate launches {got['eval_launches']} (warm-up + 1 batch)")
+        for size, b in TP_STEPS:
+            exp = train_launches(size, b, steps=1)
+            got_t = got["train_launches"][str(size)]
+            check(got_t == exp, f"8h: rank {r} train launches at {size}^2 {got_t} (expected "
+                                f"{exp})")
+        runs = [got["predict_launches"], got["eval_launches"],
+                *got["train_launches"].values()]
+        for run in runs:
+            for k, v in run.items():
+                launches["tp_2rank"][k] = launches["tp_2rank"].get(k, 0) + v
+    log(f"8h rank 0 launches at 384^2: {ranks[0]['train_launches']['384']}")
+    log(f"8h trunk stage outputs 512^2 (inference) vs one process: bit-equal "
+        f"{res['feats_equal']}, max |diff| / max {res['feats_rel']}")
+    check(res["feats_equal"][0], "8h: stage 1 (two T-blocks on gathered weights) differs from "
+          "one process's")
+    limits = {"loss_rel": TP_LOSS_REL_LIMIT, "update_rel": TP_UPDATE_REL_LIMIT,
+              "stats_rel": TP_STATS_REL_LIMIT}
+    one = res["one"]
+    for size, b in TP_STEPS:
+        r = res[f"readings_{size}"]
+        peaks = [g[f"peak_{size}"] for g in ranks]
+        log(f"8h train step {size}^2 batch {b} vs one process: loss rel {r['loss_rel']:.3e} "
+            f"(limit {TP_LOSS_REL_LIMIT}), clipped gradient cosine {r['grad_cosine']:.6f} "
+            f"(limit {TP_COSINE_LIMIT}), update rel {r['update_rel']:.3e} (limit "
+            f"{TP_UPDATE_REL_LIMIT}), running statistics rel {r['stats_rel']:.3e} (limit "
+            f"{TP_STATS_REL_LIMIT}); replicated parameters bit-equal across the ranks "
+            f"{ranks[0][f'replicated_digest_{size}'] == ranks[1][f'replicated_digest_{size}']}")
+        log(f"8h memory {size}^2 batch {b}: peak per rank {[round(p, 3) for p in peaks]} GB "
+            f"vs one process {one[f'peak_{size}']:.3f} GB: saving "
+            f"{[round(one[f'peak_{size}'] - p, 3) for p in peaks]} GB (predicted "
+            f"{TP_SAVING_PREDICTED_GB}); held before the step {ranks[0][f'held_{size}']:.3f} "
+            f"/ {one[f'held_{size}']:.3f} GB; step s per rank "
+            f"{[round(g[f'step_s_{size}'], 3) for g in ranks]} vs {one[f'step_s_{size}']:.3f}")
+        tp32, one32 = res[f"cos_f32_{size}"]
+        log(f"8h train step {size}^2: gradient cosine to the plain f32 path: 2 ranks "
+            f"{tp32:.6f}, one process {one32:.6f} (the ranks' no lower than one process's "
+            f"less {COSINE_MARGIN})")
+        check(r["grad_cosine"] >= TP_COSINE_LIMIT and all(r[k] <= v for k, v in limits.items()),
+              f"8h train step {size}^2 vs one process: {r}")
+        check(tp32 >= one32 - COSINE_MARGIN, f"8h: {size}^2 gradient cosine to f32 {tp32:.4f} "
+              f"< one process's {one32:.4f} - {COSINE_MARGIN}")
+        check(ranks[0][f"replicated_digest_{size}"] == ranks[1][f"replicated_digest_{size}"],
+              f"8h: the ranks' replicated parameters differ after the {size}^2 step")
+    c = res["readings_ckpt"]
+    log(f"8h one process resumed from the TP checkpoint, next step vs the ranks': loss rel "
+        f"{c['loss_rel']:.3e}, cosine {c['grad_cosine']:.6f}, update rel "
+        f"{c['update_rel']:.3e}, statistics rel {c['stats_rel']:.3e} (the 512^2 limits)")
+    check(c["grad_cosine"] >= TP_COSINE_LIMIT and all(c[k] <= v for k, v in limits.items()),
+          f"8h: the step after the checkpoint {c}")
+    log(f"8h predict 512^2 batch 2: mask MAE vs one process {res['mask_mae']:.4e} (limit "
+        f"{MASK_MAE_LIMIT}); evaluate 4 samples: max |metric diff| {res['eval_worst']:.3e} "
+        f"(limit {METRIC_TOL})")
+    check(res["rows"] == [[4, 4], [2, 2]], f"8h: rows {res['rows']}")
+    check(res["mask_mae"] <= MASK_MAE_LIMIT, f"8h: mask MAE {res['mask_mae']:.3e}")
+    check(all(s == [f"synthetic_{i}" for i in range(4)] for s in res["eval_samples"]),
+          f"8h: samples {res['eval_samples']}")
+    check(res["eval_worst"] <= METRIC_TOL, f"8h: metrics differ by {res['eval_worst']}")
+
+
+def camo_edges_phase(torch) -> None:
+    """8i: the CAMO edge processor on the card against its CPU run: 16
+    seeded synthetic 512^2 masks (ellipses, some with holes and nested
+    parts), edges and validity bit-equal, ms per mask on each."""
+    from spegnet_tpu_torch.utils.camo_edges import CAMOEdgeProcessor
+
+    rng = np.random.default_rng(71)
+    yy, xx = np.mgrid[:512, :512]
+    masks = []
+    for i in range(16):
+        m = np.zeros((512, 512), bool)
+        for _ in range(1 + i % 4):
+            cy, cx = rng.integers(-40, 552, 2)
+            ry, rx = rng.integers(8, 200, 2)
+            e = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+            m |= e < 1
+            if rng.random() < 0.5:
+                m &= ~(e < 0.25)
+                m |= e < 0.04
+        masks.append((m * 255).astype(np.uint8))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        proc = CAMOEdgeProcessor(edge_width=2, device=dev)
+        proc.extract_edges(masks[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dev] = [proc.extract_edges(m) for m in masks]
+        out[dev + "_ms"] = 1e3 * (time.perf_counter() - t0) / len(masks)
+    proc = CAMOEdgeProcessor(edge_width=2, device="cuda")
+    t0 = time.perf_counter()
+    for m in masks:
+        proc.edge_map(m)
+    torch.cuda.synchronize()
+    edge_ms = 1e3 * (time.perf_counter() - t0) / len(masks)
+    same = [bool(np.array_equal(a[0], b[0]) and a[1] == b[1])
+            for a, b in zip(out["cuda"], out["cpu"])]
+    valid = [v for _, v in out["cuda"]]
+    log(f"8i CAMO edges, 16 masks 512^2, edge_width 2: card vs CPU bit-equal {sum(same)}/16, "
+        f"valid {sum(valid)}/16; ms per mask with validation: card {out['cuda_ms']:.2f}, CPU "
+        f"{out['cpu_ms']:.2f}; the card's morphology alone {edge_ms:.2f} ms per mask")
+    check(all(same), f"8i: the card's edges differ from the CPU's: {same}")
 
 
 def model_report() -> None:

@@ -30,6 +30,19 @@ Sequence parallelism: ``model.spatial_axis: sp`` with ``parallel.mesh:
 trunk's tokens over the S ranks of each data index (models/hiera.py
 ``trunk_plan``); those ranks take the same rows, and the one of spatial
 index 0 writes their predictions and per-sample files.
+
+Tensor parallelism: ``parallel.mesh: {data: D, model: M}`` under ``torchrun
+--nproc_per_node=D*M`` splits the encoder's qkv, attention proj, fc1 and fc2
+over the M ranks of each data index in training (engine/trainer.py); predict
+and evaluate give those ranks the full weights and the rows of their data
+index, as JAX does, and the one of model index 0 writes.
+
+    python -m spegnet_tpu_torch edges <GT_dir> <Edges_dir> [--edge-width N] \
+        [--threshold T] [--device cuda]
+
+writes the edge maps of a directory of ground-truth masks (CAMO-style
+datasets; utils/camo_edges.py) and prints its counts, as
+``tools/generate_edges.py`` does with the JAX package.
 """
 
 from __future__ import annotations
@@ -47,7 +60,8 @@ from spegnet_tpu_torch.config import DEFAULT_MODEL_PATH
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog="python -m spegnet_tpu_torch",
-        description="SPEGNet camouflaged object detection (PyTorch / CUDA port)")
+        description="SPEGNet camouflaged object detection (PyTorch / CUDA port); "
+        "edge maps of ground-truth masks: python -m spegnet_tpu_torch edges --help")
     parser.add_argument("mode", choices=["train", "evaluate", "predict"],
                         help="Operation mode")
     parser.add_argument("--config", type=Path,
@@ -123,14 +137,15 @@ def predict(config, model_path: Path, input_path: Path, dir_manager, device: str
         logging.info("Processing complete, results saved")
 
 
-def print_model_info(config) -> None:
+def print_model_info(config, model_axis: int = 1) -> None:
     """The model report (utils/model_info.py), as ``main.py`` logs it; a
     failure is a warning."""
     try:
         from spegnet_tpu_torch.utils.model_info import print_model_info as _pmi
 
         _pmi(config["model"], config["model"].get("image_processing", {}).get("target_size",
-                                                                               512))
+                                                                               512),
+             model_axis)
     except Exception as e:
         logging.warning(f"Could not complete model analysis: {e}")
 
@@ -149,7 +164,32 @@ def run_directories(mode: str, rank: int):
     return DirectoryManager(mode, timestamp=stamp[0])
 
 
+def edges(argv) -> None:
+    """``edges <GT_dir> <Edges_dir> [--edge-width N] [--threshold T]
+    [--device D]``: the edge maps of every ``*.png`` mask (utils/camo_edges.py),
+    then the counts printed."""
+    from spegnet_tpu_torch.utils.camo_edges import CAMOEdgeProcessor
+
+    parser = argparse.ArgumentParser(prog="python -m spegnet_tpu_torch edges",
+                                     description="Offline GT edge-map generation")
+    parser.add_argument("input", help="Directory of GT masks (*.png)")
+    parser.add_argument("output", help="Directory to write edge maps")
+    parser.add_argument("--edge-width", type=int, default=1)
+    parser.add_argument("--threshold", type=float, default=0.5,
+                        help="Edge-continuity validation threshold")
+    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    stats = CAMOEdgeProcessor(args.edge_width, args.threshold,
+                              device=args.device).process_dataset(args.input, args.output)
+    print(stats)
+
+
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["edges"]:
+        logging.basicConfig(level=logging.INFO)
+        edges(argv[1:])
+        return
     from spegnet_tpu_torch.parallel.mesh import (
         destroy_distributed,
         init_distributed,
@@ -179,7 +219,7 @@ def main(argv=None) -> None:
         logging.info(f"Running in {args.mode} mode (PyTorch port), mesh {mesh.shape}")
         logging.info("Configuration:\n" + yaml.dump(config, default_flow_style=False))
         if rank == 0:
-            print_model_info(config)
+            print_model_info(config, mesh.model)
         if args.mode == "train":
             train(config, dir_manager, device, mesh)
         elif args.mode == "evaluate":

@@ -21,8 +21,10 @@ those; padding rows carry no weight) and writes their per-sample files, and
 the per-sample metrics are gathered in dataset order, from which rank 0
 writes the summaries (every rank returns the same means).  Under a spatial
 axis (``model.spatial_axis``) the ranks of a spatial group run the same
-rows, splitting the trunk's tokens (models/hiera.py); the group's rank of
-spatial index 0 writes the files and gives the records.
+rows, splitting the trunk's tokens (models/hiera.py); under a model axis
+the ranks of a model group run the same rows on the full weights, as
+JAX's evaluator places its variables replicated (:143-146).  The group's
+rank of index 0 (``Mesh.lead``) writes the files and gives the records.
 """
 
 from __future__ import annotations
@@ -225,7 +227,7 @@ class Evaluator:
         records = []   # (dataset index, (name, metrics)) of this rank's samples
         start = time.time()
         rank, ranks = self.shard
-        writes = self.mesh.sp_index == 0
+        writes = self.mesh.lead
         whole = loader is not None
         if loader is None:
             loader = eval_loader(dataset, self.processor, self.batch_size, self.buckets,

@@ -13,8 +13,10 @@ data axis and each data index decodes, predicts and writes the PNGs of its
 rows of every chunk of the directory; rank 0 writes
 ``prediction_summary.json`` from every data index's records.  Under a
 spatial axis (``model.spatial_axis``) the ranks of a spatial group take the
-same rows and split the trunk's tokens (models/hiera.py); the group's rank
-of spatial index 0 writes its PNGs and records.
+same rows and split the trunk's tokens (models/hiera.py); under a model
+axis the ranks of a model group take the same rows and the full weights,
+as JAX's predictor places its variables replicated (:109-112).  The
+group's rank of index 0 (``Mesh.lead``) writes its PNGs and records.
 """
 
 from __future__ import annotations
@@ -193,7 +195,7 @@ class Predictor:
             f"Starting batch prediction of {len(image_paths)} images "
             f"with batch size {self.batch_size}")
         rank, ranks = self.shard
-        writes = self.mesh.sp_index == 0
+        writes = self.mesh.lead
         saves, records = [], []
         with ThreadPoolExecutor(max(num_workers, 1)) as pool:
             for i in range(0, len(image_paths), self.batch_size):

@@ -67,9 +67,32 @@ each sample in each, so their ratios are the global batch's; the sample
 weights W and the reported losses, which need no gradient, are summed over
 the data group (one rank per data index) instead.
 
+Tensor parallelism (``parallel.mesh: {data: D, model: M}`` over D M
+processes; JAX's ``model`` axis, placed by its trainer's
+``param_shardings``): the M ranks of a model group take the rows of their
+data index and hold 1/M of the encoder's qkv, attention proj, fc1 and fc2
+(``SPEGNet.shard_model``, parallel/sharding.param_spec); AdamW runs on the
+shards and DDP's group is the data group (the ranks of one model index), so
+it never averages different shards.  The gradient rule is the one above:
+every rank of a model group computes the same loss, so the global program
+counts each sample M times, and the loss is scaled by D / M before the
+backward (DDP averages over D).  A shard's gradient is then complete (the
+backward of the row-parallel all-reduce and of the weight all-gather sums
+the group's cotangents); a replicated parameter's is this rank's part, and
+the parts are summed over the model group, so the replicated parameters
+stay bit-equal across it.  The global-norm clip counts each shard once
+(the shards' squares summed over the model group, the replicated ones'
+taken once).  ``checkpoint_state`` gathers every parameter and every AdamW
+moment into the reference schema (every rank of a model group takes part;
+rank 0 writes), and :meth:`Trainer.load_checkpoint` shards what it loads,
+so a checkpoint moves between M and one process either way.
+
 ``training.remat`` (default: batch per rank > 16, JAX's rule) recomputes
 the trunk's decomposed blocks in the backward (models/hiera.py), the global
-blocks under sequence parallelism among them.
+blocks under sequence parallelism among them.  ``training.profile`` (or
+``profile_dir``) traces steps 2-6 with torch.profiler into the run's
+``profile/`` directory (utils/profiling.TraceSession); ``training.debug_nans``
+raises on the first non-finite loss or gradient, naming the parameter.
 """
 
 from __future__ import annotations
@@ -102,7 +125,8 @@ from spegnet_tpu_torch.ops import wide
 from spegnet_tpu_torch.parallel import sharding
 from spegnet_tpu_torch.parallel.mesh import Mesh, grouped, mesh_from_config, require_group
 from spegnet_tpu_torch.utils.device import f32_precision, resolve_device
-from spegnet_tpu_torch.utils.weights import init_weights
+from spegnet_tpu_torch.utils.profiling import TraceSession
+from spegnet_tpu_torch.utils.weights import full_state_dict, init_weights, load_sharded
 
 logger = logging.getLogger(__name__)
 
@@ -261,8 +285,8 @@ class Trainer:
     (raises without one); pass "cpu" to train on the CPU.  ``mesh``: the
     data-parallel mesh (default: the config's ``parallel.mesh`` over the
     processes of the active group); a data axis above 1 needs the group
-    (parallel/mesh.init_distributed), as does a spatial axis above 1, whose
-    group the model is given."""
+    (parallel/mesh.init_distributed), as does a spatial or a model axis
+    above 1, whose group the model is given (``model`` is sharded here)."""
 
     def __init__(self, config: Dict, dir_manager=None, device: Optional[str] = None,
                  model: Optional[SPEGNet] = None, mesh: Optional[Mesh] = None):
@@ -290,12 +314,14 @@ class Trainer:
                 logger.warning(f"Encoder checkpoint {ckpt} not found - training from scratch")
         model.config = dataclasses.replace(model.config,
                                            remat=remat_for(self.config, self.data_axis))
+        model.shard_model(self.mesh.model_shard)
         self.model = model.to(self.device).shard_tokens(self.mesh.token_shard)
         self.ddp = self.model
         if grouped():
             self.ddp = DistributedDataParallel(
                 self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
-                find_unused_parameters=False, broadcast_buffers=False)
+                find_unused_parameters=False, broadcast_buffers=False,
+                process_group=self.mesh.data_group if self.mesh.model > 1 else None)
         self._grads_checked = not grouped()
         f32_precision(model.config.dtype)
         self.loss_cfg = LossConfig.from_dict(self.config.get("loss", {}))
@@ -314,6 +340,11 @@ class Trainer:
         self.mean = torch.as_tensor(self.processor.mean, device=self.device)
         self.std = torch.as_tensor(self.processor.std, device=self.device)
         self.monitor = TrainingMonitor(dir_manager if self.mesh.rank == 0 else None)
+        profile_dir = self.config.get("profile_dir")
+        if profile_dir is None and self.config.get("profile") and dir_manager is not None:
+            profile_dir = str(dir_manager.run_dirs.root / "profile")
+        self.trace = TraceSession(profile_dir, rank=self.mesh.rank if grouped() else None)
+        self.debug_nans = bool(self.config.get("debug_nans", False))
         self._init_optimizer()
 
     def _init_optimizer(self):
@@ -326,6 +357,10 @@ class Trainer:
         base_lrs = {"encoder": base_lr * enc_ratio, "decoder": base_lr,
                     "decoder_norm": base_lr}
         wd_map = {"encoder": 0.0, "decoder": wd, "decoder_norm": 0.0}
+        # the parameters' names in the optimizer's order (its state's indices)
+        self.param_names = [n for g in GROUPS for n in labels if labels[n] == g]
+        self.sharded = {n for n in self.param_names if sharding.shard_dim(n) is not None
+                        and self.mesh.model > 1}
         groups = [{"params": [params[n] for n in labels if labels[n] == g], "name": g,
                    "lr": base_lrs[g], "weight_decay": wd_map[g]} for g in GROUPS]
         self.optimizer = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8)
@@ -397,14 +432,52 @@ class Trainer:
                                f"DistributedDataParallel cannot reduce: {missing[:8]}")
         self._grads_checked = True
 
+    def _named_grads(self):
+        """(name, gradient) of every parameter that has one, in the
+        optimizer's order."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        return [(n, p.grad) for n, p in zip(self.param_names, params) if p.grad is not None]
+
+    def _reduce_replicated(self) -> None:
+        """Under the model axis: the replicated parameters' gradients summed
+        over the model group (module docstring), in one all-reduce."""
+        grads = [g for n, g in self._named_grads() if n not in self.sharded]
+        flat = sharding.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                                       self.mesh.model_group)
+        torch._foreach_copy_(grads, [f.view_as(g) for f, g in
+                                     zip(flat.split([g.numel() for g in grads]), grads)])
+
+    def _global_norm(self, named) -> torch.Tensor:
+        """The gradients' global norm; under the model axis each shard
+        counted once: the shards' squares summed over the model group."""
+        norms = torch.stack([torch.linalg.vector_norm(g) for _, g in named])
+        if not self.sharded:
+            return torch.linalg.vector_norm(norms)
+        split = torch.tensor([n in self.sharded for n, _ in named], device=norms.device)
+        sq = norms.square()
+        return torch.sqrt(sharding.all_reduce_sum(sq[split].sum(), self.mesh.model_group)
+                          + sq[~split].sum())
+
+    def _check_finite(self, loss: torch.Tensor) -> None:
+        """``training.debug_nans``: raise on a non-finite loss or gradient
+        (every rank of the group together), naming the first parameter."""
+        named = self._named_grads()
+        bad = torch.stack([~torch.isfinite(loss).all()]
+                          + [~torch.isfinite(g).all() for _, g in named]).to(torch.float32)
+        bad = sharding.all_reduce_sum(bad)
+        if bad[0] > 0:
+            raise FloatingPointError(f"debug_nans: non-finite loss {float(loss.detach())}")
+        for (n, _), b in zip(named, bad[1:].tolist()):
+            if b > 0:
+                raise FloatingPointError(f"debug_nans: non-finite gradient of {n}")
+
     def clip_and_step(self) -> None:
         """Global-norm clip (optax's formula) and the AdamW step at the
         groups' current lr scales."""
-        grads = [p.grad for g in self.optimizer.param_groups for p in g["params"]
-                 if p.grad is not None]
+        named = self._named_grads()
+        grads = [g for _, g in named]
         if self.grad_clip and self.grad_clip > 0 and grads:
-            norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            norm = self._global_norm(named)
             torch._foreach_mul_(grads, self.grad_clip / torch.clamp(norm, min=self.grad_clip))
         lrs = self.scheduler.lrs()
         for group in self.optimizer.param_groups:
@@ -425,6 +498,7 @@ class Trainer:
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
+        self.trace.step()
         t1 = time.perf_counter()
         ld = self.forward_loss(*dev, w, total)
         if cuda:
@@ -432,9 +506,15 @@ class Trainer:
         t2 = time.perf_counter()
         self.optimizer.zero_grad(set_to_none=True)
         # DDP averages the D S ranks' gradients: scaled by D, they sum over the
-        # data axis (a spatial group's S counts of each sample: module docstring)
-        (ld["loss"] * self.data_axis if self.data_axis > 1 else ld["loss"]).backward()
+        # data axis (a spatial group's S counts of each sample, a model group's
+        # M counts divided here: module docstring)
+        scale = self.data_axis / self.mesh.model
+        (ld["loss"] * scale if scale != 1 else ld["loss"]).backward()
         self._check_grads()
+        if self.sharded:
+            self._reduce_replicated()
+        if self.debug_nans:
+            self._check_finite(ld["loss"])
         self.clip_and_step()
         metrics = self._global_losses(ld, w)
         t3 = time.perf_counter()
@@ -510,7 +590,7 @@ class Trainer:
                 first = offset + self.data_index * n
                 records += [(first + j, {k: float(v[j]) for k, v in cols.items()})
                             for j in range(n) if (w is None or batch.sample_w[j] > 0)
-                            and self.mesh.sp_index == 0]
+                            and self.mesh.lead]
                 offset += n * self.data_axis
                 rows = n if total is None else int(total.item())
                 self.monitor.update_batch(self._global_losses(ld, w),
@@ -548,6 +628,8 @@ class Trainer:
         except Exception as e:
             logger.error(f"Training error: {e}", exc_info=True)
             raise
+        finally:
+            self.trace.close()
 
     def _train(self, dataset_dirs: List[str]):
         dataset = concat_train_datasets(dataset_dirs)
@@ -592,18 +674,36 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def checkpoint_state(self, epoch: int, metrics: Dict[str, float]) -> Dict[str, Any]:
-        return {"model_state_dict": self.model.state_dict(),
-                "optimizer_state_dict": self.optimizer.state_dict(),
+        """The checkpoint in the reference schema; under the model axis every
+        parameter and AdamW moment gathered (every rank of the model group
+        calls it)."""
+        opt = self.optimizer.state_dict()
+        if self.sharded:
+            opt = {**opt, "state": {i: {k: self._gather(i, v) for k, v in st.items()}
+                                    for i, st in sorted(opt["state"].items())}}
+        return {"model_state_dict": full_state_dict(self.model),
+                "optimizer_state_dict": opt,
                 "scheduler": self.scheduler.state_dict(),
                 "epoch": epoch,
                 "metrics": {k: float(v) for k, v in (metrics or {}).items()},
                 "config": {"training": self.config, "model": self.model_config}}
 
+    def _gather(self, i: int, v):
+        """AdamW state ``v`` of the optimizer's parameter ``i``, gathered over
+        the model group if the parameter is sharded."""
+        name = self.param_names[i]
+        if name not in self.sharded or not torch.is_tensor(v) or v.dim() == 0:
+            return v
+        return sharding.gather_param(name, v, self.mesh.model_shard)
+
     def save_checkpoint(self, epoch: int, metrics: Dict[str, float],
                         is_best: bool) -> Optional[Path]:
         """model_best.pth / checkpoint_{epoch:03d}.pth in the run's checkpoint
-        directory (None without one, as on every rank but 0)."""
+        directory (None without one, as on every rank but 0, which under the
+        model axis take part in the gathers)."""
         if self.monitor.checkpoint_dir is None:
+            if self.sharded:
+                self.checkpoint_state(epoch, metrics)
             return None
         name = "model_best.pth" if is_best else f"checkpoint_{epoch:03d}.pth"
         path = self.monitor.checkpoint_dir / name
@@ -616,11 +716,19 @@ class Trainer:
     def load_checkpoint(self, path: str, resume: bool = True) -> None:
         """Model weights, and with ``resume`` the optimizer, scheduler and
         epoch (training continues at the next epoch); every rank loads it
-        onto its own device."""
+        onto its own device, under the model axis its shards of every
+        parameter and AdamW moment."""
         ckpt = torch.load(str(path), map_location=self.device, weights_only=False)
-        self.model.load_state_dict(ckpt["model_state_dict"])
+        load_sharded(self.model, ckpt["model_state_dict"])
         if resume:
-            self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+            opt = ckpt["optimizer_state_dict"]
+            if self.sharded:
+                shard = self.mesh.model_shard
+                opt = {**opt, "state": {
+                    i: {k: sharding.shard_param(self.param_names[i], v, shard.index, shard.size)
+                        if torch.is_tensor(v) and v.dim() else v for k, v in st.items()}
+                    for i, st in opt["state"].items()}}
+            self.optimizer.load_state_dict(opt)
             self.scheduler.load_state_dict(ckpt["scheduler"])
             self.start_epoch = ckpt["epoch"] + 1
             logger.info(f"Resumed from {path} at epoch {self.start_epoch}")

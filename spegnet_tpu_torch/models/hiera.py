@@ -44,6 +44,24 @@ halo; global blocks gather K and V over the group; what JAX's gates refuse
 at the local token count, and everything after the trunk, runs whole on
 every rank (:func:`trunk_plan`).
 
+``tp`` (the model axis, ``parallel.mesh: {data: D, model: M}``; JAX's
+``model`` axis, spegnet_tpu/parallel/sharding.py:39-75): each block holds
+1/M of its qkv, attention proj, fc1 and fc2 (parallel/sharding.param_spec;
+models/spegnet.py ``SPEGNet.shard_model``), and the M ranks of a model
+group run the same rows.  The decomposed blocks run Megatron-style on the
+shards (:class:`MultiScaleAttention`, :class:`MLP`): qkv and attention on
+this rank's heads (``fused_attention_lanes`` on H / M heads), proj on the
+matching input features, then the all-reduce of the partial sums; fc1 on
+this rank's hidden columns, GELU, fc2 on the matching rows, then the
+all-reduce.  An attention whose heads the axis does not divide
+(:func:`gathered_blocks`) takes its qkv gathered and runs every head, then
+the same row-parallel proj.  The kernel blocks (T-block, front, gen-1
+block and their int8 forms) take the full weights, all-gathered per block
+at use (:meth:`MultiScaleBlock.block_weights`), as JAX's shard_map'd
+kernels take their weights gathered by GSPMD; the transition's tail after
+the front (proj, LN2, MLP) runs Megatron-style.  Routes and launches do not
+change with the axis.
+
 ``remat=True`` (training, models/spegnet.py; the JAX package's
 ``Hiera.remat``, :752-758, :937-940) recomputes the decomposed blocks in
 the backward pass (non-reentrant ``torch.utils.checkpoint``), keeping only
@@ -95,8 +113,8 @@ from spegnet_tpu_torch.ops.fused_block_t import (
 )
 from spegnet_tpu_torch.ops.pallas_attention import fused_attention_lanes, lanes_supported
 from spegnet_tpu_torch.ops.resize import resize_bicubic
-from spegnet_tpu_torch.parallel.mesh import TokenShard
-from spegnet_tpu_torch.parallel.sharding import gather_tokens
+from spegnet_tpu_torch.parallel.mesh import ModelShard, TokenShard
+from spegnet_tpu_torch.parallel.sharding import gather_tokens, gather_weights, reduce_partial
 
 logger = logging.getLogger(__name__)
 
@@ -375,6 +393,14 @@ def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
     return out
 
 
+def gathered_blocks(cfg: HieraConfig, m: int) -> List[int]:
+    """The blocks whose heads a model axis of ``m`` does not divide: on the
+    decomposed path their attention takes its qkv gathered over the model
+    group and runs every head (Hiera-L's stage 1, 2 heads, at M = 4).  The
+    kernel blocks take gathered weights whatever the heads."""
+    return [i for i, sp in enumerate(block_specs(cfg)) if sp.heads % m]
+
+
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -442,45 +468,79 @@ def _window_unpartition(x: torch.Tensor, ws: int, pad_hw, hw) -> torch.Tensor:
     return x.reshape(b, hp, wp, -1)[:, :h, :w, :]
 
 
+def _row_parallel(x: torch.Tensor, lin: nn.Linear, tp: ModelShard) -> torch.Tensor:
+    """``lin`` on the input features of this rank's shard of its weight (x:
+    those features): the product in the accumulation dtype, its partial
+    sums all-reduced over the model group, the replicated bias added, one
+    cast to x's dtype."""
+    y = F.linear(wide(x), wide(cast(lin.weight, x.dtype)))
+    return (reduce_partial(y, tp) + wide(cast(lin.bias, x.dtype))).to(x.dtype)
+
+
 class MultiScaleAttention(nn.Module):
     def __init__(self, dim: int, dim_out: int, num_heads: int, q_pool: bool = False):
         super().__init__()
         self.dim_out, self.num_heads, self.q_pool = dim_out, num_heads, q_pool
         self.qkv = Linear(dim, 3 * dim_out)
         self.proj = Linear(dim_out, dim_out)
+        self.tp: Optional[ModelShard] = None   # the model group (module docstring)
 
     @property
     def head_dim(self) -> int:
         return self.dim_out // self.num_heads
 
+    def project(self, o: torch.Tensor) -> torch.Tensor:
+        """The output projection of the full attention output ``o`` [..., C];
+        under the model axis row-parallel on this rank's C / M features."""
+        if self.tp is None:
+            return self.proj(o)
+        n = self.dim_out // self.tp.size
+        return _row_parallel(o.narrow(-1, self.tp.index * n, n), self.proj, self.tp)
+
     def forward(self, x: torch.Tensor, kernels: bool = False) -> torch.Tensor:
         """With ``kernels`` a non-pooling attention of a supported length
         goes through ``fused_attention_lanes`` and the rest through
         ``scaled_dot_product_attention`` (the JAX package's
-        ``MultiScaleAttention``, :287-315); else plain attention."""
+        ``MultiScaleAttention``, :287-315); else plain attention.  Under the
+        model axis on this rank's heads where the axis divides them, every
+        head of the gathered qkv where it does not (module docstring)."""
         b, h, w, _ = x.shape
-        d = self.head_dim
+        d, heads, dt = self.head_dim, self.num_heads, x.dtype
+        wq, bq = cast(self.qkv.weight, dt), cast(self.qkv.bias, dt)
+        local = self.tp is not None and heads % self.tp.size == 0
+        if local:
+            heads //= self.tp.size
+        elif self.tp is not None:
+            wq, bq = gather_weights([("attn.qkv.weight", wq), ("attn.qkv.bias", bq)], self.tp)
+        c = heads * d
         if kernels and not self.q_pool and lanes_supported(h * w, d):
-            o = fused_attention_lanes(self.qkv(x.reshape(b, h * w, -1)), self.num_heads,
-                                      d ** -0.5)
-            return self.proj(o).reshape(b, h, w, self.dim_out)
-        qkv = self.qkv(x).reshape(b, h * w, 3, self.num_heads, d)
-        q, k, v = qkv.unbind(2)
-        if self.q_pool:
-            q = _max_pool_2x2(q.reshape(b, h, w, -1))
-            h, w = q.shape[1:3]
-            q = q.reshape(b, h * w, self.num_heads, d)
-        o = (scaled_dot_product_attention if kernels else attention_reference)(q, k, v)
-        return self.proj(o.reshape(b, h, w, self.dim_out))
+            o = fused_attention_lanes(F.linear(x.reshape(b, h * w, -1), wq, bq), heads,
+                                      d ** -0.5).reshape(b, h, w, c)
+        else:
+            q, k, v = F.linear(x, wq, bq).reshape(b, h * w, 3, heads, d).unbind(2)
+            if self.q_pool:
+                q = _max_pool_2x2(q.reshape(b, h, w, -1))
+                h, w = q.shape[1:3]
+                q = q.reshape(b, h * w, heads, d)
+            o = (scaled_dot_product_attention if kernels else attention_reference)(q, k, v)
+            o = o.reshape(b, h, w, c)
+        if local:
+            return _row_parallel(o, self.proj, self.tp)
+        return self.project(o)
 
 
 class MLP(nn.Module):
     def __init__(self, dim: int, hidden: int, out: int):
         super().__init__()
         self.layers = nn.ModuleList([Linear(dim, hidden), Linear(hidden, out)])
+        self.tp: Optional[ModelShard] = None   # the model group (module docstring)
 
     def forward(self, x: torch.Tensor, approx_gelu: bool) -> torch.Tensor:
+        """Under the model axis fc1 on this rank's hidden columns and fc2 on
+        the matching rows, its partial sums all-reduced."""
         y = F.gelu(self.layers[0](x), approximate="tanh" if approx_gelu else "none")
+        if self.tp is not None:
+            return _row_parallel(y, self.layers[1], self.tp)
         return self.layers[1](y)
 
 
@@ -495,6 +555,16 @@ class MultiScaleBlock(nn.Module):
         if spec.dim != spec.dim_out:
             self.proj = Linear(spec.dim, spec.dim_out)
         self._i8_cache = None   # ((dtype, device), packed int8 weights)
+
+    @property
+    def tp(self) -> Optional[ModelShard]:
+        return self.attn.tp
+
+    def shard_model(self, tp: Optional[ModelShard]) -> None:
+        """The model group whose ranks hold this block's shards (module
+        docstring); its parameters must already be the shards."""
+        self.attn.tp = self.mlp.tp = tp
+        self._i8_cache = None
 
     def train(self, mode: bool = True):
         self._i8_cache = None
@@ -533,28 +603,49 @@ class MultiScaleBlock(nn.Module):
         return x + self.mlp(self.norm2(x), approx_gelu)
 
     # -- Morton kernel path --------------------------------------------------
+    def _full(self, named, dt: torch.dtype) -> List[torch.Tensor]:
+        """(name in the block, parameter) pairs cast to ``dt``; under the
+        model axis the shards all-gathered into full tensors."""
+        mats = [cast(p, dt) for _, p in named]
+        if self.tp is None:
+            return mats
+        return gather_weights([(n, t) for (n, _), t in zip(named, mats)], self.tp)
+
     def block_weights(self, dt: torch.dtype) -> BlockWeights:
-        """Matmul weights cast to the compute dtype ``dt``; norms stay f32."""
+        """Matmul weights cast to the compute dtype ``dt``; norms stay f32.
+        Under the model axis the full weights, gathered at each call and
+        kept by nothing but the autograd graph of the block that uses
+        them."""
         a, m = self.attn, self.mlp.layers
-        return BlockWeights(self.norm1.weight, self.norm1.bias, *(
-            cast(p, dt) for p in (a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias)),
-            self.norm2.weight, self.norm2.bias, *(
-            cast(p, dt) for p in (m[0].weight, m[0].bias, m[1].weight, m[1].bias)))
+        qw, qb, pw, w1, b1, w2 = self._full(
+            (("attn.qkv.weight", a.qkv.weight), ("attn.qkv.bias", a.qkv.bias),
+             ("attn.proj.weight", a.proj.weight), ("mlp.layers.0.weight", m[0].weight),
+             ("mlp.layers.0.bias", m[0].bias), ("mlp.layers.1.weight", m[1].weight)), dt)
+        return BlockWeights(self.norm1.weight, self.norm1.bias, qw, qb, pw,
+                            cast(a.proj.bias, dt), self.norm2.weight, self.norm2.bias,
+                            w1, b1, w2, cast(m[1].bias, dt))
 
     def qpool_weights(self, dt: torch.dtype) -> QPoolWeights:
+        """The transition front's weights (qkv gathered under the model axis;
+        the block's own proj is replicated)."""
         a = self.attn
-        return QPoolWeights(self.norm1.weight, self.norm1.bias, *(
-            cast(p, dt) for p in (a.qkv.weight, a.qkv.bias, self.proj.weight, self.proj.bias)))
+        qw, qb = self._full((("attn.qkv.weight", a.qkv.weight),
+                             ("attn.qkv.bias", a.qkv.bias)), dt)
+        return QPoolWeights(self.norm1.weight, self.norm1.bias, qw, qb,
+                            cast(self.proj.weight, dt), cast(self.proj.bias, dt))
 
     def i8_weights(self, dt: torch.dtype):
         """The block's W8A8 weights, packed from its ``dt`` weights on first
         use and cached (outside inference mode, so a later forward with
-        autograd on may read them)."""
+        autograd on may read them); under the model axis packed from the
+        gathered weights at each use and not kept."""
         key = (dt, self.norm1.weight.device)
         if self._i8_cache is None or self._i8_cache[0] != key:
             with torch.inference_mode(False), torch.no_grad():
                 w = (fbt_i8.pack_qpool_i8(self.qpool_weights(dt)) if self.spec.q_pool
                      else fbt_i8.pack_i8(self.block_weights(dt)))
+            if self.tp is not None:
+                return w
             self._i8_cache = (key, w)
         return self._i8_cache[1]
 
@@ -587,7 +678,8 @@ class MultiScaleBlock(nn.Module):
         consecutive tokens one 2x2 pool group): the kernel
         front (int8 for ``route`` "qpool_front_i8"), then proj + LN2 + MLP in
         plain PyTorch (outside the TPU kernel too,
-        spegnet_tpu/models/hiera.py:422-443)."""
+        spegnet_tpu/models/hiera.py:422-443), Megatron-style under the model
+        axis."""
         a, dt = self.attn, x.dtype
         scale = a.head_dim ** -0.5
         if route == "qpool_front_i8":
@@ -595,7 +687,7 @@ class MultiScaleBlock(nn.Module):
                                           1e-6)
         else:
             o, sc = qpool_front(x, self.qpool_weights(dt), self.spec.heads, l, scale, 1e-6)
-        out1 = sc + a.proj(o)
+        out1 = sc + a.project(o)
         return out1 + self.mlp(self.norm2(out1), approx_gelu)
 
 

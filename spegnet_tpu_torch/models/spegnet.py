@@ -19,15 +19,19 @@ statistics and decoder block 2 to the decomposed path.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from spegnet_tpu_torch.models.cfi import AdaptiveAttentionFusion, EfficientASPP
-from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, Hiera
+from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, Hiera, gathered_blocks
 from spegnet_tpu_torch.models.ped import BoundaryAwareDecoder, EdgeDetectionModule
-from spegnet_tpu_torch.parallel.mesh import TokenShard
+from spegnet_tpu_torch.parallel.mesh import ModelShard, TokenShard
+from spegnet_tpu_torch.parallel.sharding import shard_dim, shard_param
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +101,21 @@ class SPEGNet(nn.Module):
     path, as JAX's ``fused_ok=cfg.spatial_axis is None``
     (spegnet_tpu/models/spegnet.py:102-106).  Everything after the trunk
     runs whole on every rank of the group, where JAX lets GSPMD shard the
-    decoder's H: a deliberate difference."""
+    decoder's H: a deliberate difference.
+
+    After :meth:`shard_model` (the ``model`` axis of ``parallel.mesh``) the
+    encoder's qkv, attention proj, fc1 and fc2 hold this rank's shards
+    (parallel/sharding.param_spec) and the trunk runs on them
+    (models/hiera.py); everything else is replicated.  ``state_dict`` then
+    holds the shards: utils/weights.full_state_dict gathers the reference
+    schema and utils/weights.load_sharded loads one."""
 
     def __init__(self, config: SPEGNetConfig = SPEGNetConfig(), kernels: bool = True):
         super().__init__()
         self.config = config
         self.kernels = kernels
         self.token_shard: Optional[TokenShard] = None
+        self.model_shard: Optional[ModelShard] = None
         self.encoder = HieraEncoder(config.variant)
         ch = HIERA_VARIANTS[config.variant].channels
         self.fusion = AdaptiveAttentionFusion(ch[1:4], config.fusion_channels)
@@ -138,6 +150,31 @@ class SPEGNet(nn.Module):
         (parallel/mesh.Mesh.token_shard; None for a spatial axis of size
         1).  Every rank of the group must run the same forwards."""
         self.token_shard = shard
+        return self
+
+    def shard_model(self, shard: Optional[ModelShard]) -> "SPEGNet":
+        """Split the encoder's large matmuls over the model group
+        (parallel/mesh.Mesh.model_shard; None or M = 1 leaves the model as
+        it is): each parameter that ``param_spec`` splits becomes this
+        rank's shard of the full tensor it holds now.  Call it once, on
+        the full weights (the same on every rank of the group), before an
+        optimizer takes the parameters."""
+        if shard is None or shard.size == 1:
+            return self
+        if self.model_shard is not None:
+            raise RuntimeError("shard_model: the model is already sharded")
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if shard_dim(name) is not None:
+                    p.data = shard_param(name, p.data, shard.index, shard.size)
+        for blk in self.encoder.encoder.blocks:
+            blk.shard_model(shard)
+        self.model_shard = shard
+        gathered = gathered_blocks(self.encoder.encoder.config, shard.size)
+        if gathered:
+            logger.info(f"model axis of {shard.size}: blocks {gathered} have heads it does "
+                        "not divide; their decomposed attention gathers its qkv "
+                        "(models/hiera.gathered_blocks)")
         return self
 
     def forward(self, x: torch.Tensor) -> Dict[str, Any]:

@@ -11,15 +11,19 @@ CPU) each: ``WORLD_SIZE`` under ``torchrun``, 1 without it.  Ranks are laid
 out as JAX lays out its devices, ``devices[:total].reshape(sizes)`` in the
 spec's order, so for ``{"data": D, "sp": S}`` rank = d S + s (:func:`layout`).
 
-Two axes are ported: ``data``, DistributedDataParallel over every process
-(each data index takes its rows of the batch), and the spatial axis, whose
-S processes of one data index take the same rows and split the trunk's
-tokens (models/hiera.py).  Each process holds its data index, its spatial
-index and two sub-groups of the torch.distributed group: its spatial group
-(the ranks of its data index) and its data group (the ranks of its spatial
-index).  A ``model`` axis larger than 1 raises NotImplementedError, as does
-any other axis above 1; so does a mesh that would leave a process out, since
-each process runs the same program on its share.
+Three axes are ported: ``data``, DistributedDataParallel over the ranks
+that differ in their data index only (each data index takes its rows of the
+batch); the spatial axis, whose S processes of one data index take the same
+rows and split the trunk's tokens (models/hiera.py); and ``model``, whose M
+processes of one data index take the same rows and hold 1/M of the
+encoder's four large matmuls each (parallel/sharding.param_spec, JAX's
+``_param_spec``).  Each process holds its index along each axis and its
+sub-groups of the torch.distributed group: its spatial group or its model
+group (the ranks of its data index) and its data group (the ranks that share
+every other index).  A spatial axis and a ``model`` axis above 1 together
+raise NotImplementedError, as does any other axis above 1; so does a mesh
+that would leave a process out, since each process runs the same program on
+its share.
 
 :func:`init_distributed` joins the group that ``torchrun`` describes in the
 environment (or the one its arguments give) and picks the backend: NCCL
@@ -47,19 +51,35 @@ logger = logging.getLogger(__name__)
 class Mesh:
     """Axis sizes (``shape``, in the spec's order), this process's rank, the
     spatial axis (``model.spatial_axis``, None without one) and, under a
-    spatial axis above 1 in a process group, this process's spatial and data
-    sub-groups (else None: no spatial group, and the data group is the
-    whole group)."""
+    spatial or a model axis above 1 in a process group, this process's
+    spatial or model sub-group and its data sub-group (else None: no such
+    group, and the data group is the whole group)."""
 
     shape: Dict[str, int]
     rank: int = 0
     spatial_axis: Optional[str] = None
     sp_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def data(self) -> int:
         return int(self.shape.get("data", 1))
+
+    @property
+    def model(self) -> int:
+        """The model (tensor-parallel) axis's size M (1 without one)."""
+        return int(self.shape.get("model", 1))
+
+    @property
+    def model_index(self) -> int:
+        return self.coords().get("model", 0)
+
+    @property
+    def lead(self) -> bool:
+        """Whether this rank is index 0 on every axis but ``data``: the one
+        rank of its data index that writes its rows' files and records."""
+        return self.sp_index == 0 and self.model_index == 0
 
     @property
     def sp(self) -> int:
@@ -87,10 +107,27 @@ class Mesh:
             return None
         return TokenShard(self.sp_group, self.sp_index, self.sp)
 
+    @property
+    def model_shard(self) -> Optional["ModelShard"]:
+        """What the model needs of the model group (models/spegnet.py
+        ``SPEGNet.shard_model``), None for M = 1."""
+        if self.model == 1:
+            return None
+        return ModelShard(self.model_group, self.model_index, self.model)
+
 
 class TokenShard(NamedTuple):
     """A spatial group as the model sees it: the process group of the S
     ranks that split the trunk's tokens, this rank's index in it and S."""
+
+    group: Any
+    index: int
+    size: int
+
+
+class ModelShard(NamedTuple):
+    """A model group as the model sees it: the process group of the M ranks
+    that split the encoder's matmul weights, this rank's index in it and M."""
 
     group: Any
     index: int
@@ -117,10 +154,11 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
     over ``world`` processes (default :func:`world_size`), by the JAX
     package's rules: one -1 axis absorbs the processes the fixed axes leave;
     two -1 axes, fixed axes that do not divide the processes, or a mesh
-    larger than them raise ValueError.  ``spatial_axis`` (the model's
-    ``spatial_axis``) names the one axis besides ``data`` that may exceed 1.
-    Under a spatial axis above 1 the spatial and data sub-groups are made
-    here: every process must make the same meshes in the same order."""
+    larger than them raise ValueError.  Besides ``data``, ``model`` and the
+    axis ``spatial_axis`` names (the model's ``spatial_axis``) may exceed 1,
+    but not both.  Under a spatial or a model axis above 1 its sub-groups and
+    the data sub-groups are made here: every process must make the same
+    meshes in the same order."""
     n = world_size() if world is None else int(world)
     axes = dict(axes or {"data": -1})
     sizes = list(axes.values())
@@ -139,15 +177,17 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
         raise ValueError("model.spatial_axis names the data axis: the spatial axis splits "
                          "tokens over processes that share their rows, so it must be an "
                          "axis of its own (e.g. parallel.mesh {data: D, sp: S})")
-    for name, size in shape.items():
-        if name == "model" and size > 1:
-            raise NotImplementedError(
-                f"parallel.mesh axis 'model' = {size}: the tensor-parallel axis is not "
-                "ported; the port runs the data and spatial (sequence) axes")
-        if name not in ("data", spatial_axis) and size > 1:
+    others = {a: s for a, s in shape.items() if a not in ("data", "model") and s > 1}
+    if shape.get("model", 1) > 1 and others:
+        raise NotImplementedError(
+            f"parallel.mesh axis 'model' = {shape['model']} beside {others}: the "
+            "tensor-parallel axis runs beside the data axis only, not with a spatial "
+            "(sequence) axis above 1")
+    for name, size in others.items():
+        if name != spatial_axis:
             raise NotImplementedError(
                 f"parallel.mesh axis {name!r} = {size}: no part of the port splits over it "
-                f"(the data axis, and the spatial axis model.spatial_axis names, "
+                f"(the data and model axes, and the spatial axis model.spatial_axis names, "
                 f"{spatial_axis!r}, are the axes ported)")
     if total != n:
         raise ValueError(
@@ -159,6 +199,9 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
                 spatial_axis if spatial_axis in shape else None)
     if grouped() and mesh.sp > 1:
         mesh = dataclasses.replace(mesh, sp_group=_subgroup(mesh, mesh.spatial_axis),
+                                   data_group=_subgroup(mesh, "data"))
+    elif grouped() and mesh.model > 1:
+        mesh = dataclasses.replace(mesh, model_group=_subgroup(mesh, "model"),
                                    data_group=_subgroup(mesh, "data"))
     return mesh
 
@@ -187,10 +230,10 @@ def grouped() -> bool:
 
 
 def require_group(mesh: Mesh) -> None:
-    """A data or spatial axis above 1 runs only in the process group that
-    divides the work: without it every process would take itself for rank
-    0."""
-    for name, size in (("data", mesh.data), ("spatial", mesh.sp)):
+    """A data, spatial or model axis above 1 runs only in the process group
+    that divides the work: without it every process would take itself for
+    rank 0."""
+    for name, size in (("data", mesh.data), ("spatial", mesh.sp), ("model", mesh.model)):
         if size > 1 and not grouped():
             raise RuntimeError(f"a {name} axis of {size} needs a torch.distributed group: "
                                "launch with torchrun (parallel/mesh.init_distributed)")

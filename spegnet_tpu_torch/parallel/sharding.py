@@ -1,5 +1,6 @@
-"""Batch sharding, replication and the collectives of data and sequence
-parallelism (port of spegnet_tpu/parallel/sharding.py).
+"""Batch sharding, replication, the model axis's parameter partition and the
+collectives of data, sequence and tensor parallelism (port of
+spegnet_tpu/parallel/sharding.py).
 
 Under pjit the JAX package writes the global program and shards the batch's
 leading axis over ``data`` (``batch_sharding``: ``P("data", ...)``); XLA
@@ -19,26 +20,33 @@ own rows and the collectives are explicit:
   over a sub-group (the data group's sample weights and losses);
 * :func:`gather_in_order`: per-sample records of every rank, in dataset
   order, on every rank (pickled through the host, which gloo needs for
-  anything but all-reduce and broadcast of CUDA tensors).
+  anything but all-reduce and broadcast of CUDA tensors);
+* the model (tensor-parallel) axis: :func:`param_spec`, JAX's
+  ``_param_spec`` over the reference state-dict names; :func:`shard_param` /
+  :func:`join_shards` / :func:`gather_param` between a full tensor and a
+  rank's shard; :func:`gather_weights`, a block's weights all-gathered over
+  the model group for the kernels that take full weights; and
+  :func:`reduce_partial`, the all-reduce of a row-parallel product's partial
+  sums (models/hiera.py).
 
 The gradient rule of the collectives (engine/trainer.py): every collective's
 backward is that of the global program whose objective is the sum of every
 rank's loss, so an all-reduce's and an all-gather's backward both sum the
-cotangents over the ranks they joined.  Each rank of a spatial group
-computes the same loss, so that sum counts every sample S times, and the
-trainer's average over the D S ranks divides it back.
+cotangents over the ranks they joined.  Each rank of a spatial or a model
+group computes the same loss, so that sum counts every sample S (or M)
+times, and the trainer divides it back.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable, List, Sequence, Tuple
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from spegnet_tpu_torch.parallel.mesh import TokenShard, grouped
+from spegnet_tpu_torch.parallel.mesh import ModelShard, TokenShard, grouped
 
 
 def active_world() -> int:
@@ -160,3 +168,141 @@ def gather_in_order(records: Iterable[Tuple[int, Any]]) -> List[Any]:
         dist.all_gather_object(parts, mine)
         mine = [r for part in parts for r in part]
     return [r for _, r in sorted(mine, key=lambda p: p[0])]
+
+
+# -- the model (tensor-parallel) axis ------------------------------------------
+
+# Reference state-dict suffixes of the encoder's block parameters that the
+# model axis splits (spegnet_tpu/parallel/sharding.py:39-63): qkv and fc1 by
+# output features (a torch weight's rows, JAX's kernel columns) with their
+# biases, attn.proj and fc2 by input features (a torch weight's columns).
+_BY_OUT = (".attn.qkv.weight", ".attn.qkv.bias", ".mlp.layers.0.weight",
+           ".mlp.layers.0.bias")
+_BY_IN = (".attn.proj.weight", ".mlp.layers.1.weight")
+
+
+def param_spec(name: str) -> Tuple[Optional[str], ...]:
+    """The partition of the parameter ``name`` (a reference state-dict key)
+    over the model axis, in the torch tensor's own dims: ("model", None) for
+    the qkv and fc1 weights, ("model",) for their biases, (None, "model") for
+    the attention's proj and fc2 weights, () (replicated) for everything
+    else -- the transition blocks' own proj, the fc2 and proj biases, the
+    norms, the decoder, the BatchNorm statistics.  JAX's rule on its [in,
+    out] kernels, transposed."""
+    if not name.startswith("encoder.") or ".blocks." not in name:
+        return ()
+    if name.endswith(_BY_OUT):
+        return ("model",) if name.endswith("bias") else ("model", None)
+    if name.endswith(_BY_IN):
+        return (None, "model")
+    return ()
+
+
+def shard_dim(name: str) -> Optional[int]:
+    """The dim that the model axis splits in ``name``'s tensor, None if it
+    is replicated."""
+    spec = param_spec(name)
+    return spec.index("model") if spec else None
+
+
+def _split_dim(name: str) -> Optional[int]:
+    """The split dim from a parameter name's suffix alone (a block-relative
+    name like "attn.qkv.weight" will do), None for a replicated one."""
+    name = "." + name
+    return 0 if name.endswith(_BY_OUT) else 1 if name.endswith(_BY_IN) else None
+
+
+def _parts(name: str) -> int:
+    """qkv's rows are q, k and v: a shard holds its slice of each, so that
+    it holds whole heads where the axis divides them."""
+    return 3 if "attn.qkv." in name else 1
+
+
+def shard_param(name: str, full: torch.Tensor, index: int, size: int) -> torch.Tensor:
+    """Rank ``index``'s shard of the full tensor of parameter ``name`` over a
+    model axis of ``size`` (a copy; the tensor itself if it is replicated).
+    A split dim takes contiguous chunks, except qkv's, which takes the
+    ``index``-th chunk of each of q, k and v: rank i holds heads [i H / M,
+    (i + 1) H / M) where M divides H.  JAX splits the 3C columns
+    contiguously instead; what is held equal is the full tensor that
+    :func:`join_shards` rebuilds."""
+    dim = shard_dim(name)
+    if dim is None or size == 1:
+        return full
+    parts, n = _parts(name), full.shape[dim]
+    if n % (parts * size):
+        raise ValueError(f"{name}: dim {dim} of {tuple(full.shape)} does not split "
+                         f"into {parts} x {size} shards")
+    view = full.unflatten(dim, (parts, size, n // (parts * size)))
+    return view.select(dim + 1, index).flatten(dim, dim + 1).contiguous()
+
+
+def join_shards(name: str, shards: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The full tensor of parameter ``name`` (its reference key, or its
+    name in its block) from every rank's shard, in model index order
+    (differentiable); a replicated one is any rank's."""
+    dim = _split_dim(name)
+    if dim is None or len(shards) == 1:
+        return shards[0]
+    parts = _parts(name)
+    stacked = torch.stack([s.unflatten(dim, (parts, -1)) for s in shards], dim + 1)
+    return stacked.flatten(dim, dim + 2)
+
+
+def gather_param(name: str, shard: torch.Tensor, group: ModelShard) -> torch.Tensor:
+    """The full tensor of parameter ``name`` on every rank of the model
+    group from each rank's ``shard`` (no gradient: checkpoints, reports)."""
+    if shard_dim(name) is None or group.size == 1:
+        return shard
+    parts = [torch.empty_like(shard) for _ in range(group.size)]
+    dist.all_gather(parts, shard.detach().contiguous(), group=group.group)
+    return join_shards(name, parts)
+
+
+class _GatherFlat(torch.autograd.Function):
+    """All-gather of a flat tensor over ``group`` into [size, n]; the
+    backward sums the cotangents over the group (an all-reduce) and keeps
+    this rank's row: a reduce-scatter, built from the two collectives that
+    gloo (CPU and CUDA tensors) and NCCL both run."""
+
+    @staticmethod
+    def forward(ctx, flat, group, index, size):
+        ctx.group, ctx.index = group, index
+        out = flat.new_empty((size, flat.numel()))
+        dist.all_gather(list(out.unbind(0)), flat.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g[ctx.index], None, None, None
+
+
+def gather_weights(named: Sequence[Tuple[str, torch.Tensor]],
+                   group: ModelShard) -> List[torch.Tensor]:
+    """The full tensors of a block's sharded parameters, (name in the block,
+    shard) pairs of one dtype, from one all-gather over the model group.  The
+    backward is a reduce-scatter: each shard's gradient summed over the
+    group's ranks (the module docstring's rule: every rank of the group ran
+    the block on the same rows, and the trainer divides that M-fold sum
+    back)."""
+    if group.size == 1:
+        return [t for _, t in named]
+    flat = torch.cat([t.reshape(-1) for _, t in named])
+    rows = _GatherFlat.apply(flat, group.group, group.index, group.size).unbind(0)
+    full, off = [], 0
+    for n, t in named:
+        full.append(join_shards(n, [r[off:off + t.numel()].view(t.shape) for r in rows]))
+        off += t.numel()
+    return full
+
+
+def reduce_partial(t: torch.Tensor, group: ModelShard) -> torch.Tensor:
+    """The sum over the model group of a row-parallel product's partial sums
+    (taken in the accumulation dtype, before the cast to the compute
+    dtype), differentiable: the backward sums the cotangents over the
+    group."""
+    from torch.distributed.nn.functional import all_reduce as _all_reduce
+
+    return _all_reduce(t, group=group.group)

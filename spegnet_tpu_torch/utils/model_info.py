@@ -9,7 +9,9 @@ kernels are ctypes launches no counter sees) runs once at batch 1 under
 ``torch.utils.flop_counter.FlopCounterMode``, which counts 2 FLOPs per
 multiply-add of every matmul, convolution and attention product and
 nothing for elementwise work, normalization or resizing (XLA's analysis
-counts those too).
+counts those too).  Under a model axis of M the report adds the parameters
+each rank holds (parallel/sharding.param_spec: the encoder's qkv, proj,
+fc1 and fc2 split M ways, the rest whole).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+from spegnet_tpu_torch.parallel.sharding import shard_dim
 
 logger = logging.getLogger(__name__)
 
@@ -54,6 +57,12 @@ def model_complexity(config: Union[SPEGNetConfig, Dict[str, Any]], input_size: i
     return out
 
 
+def params_per_rank(config: Union[SPEGNetConfig, Dict[str, Any]], model_axis: int) -> int:
+    """The parameters one rank holds under a model axis of ``model_axis``."""
+    return sum(p.numel() // (model_axis if shard_dim(n) is not None else 1)
+               for n, p in meta_model(config).named_parameters())
+
+
 def architecture_lines(config: Union[SPEGNetConfig, Dict[str, Any]],
                        max_depth: int = 2) -> List[str]:
     """The module tree with per-module parameter counts, collapsed below
@@ -82,7 +91,8 @@ def architecture_lines(config: Union[SPEGNetConfig, Dict[str, Any]],
     return lines
 
 
-def print_model_info(config: Union[SPEGNetConfig, Dict[str, Any]], input_size: int) -> None:
+def print_model_info(config: Union[SPEGNetConfig, Dict[str, Any]], input_size: int,
+                     model_axis: int = 1) -> None:
     logger.info("Analyzing model architecture and complexity...")
     logger.info("Model architecture:")
     for line in architecture_lines(config):
@@ -90,6 +100,9 @@ def print_model_info(config: Union[SPEGNetConfig, Dict[str, Any]], input_size: i
     info = model_complexity(config, input_size)
     logger.info("-" * 30)
     logger.info(f"Number of Parameters: {info['params'] / 1e6:.2f} M")
+    if model_axis > 1:
+        logger.info(f"Parameters per rank (model axis {model_axis}): "
+                    f"{params_per_rank(config, model_axis) / 1e6:.2f} M")
     logger.info(f"Computational Cost: {info['flops'] / 1e9:.2f} GFLOPs "
                 f"(torch FlopCounterMode, matmuls / convolutions / attention, "
                 f"batch 1 @ {input_size}^2)")

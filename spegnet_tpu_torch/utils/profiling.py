@@ -25,14 +25,68 @@ device ms in the run, its calls replayed on random operands of the same
 shapes, their bytes bound at kernel_check.PEAK_BYTES, and the time of the
 one PyTorch call that computes the same function where there is one.
 Needs a CUDA device.
+
+:class:`TraceSession` is the trainer's ``training.profile`` /
+``profile_dir`` (spegnet_tpu/utils/profiling.py ``TraceSession``): a
+torch.profiler trace of a few steps, on the CPU and, where there is one, the
+card, written as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import time
+from pathlib import Path
+from typing import Optional
 
 import torch
+
+logger = logging.getLogger(__name__)
+
+
+class TraceSession:
+    """Profile ``num_steps`` steps after the first ``skip_steps`` into
+    ``trace_dir``/trace.json (trace_rank{rank}.json in a process group);
+    :meth:`step` is called once before each step, as the JAX trainer calls
+    its own (steps 2-6 by default).  No directory: does nothing."""
+
+    def __init__(self, trace_dir: Optional[str], num_steps: int = 5, skip_steps: int = 1,
+                 rank: Optional[int] = None):
+        self.trace_dir = trace_dir
+        self.num_steps, self.skip_steps = num_steps, skip_steps
+        self.name = "trace.json" if rank is None else f"trace_rank{rank}.json"
+        self._step = 0
+        self._prof = None
+
+    def step(self) -> None:
+        if not self.trace_dir:
+            return
+        self._step += 1
+        if self._step == self.skip_steps + 1 and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            Path(self.trace_dir).mkdir(parents=True, exist_ok=True)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+            logger.info(f"profiler trace started -> {self.trace_dir}")
+        elif self._prof is not None and self._step > self.skip_steps + self.num_steps:
+            self.close()
+
+    def close(self) -> None:
+        """Stop a running trace and write it."""
+        if self._prof is None:
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        path = Path(self.trace_dir) / self.name
+        prof.export_chrome_trace(str(path))
+        logger.info(f"profiler trace written to {path}")
 
 
 def main(argv=None) -> None:

@@ -11,6 +11,10 @@ takes with ``strict=True``.
 JAX package's initializers: truncated-normal fan-in (lecun) kernels, zero
 biases, identity norms; the position embeddings get a small normal so the
 bicubic path carries signal.
+
+Under the model axis (``SPEGNet.shard_model``) a model's state dict holds
+shards: :func:`load_sharded` loads a full (reference-schema) state dict
+into them and :func:`full_state_dict` gathers the full one back.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn as nn
+
+from spegnet_tpu_torch.parallel.sharding import gather_param, shard_param
 
 _LN = {"scale": "weight", "bias": "bias"}
 _BN_PARAM = {"scale": "weight", "bias": "bias"}
@@ -170,3 +176,28 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         if name.endswith("pos_embed") or name.endswith("pos_embed_window"):
             p.copy_(0.02 * torch.randn(p.shape, generator=generator))
     return model
+
+
+def shard_state_dict(state_dict: Dict[str, torch.Tensor], shard) -> Dict[str, torch.Tensor]:
+    """This rank's shards of a full state dict (parallel/sharding.param_spec;
+    ``shard``: a ModelShard, None for the state dict as it is)."""
+    if shard is None:
+        return dict(state_dict)
+    return {k: shard_param(k, torch.as_tensor(v), shard.index, shard.size)
+            for k, v in state_dict.items()}
+
+
+def load_sharded(model: nn.Module, state_dict: Dict[str, torch.Tensor], strict: bool = True):
+    """Load a full (reference-schema) state dict into a model, sharded over
+    its model group first if it has one (``model.model_shard``)."""
+    return model.load_state_dict(shard_state_dict(state_dict, model.model_shard), strict=strict)
+
+
+def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state dict in the reference schema: under the model axis
+    every shard gathered over the model group (a collective: every rank of
+    the group calls it)."""
+    sd = model.state_dict()
+    if model.model_shard is None:
+        return sd
+    return {k: gather_param(k, v, model.model_shard) for k, v in sd.items()}

@@ -6,7 +6,9 @@ spawns (a file store under tmp_path; tests/torch_parallel_workers.py).
 * ``create_mesh`` / ``mesh_from_config``: JAX's sizes on the conftest's 8
   virtual CPU devices, and JAX's ValueError where JAX raises; the port also
   refuses a data axis that leaves processes out and a ``model`` axis above
-  1 by name, and accepts ``model.spatial_axis`` (tests/test_torch_spatial.py);
+  1 beside a spatial axis above 1 by name, and accepts ``model.spatial_axis``
+  (tests/test_torch_spatial.py) and a ``model`` axis beside ``data``
+  (tests/test_torch_tensor_parallel.py);
 * ``pad_batch`` equals the JAX trainer's ``_pad_batch`` field by field with
   the same weights, and ``shard_batch`` gives each rank the rows
   ``P("data")`` places on its device;
@@ -106,12 +108,12 @@ def test_create_mesh_matches_jax(spec, n):
 
 @pytest.mark.parametrize("spec,n,error,match", [
     ({"data": 4}, 8, ValueError, "world has 8 processes"),
-    ({"data": 4, "model": 2}, 8, NotImplementedError, "'model'"),
-    ({"data": -1, "model": 2}, 4, NotImplementedError, "tensor-parallel"),
+    ({"data": 2, "model": 2, "sp": 2}, 8, NotImplementedError, "'model'"),
+    ({"data": -1, "model": 2, "sp": 2}, 4, NotImplementedError, "tensor-parallel"),
 ])
 def test_create_mesh_refuses_what_is_not_ported(spec, n, error, match):
-    """JAX builds these meshes (a sub-mesh of the devices, a model axis);
-    the port refuses them by name."""
+    """JAX builds these meshes (a sub-mesh of the devices, a model axis
+    beside a second axis above 1); the port refuses them by name."""
     assert dict(jmesh.create_mesh(spec, jax.devices()[:n]).shape)
     with pytest.raises(error, match=match):
         tmesh.create_mesh(spec, n)
@@ -263,12 +265,16 @@ def jax_variables():
     return model, variables
 
 
-def _jax_steps(job, variables):
-    """JAX's step on a {"data": 2} mesh for each batch: (loss, gradients and
-    new running statistics, updated parameters and running statistics),
-    under port names."""
+def _jax_steps(job, variables, spec=None):
+    """JAX's step on a {"data": 2} mesh (or the mesh of ``spec``, whose
+    ``model`` axis shards the parameters as the JAX trainer places them)
+    for each batch: (loss, gradients and new running statistics, updated
+    parameters and running statistics), under port names."""
+    from spegnet_tpu.parallel.sharding import param_shardings
+
     mp = pytest.MonkeyPatch()
-    mesh = jmesh.create_mesh({"data": 2}, jax.devices()[:2])
+    spec = spec or {"data": 2}
+    mesh = jmesh.create_mesh(spec, jax.devices()[:int(np.prod(list(spec.values())))])
     cfg = train_config([])
     jt = jtrainer.Trainer.__new__(jtrainer.Trainer)   # its optimizer, without a model init
     jt.config, jt.grad_clip = cfg["training"], 1.0
@@ -276,6 +282,7 @@ def _jax_steps(job, variables):
     jt.scheduler = jtrainer.PlateauScheduler({g: 1.0 for g in jtrainer._GROUPS}, 0.7, 5, 1e-6)
     out = []
     with _jax_in_f64(mp):
+        params = jax.device_put(variables["params"], param_shardings(variables["params"], mesh))
         _optimizer(jt)
         jmodel = JaxSPEGNet(JaxConfig(variant="test", compute_dtype="float64"))
 
@@ -297,7 +304,7 @@ def _jax_steps(job, variables):
             return jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
 
         for batch in job["batches"]:
-            padded, w = jtrainer.Trainer._pad_batch(types.SimpleNamespace(data_axis=2),
+            padded, w = jtrainer.Trainer._pad_batch(types.SimpleNamespace(data_axis=spec["data"]),
                                                     JaxTrainBatch(**{
                                                         f.name: getattr(batch, f.name)
                                                         for f in dataclasses.fields(JaxTrainBatch)}))
@@ -305,11 +312,11 @@ def _jax_steps(job, variables):
                                    padded.edges.astype(np.float64), padded.mask_hw,
                                    padded.edge_hw, w.astype(np.float64)), mesh)
             with jax.set_mesh(mesh):
-                (loss, new_bs), grads = grad(variables["params"], variables["batch_stats"], *dev)
-                params = update(grads, variables["params"])
-            loss, grads, new_bs, params = jax.device_get((loss, grads, new_bs, params))
+                (loss, new_bs), grads = grad(params, variables["batch_stats"], *dev)
+                new_params = update(grads, params)
+            loss, grads, new_bs, new_params = jax.device_get((loss, grads, new_bs, new_params))
             out.append((float(loss), state_dict_from_jax({"params": grads, "batch_stats": new_bs}),
-                        state_dict_from_jax({"params": params, "batch_stats": new_bs})))
+                        state_dict_from_jax({"params": new_params, "batch_stats": new_bs})))
     mp.undo()
     return out
 

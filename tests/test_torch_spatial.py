@@ -5,7 +5,8 @@ package's, on the CPU with gloo ranks that torch.multiprocessing spawns
 
 * the mesh: ranks laid out as JAX lays out its devices, each rank's data
   and spatial index and its two sub-groups, on the conftest's 8 virtual CPU
-  devices; what the port refuses;
+  devices; what the port refuses (a spatial and a model axis together among
+  it);
 * the routes: ``models/hiera.trunk_plan`` under S against the shapes that
   reach JAX's Pallas T-kernel (``_forward``) and front (``_qpool_forward``)
   on its mesh -- local token counts -- for Hiera-tiny at 64^2 run through
@@ -95,15 +96,16 @@ def test_mesh_layout_matches_jax(spec, n):
 
 
 @pytest.mark.parametrize("spec,n,spatial,error,match", [
-    ({"data": 2, "model": 2}, 4, "sp", NotImplementedError, "'model'"),
+    ({"data": 1, "sp": 2, "model": 2}, 4, "sp", NotImplementedError, "'model'"),
     ({"data": 2, "sp": 2}, 4, None, NotImplementedError, "'sp'"),
     ({"data": 2, "sp": 2}, 8, "sp", ValueError, "world has 8 processes"),
     ({"data": 2}, 2, "data", ValueError, "names the data axis"),
 ])
 def test_mesh_refuses(spec, n, spatial, error, match):
-    """A model axis stays refused by name; an axis above 1 that the model
-    does not name as its spatial axis is used by nothing; a mesh must cover
-    every process; the spatial axis cannot be the data axis."""
+    """A model axis beside the spatial axis is refused by name (the model
+    axis alone: tests/test_torch_tensor_parallel.py); an axis above 1 that
+    the model does not name as its spatial axis is used by nothing; a mesh
+    must cover every process; the spatial axis cannot be the data axis."""
     with pytest.raises(error, match=match):
         tmesh.create_mesh(spec, n, spatial)
 

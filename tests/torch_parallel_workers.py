@@ -1,5 +1,6 @@
-"""Rank programs for tests/test_torch_parallel.py and
-tests/test_torch_spatial.py: each runs in a process that
+"""Rank programs for tests/test_torch_parallel.py,
+tests/test_torch_spatial.py and tests/test_torch_tensor_parallel.py: each
+runs in a process that
 torch.multiprocessing spawns, joins a gloo group through a file store and
 writes what it computed beside it.  They import torch and the port only, so
 a rank starts without JAX."""
@@ -25,6 +26,19 @@ from spegnet_tpu_torch.parallel.mesh import (
 SP_VARIANT = thiera.HieraConfig(16, 1, (1, 2, 2, 1), (4,), (7, 7), (4, 2, 2, 2))
 
 
+# A small trunk whose blocks at 384^2 (patch grid 96) take Hiera-L's routes
+# there: the gen-1 block on stage 1 and 2's divisible windows, the lanes
+# attention on stage 3 and 4's windows that do not divide their grids and on
+# the global block; the transitions decomposed (plain attention).  Every
+# stage's heads divide over a model axis of 2.
+LANES_VARIANT = thiera.HieraConfig(16, 2, (1, 2, 3, 2), (5,), (7, 7), (8, 4, 16, 8))
+
+
+def register_lanes_variant() -> str:
+    thiera.HIERA_VARIANTS["_lanes"] = LANES_VARIANT
+    return "_lanes"
+
+
 def register_sp_variant() -> str:
     thiera.HIERA_VARIANTS["_sp"] = SP_VARIANT
     return "_sp"
@@ -34,6 +48,12 @@ def open_morton() -> None:
     """Send any compute dtype down the sequence-parallel Morton routes (the
     gate is bf16 only), so that f64 and f32 models take them."""
     thiera.sp_takes_morton = lambda h, w, dtype: h == w and h & (h - 1) == 0
+
+
+def open_morton_any_dtype() -> None:
+    """Send any compute dtype down the Morton trunk of one process (T-block,
+    front, gen-1 on the last stage; the gate is bf16 only)."""
+    thiera.takes_morton = lambda cfg, h, w, dtype: thiera.morton_grid(cfg, h, w)
 
 
 def record_calls() -> list:
@@ -65,20 +85,25 @@ def _join(rank: int, world: int, root: str) -> None:
     init_distributed("cpu", f"file://{root}/store", rank, world)
 
 
-def train_step_result(job: dict, batch, world) -> dict:
-    """One Trainer step of ``job``'s model (f64; its ``variant``, default
-    "test") on ``batch`` under a data axis of ``world``, or on ``world``'s
-    mesh when it is one (the model then takes its spatial axis): the global
-    losses, the reduced gradients before the clip, the updated parameters
-    and running statistics."""
+def make_trainer(job: dict, mesh: Mesh):
+    """A Trainer of ``job``'s model (f64; its ``variant``, default "test";
+    its ``state``) on ``mesh`` (the model takes its spatial and model axes)."""
     from spegnet_tpu_torch.engine.trainer import Trainer
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 
-    mesh = world if isinstance(world, Mesh) else create_mesh({"data": world}, world)
     model = SPEGNet(SPEGNetConfig(variant=job.get("variant", "test"), compute_dtype="float64",
                                   spatial_axis=mesh.spatial_axis)).double()
     model.load_state_dict(job["state"])
-    trainer = Trainer(job["config"], None, device="cpu", model=model, mesh=mesh)
+    return Trainer(job["config"], None, device="cpu", model=model, mesh=mesh)
+
+
+def step_result(trainer, batch) -> dict:
+    """One step of ``trainer`` on ``batch``: the global losses, the reduced
+    gradients before the clip, the updated parameters and running
+    statistics; under a model axis every shard gathered (the full tensors),
+    so every rank of a model group calls it."""
+    from spegnet_tpu_torch.parallel.sharding import gather_param
+
     grads = {}
     clip_and_step = trainer.clip_and_step
 
@@ -88,9 +113,24 @@ def train_step_result(job: dict, batch, world) -> dict:
 
     trainer.clip_and_step = snapshot
     res = trainer.train_step(batch)
-    return {"metrics": res["metrics"], "rows": res["rows"], "grads": grads,
-            "params": {n: p.detach().clone() for n, p in trainer.model.named_parameters()},
+    trainer.clip_and_step = clip_and_step
+    shard = trainer.mesh.model_shard
+
+    def full(n, t):
+        return t if shard is None else gather_param(n, t, shard)
+
+    return {"metrics": res["metrics"], "rows": res["rows"],
+            "grads": {n: full(n, g) for n, g in grads.items()},
+            "params": {n: full(n, p.detach().clone())
+                       for n, p in trainer.model.named_parameters()},
             "stats": {n: b.clone() for n, b in trainer.model.named_buffers() if "running" in n}}
+
+
+def train_step_result(job: dict, batch, world) -> dict:
+    """:func:`step_result` of a fresh :func:`make_trainer` under a data axis
+    of ``world``, or on ``world``'s mesh when it is one."""
+    mesh = world if isinstance(world, Mesh) else create_mesh({"data": world}, world)
+    return step_result(make_trainer(job, mesh), batch)
 
 
 def train_rank(rank: int, world: int, root: str) -> None:
@@ -104,27 +144,32 @@ def train_rank(rank: int, world: int, root: str) -> None:
         destroy_distributed()
 
 
-def evaluate_rank(rank: int, world: int, root: str) -> None:
-    """The Evaluator on ``root``/job.pt's dataset, writing under ``base``
-    with the run's timestamp, and its means and per-sample metrics."""
+def evaluate_result(job: dict, world: int) -> dict:
+    """The Evaluator on ``job``'s dataset, writing under ``base`` with the
+    run's timestamp, on the job's mesh: its means, per-sample metrics and
+    summary."""
     from spegnet_tpu_torch.data.dataset import get_test_datasets
     from spegnet_tpu_torch.engine.evaluator import Evaluator
     from spegnet_tpu_torch.utils.run_manager import DirectoryManager
 
+    dm = DirectoryManager("evaluate", base_dir=job["base"], timestamp=job["stamp"])
+    ev = Evaluator(job["ckpt"], dm, job["model"], batch_size=job["batch"],
+                   save_visualizations=True, canvas_buckets=(64, 128), device="cpu",
+                   mesh=create_mesh(job.get("mesh", {"data": world}), world,
+                                    job["model"].get("spatial_axis")))
+    name = Path(job["dataset"]).name
+    means = ev.evaluate(get_test_datasets([job["dataset"]])[name], name)
+    return {"means": means, "samples": ev.sample_metrics[name], "summary": ev.summaries[name]}
+
+
+def evaluate_rank(rank: int, world: int, root: str) -> None:
+    """:func:`evaluate_result` of ``root``/job.pt."""
     _join(rank, world, root)
     try:
         job = torch.load(Path(root) / "job.pt", weights_only=False)
         if job.get("open_morton"):
             open_morton()
-        dm = DirectoryManager("evaluate", base_dir=job["base"], timestamp=job["stamp"])
-        ev = Evaluator(job["ckpt"], dm, job["model"], batch_size=job["batch"],
-                       save_visualizations=True, canvas_buckets=(64, 128), device="cpu",
-                       mesh=create_mesh(job.get("mesh", {"data": world}), world,
-                                        job["model"].get("spatial_axis")))
-        name = Path(job["dataset"]).name
-        means = ev.evaluate(get_test_datasets([job["dataset"]])[name], name)
-        torch.save({"means": means, "samples": ev.sample_metrics[name],
-                    "summary": ev.summaries[name]}, Path(root) / f"evaluate_rank{rank}.pt")
+        torch.save(evaluate_result(job, world), Path(root) / f"evaluate_rank{rank}.pt")
     finally:
         destroy_distributed()
 
@@ -170,5 +215,80 @@ def sp_forward_rank(rank: int, world: int, root: str) -> None:
             out = model(x)
         torch.save({"out": out, "calls": calls, "data_index": mesh.data_index},
                    Path(root) / f"sp_forward_rank{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def trunk_result(job: dict, shard=None) -> dict:
+    """The f64 trunk of :data:`LANES_VARIANT` (``job``'s ``trunk_state``) on
+    ``trunk_x`` through
+    the kernel path (sharded over ``shard``, a model group): the stage
+    outputs, every trunk parameter's gradient of sum(output * cotangent)
+    (under the model axis the loss scaled by 1 / M, the replicated
+    gradients summed over the group, the shards gathered: the trainer's
+    rule), and the (L, heads) of every ``fused_attention_lanes`` call."""
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.parallel import sharding
+
+    model = SPEGNet(SPEGNetConfig(variant=register_lanes_variant(),
+                                  compute_dtype="float64")).double()
+    model.load_state_dict(job["trunk_state"])
+    model.shard_model(shard)
+    calls, lanes = [], thiera.fused_attention_lanes
+    thiera.fused_attention_lanes = lambda qkv, heads, *a, **k: (
+        calls.append((qkv.shape[1], heads)) or lanes(qkv, heads, *a, **k))
+    try:
+        feats = model.encoder.encoder(job["trunk_x"], kernels=True, dtype=torch.float64)
+    finally:
+        thiera.fused_attention_lanes = lanes
+    m = 1 if shard is None else shard.size
+    loss = sum((f * c).sum() for f, c in zip(feats, job["trunk_cot"])) / m
+    loss.backward()
+    grads = {}
+    for n, p in model.encoder.named_parameters():
+        n = "encoder." + n
+        g = p.grad
+        if shard is not None:
+            g = (sharding.gather_param(n, g, shard) if sharding.shard_dim(n) is not None
+                 else sharding.all_reduce_sum(g, shard.group))
+        grads[n] = g
+    return {"feats": [f.detach() for f in feats], "grads": grads, "lanes": calls}
+
+
+def tp_rank(rank: int, world: int, root: str) -> None:
+    """The tensor-parallel tasks of ``root``/job.pt on its mesh (a model
+    axis): ``steps`` (a fresh Trainer's step on each batch), ``morton_steps``
+    (the same on the Morton trunk's kernel routes, opened to f64),
+    ``checkpoint`` (a step on batch 0, its checkpoint_state written by rank
+    0 as tp_ckpt.pth, then a step on batch 1; and a Trainer resumed from
+    one_ckpt.pth, a step on batch 1), ``trunk`` (:func:`trunk_result`) and
+    ``evaluate`` (:func:`evaluate_result` of the job's ``eval`` job)."""
+    _join(rank, world, root)
+    try:
+        root = Path(root)
+        job = torch.load(root / "job.pt", weights_only=False)
+        mesh = create_mesh(job["mesh"], world)
+        out = {"model_index": mesh.model_index, "data_index": mesh.data_index}
+        tasks = job["tasks"]
+        if "steps" in tasks:
+            out["steps"] = [train_step_result(job, b, mesh) for b in job["batches"]]
+        if "checkpoint" in tasks:
+            tr = make_trainer(job, mesh)
+            step_result(tr, job["batches"][0])
+            state = tr.checkpoint_state(0, {})
+            if rank == 0:
+                torch.save(state, root / "tp_ckpt.pth")
+            out["after_ckpt"] = step_result(tr, job["batches"][1])
+            tr = make_trainer(job, mesh)
+            tr.load_checkpoint(root / "one_ckpt.pth", resume=True)
+            out["from_one"] = step_result(tr, job["batches"][1])
+        if "trunk" in tasks:
+            out["trunk"] = trunk_result(job, mesh.model_shard)
+        if "evaluate" in tasks:
+            out["evaluate"] = evaluate_result(job["eval"], world)
+        if "morton_steps" in tasks:
+            open_morton_any_dtype()
+            out["morton_steps"] = [train_step_result(job, b, mesh) for b in job["batches"]]
+        torch.save(out, root / f"tp_rank{rank}.pt")
     finally:
         destroy_distributed()
