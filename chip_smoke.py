@@ -309,6 +309,27 @@
    (i) the CAMO edge processor (utils/camo_edges.py) on the card against
        its CPU run on 16 seeded synthetic 512^2 masks: edges and validity
        bit-equal, ms per mask;
+   (j) the spatial axis and the model axis in one mesh: four ranks spawned
+       on the card over gloo, {"data": 1, "sp": 2, "model": 2}
+       (model.spatial_axis "sp"), Hiera-L bf16, against one process's
+       kernel path and against one process on the ranks' routes (the S =
+       2 plan run whole, full weights): predict 512^2 batch 2 through the
+       Predictor (full weights, each rank's launches = trunk_routes under
+       S = 2, decoder 0; mask MAE <= MASK_MAE_LIMIT), evaluate 4 samples
+       (metrics within METRIC_TOL of the ranks' routes in one process),
+       one train step 512^2 batch 2 on the token shards with the matmuls
+       split (launches = the training routes under S = 2, the _bwd
+       counters included; loss, clipped gradients' cosine, update and
+       running statistics within SPM_*_LIMIT of the kernel path's and
+       SPM_EMU_*_LIMIT of the ranks' routes'; the gradient's cosine to the
+       plain f32 path no lower than one process's less COSINE_MARGIN; the
+       replicated parameters bit-equal on all ranks, each shard across its
+       spatial group), the step's checkpoint loaded into one process,
+       whose next step is held to SPM_*_LIMIT against the ranks', and the
+       trainer's eval-mode forward at 384^2 batch 2 on the sharded model
+       (launches = the routes, 38 fused_attention_lanes at H / 2 heads,
+       mask MAE <= MASK_MAE_LIMIT); peak memory per rank beside 8g's,
+       8h's and one process's, seconds per step, the phase's seconds;
    then the model report (utils/model_info.py) at 512^2.
 9. No module of JAX, flax, optax or the JAX package was imported by any of
    the above.
@@ -317,8 +338,8 @@ Any failed check raises.  The last lines are the kernel table (JSON; the
 f32 rows, KERNELS' dtype "f32", are the f32 kernels behind the same
 wrappers, their launches read from the f32 runs; the gemm_handoff row is
 the GEMM inside #1, #3 and #7, its launches those of the predict runs;
-the bf16 rows' launches include phase 8's runs, both ranks' of 8b, 8g and 8h), the
-nvidia-smi line and {"ok": true, "device": {...}}.
+the bf16 rows' launches include phase 8's runs, every rank's of 8b, 8g, 8h
+and 8j), the nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1008,6 +1029,7 @@ def main() -> int:
     sp_two_ranks(torch, launches)
     tp_two_ranks(torch, launches)
     camo_edges_phase(torch)
+    sp_model_four_ranks(torch, launches)
     model_report()
 
     jax_side = sorted(k for k in sys.modules
@@ -2375,6 +2397,8 @@ def sp_two_ranks(torch, launches) -> None:
     check(res["eval_worst_emu"] <= METRIC_TOL, f"8g: metrics differ by {res['eval_worst_emu']}")
     check(res["rows"] == [2, 2], f"8g: rows {res['rows']}")
     check(ranks[0]["digest"] == ranks[1]["digest"], "8g: the ranks' parameters differ")
+    PEAKS["8g predict 1024^2 batch 2"] = [round(g["predict_peak_gb"], 3) for g in ranks]
+    PEAKS["8g train 1024^2 batch 2"] = [round(g["train_peak_gb"], 3) for g in ranks]
     check(r["grad_cosine"] >= SP_COSINE_LIMIT and all(r[k] <= v for k, v in limits.items()),
           f"8g train step vs one process: {r}")
     check(e["loss_rel"] == 0 and e["stats_rel"] == 0 and e["grad_cosine"] >= SP_EMU_COSINE_LIMIT
@@ -2654,9 +2678,10 @@ def tp_runs(master, mesh, dev, torch, tmp: Path, ckpt=None) -> dict:
     return out
 
 
-def f32_grad(master, batch, size: int, dev, torch) -> dict:
+def f32_grad(master, batch, size: int, dev, torch):
     """The plain f32 path's gradient (TF32 off) of ``batch`` on the weights
-    ``master``, on the host: the accuracy anchor of 8h's steps."""
+    ``master``, on the host, and its loss: the accuracy anchor of 8h's and
+    8j's steps."""
     from spegnet_tpu_torch.engine.trainer import Trainer
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
 
@@ -2666,9 +2691,10 @@ def f32_grad(master, batch, size: int, dev, torch) -> dict:
     ld = tr.forward_loss(*tr.to_device(batch))
     ld["loss"].backward()
     grads = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+    loss = float(ld["loss"])
     del tr, ld, m
     torch.cuda.empty_cache()
-    return grads
+    return grads, loss
 
 
 def rank8h(rank: int, world: int, tmp: str) -> None:
@@ -2713,7 +2739,7 @@ def rank8h(rank: int, world: int, tmp: str) -> None:
     res["feats_equal"] = [bool(torch.equal(a, b)) for a, b in zip(tp["feats"], one["feats"])]
     train = _tp_batches()[0]
     for size, _ in TP_STEPS:   # last: the f32 Trainer turns TF32 off process-wide
-        g32 = f32_grad(master, train[size], size, dev, torch)
+        g32, _ = f32_grad(master, train[size], size, dev, torch)
         res[f"cos_f32_{size}"] = [grad_cosine(tp[f"step_{size}"]["grads"], g32),
                                   grad_cosine(one[f"step_{size}"]["grads"], g32)]
     (tmp / "tp_rank0.json").write_text(json.dumps(res))
@@ -2782,6 +2808,7 @@ def tp_two_ranks(torch, launches) -> None:
     for size, b in TP_STEPS:
         r = res[f"readings_{size}"]
         peaks = [g[f"peak_{size}"] for g in ranks]
+        PEAKS[f"8h train {size}^2 batch {b}"] = [round(p, 3) for p in peaks]
         log(f"8h train step {size}^2 batch {b} vs one process: loss rel {r['loss_rel']:.3e} "
             f"(limit {TP_LOSS_REL_LIMIT}), clipped gradient cosine {r['grad_cosine']:.6f} "
             f"(limit {TP_COSINE_LIMIT}), update rel {r['update_rel']:.3e} (limit "
@@ -2818,6 +2845,367 @@ def tp_two_ranks(torch, launches) -> None:
     check(all(s == [f"synthetic_{i}" for i in range(4)] for s in res["eval_samples"]),
           f"8h: samples {res['eval_samples']}")
     check(res["eval_worst"] <= METRIC_TOL, f"8h: metrics differ by {res['eval_worst']}")
+
+
+# Phase 8j, the spatial axis and the model axis in one mesh: four ranks on
+# the card over gloo ({"data": 1, "sp": 2, "model": 2}, model.spatial_axis
+# "sp"), Hiera-L bf16 at 512^2, each rank on its token shard of the trunk
+# with half of the encoder's qkv, proj, fc1 and fc2.  The train step is held
+# against one process's kernel path, and one process resumed from the
+# ranks' checkpoint against their next step (SPM_*_LIMIT), and against one
+# process on the ranks' routes (the S = 2 plan run whole, unsharded
+# weights: SPM_EMU_*_LIMIT), each at 2.5x the worst reading of the first
+# chip runs, the convention of DDP_*_LIMIT (an H100 80GB HBM3 at 700 W):
+# loss 7.111e-3 relative (the checkpoint's next step), cosine 1 - 0.16943
+# (the same), update 0.8109, statistics 0.3146; on the ranks' routes loss
+# 5.116e-3, cosine 1 - 0.136644, update 0.8110, statistics 0.2645.  The
+# ranks' gradient is closer to the plain f32 path's than one process's
+# (cosine 0.858 against 0.813): the row-parallel sums in f32 round less
+# than one process's bf16 products, and the readings are that difference
+# grown through the trunk, as 8h's.
+SPM_MESH = {"data": 1, "sp": 2, "model": 2}
+SPM_LOSS_REL_LIMIT = 1.78e-2
+SPM_COSINE_LIMIT = 1 - 0.424
+SPM_UPDATE_REL_LIMIT = 2.03
+SPM_STATS_REL_LIMIT = 0.79
+SPM_EMU_LOSS_REL_LIMIT = 1.28e-2
+SPM_EMU_COSINE_LIMIT = 1 - 0.342
+SPM_EMU_UPDATE_REL_LIMIT = 2.03
+SPM_EMU_STATS_REL_LIMIT = 0.67
+# peak memory per rank of the phases before 8j in this run, printed beside
+# its own (filled by 8g and 8h)
+PEAKS = {}
+
+
+def _spm_inputs():
+    """8j's train batches (512^2 batch 2, and the next step's), predict
+    images (2 at 512^2, 2 at 384^2) and eval batch (4 samples, 512^2)."""
+    from spegnet_tpu_torch.data.pipeline import synthetic_eval_batch, synthetic_train_batch
+
+    rng = np.random.default_rng(73)
+    train, nxt = (synthetic_train_batch(2, rng, 512) for _ in range(2))
+    images = {s: [rng.integers(0, 256, (s, s, 3), dtype=np.uint8) for _ in range(2)]
+              for s in (512, 384)}
+    ev = synthetic_eval_batch(4, np.random.default_rng(79), 512, gt_range=(384, 512),
+                              buckets=(512,))
+    return train, nxt, images, ev
+
+
+def spm_runs(master, mesh, dev, torch, tmp: Path, emulate: bool = False, ckpt=None) -> dict:
+    """8j's runs in this process on ``mesh`` (None: one process; with
+    ``emulate``, one process on the ranks' routes): predict 512^2 through
+    the Predictor (full weights), evaluate 4 samples, a train step (its
+    gradients and parameters gathered, launches, peak memory, seconds, the
+    digests of the replicated parameters and of this rank's shards), and
+    the trainer's eval-mode forward at 384^2 (under the mesh the sharded
+    model: lanes attention on H / M heads).  Under the mesh the step's
+    checkpoint is written (rank 0) to tmp/spm_ckpt.pth and a next step
+    taken; with ``ckpt`` a one-process Trainer resumed from it takes that
+    step.  ``emulate`` runs the evaluation and the step only."""
+    import gc
+    import hashlib
+
+    from spegnet_tpu_torch import kernels
+    from spegnet_tpu_torch.data.pipeline import ImageProcessor
+    from spegnet_tpu_torch.engine.evaluator import Evaluator
+    from spegnet_tpu_torch.engine.predictor import Predictor
+    from spegnet_tpu_torch.engine.trainer import Trainer
+    from spegnet_tpu_torch.models import hiera
+    from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
+    from spegnet_tpu_torch.ops import fused_block_t as fbt
+    from spegnet_tpu_torch.parallel.sharding import shard_dim
+
+    spatial = "sp" if mesh is not None or emulate else None
+    train, nxt, images, evb = _spm_inputs()
+    mc = {"encoder": {"variant": "large"}, "compute_dtype": "bfloat16",
+          "image_processing": {"target_size": 512}, "spatial_axis": spatial}
+
+    def model():
+        m = SPEGNet(SPEGNetConfig(variant="large", compute_dtype="bfloat16",
+                                  spatial_axis=spatial))
+        m.load_state_dict(master)
+        return m
+
+    glob, lanes = Counter(), []
+    block_global_sp, trunk_plan, lanes_fn = (fbt.block_global_sp, hiera.trunk_plan,
+                                             hiera.fused_attention_lanes)
+    fbt.block_global_sp = lambda *a, **k: glob.update(["global_ref"]) or block_global_sp(*a, **k)
+    hiera.fused_attention_lanes = lambda qkv, heads, *a, **k: (
+        lanes.append((qkv.shape[1], heads)) or lanes_fn(qkv, heads, *a, **k))
+    if emulate:
+        hiera.trunk_plan = lambda *a, sp=None, **k: trunk_plan(*a, sp=2, **k)
+
+    def counts():
+        return {**kernels.launches, "global_ref": glob["global_ref"]}
+
+    def reset():
+        kernels.reset_launches()
+        glob.clear()
+
+    out = {}
+    try:
+        if not emulate:
+            pred = Predictor(None, mc, None, batch_size=2, device=str(dev), model=model(),
+                             mesh=mesh)
+            pred.predict_arrays(images[512])   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            out["seg"], _ = pred.predict_arrays(images[512])
+            torch.cuda.synchronize()
+            out["predict_launches"] = counts()
+            out["predict_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            ms = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                pred.predict_arrays(images[512])
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0) / 2)
+            out["ms_per_img"] = ms
+            del pred
+            gc.collect()
+            torch.cuda.empty_cache()
+        reset()
+        ev = Evaluator(None, None, mc, batch_size=4, device=str(dev), model=model(), mesh=mesh)
+        ev.evaluate(None, "synthetic", loader=[evb])
+        out["eval_launches"] = counts()
+        out["eval"] = ev.sample_metrics["synthetic"]
+        del ev
+        gc.collect()
+        torch.cuda.empty_cache()
+        conf = train_config(2, 512)
+        conf["model"]["spatial_axis"] = spatial
+        tr = Trainer(conf, None, device=str(dev), model=model(), mesh=mesh)
+        if not emulate:
+            # the trainer's eval-mode forward (its validation) at 384^2, on
+            # the weights before the step
+            x = torch.from_numpy(np.stack([ImageProcessor(384).process_array(a)
+                                           for a in images[384]])).to(dev)
+            tr.model.eval()
+            torch.cuda.synchronize()
+            reset()
+            lanes.clear()
+            with torch.inference_mode():
+                o = tr.model(x)
+                out["seg384"] = torch.sigmoid(o["predictions"][-1].float())[..., 0].cpu().numpy()
+            out["launches_384"] = counts()
+            out["lanes_384"] = list(lanes)
+            del o, x
+            tr.model.train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        glob.clear()
+        t0 = time.perf_counter()
+        step = step_capture(tr, train, torch)
+        out["step_s"] = time.perf_counter() - t0
+        out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        step["launches"]["global_ref"] = glob["global_ref"]
+        out["step"] = _full_step(step, tr)
+        del step
+        digests = {"replicated": hashlib.sha256(), "shards": hashlib.sha256()}
+        for n, p in sorted(tr.model.named_parameters()):
+            key = "replicated" if mesh is None or shard_dim(n) is None else "shards"
+            digests[key].update(p.detach().cpu().numpy().tobytes())
+        out["digests"] = {k: d.hexdigest() for k, d in digests.items()}
+        if mesh is not None:
+            state = tr.checkpoint_state(0, {})
+            if mesh.rank == 0:
+                torch.save(state, tmp / "spm_ckpt.pth")
+            del state
+            out["next"] = _full_step(step_capture(tr, nxt, torch), tr)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        if ckpt is not None:
+            tr = Trainer(conf, None, device=str(dev), model=model())
+            tr.load_checkpoint(str(ckpt), resume=True)
+            out["ckpt_params"] = {n: p.detach().cpu().clone()
+                                  for n, p in tr.model.named_parameters()}
+            out["next"] = _full_step(step_capture(tr, nxt, torch), tr)
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        fbt.block_global_sp, hiera.trunk_plan = block_global_sp, trunk_plan
+        hiera.fused_attention_lanes = lanes_fn
+    return out
+
+
+def rank8j(rank: int, world: int, tmp: str) -> None:
+    """8j in one of ``world`` spawned ranks sharing the card over gloo
+    (SPM_MESH); rank 0 then leaves the group and runs the one-process
+    references."""
+    import torch
+
+    from spegnet_tpu_torch.parallel.mesh import (
+        create_mesh,
+        destroy_distributed,
+        init_distributed,
+    )
+
+    tmp = Path(tmp)
+    dev = init_distributed("cuda", f"file://{tmp}/store", rank, world, rank, world)
+    backend = torch.distributed.get_backend()
+    mesh = create_mesh(SPM_MESH, world, "sp")
+    master = master_state(torch)
+    runs = spm_runs(master, mesh, dev, torch, tmp)
+    destroy_distributed()
+    keep = ("predict_launches", "eval_launches", "launches_384", "lanes_384", "predict_peak_gb",
+            "train_peak_gb", "ms_per_img", "step_s", "digests")
+    (tmp / f"spm{rank}.json").write_text(json.dumps(
+        {**{k: runs[k] for k in keep}, "train_launches": runs["step"]["launches"],
+         "rows": runs["step"]["rows"], "backend": backend, "sp_index": mesh.sp_index,
+         "model_index": mesh.model_index}))
+    if rank:
+        return
+    one = spm_runs(master, None, dev, torch, tmp, ckpt=tmp / "spm_ckpt.pth")
+    emu = spm_runs(master, None, dev, torch, tmp, emulate=True)
+    start = {n: t for n, t in master.items()}
+
+    def eval_diff(a, b):
+        return max(abs(a["eval"][n][k] - v) for n, m in b["eval"].items() for k, v in m.items())
+
+    res = {"readings": step_readings(runs["step"], one["step"], start),
+           "readings_emu": step_readings(runs["step"], emu["step"], start),
+           "readings_ckpt": step_readings(one["next"], runs["next"], one["ckpt_params"]),
+           "mask_mae": float(np.abs(runs["seg"] - one["seg"]).mean()),
+           "mask_mae_384": float(np.abs(runs["seg384"] - one["seg384"]).mean()),
+           "eval_worst_emu": eval_diff(runs, emu), "eval_worst": eval_diff(runs, one),
+           "eval_samples": [sorted(runs["eval"]), sorted(one["eval"]), sorted(emu["eval"])],
+           "rows": [runs["step"]["rows"], one["step"]["rows"]],
+           "one_lanes_384": one["lanes_384"],
+           "one": {k: one[k] for k in ("predict_peak_gb", "train_peak_gb", "ms_per_img",
+                                       "step_s")},
+           "emu_train_launches": emu["step"]["launches"]}
+    g32, l32 = f32_grad(master, _spm_inputs()[0], 512, dev, torch)   # last: TF32 off
+    res["cos_f32"] = [grad_cosine(runs["step"]["grads"], g32),
+                      grad_cosine(one["step"]["grads"], g32)]
+    res["loss_rel_f32"] = [abs(runs["step"]["loss"] - l32) / abs(l32),
+                           abs(one["step"]["loss"] - l32) / abs(l32)]
+    (tmp / "spm_rank0.json").write_text(json.dumps(res))
+
+
+def sp_model_four_ranks(torch, launches) -> None:
+    """8j: the spatial and the model axis in one mesh, four ranks spawned on
+    the card (gloo, a file store, SPM_MESH), against one process, as the
+    module docstring says."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, block_specs, trunk_routes
+
+    t_phase = time.perf_counter()
+    world = int(np.prod(list(SPM_MESH.values())))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ctx = mp.start_processes(rank8j, args=(world, str(tmp)), nprocs=world, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=10):
+                check(time.perf_counter() - t_phase < RANK_TIMEOUT,
+                      f"8j: the ranks took more than {RANK_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [json.loads((tmp / f"spm{r}.json").read_text()) for r in range(world)]
+        res = json.loads((tmp / "spm_rank0.json").read_text())
+    cfg = HIERA_VARIANTS["large"]
+    zero = {w: 0 for w in ranks[0]["train_launches"]}
+
+    def routes(size):
+        c = Counter(trunk_routes(cfg, size // 4, torch.bfloat16, False, sp=2))
+        c.pop("plain", None)
+        return {**zero, **c}
+
+    want, want384 = routes(512), routes(384)
+    want_train = {**zero, **train_launches(512, 2, steps=1, sp=2),
+                  "global_ref": want["global_ref"]}
+    heads = [sp.heads for sp in block_specs(cfg)]
+    launches["sp_model_4rank"] = {}
+    for r, got in enumerate(ranks):
+        log(f"8j rank {r} (sp {got['sp_index']}, model {got['model_index']}, {got['backend']}) "
+            f"launches: predict 512^2 {got['predict_launches']}; train "
+            f"{got['train_launches']}; 384^2 {got['launches_384']}")
+        check(got["backend"] == "gloo", f"8j: backend {got['backend']}")
+        check(got["predict_launches"] == want,
+              f"8j: rank {r} predict launches differ from the routes under S = 2 ({want})")
+        check(got["eval_launches"] == {k: 2 * v for k, v in want.items()},
+              f"8j: rank {r} evaluate launches {got['eval_launches']} (warm-up + 1 batch)")
+        check(got["train_launches"] == want_train,
+              f"8j: rank {r} train launches (expected {want_train})")
+        check(got["launches_384"] == want384,
+              f"8j: rank {r} 384^2 launches (expected {want384})")
+        check(got["lanes_384"] == [[n, h // 2] for n, h in res["one_lanes_384"]]
+              and len(got["lanes_384"]) == want384["fused_attention_lanes"],
+              f"8j: rank {r} lanes calls {got['lanes_384'][:4]} are not one process's at H / 2 "
+              f"heads {res['one_lanes_384'][:4]}")
+        for run in ("predict_launches", "eval_launches", "train_launches", "launches_384"):
+            for k, v in got[run].items():
+                if k != "global_ref":
+                    launches["sp_model_4rank"][k] = launches["sp_model_4rank"].get(k, 0) + v
+    log(f"8j 384^2 lanes calls (L, heads) per rank: {ranks[0]['lanes_384'][:3]} ... "
+        f"({len(ranks[0]['lanes_384'])} calls; one process's heads "
+        f"{sorted(set(h for _, h in res['one_lanes_384']))}, Hiera-L's heads by block "
+        f"{sorted(set(heads))})")
+    one = res["one"]
+    log(f"8j predict 512^2 batch 2: mask MAE vs one process's kernel path "
+        f"{res['mask_mae']:.4e} (limit {MASK_MAE_LIMIT}); ms/img per rank "
+        f"{[g['ms_per_img'] for g in ranks]} vs one process {one['ms_per_img']}; peak memory "
+        f"per rank {[round(g['predict_peak_gb'], 3) for g in ranks]} GB vs one process "
+        f"{one['predict_peak_gb']:.3f} GB")
+    log(f"8j the trainer's eval-mode forward 384^2 batch 2 (sharded model): mask MAE vs one "
+        f"process's kernel path {res['mask_mae_384']:.4e} (limit {MASK_MAE_LIMIT})")
+    log(f"8j evaluate 4 samples: max |metric diff| vs one process on the ranks' routes "
+        f"{res['eval_worst_emu']:.3e} (limit {METRIC_TOL}); vs one process's kernel path "
+        f"{res['eval_worst']:.3e}")
+    steps = (("one process's kernel path", res["readings"],
+              (SPM_LOSS_REL_LIMIT, SPM_COSINE_LIMIT, SPM_UPDATE_REL_LIMIT, SPM_STATS_REL_LIMIT)),
+             ("one process on the ranks' routes", res["readings_emu"],
+              (SPM_EMU_LOSS_REL_LIMIT, SPM_EMU_COSINE_LIMIT, SPM_EMU_UPDATE_REL_LIMIT,
+               SPM_EMU_STATS_REL_LIMIT)),
+             ("the ranks' next step, one process resumed from their checkpoint",
+              res["readings_ckpt"], (SPM_LOSS_REL_LIMIT, SPM_COSINE_LIMIT, SPM_UPDATE_REL_LIMIT,
+                                     SPM_STATS_REL_LIMIT)))
+    for tag, r, lim in steps:
+        log(f"8j train step 512^2 batch 2 vs {tag}: loss rel {r['loss_rel']:.3e} (limit "
+            f"{lim[0]}), clipped gradient cosine {r['grad_cosine']:.6f} (limit {lim[1]}), "
+            f"update rel {r['update_rel']:.3e} (limit {lim[2]}), running statistics rel "
+            f"{r['stats_rel']:.3e} (limit {lim[3]})")
+    c4, c1 = res["cos_f32"]
+    log(f"8j train step 512^2: gradient cosine to the plain f32 path: 4 ranks {c4:.6f}, one "
+        f"process {c1:.6f} (the ranks' no lower than one process's less {COSINE_MARGIN}); "
+        f"loss rel to it: 4 ranks {res['loss_rel_f32'][0]:.3e}, one process "
+        f"{res['loss_rel_f32'][1]:.3e}")
+    reps = {g["digests"]["replicated"] for g in ranks}
+    shards = {m: {g["digests"]["shards"] for g in ranks if g["model_index"] == m}
+              for m in range(SPM_MESH["model"])}
+    log(f"8j parameters after the step: replicated bit-equal on all ranks {len(reps) == 1}; "
+        f"each model index's shards bit-equal across its spatial group "
+        f"{[len(v) == 1 for v in shards.values()]}")
+    log(f"8j memory per rank: predict 512^2 {[round(g['predict_peak_gb'], 3) for g in ranks]} "
+        f"GB, train 512^2 batch 2 {[round(g['train_peak_gb'], 3) for g in ranks]} GB; one "
+        f"process {one['predict_peak_gb']:.3f} / {one['train_peak_gb']:.3f} GB; earlier phases "
+        f"of this run: {PEAKS}")
+    log(f"8j seconds per step: per rank {[round(g['step_s'], 3) for g in ranks]} vs one process "
+        f"{one['step_s']:.3f}")
+    log(f"8j phase: {time.perf_counter() - t_phase:.1f} s with the spawn and the one-process "
+        f"references")
+    for tag, r, lim in steps:
+        check(r["loss_rel"] <= lim[0] and r["grad_cosine"] >= lim[1]
+              and r["update_rel"] <= lim[2] and r["stats_rel"] <= lim[3],
+              f"8j train step vs {tag}: {r}")
+    check(res["mask_mae"] <= MASK_MAE_LIMIT, f"8j: mask MAE {res['mask_mae']:.3e}")
+    check(res["mask_mae_384"] <= MASK_MAE_LIMIT, f"8j: 384^2 mask MAE {res['mask_mae_384']:.3e}")
+    check(all(ss == [f"synthetic_{i}" for i in range(4)] for ss in res["eval_samples"]),
+          f"8j: samples {res['eval_samples']}")
+    check(res["eval_worst_emu"] <= METRIC_TOL, f"8j: metrics differ by {res['eval_worst_emu']}")
+    check(res["rows"] == [2, 2] and all(g["rows"] == 2 for g in ranks), f"8j: rows {res['rows']}")
+    check(c4 >= c1 - COSINE_MARGIN, f"8j: gradient cosine to f32 {c4:.4f} < one process's "
+          f"{c1:.4f} - {COSINE_MARGIN}")
+    check(len(reps) == 1 and all(len(v) == 1 for v in shards.values()),
+          "8j: the ranks' parameters differ where they must be equal")
 
 
 def camo_edges_phase(torch) -> None:

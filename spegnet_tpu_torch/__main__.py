@@ -37,6 +37,13 @@ over the M ranks of each data index in training (engine/trainer.py); predict
 and evaluate give those ranks the full weights and the rows of their data
 index, as JAX does, and the one of model index 0 writes.
 
+Both: ``model.spatial_axis: sp`` with ``parallel.mesh: {data: D, sp: S,
+model: M}`` under ``torchrun --nproc_per_node=$((D*S*M))`` (the axes in any
+order) splits the trunk's tokens over the S ranks of each spatial group
+and, in training, the four matmuls over the M ranks of each model group;
+the S M ranks of a data index take its rows, and the one of spatial and
+model index 0 writes.
+
     python -m spegnet_tpu_torch edges <GT_dir> <Edges_dir> [--edge-width N] \
         [--threshold T] [--device cuda]
 

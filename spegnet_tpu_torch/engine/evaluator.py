@@ -23,8 +23,11 @@ writes the summaries (every rank returns the same means).  Under a spatial
 axis (``model.spatial_axis``) the ranks of a spatial group run the same
 rows, splitting the trunk's tokens (models/hiera.py); under a model axis
 the ranks of a model group run the same rows on the full weights, as
-JAX's evaluator places its variables replicated (:143-146).  The group's
-rank of index 0 (``Mesh.lead``) writes the files and gives the records.
+JAX's evaluator places its variables replicated (:143-146); under both
+the S M ranks of a data index run its rows on the full weights, splitting
+the trunk's tokens over their spatial groups.  The rank of spatial and
+model index 0 of a data index (``Mesh.lead``) writes the files and gives
+the records.
 """
 
 from __future__ import annotations

@@ -15,8 +15,10 @@ rows of every chunk of the directory; rank 0 writes
 spatial axis (``model.spatial_axis``) the ranks of a spatial group take the
 same rows and split the trunk's tokens (models/hiera.py); under a model
 axis the ranks of a model group take the same rows and the full weights,
-as JAX's predictor places its variables replicated (:109-112).  The
-group's rank of index 0 (``Mesh.lead``) writes its PNGs and records.
+as JAX's predictor places its variables replicated (:109-112); under both
+the S M ranks of a data index take its rows, the full weights, and split
+the trunk's tokens over their spatial groups.  The rank of spatial and
+model index 0 of a data index (``Mesh.lead``) writes its PNGs and records.
 """
 
 from __future__ import annotations

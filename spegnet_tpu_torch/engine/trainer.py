@@ -50,42 +50,65 @@ axis of size S beside ``data`` of size D, over D S processes; JAX's
 data index and split the Morton trunk's tokens (models/hiera.py
 ``trunk_plan``); the K / V of a global block and the trunk's outputs are
 all-gathered over the group, and everything after the trunk runs whole on
-each rank of it.  The gradient rule, one for every parameter: every
-collective is differentiated as the global program whose objective is the
-sum of all D S ranks' losses -- the backward of each all-gather (the K / V
-gather, where each rank's queries give part of every key's gradient, and
-the stage outputs' gather, whose consumers every rank of the group computes
-alike) and of the BatchNorm statistics' all-reduce sums the cotangents over
-the ranks it joined.  The ranks of a spatial group compute the same loss,
-so that sum counts every sample S times; DDP's average over the D S ranks
-divides it back, so the loss scaling stays the data axis D, the T-blocks'
-weight gradients end up summed over the group as JAX's ``psum(g, data +
-tok)`` sums them (spegnet_tpu/ops/fused_block_t.py:1652-1658), and the
-replicated parameters' S equal gradients average to one.  The global
-BatchNorm statistics sum x, x^2 and the count over all ranks, S copies of
-each sample in each, so their ratios are the global batch's; the sample
-weights W and the reported losses, which need no gradient, are summed over
-the data group (one rank per data index) instead.
+each rank of it.  The gradient rule is the one of all three axes below
+(M = 1: DDP averages over all D S ranks and the loss is scaled by D).
 
 Tensor parallelism (``parallel.mesh: {data: D, model: M}`` over D M
 processes; JAX's ``model`` axis, placed by its trainer's
 ``param_shardings``): the M ranks of a model group take the rows of their
 data index and hold 1/M of the encoder's qkv, attention proj, fc1 and fc2
 (``SPEGNet.shard_model``, parallel/sharding.param_spec); AdamW runs on the
-shards and DDP's group is the data group (the ranks of one model index), so
-it never averages different shards.  The gradient rule is the one above:
-every rank of a model group computes the same loss, so the global program
-counts each sample M times, and the loss is scaled by D / M before the
-backward (DDP averages over D).  A shard's gradient is then complete (the
-backward of the row-parallel all-reduce and of the weight all-gather sums
-the group's cotangents); a replicated parameter's is this rank's part, and
-the parts are summed over the model group, so the replicated parameters
-stay bit-equal across it.  The global-norm clip counts each shard once
-(the shards' squares summed over the model group, the replicated ones'
-taken once).  ``checkpoint_state`` gathers every parameter and every AdamW
-moment into the reference schema (every rank of a model group takes part;
-rank 0 writes), and :meth:`Trainer.load_checkpoint` shards what it loads,
-so a checkpoint moves between M and one process either way.
+shards, and the gradient rule is the one below (S = 1).  A replicated
+parameter's gradient on a rank is its part (its heads' and hidden columns'
+terms), and the parts are summed over the model group, so the replicated
+parameters stay bit-equal across it.  The global-norm clip counts each
+shard once (the shards' squares summed over the model group, the
+replicated ones' taken once).  ``checkpoint_state`` gathers every parameter
+and every AdamW moment into the reference schema (every rank of a model
+group takes part; rank 0 writes), and :meth:`Trainer.load_checkpoint`
+shards what it loads, so a checkpoint moves between M and one process
+either way, with or without a spatial axis.
+
+Both, ``parallel.mesh: {data: D, sp: S, model: M}`` with
+``model.spatial_axis: sp`` over D S M processes: the S M ranks of one data
+index take its rows; the S ranks of a spatial group split the trunk's
+tokens and the M ranks of a model group split the four matmuls.  The
+gradient rule, derived for all three axes at once (S = 1 or M = 1 is
+either axis alone, S = M = 1 plain data parallelism).  Let L_d be data
+index d's share of the global batch's weighted mean loss (losses.cod_loss
+with W summed over the data group), so the objective is sum_d L_d.  Every
+rank of data index d computes L_d, and every collective is differentiated
+as the global program whose objective is the sum of all D S M ranks'
+losses, S M sum_d L_d: an all-gather's and an all-reduce's backward both
+sum the cotangents over the ranks they joined.  Each parameter is held by
+several ranks -- a shard of model index m by the D S ranks of that index, a
+replicated parameter by all D S M -- and each rank's gradient is the global
+program's for its own copy (a shard's copy reaches the M ranks of its model
+group through the weight gather; the token rows of a sharded block reach
+the S ranks of its spatial group through the stage outputs' gather), so the
+copies' gradients summed over their holders are the global program's for
+the tied parameter: S M times its gradient G of sum_d L_d.  The step then:
+
+* sums each replicated parameter's gradient over the model group
+  (:meth:`Trainer._reduce_replicated`), so every rank holds the sum over
+  its model group and the D S ranks of one model index hold, between them,
+  the S M G of the sum over all holders;
+* has DDP average over its group, the D S ranks of one model index
+  (``Mesh.replica_group``; every rank without a model axis), so it never
+  mixes two shards: a shard's S M G and a replicated parameter's S M G both
+  become S M G / (D S);
+* scales the loss by D / M before the backward, which makes that G.
+
+The BatchNorm statistics (models/cfi.BatchNorm2d) sum x, x^2 and the count
+over all D S M ranks, S M copies of each sample in each, so their ratios
+are the global batch's, and the backward of that all-reduce is the global
+program's like every other collective.  The sample weights W and the
+reported losses, which need no gradient, are summed over the data group
+(one rank per data index).  The T-blocks' weight gradients end up summed
+over the D S ranks as JAX's ``psum(g, data + tok)`` sums them
+(spegnet_tpu/ops/fused_block_t.py:1652-1658).  The f64 step on ``{1, 2,
+2}`` and ``{2, 2, 2}`` against one process (tests/test_torch_sp_model.py)
+is the rule's proof.
 
 ``training.remat`` (default: batch per rank > 16, JAX's rule) recomputes
 the trunk's decomposed blocks in the backward (models/hiera.py), the global
@@ -321,7 +344,7 @@ class Trainer:
             self.ddp = DistributedDataParallel(
                 self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
                 find_unused_parameters=False, broadcast_buffers=False,
-                process_group=self.mesh.data_group if self.mesh.model > 1 else None)
+                process_group=self.mesh.replica_group)
         self._grads_checked = not grouped()
         f32_precision(model.config.dtype)
         self.loss_cfg = LossConfig.from_dict(self.config.get("loss", {}))
@@ -505,9 +528,9 @@ class Trainer:
             ev[1].record()
         t2 = time.perf_counter()
         self.optimizer.zero_grad(set_to_none=True)
-        # DDP averages the D S ranks' gradients: scaled by D, they sum over the
-        # data axis (a spatial group's S counts of each sample, a model group's
-        # M counts divided here: module docstring)
+        # DDP averages the D S ranks' gradients of S M times their shares:
+        # D / M makes that average the gradient of the global batch's loss
+        # (module docstring)
         scale = self.data_axis / self.mesh.model
         (ld["loss"] * scale if scale != 1 else ld["loss"]).backward()
         self._check_grads()

@@ -42,7 +42,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     (PARITY.md #5): each rank's sums of x and x^2 and its count, in f32 (f64
     for f64 input), summed over the ranks by the differentiable all-reduce,
     so the backward carries the other ranks' terms; padding rows count, as
-    in JAX (PARITY.md #4)."""
+    in JAX (PARITY.md #4).  Under a spatial or a model axis (or both) the S M
+    ranks of a data index hold the same rows, so every sum counts each
+    sample S M times, the count too: the ratios are the global batch's, and
+    the backward is the global program's, which the trainer's gradient rule
+    takes (engine/trainer.py)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:

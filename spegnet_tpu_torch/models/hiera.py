@@ -62,6 +62,23 @@ kernels take their weights gathered by GSPMD; the transition's tail after
 the front (proj, LN2, MLP) runs Megatron-style.  Routes and launches do not
 change with the axis.
 
+Both (``parallel.mesh: {data: D, sp: S, model: M}``, the spatial axis
+named): the plan is :func:`trunk_plan` under S, whatever M.  A sharded
+T-block or front runs its kernel on this rank's token rows with the
+weights gathered over the model group; the front's tail runs
+Megatron-style on those rows (its row-parallel all-reduce sums [B, N / S,
+C] partials over the model group); a global block takes
+``block_global_sp`` with K / V gathered over the spatial group and its
+full weights gathered over the model group; the blocks that run whole (the
+last stage's gen-1 blocks at 512^2, every block on a grid that is not 2^k)
+run on every rank of the spatial group as they run under M alone.  Under
+``remat`` the checkpointed global block gathers its weights and K / V again
+in the recompute, in the forward's order.  Deliberate differences from JAX
+under the two axes: what runs whole runs on every rank of the spatial
+group on the same rows (JAX lets GSPMD shard it), and the global blocks
+and the fronts take their weights gathered over the model group where
+GSPMD may instead shard their attention by heads.
+
 ``remat=True`` (training, models/spegnet.py; the JAX package's
 ``Hiera.remat``, :752-758, :937-940) recomputes the decomposed blocks in
 the backward pass (non-reentrant ``torch.utils.checkpoint``), keeping only

@@ -108,7 +108,10 @@ class SPEGNet(nn.Module):
     (parallel/sharding.param_spec) and the trunk runs on them
     (models/hiera.py); everything else is replicated.  ``state_dict`` then
     holds the shards: utils/weights.full_state_dict gathers the reference
-    schema and utils/weights.load_sharded loads one."""
+    schema and utils/weights.load_sharded loads one.  Both may be applied
+    to one model (``parallel.mesh: {data: D, sp: S, model: M}``, training):
+    the trunk then runs on its token shard with its matmuls split
+    (models/hiera.py), and the decoder stays decomposed."""
 
     def __init__(self, config: SPEGNetConfig = SPEGNetConfig(), kernels: bool = True):
         super().__init__()

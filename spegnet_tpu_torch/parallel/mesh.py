@@ -11,19 +11,31 @@ CPU) each: ``WORLD_SIZE`` under ``torchrun``, 1 without it.  Ranks are laid
 out as JAX lays out its devices, ``devices[:total].reshape(sizes)`` in the
 spec's order, so for ``{"data": D, "sp": S}`` rank = d S + s (:func:`layout`).
 
-Three axes are ported: ``data``, DistributedDataParallel over the ranks
-that differ in their data index only (each data index takes its rows of the
-batch); the spatial axis, whose S processes of one data index take the same
-rows and split the trunk's tokens (models/hiera.py); and ``model``, whose M
-processes of one data index take the same rows and hold 1/M of the
-encoder's four large matmuls each (parallel/sharding.param_spec, JAX's
-``_param_spec``).  Each process holds its index along each axis and its
-sub-groups of the torch.distributed group: its spatial group or its model
-group (the ranks of its data index) and its data group (the ranks that share
-every other index).  A spatial axis and a ``model`` axis above 1 together
-raise NotImplementedError, as does any other axis above 1; so does a mesh
-that would leave a process out, since each process runs the same program on
-its share.
+Three axes are ported, alone or together: ``data``, DistributedDataParallel
+over the ranks that hold the same parameters (each data index takes its
+rows of the batch); the spatial axis, whose S processes of one data index
+take the same rows and split the trunk's tokens (models/hiera.py); and
+``model``, whose M processes of one data index take the same rows and hold
+1/M of the encoder's four large matmuls each (parallel/sharding.param_spec,
+JAX's ``_param_spec``).  Under ``{"data": D, "sp": S, "model": M}`` the D S M
+processes are laid out in the spec's order, whatever it is, and each holds
+its index along each axis and the sub-groups of the torch.distributed group
+that its collectives run on:
+
+* ``sp_group``: the S ranks that differ in their spatial index only (the
+  token gathers);
+* ``model_group``: the M ranks that differ in their model index only (the
+  weight gathers and the row-parallel sums);
+* ``data_group``: the D ranks that differ in their data index only, one
+  rank per data index (the sample weights and the reported losses, which
+  are summed once per data index);
+* ``replica_group``: the D S ranks of one model index, which hold the same
+  shards (DDP's group: its gradient average never mixes two shards).
+
+A group that the mesh does not need is None (an axis of 1 has no group of
+its own; without a model axis above 1 DDP runs over every rank).  Any other
+axis above 1 raises NotImplementedError, as does a mesh that would leave a
+process out, since each process runs the same program on its share.
 
 :func:`init_distributed` joins the group that ``torchrun`` describes in the
 environment (or the one its arguments give) and picks the backend: NCCL
@@ -37,7 +49,7 @@ import dataclasses
 import logging
 import math
 import os
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -50,10 +62,9 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Axis sizes (``shape``, in the spec's order), this process's rank, the
-    spatial axis (``model.spatial_axis``, None without one) and, under a
-    spatial or a model axis above 1 in a process group, this process's
-    spatial or model sub-group and its data sub-group (else None: no such
-    group, and the data group is the whole group)."""
+    spatial axis (``model.spatial_axis``, None without one) and, in a process
+    group, this process's sub-groups (module docstring; None where the mesh
+    needs no such group)."""
 
     shape: Dict[str, int]
     rank: int = 0
@@ -61,6 +72,7 @@ class Mesh:
     sp_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    replica_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def data(self) -> int:
@@ -156,9 +168,9 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
     two -1 axes, fixed axes that do not divide the processes, or a mesh
     larger than them raise ValueError.  Besides ``data``, ``model`` and the
     axis ``spatial_axis`` names (the model's ``spatial_axis``) may exceed 1,
-    but not both.  Under a spatial or a model axis above 1 its sub-groups and
-    the data sub-groups are made here: every process must make the same
-    meshes in the same order."""
+    together too.  Under a spatial or a model axis above 1 the sub-groups
+    the mesh needs (module docstring) are made here: every process must make
+    the same meshes in the same order."""
     n = world_size() if world is None else int(world)
     axes = dict(axes or {"data": -1})
     sizes = list(axes.values())
@@ -178,11 +190,6 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
                          "tokens over processes that share their rows, so it must be an "
                          "axis of its own (e.g. parallel.mesh {data: D, sp: S})")
     others = {a: s for a, s in shape.items() if a not in ("data", "model") and s > 1}
-    if shape.get("model", 1) > 1 and others:
-        raise NotImplementedError(
-            f"parallel.mesh axis 'model' = {shape['model']} beside {others}: the "
-            "tensor-parallel axis runs beside the data axis only, not with a spatial "
-            "(sequence) axis above 1")
     for name, size in others.items():
         if name != spatial_axis:
             raise NotImplementedError(
@@ -197,30 +204,36 @@ def create_mesh(axes: Optional[Dict[str, int]] = None,
             "processes)")
     mesh = Mesh(shape, dist.get_rank() if grouped() else 0,
                 spatial_axis if spatial_axis in shape else None)
-    if grouped() and mesh.sp > 1:
-        mesh = dataclasses.replace(mesh, sp_group=_subgroup(mesh, mesh.spatial_axis),
-                                   data_group=_subgroup(mesh, "data"))
-    elif grouped() and mesh.model > 1:
-        mesh = dataclasses.replace(mesh, model_group=_subgroup(mesh, "model"),
-                                   data_group=_subgroup(mesh, "data"))
+    if grouped() and (mesh.sp > 1 or mesh.model > 1):
+        groups = {"data_group": _subgroup(mesh, ("data",))}
+        if mesh.sp > 1:
+            groups["sp_group"] = _subgroup(mesh, (mesh.spatial_axis,))
+        if mesh.model > 1:
+            groups["model_group"] = _subgroup(mesh, ("model",))
+            groups["replica_group"] = (groups["data_group"] if mesh.sp == 1 else
+                                       _subgroup(mesh, tuple(a for a in shape if a != "model")))
+        mesh = dataclasses.replace(mesh, **groups)
     return mesh
 
 
-def axis_groups(shape: Dict[str, int], axis: str) -> List[List[int]]:
-    """The ranks of each group along ``axis`` (those that differ in that
-    axis's index only), in index order: the lines of :func:`layout`; each
-    rank alone when the mesh has no such axis."""
+def axis_groups(shape: Dict[str, int], axis) -> List[List[int]]:
+    """The ranks of each group along ``axis``, an axis name or a tuple of
+    them (the ranks that differ in those axes' indices only), each group in
+    index order (the later axis of a tuple fastest): the lines of
+    :func:`layout`; each rank alone when the mesh has none of the axes."""
+    axes = [a for a in ((axis,) if isinstance(axis, str) else axis) if a in shape]
     ranks = layout(shape)
-    if axis not in shape:
+    if not axes:
         return ranks.reshape(-1, 1).tolist()
-    ranks = np.moveaxis(ranks, list(shape).index(axis), -1)
-    return ranks.reshape(-1, shape[axis]).tolist()
+    names = list(shape)
+    ranks = np.moveaxis(ranks, [names.index(a) for a in axes], range(-len(axes), 0))
+    return ranks.reshape(-1, math.prod(shape[a] for a in axes)).tolist()
 
 
-def _subgroup(mesh: Mesh, axis: str):
-    """This process's process group along ``axis``; every process makes
-    every group of the axis, as new_group requires."""
-    mine, _ = dist.new_subgroups_by_enumeration(axis_groups(mesh.shape, axis))
+def _subgroup(mesh: Mesh, axes: Tuple[str, ...]):
+    """This process's process group along ``axes``; every process makes
+    every group of them, in the same order, as new_group requires."""
+    mine, _ = dist.new_subgroups_by_enumeration(axis_groups(mesh.shape, axes))
     return mine
 
 

@@ -29,12 +29,21 @@ own rows and the collectives are explicit:
   :func:`reduce_partial`, the all-reduce of a row-parallel product's partial
   sums (models/hiera.py).
 
-The gradient rule of the collectives (engine/trainer.py): every collective's
-backward is that of the global program whose objective is the sum of every
-rank's loss, so an all-reduce's and an all-gather's backward both sum the
-cotangents over the ranks they joined.  Each rank of a spatial or a model
-group computes the same loss, so that sum counts every sample S (or M)
-times, and the trainer divides it back.
+The gradient rule of the collectives (engine/trainer.py): every
+collective's backward is that of the global program whose objective is the
+sum of every rank's loss, so an all-reduce's and an all-gather's backward
+both sum the cotangents over the ranks they joined.  Each rank of a spatial
+or a model group computes the same loss, so that sum counts every sample S
+M times, and the trainer divides it back.
+
+Under both axes a rank runs collectives on five groups (parallel/mesh.py):
+the token gathers on its spatial group, the weight gathers and row-parallel
+sums on its model group, the sample weights and losses on its data group,
+DDP's buckets on its replica group, and the BatchNorm statistics on the
+whole group.  Every rank runs the same program, so it calls them in the
+same order on every group (the recompute of a checkpointed block runs its
+forward's again, in the forward's order), and no two ranks wait for each
+other on different groups, which under gloo would hang rather than fail.
 """
 
 from __future__ import annotations

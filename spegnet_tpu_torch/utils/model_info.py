@@ -11,7 +11,8 @@ multiply-add of every matmul, convolution and attention product and
 nothing for elementwise work, normalization or resizing (XLA's analysis
 counts those too).  Under a model axis of M the report adds the parameters
 each rank holds (parallel/sharding.param_spec: the encoder's qkv, proj,
-fc1 and fc2 split M ways, the rest whole).
+fc1 and fc2 split M ways, the rest whole); a spatial axis beside it splits
+tokens, not parameters, so the count per rank is M's alone.
 """
 
 from __future__ import annotations

@@ -180,7 +180,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def shard_state_dict(state_dict: Dict[str, torch.Tensor], shard) -> Dict[str, torch.Tensor]:
     """This rank's shards of a full state dict (parallel/sharding.param_spec;
-    ``shard``: a ModelShard, None for the state dict as it is)."""
+    ``shard``: a ModelShard, None for the state dict as it is).  A spatial
+    axis beside the model axis splits no parameter: the S ranks of a
+    spatial group hold the same shards."""
     if shard is None:
         return dict(state_dict)
     return {k: shard_param(k, torch.as_tensor(v), shard.index, shard.size)

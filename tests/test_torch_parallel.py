@@ -5,10 +5,11 @@ spawns (a file store under tmp_path; tests/torch_parallel_workers.py).
 
 * ``create_mesh`` / ``mesh_from_config``: JAX's sizes on the conftest's 8
   virtual CPU devices, and JAX's ValueError where JAX raises; the port also
-  refuses a data axis that leaves processes out and a ``model`` axis above
-  1 beside a spatial axis above 1 by name, and accepts ``model.spatial_axis``
-  (tests/test_torch_spatial.py) and a ``model`` axis beside ``data``
-  (tests/test_torch_tensor_parallel.py);
+  refuses a data axis that leaves processes out and an axis above 1 that
+  the model does not name as its spatial axis by name, and accepts
+  ``model.spatial_axis`` (tests/test_torch_spatial.py), a ``model`` axis
+  beside ``data`` (tests/test_torch_tensor_parallel.py) and both
+  (tests/test_torch_sp_model.py);
 * ``pad_batch`` equals the JAX trainer's ``_pad_batch`` field by field with
   the same weights, and ``shard_batch`` gives each rank the rows
   ``P("data")`` places on its device;
@@ -108,15 +109,26 @@ def test_create_mesh_matches_jax(spec, n):
 
 @pytest.mark.parametrize("spec,n,error,match", [
     ({"data": 4}, 8, ValueError, "world has 8 processes"),
-    ({"data": 2, "model": 2, "sp": 2}, 8, NotImplementedError, "'model'"),
-    ({"data": -1, "model": 2, "sp": 2}, 4, NotImplementedError, "tensor-parallel"),
+    ({"data": 2, "model": 2, "sp": 2}, 8, NotImplementedError, "'sp' = 2: no part of the port"),
+    ({"data": -1, "model": 2, "sp": 2}, 4, NotImplementedError, "the spatial axis model.spatial_"),
 ])
 def test_create_mesh_refuses_what_is_not_ported(spec, n, error, match):
     """JAX builds these meshes (a sub-mesh of the devices, a model axis
-    beside a second axis above 1); the port refuses them by name."""
+    beside a second axis above 1 that the model does not name as its
+    spatial axis); the port refuses them by name."""
     assert dict(jmesh.create_mesh(spec, jax.devices()[:n]).shape)
     with pytest.raises(error, match=match):
         tmesh.create_mesh(spec, n)
+
+
+@pytest.mark.parametrize("spec,n", [({"data": 2, "model": 2, "sp": 2}, 8),
+                                    ({"data": -1, "model": 2, "sp": 2}, 4)])
+def test_create_mesh_accepts_a_named_spatial_axis_beside_model(spec, n):
+    """The same meshes with ``model.spatial_axis: sp`` (the layout and groups:
+    tests/test_torch_sp_model.py)."""
+    got = tmesh.create_mesh(spec, n, "sp")
+    assert got.shape == dict(jmesh.create_mesh(spec, jax.devices()[:n]).shape)
+    assert (got.sp, got.model, got.data) == (2, 2, n // 4)
 
 
 def test_mesh_from_config_and_spatial_axis():

@@ -5,8 +5,8 @@ package's, on the CPU with gloo ranks that torch.multiprocessing spawns
 
 * the mesh: ranks laid out as JAX lays out its devices, each rank's data
   and spatial index and its two sub-groups, on the conftest's 8 virtual CPU
-  devices; what the port refuses (a spatial and a model axis together among
-  it);
+  devices; what the port refuses, and the spatial and a model axis
+  together, which it accepts (tests/test_torch_sp_model.py);
 * the routes: ``models/hiera.trunk_plan`` under S against the shapes that
   reach JAX's Pallas T-kernel (``_forward``) and front (``_qpool_forward``)
   on its mesh -- local token counts -- for Hiera-tiny at 64^2 run through
@@ -96,16 +96,25 @@ def test_mesh_layout_matches_jax(spec, n):
 
 
 @pytest.mark.parametrize("spec,n,spatial,error,match", [
-    ({"data": 1, "sp": 2, "model": 2}, 4, "sp", NotImplementedError, "'model'"),
+    ({"data": 1, "sp": 2, "model": 2}, 4, "sp", None, None),
     ({"data": 2, "sp": 2}, 4, None, NotImplementedError, "'sp'"),
     ({"data": 2, "sp": 2}, 8, "sp", ValueError, "world has 8 processes"),
     ({"data": 2}, 2, "data", ValueError, "names the data axis"),
 ])
 def test_mesh_refuses(spec, n, spatial, error, match):
-    """A model axis beside the spatial axis is refused by name (the model
-    axis alone: tests/test_torch_tensor_parallel.py); an axis above 1 that
-    the model does not name as its spatial axis is used by nothing; a mesh
-    must cover every process; the spatial axis cannot be the data axis."""
+    """A model axis beside the spatial axis is accepted (``error`` None: the
+    combined layout, rank = (d S + s) M + m; its groups against JAX's:
+    tests/test_torch_sp_model.py); an axis above 1 that the model does not
+    name as its spatial axis is used by nothing; a mesh must cover every
+    process; the spatial axis cannot be the data axis."""
+    if error is None:
+        got = tmesh.create_mesh(spec, n, spatial)
+        assert (got.data, got.sp, got.model) == (1, 2, 2) and got.spatial_axis == "sp"
+        for r in range(n):
+            m = dataclasses.replace(got, rank=r)
+            assert r == (m.data_index * 2 + m.sp_index) * 2 + m.model_index
+            assert m.token_shard.index == m.sp_index and m.model_shard.index == m.model_index
+        return
     with pytest.raises(error, match=match):
         tmesh.create_mesh(spec, n, spatial)
 

@@ -1,6 +1,6 @@
 """Rank programs for tests/test_torch_parallel.py,
-tests/test_torch_spatial.py and tests/test_torch_tensor_parallel.py: each
-runs in a process that
+tests/test_torch_spatial.py, tests/test_torch_tensor_parallel.py and
+tests/test_torch_sp_model.py: each runs in a process that
 torch.multiprocessing spawns, joins a gloo group through a file store and
 writes what it computed beside it.  They import torch and the port only, so
 a rank starts without JAX."""
@@ -194,26 +194,31 @@ def sp_train_rank(rank: int, world: int, root: str) -> None:
         destroy_distributed()
 
 
-def sp_forward_rank(rank: int, world: int, root: str) -> None:
-    """The eval-mode SPEGNet of ``root``/job.pt (its variant and compute
-    dtype, spatial axis "sp" over the job's mesh) on this rank's rows of
-    the job's input: its outputs and the trunk's calls."""
+def sp_forward_result(job: dict, mesh: Mesh) -> dict:
+    """The eval-mode SPEGNet of ``job`` (its variant and compute dtype,
+    spatial axis "sp" over ``mesh``, its matmuls split over the mesh's model
+    axis if it has one) on this rank's rows of the job's input: its outputs
+    and the trunk's calls."""
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
     from spegnet_tpu_torch.parallel.sharding import rows_of
 
+    model = SPEGNet(SPEGNetConfig(variant=job["variant"], compute_dtype=job["dtype"],
+                                  spatial_axis="sp")).eval()
+    model.load_state_dict(job["state"])
+    model.to_compute().shard_tokens(mesh.token_shard).shard_model(mesh.model_shard)
+    x = job["x"][rows_of(mesh.data_index, mesh.data, job["x"].shape[0])]
+    calls = record_calls()
+    with torch.no_grad():
+        out = model(x)
+    return {"out": out, "calls": list(calls), "data_index": mesh.data_index}
+
+
+def sp_forward_rank(rank: int, world: int, root: str) -> None:
+    """:func:`sp_forward_result` of ``root``/job.pt on the job's mesh."""
     _join(rank, world, root)
     try:
         job = torch.load(Path(root) / "job.pt", weights_only=False)
-        mesh = create_mesh(job["mesh"], world, "sp")
-        model = SPEGNet(SPEGNetConfig(variant=job["variant"], compute_dtype=job["dtype"],
-                                      spatial_axis="sp")).eval()
-        model.load_state_dict(job["state"])
-        model.to_compute().shard_tokens(mesh.token_shard)
-        x = job["x"][rows_of(mesh.data_index, mesh.data, job["x"].shape[0])]
-        calls = record_calls()
-        with torch.no_grad():
-            out = model(x)
-        torch.save({"out": out, "calls": calls, "data_index": mesh.data_index},
+        torch.save(sp_forward_result(job, create_mesh(job["mesh"], world, "sp")),
                    Path(root) / f"sp_forward_rank{rank}.pt")
     finally:
         destroy_distributed()
@@ -290,5 +295,75 @@ def tp_rank(rank: int, world: int, root: str) -> None:
             open_morton_any_dtype()
             out["morton_steps"] = [train_step_result(job, b, mesh) for b in job["batches"]]
         torch.save(out, root / f"tp_rank{rank}.pt")
+    finally:
+        destroy_distributed()
+
+
+def mesh_record(mesh: Mesh) -> dict:
+    """A rank's indices and the ranks of each sub-group its mesh made."""
+    import torch.distributed as dist
+
+    groups = {}
+    for name in ("sp_group", "model_group", "data_group", "replica_group"):
+        g = getattr(mesh, name)
+        groups[name] = None if g is None else dist.get_process_group_ranks(g)
+    return {"data_index": mesh.data_index, "sp_index": mesh.sp_index,
+            "model_index": mesh.model_index, "lead": mesh.lead, "groups": groups}
+
+
+def sp_model_rank(rank: int, world: int, root: str) -> None:
+    """The tasks of ``root``/job.pt on its mesh (the spatial axis "sp" and a
+    model axis): the mesh's groups; ``steps`` (a fresh Trainer's step on
+    each batch of ``SP_VARIANT``, f64 on the token route, :func:`open_morton`;
+    with the rank's own parameters and the trunk's calls); ``remat_steps``
+    (the same with ``training.remat``); ``oracle_steps`` (the job's
+    ``oracle`` job, the same way); ``checkpoint`` (a step on batch 0, its
+    checkpoint_state written by rank 0 as sp_model_ckpt.pth, a step on batch
+    1; a Trainer resumed from one_ckpt.pth, a step on batch 1); ``evaluate``
+    (:func:`evaluate_result` of the job's ``eval`` job)."""
+    _join(rank, world, root)
+    try:
+        root = Path(root)
+        job = torch.load(root / "job.pt", weights_only=False)
+        register_sp_variant()
+        open_morton()
+        mesh = create_mesh(job["mesh"], world, "sp")
+        out = {"mesh": mesh_record(mesh)}
+        tasks = job["tasks"]
+        if "forward" in tasks:
+            out["forward"] = sp_forward_result(job["forward"], mesh)
+        calls = record_calls()
+
+        def steps(j):
+            res = []
+            for batch in j["batches"]:
+                tr = make_trainer(j, mesh)
+                calls[:] = []
+                res.append(step_result(tr, batch))
+                res[-1]["calls"] = list(calls)
+                res[-1]["local"] = {n: p.detach().clone()
+                                    for n, p in tr.model.named_parameters()}
+            return res
+
+        if "steps" in tasks:
+            out["steps"] = steps(job)
+        if "remat_steps" in tasks:
+            conf = {**job["config"], "training": {**job["config"]["training"], "remat": True}}
+            out["remat_steps"] = steps({**job, "config": conf})
+        if "oracle_steps" in tasks:
+            out["oracle_steps"] = steps(job["oracle"])
+        if "checkpoint" in tasks:
+            tr = make_trainer(job, mesh)
+            step_result(tr, job["batches"][0])
+            state = tr.checkpoint_state(0, {})
+            if rank == 0:
+                torch.save(state, root / "sp_model_ckpt.pth")
+            out["after_ckpt"] = step_result(tr, job["batches"][1])
+            tr = make_trainer(job, mesh)
+            tr.load_checkpoint(root / "one_ckpt.pth", resume=True)
+            out["from_one"] = step_result(tr, job["batches"][1])
+        if "evaluate" in tasks:
+            out["evaluate"] = evaluate_result(job["eval"], world)
+        torch.save(out, root / f"sp_model_rank{rank}.pt")
     finally:
         destroy_distributed()
