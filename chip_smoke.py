@@ -283,14 +283,19 @@
        bit-equal or within REL_LIMIT of the kernel path's; mask MAE <=
        MASK_MAE_LIMIT; ms/img and peak memory per rank beside one
        process's), evaluate 4 samples (mask MAE <= MASK_MAE_LIMIT against
-       the kernel path, per-sample metrics within METRIC_TOL of the two
-       ranks' routes in one process; against the kernel path printed),
-       one train step batch 2 (loss, clipped gradients' cosine, update,
-       running statistics within SP_*_LIMIT of the kernel path's; the
-       loss and statistics bit-equal to the two ranks' routes in one
-       process, the cosine and update within SP_EMU_*_LIMIT; the ranks'
-       parameters bit-equal; launches = the training routes under S = 2;
-       peak memory per rank beside one process's);
+       the kernel path, per-sample metrics within SP_EMU_METRIC_LIMIT of
+       the two ranks' routes in one process, whose head runs whole;
+       against the kernel path printed), one train step batch 2 (loss,
+       clipped gradients' cosine, update, running statistics within
+       SP_*_LIMIT of the kernel path's; against the two ranks' routes in
+       one process the loss bit-equal, the rest within SP_EMU_*_LIMIT; the
+       gradient's cosine to the plain f32 path no lower than one
+       process's less COSINE_MARGIN; the ranks' parameters bit-equal;
+       launches = the training routes under S = 2); each rank's head on
+       its band of rows (models/hiera.head_bands: rows [s h / 2, (s + 1)
+       h / 2) of every head map, predict and train, printed and checked),
+       its peak memory beside PR 18's (the head whole) and one process's,
+       the train peak below PR 18's;
    (h) the model (tensor-parallel) axis: two ranks spawned on the card over
        gloo, {"data": 1, "model": 2}, Hiera-L bf16, each holding half of
        the encoder's qkv, proj, fc1 and fc2, against one process on the same
@@ -316,7 +321,8 @@
        2 plan run whole, full weights): predict 512^2 batch 2 through the
        Predictor (full weights, each rank's launches = trunk_routes under
        S = 2, decoder 0; mask MAE <= MASK_MAE_LIMIT), evaluate 4 samples
-       (metrics within METRIC_TOL of the ranks' routes in one process),
+       (metrics within SPM_EMU_METRIC_LIMIT of the ranks' routes in one
+       process, whose head runs whole),
        one train step 512^2 batch 2 on the token shards with the matmuls
        split (launches = the training routes under S = 2, the _bwd
        counters included; loss, clipped gradients' cosine, update and
@@ -328,8 +334,10 @@
        whose next step is held to SPM_*_LIMIT against the ranks', and the
        trainer's eval-mode forward at 384^2 batch 2 on the sharded model
        (launches = the routes, 38 fused_attention_lanes at H / 2 heads,
-       mask MAE <= MASK_MAE_LIMIT); peak memory per rank beside 8g's,
-       8h's and one process's, seconds per step, the phase's seconds;
+       mask MAE <= MASK_MAE_LIMIT); each rank's head on the band of its
+       spatial index (predict and train, printed and checked); peak
+       memory per rank beside PR 20's (the head whole), 8g's, 8h's and
+       one process's, seconds per step, the phase's seconds;
    then the model report (utils/model_info.py) at 512^2.
 9. No module of JAX, flax, optax or the JAX package was imported by any of
    the above.
@@ -2110,19 +2118,74 @@ def ddp_two_ranks(torch, launches) -> None:
 # instead of #1, and the bf16 gradient of these random weights is that
 # noisy (the kernel path's cosine to f32 is 0.91 at 512^2); against one
 # process on the two ranks' routes (the S = 2 plan run whole, its gathers
-# no-ops) loss and statistics bit-equal, cosine 1 - 9.89e-4, update
-# 0.1874, the worst of three runs (1 - 4.37e-4 / 2.92e-4 / 9.89e-4, 0.1415
-# / 0.1333 / 0.1874: the gathers' backward sums dK / dV in another order,
-# the upsample backward's atomics vary from run to run, and AdamW's first
-# step magnifies the small gradients' noise, as in 8b).
+# no-ops; PR 18, the head whole there and on the ranks) loss and
+# statistics bit-equal, cosine 1 - 9.89e-4, update 0.1874, the worst of
+# three runs (1 - 4.37e-4 / 2.92e-4 / 9.89e-4, 0.1415 / 0.1333 / 0.1874:
+# the gathers' backward sums dK / dV in another order, the upsample
+# backward's atomics vary from run to run, and AdamW's first step
+# magnifies the small gradients' noise, as in 8b).
 SP_SIZE = 1024
 SP_LOSS_REL_LIMIT = 8.3e-4
 SP_COSINE_LIMIT = 1 - 2.09e-1
 SP_UPDATE_REL_LIMIT = 1.88
 SP_STATS_REL_LIMIT = 9.7e-2
-SP_EMU_COSINE_LIMIT = 1 - 2.5e-3
 SP_EMU_UPDATE_REL_LIMIT = 0.47
+# Against one process on the two ranks' routes, whose head runs whole
+# (PR 21): the ranks' BatchNorm statistics sum their bands' sums, so they
+# are no longer bit-equal (4.195e-6 relative in the first two runs; the
+# loss stays bit-equal), and cuDNN picks its algorithms by the band's shape,
+# so the eval logits move by a bf16 step (6.836e-3), which the per-sample
+# metrics of these flat maps, normalized by their range, turn into
+# 7.395e-2 (0 in the full run after: the algorithms cuDNN picks depend on
+# what ran before); each limit is 2.5x the first reading (an H100 80GB
+# HBM3 at 700 W).  On the CPU the bands' f64 step equals one process's and their
+# f32 eval forward is bit-equal (tests/test_torch_spatial.py,
+# tests/test_torch_head_bands.py).  The step's cosine to theirs, 1 - 8.18e-4
+# / 1.50e-3 / 1.863e-3 in the first three runs with the bands (PR 18's
+# three, the head whole: at worst 1 - 9.89e-4), is held at 2.5x the worst.
+SP_EMU_STATS_REL_LIMIT = 1.05e-5
+SP_EMU_METRIC_LIMIT = 0.185
+SP_EMU_COSINE_LIMIT = 1 - 4.66e-3
 SP_TIMED = 3   # timed predict calls of batch 2 after the counted one
+# Peak memory per rank of 8g before the head ran on row bands (PR 18, the
+# head whole on each rank; an H100 80GB HBM3 at 700 W): predict, train; and
+# one process's.  8g's train step must now peak below the first.
+SP_HEAD_WHOLE_PEAK_GB = (2.394, 9.216)
+SP_ONE_PEAK_GB = (6.791, 10.789)
+# The head's maps whose rows a rank computes (models/spegnet.py): the fused
+# map at H/8 and decoder block i's output at 2^(i + 1) times its rows.
+HEAD_MAPS = (("fusion", 1), ("decoder.decoder_blocks.0", 2), ("decoder.decoder_blocks.1", 4),
+             ("decoder.decoder_blocks.2", 8))
+
+
+def head_rows(model) -> dict:
+    """{scale over H/8: rows} of the head maps that ``model``'s later
+    forwards compute (its band, or the whole map), from forward hooks."""
+    rows = {}
+    mods = dict(model.named_modules())
+    for name, scale in HEAD_MAPS:
+        mods[name].register_forward_hook(
+            lambda m, a, o, _s=scale: rows.__setitem__(_s, int(o.shape[2])))
+    return rows
+
+
+def band_ranges(rows: dict, index: int, size: int) -> str:
+    """A rank's head rows as "H/8 [a, b) of h, ..." (its index in a spatial
+    group of ``size``; size 1: the whole maps)."""
+    names = {1: "H/8", 2: "H/4", 4: "H/2", 8: "H"}
+    return ", ".join(f"{names[int(k)]} [{index * n}, {(index + 1) * n}) of {n * size}"
+                     for k, n in sorted(rows.items(), key=lambda kv: int(kv[0])))
+
+
+def check_bands(rows: dict, size: int, sp: int, tag: str) -> None:
+    """``rows`` (head_rows of a rank) are its bands under ``sp`` at an input
+    of ``size``^2: models/hiera.head_bands' rows times each map's scale."""
+    from spegnet_tpu_torch.models.hiera import head_bands
+
+    n8 = head_bands(size, sp)
+    want = {str(s): n8 * s for _, s in HEAD_MAPS}
+    check(n8 is not None and {str(k): v for k, v in rows.items()} == want,
+          f"{tag}: head rows {rows}, expected the bands {want}")
 
 
 def _sp_images():
@@ -2188,6 +2251,7 @@ def sp_runs(master, mesh, dev, torch, emulate: bool = False) -> dict:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         glob.clear()
+        out["predict_head_rows"] = head_rows(pred.model)
         out["seg"], _ = pred.predict_arrays(images)
         torch.cuda.synchronize()
         out["predict_launches"] = {**kernels.launches, **glob}
@@ -2217,6 +2281,7 @@ def sp_runs(master, mesh, dev, torch, emulate: bool = False) -> dict:
         conf = train_config(2, SP_SIZE)
         conf["model"]["spatial_axis"] = spatial
         tr = Trainer(conf, None, device=str(dev), model=model(), mesh=mesh)
+        out["train_head_rows"] = head_rows(tr.model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         glob.clear()
@@ -2259,10 +2324,10 @@ def rank8g(rank: int, world: int, tmp: str) -> None:
     sp = sp_runs(master, mesh, dev, torch)
     destroy_distributed()
     keep = ("predict_launches", "eval_launches", "predict_peak_gb", "train_peak_gb",
-            "ms_per_img", "digest", "step_s")
+            "ms_per_img", "digest", "step_s", "predict_head_rows", "train_head_rows")
     (tmp / f"sp{rank}.json").write_text(json.dumps(
         {**{k: sp[k] for k in keep}, "train_launches": sp["step"]["launches"],
-         "backend": backend}))
+         "backend": backend, "sp_index": mesh.sp_index}))
     if rank:
         return
     one = sp_runs(master, None, dev, torch)
@@ -2296,8 +2361,14 @@ def rank8g(rank: int, world: int, tmp: str) -> None:
            "emu_launches": [emu["predict_launches"], emu["step"]["launches"]],
            "rows": [sp["train_rows"], one["train_rows"]],
            "one": {k: one[k] for k in ("predict_launches", "predict_peak_gb", "train_peak_gb",
-                                       "ms_per_img", "step_s")},
+                                       "ms_per_img", "step_s", "predict_head_rows")},
            "one_train_launches": one["step"]["launches"]}
+    # the accuracy anchor (as 8h's and 8j's): each step's gradient against
+    # the plain f32 path's on the same weights and batch
+    g32, l32 = f32_grad(master, _sp_batches()[0], SP_SIZE, dev, torch)
+    g32 = {n: t.to(dev) for n, t in g32.items()}
+    res["cos_f32"] = [grad_cosine(x["step"]["grads"], g32) for x in (sp, one, emu)]
+    res["loss_rel_f32"] = [abs(x["step"]["loss"] - l32) / abs(l32) for x in (sp, one, emu)]
     (tmp / "sp_rank0.json").write_text(json.dumps(res))
 
 
@@ -2351,6 +2422,18 @@ def sp_two_ranks(torch, launches) -> None:
             for k, v in got[run].items():
                 launches["sp_2rank"][k] = launches["sp_2rank"].get(k, 0) + v
     one = res["one"]
+    for r, got in enumerate(ranks):
+        log(f"8g rank {r} (sp index {got['sp_index']}) head rows: predict "
+            f"{band_ranges(got['predict_head_rows'], got['sp_index'], 2)}; train "
+            f"{band_ranges(got['train_head_rows'], got['sp_index'], 2)}; peak memory predict "
+            f"{got['predict_peak_gb']:.3f} GB, train {got['train_peak_gb']:.3f} GB (PR 18, the "
+            f"head whole: {SP_HEAD_WHOLE_PEAK_GB[0]} / {SP_HEAD_WHOLE_PEAK_GB[1]} GB)")
+        check_bands(got["predict_head_rows"], SP_SIZE, 2, f"8g rank {r} predict")
+        check_bands(got["train_head_rows"], SP_SIZE, 2, f"8g rank {r} train")
+    check(sorted(g["sp_index"] for g in ranks) == [0, 1], "8g: spatial indices")
+    log(f"8g one process: head rows {band_ranges(one['predict_head_rows'], 0, 1)}; peak memory "
+        f"predict {one['predict_peak_gb']:.3f} GB, train {one['train_peak_gb']:.3f} GB (PR 18: "
+        f"{SP_ONE_PEAK_GB[0]} / {SP_ONE_PEAK_GB[1]} GB)")
     log(f"8g 2 ranks on one card: {secs:.1f} s with the spawn and the one-process "
         f"references; one process's predict launches {one['predict_launches']}")
     log(f"8g stage outputs 1-3 (before block 23, the first global block: stages 1 and 2) "
@@ -2365,7 +2448,7 @@ def sp_two_ranks(torch, launches) -> None:
         f"{res['emu_launches'][0]}; train {res['emu_launches'][1]}; stage outputs bit-equal "
         f"to the ranks' {res['feats_equal_emu']}, masks max |diff| {res['mask_max_emu']:.3e}")
     log(f"8g evaluate 4 samples: max |metric diff| vs one process on the routes of two ranks "
-        f"{res['eval_worst_emu']:.3e} (limit {METRIC_TOL}; logits max |diff| "
+        f"{res['eval_worst_emu']:.3e} (limit {SP_EMU_METRIC_LIMIT}; logits max |diff| "
         f"{res['eval_logits_max_emu']:.3e}); vs one process's kernel path {res['eval_worst']:.3e} "
         f"(masks MAE {res['eval_mask_mae']:.4e}, limit {MASK_MAE_LIMIT}; each sample's "
         f"probabilities span {res['eval_prob_range']}: the metrics normalize each map by its "
@@ -2381,11 +2464,17 @@ def sp_two_ranks(torch, launches) -> None:
         f"per rank {[round(g['train_peak_gb'], 3) for g in ranks]} GB vs one process "
         f"{one['train_peak_gb']:.3f} GB; the ranks' parameters bit-equal "
         f"{ranks[0]['digest'] == ranks[1]['digest']}")
+    c2, c1, ce = res["cos_f32"]
+    log(f"8g train step 1024^2: gradient cosine to the plain f32 path: 2 ranks {c2:.6f}, one "
+        f"process {c1:.6f} (the ranks' no lower than one process's less {COSINE_MARGIN}), one "
+        f"process on the ranks' routes {ce:.6f}; loss rel to it "
+        f"{['%.3e' % v for v in res['loss_rel_f32']]}")
     e = res["readings_emu"]
-    log(f"8g train step vs one process on the routes of two ranks: loss rel "
-        f"{e['loss_rel']:.3e} (equal), clipped gradient cosine {e['grad_cosine']:.6f} (limit "
-        f"{SP_EMU_COSINE_LIMIT}), update rel {e['update_rel']:.3e} (limit "
-        f"{SP_EMU_UPDATE_REL_LIMIT}), running statistics rel {e['stats_rel']:.3e} (equal)")
+    log(f"8g train step vs one process on the routes of two ranks (its head whole): loss rel "
+        f"{e['loss_rel']:.3e} (equal), clipped gradient cosine "
+        f"{e['grad_cosine']:.6f} (limit {SP_EMU_COSINE_LIMIT}), update rel "
+        f"{e['update_rel']:.3e} (limit {SP_EMU_UPDATE_REL_LIMIT}), running statistics rel "
+        f"{e['stats_rel']:.3e} (limit {SP_EMU_STATS_REL_LIMIT})")
     # every kernel before block 23 works per row or per window, so bit-equal
     # is expected; else the per-kernel limit
     check(all(res["feats_equal"][:2]) or max(res["feats_rel"][:2]) <= kc.REL_LIMIT,
@@ -2394,16 +2483,23 @@ def sp_two_ranks(torch, launches) -> None:
     check(all(ss == [f"synthetic_{i}" for i in range(4)] for ss in res["eval_samples"]),
           f"8g: samples {res['eval_samples']}")
     check(res["eval_mask_mae"] <= MASK_MAE_LIMIT, f"8g: eval mask MAE {res['eval_mask_mae']}")
-    check(res["eval_worst_emu"] <= METRIC_TOL, f"8g: metrics differ by {res['eval_worst_emu']}")
+    check(res["eval_worst_emu"] <= SP_EMU_METRIC_LIMIT,
+          f"8g: metrics differ by {res['eval_worst_emu']}")
+    check(c2 >= c1 - COSINE_MARGIN, f"8g: gradient cosine to f32 {c2:.4f} < one process's "
+          f"{c1:.4f} - {COSINE_MARGIN}")
     check(res["rows"] == [2, 2], f"8g: rows {res['rows']}")
     check(ranks[0]["digest"] == ranks[1]["digest"], "8g: the ranks' parameters differ")
     PEAKS["8g predict 1024^2 batch 2"] = [round(g["predict_peak_gb"], 3) for g in ranks]
     PEAKS["8g train 1024^2 batch 2"] = [round(g["train_peak_gb"], 3) for g in ranks]
     check(r["grad_cosine"] >= SP_COSINE_LIMIT and all(r[k] <= v for k, v in limits.items()),
           f"8g train step vs one process: {r}")
-    check(e["loss_rel"] == 0 and e["stats_rel"] == 0 and e["grad_cosine"] >= SP_EMU_COSINE_LIMIT
+    check(e["loss_rel"] == 0 and e["stats_rel"] <= SP_EMU_STATS_REL_LIMIT
+          and e["grad_cosine"] >= SP_EMU_COSINE_LIMIT
           and e["update_rel"] <= SP_EMU_UPDATE_REL_LIMIT,
           f"8g train step vs one process on the routes of two ranks: {e}")
+    check(all(g["train_peak_gb"] < SP_HEAD_WHOLE_PEAK_GB[1] for g in ranks),
+          f"8g: train peak per rank {[g['train_peak_gb'] for g in ranks]} GB, not below "
+          f"{SP_HEAD_WHOLE_PEAK_GB[1]} GB, the head whole (PR 18)")
 
 
 def remat_phase(master, torch, launches) -> None:
@@ -2872,9 +2968,16 @@ SPM_EMU_LOSS_REL_LIMIT = 1.28e-2
 SPM_EMU_COSINE_LIMIT = 1 - 0.342
 SPM_EMU_UPDATE_REL_LIMIT = 2.03
 SPM_EMU_STATS_REL_LIMIT = 0.67
+# 8j's eval metrics against one process on the ranks' routes, whose head
+# runs whole (PR 21): 2.5x the first reading, 2.809e-3, as SP_EMU_METRIC_LIMIT
+SPM_EMU_METRIC_LIMIT = 7.0e-3
 # peak memory per rank of the phases before 8j in this run, printed beside
 # its own (filled by 8g and 8h)
 PEAKS = {}
+# 8j's peaks per rank before the head ran on row bands (PR 20, an H100
+# 80GB HBM3 at 700 W): predict, train (the highest rank); one process's
+SPM_HEAD_WHOLE_PEAK_GB = (0.947, 3.173)
+SPM_ONE_PEAK_GB = (0.794, 5.317)
 
 
 def _spm_inputs():
@@ -2951,6 +3054,7 @@ def spm_runs(master, mesh, dev, torch, tmp: Path, emulate: bool = False, ckpt=No
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset()
+            out["predict_head_rows"] = head_rows(pred.model)
             out["seg"], _ = pred.predict_arrays(images[512])
             torch.cuda.synchronize()
             out["predict_launches"] = counts()
@@ -2992,6 +3096,7 @@ def spm_runs(master, mesh, dev, torch, tmp: Path, emulate: bool = False, ckpt=No
             out["lanes_384"] = list(lanes)
             del o, x
             tr.model.train()
+        out["train_head_rows"] = head_rows(tr.model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         glob.clear()
@@ -3051,7 +3156,8 @@ def rank8j(rank: int, world: int, tmp: str) -> None:
     runs = spm_runs(master, mesh, dev, torch, tmp)
     destroy_distributed()
     keep = ("predict_launches", "eval_launches", "launches_384", "lanes_384", "predict_peak_gb",
-            "train_peak_gb", "ms_per_img", "step_s", "digests")
+            "train_peak_gb", "ms_per_img", "step_s", "digests", "predict_head_rows",
+            "train_head_rows")
     (tmp / f"spm{rank}.json").write_text(json.dumps(
         {**{k: runs[k] for k in keep}, "train_launches": runs["step"]["launches"],
          "rows": runs["step"]["rows"], "backend": backend, "sp_index": mesh.sp_index,
@@ -3158,7 +3264,7 @@ def sp_model_four_ranks(torch, launches) -> None:
     log(f"8j the trainer's eval-mode forward 384^2 batch 2 (sharded model): mask MAE vs one "
         f"process's kernel path {res['mask_mae_384']:.4e} (limit {MASK_MAE_LIMIT})")
     log(f"8j evaluate 4 samples: max |metric diff| vs one process on the ranks' routes "
-        f"{res['eval_worst_emu']:.3e} (limit {METRIC_TOL}); vs one process's kernel path "
+        f"{res['eval_worst_emu']:.3e} (limit {SPM_EMU_METRIC_LIMIT}); vs one process's kernel path "
         f"{res['eval_worst']:.3e}")
     steps = (("one process's kernel path", res["readings"],
               (SPM_LOSS_REL_LIMIT, SPM_COSINE_LIMIT, SPM_UPDATE_REL_LIMIT, SPM_STATS_REL_LIMIT)),
@@ -3184,10 +3290,18 @@ def sp_model_four_ranks(torch, launches) -> None:
     log(f"8j parameters after the step: replicated bit-equal on all ranks {len(reps) == 1}; "
         f"each model index's shards bit-equal across its spatial group "
         f"{[len(v) == 1 for v in shards.values()]}")
+    for r, got in enumerate(ranks):
+        log(f"8j rank {r} (sp {got['sp_index']}, model {got['model_index']}) head rows: predict "
+            f"{band_ranges(got['predict_head_rows'], got['sp_index'], 2)}; train "
+            f"{band_ranges(got['train_head_rows'], got['sp_index'], 2)}")
+        check_bands(got["predict_head_rows"], 512, 2, f"8j rank {r} predict")
+        check_bands(got["train_head_rows"], 512, 2, f"8j rank {r} train")
     log(f"8j memory per rank: predict 512^2 {[round(g['predict_peak_gb'], 3) for g in ranks]} "
-        f"GB, train 512^2 batch 2 {[round(g['train_peak_gb'], 3) for g in ranks]} GB; one "
-        f"process {one['predict_peak_gb']:.3f} / {one['train_peak_gb']:.3f} GB; earlier phases "
-        f"of this run: {PEAKS}")
+        f"GB (PR 20, the head whole: {SPM_HEAD_WHOLE_PEAK_GB[0]}), train 512^2 batch 2 "
+        f"{[round(g['train_peak_gb'], 3) for g in ranks]} GB (PR 20: "
+        f"{SPM_HEAD_WHOLE_PEAK_GB[1]}); one process {one['predict_peak_gb']:.3f} / "
+        f"{one['train_peak_gb']:.3f} GB (PR 20: {SPM_ONE_PEAK_GB[0]} / {SPM_ONE_PEAK_GB[1]}); "
+        f"earlier phases of this run: {PEAKS}")
     log(f"8j seconds per step: per rank {[round(g['step_s'], 3) for g in ranks]} vs one process "
         f"{one['step_s']:.3f}")
     log(f"8j phase: {time.perf_counter() - t_phase:.1f} s with the spawn and the one-process "
@@ -3200,7 +3314,8 @@ def sp_model_four_ranks(torch, launches) -> None:
     check(res["mask_mae_384"] <= MASK_MAE_LIMIT, f"8j: 384^2 mask MAE {res['mask_mae_384']:.3e}")
     check(all(ss == [f"synthetic_{i}" for i in range(4)] for ss in res["eval_samples"]),
           f"8j: samples {res['eval_samples']}")
-    check(res["eval_worst_emu"] <= METRIC_TOL, f"8j: metrics differ by {res['eval_worst_emu']}")
+    check(res["eval_worst_emu"] <= SPM_EMU_METRIC_LIMIT,
+          f"8j: metrics differ by {res['eval_worst_emu']}")
     check(res["rows"] == [2, 2] and all(g["rows"] == 2 for g in ranks), f"8j: rows {res['rows']}")
     check(c4 >= c1 - COSINE_MARGIN, f"8j: gradient cosine to f32 {c4:.4f} < one process's "
           f"{c1:.4f} - {COSINE_MARGIN}")

@@ -21,7 +21,8 @@ those; padding rows carry no weight) and writes their per-sample files, and
 the per-sample metrics are gathered in dataset order, from which rank 0
 writes the summaries (every rank returns the same means).  Under a spatial
 axis (``model.spatial_axis``) the ranks of a spatial group run the same
-rows, splitting the trunk's tokens (models/hiera.py); under a model axis
+rows, splitting the trunk's tokens (models/hiera.py) and the head's rows
+(models/spegnet.py; every rank holds the whole outputs); under a model axis
 the ranks of a model group run the same rows on the full weights, as
 JAX's evaluator places its variables replicated (:143-146); under both
 the S M ranks of a data index run its rows on the full weights, splitting

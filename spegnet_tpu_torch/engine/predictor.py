@@ -13,7 +13,9 @@ data axis and each data index decodes, predicts and writes the PNGs of its
 rows of every chunk of the directory; rank 0 writes
 ``prediction_summary.json`` from every data index's records.  Under a
 spatial axis (``model.spatial_axis``) the ranks of a spatial group take the
-same rows and split the trunk's tokens (models/hiera.py); under a model
+same rows, split the trunk's tokens (models/hiera.py) and compute their
+bands of the head's rows, whose outputs every rank then holds whole
+(models/spegnet.py); under a model
 axis the ranks of a model group take the same rows and the full weights,
 as JAX's predictor places its variables replicated (:109-112); under both
 the S M ranks of a data index take its rows, the full weights, and split

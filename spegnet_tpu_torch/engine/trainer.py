@@ -49,9 +49,11 @@ axis of size S beside ``data`` of size D, over D S processes; JAX's
 ``spatial_axis``): the S ranks of a spatial group take the rows of their
 data index and split the Morton trunk's tokens (models/hiera.py
 ``trunk_plan``); the K / V of a global block and the trunk's outputs are
-all-gathered over the group, and everything after the trunk runs whole on
-each rank of it.  The gradient rule is the one of all three axes below
-(M = 1: DDP averages over all D S ranks and the loss is scaled by D).
+all-gathered over the group, and the head after the trunk runs on each
+rank's band of rows, its outputs gathered along H (models/spegnet.py;
+whole on each rank where models/hiera.head_bands refuses).  The gradient
+rule is the one of all three axes below (M = 1: DDP averages over all D S
+ranks and the loss is scaled by D).
 
 Tensor parallelism (``parallel.mesh: {data: D, model: M}`` over D M
 processes; JAX's ``model`` axis, placed by its trainer's
@@ -85,9 +87,16 @@ several ranks -- a shard of model index m by the D S ranks of that index, a
 replicated parameter by all D S M -- and each rank's gradient is the global
 program's for its own copy (a shard's copy reaches the M ranks of its model
 group through the weight gather; the token rows of a sharded block reach
-the S ranks of its spatial group through the stage outputs' gather), so the
+the S ranks of its spatial group through the stage outputs' gather; a
+head parameter's copy on rank s of a spatial group, under row bands, gets
+the part of its band, S times over, through the outputs' row gather, whose
+backward sums the S ranks' cotangents, and through the halos and means,
+whose backward sends each cotangent to the rank that owns the row), so the
 copies' gradients summed over their holders are the global program's for
-the tied parameter: S M times its gradient G of sum_d L_d.  The step then:
+the tied parameter: S M times its gradient G of sum_d L_d.  So the rule
+takes the head's parameters as it did when each rank ran the head whole:
+the copies now differ across a spatial group, and their sum is the same.
+The step then:
 
 * sums each replicated parameter's gradient over the model group
   (:meth:`Trainer._reduce_replicated`), so every rank holds the sum over
@@ -100,8 +109,9 @@ the tied parameter: S M times its gradient G of sum_d L_d.  The step then:
 * scales the loss by D / M before the backward, which makes that G.
 
 The BatchNorm statistics (models/cfi.BatchNorm2d) sum x, x^2 and the count
-over all D S M ranks, S M copies of each sample in each, so their ratios
-are the global batch's, and the backward of that all-reduce is the global
+over all D S M ranks, M copies of each band's pixels in each (S M of a
+pooled 1x1 map's, and of a head that runs whole), so their ratios are the
+global batch's, and the backward of that all-reduce is the global
 program's like every other collective.  The sample weights W and the
 reported losses, which need no gradient, are summed over the data group
 (one rank per data index).  The T-blocks' weight gradients end up summed

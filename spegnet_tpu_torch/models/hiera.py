@@ -41,8 +41,9 @@ path has no int8 form.
 Morton trunk into S contiguous token ranges, whole windows and pool groups
 each, so the T-block and the front run their kernels on local rows with no
 halo; global blocks gather K and V over the group; what JAX's gates refuse
-at the local token count, and everything after the trunk, runs whole on
-every rank (:func:`trunk_plan`).
+at the local token count runs whole on every rank (:func:`trunk_plan`).
+The stage outputs leave the trunk whole on every rank; the head takes its
+rows from them (:func:`head_bands`, models/spegnet.py).
 
 ``tp`` (the model axis, ``parallel.mesh: {data: D, model: M}``; JAX's
 ``model`` axis, spegnet_tpu/parallel/sharding.py:39-75): each block holds
@@ -74,10 +75,10 @@ last stage's gen-1 blocks at 512^2, every block on a grid that is not 2^k)
 run on every rank of the spatial group as they run under M alone.  Under
 ``remat`` the checkpointed global block gathers its weights and K / V again
 in the recompute, in the forward's order.  Deliberate differences from JAX
-under the two axes: what runs whole runs on every rank of the spatial
-group on the same rows (JAX lets GSPMD shard it), and the global blocks
-and the fronts take their weights gathered over the model group where
-GSPMD may instead shard their attention by heads.
+under the two axes: what runs whole in the trunk runs on every rank of the
+spatial group on the same rows (JAX lets GSPMD shard it), and the global
+blocks and the fronts take their weights gathered over the model group
+where GSPMD may instead shard their attention by heads.
 
 ``remat=True`` (training, models/spegnet.py; the JAX package's
 ``Hiera.remat``, :752-758, :937-940) recomputes the decomposed blocks in
@@ -334,11 +335,12 @@ def trunk_plan(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
     * S > 1 elsewhere (f32, a grid that is not 2^k): every block whole, on
       the routes of one process without the axis.
 
-    Deliberate differences from JAX under the axis: what runs whole runs on
-    every rank of the spatial group on the same data (JAX lets GSPMD shard
-    it: its T-blocks on the window-major layout of a grid that is not 2^k,
-    and every NHWC block by H), and the decoder after the trunk is whole per
-    rank too (models/spegnet.py)."""
+    A deliberate difference from JAX under the axis: what runs whole runs
+    on every rank of the spatial group on the same data (JAX lets GSPMD
+    shard it: its T-blocks on the window-major layout of a grid that is not
+    2^k, and every NHWC block by H).  The head after the trunk runs on row
+    bands where :func:`head_bands` allows, as JAX's H-sharded head
+    (models/spegnet.py)."""
     h, w = (hw, hw) if isinstance(hw, int) else hw
     if sp is None or sp > 1 and not sp_takes_morton(h, w, dtype):
         return [(r, False) for r in trunk_routes(cfg, (h, w), dtype, int8, train_batch)]
@@ -367,6 +369,20 @@ def trunk_plan(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,
         if spec.q_pool:
             h, w = h // 2, w // 2
     return out
+
+
+def head_bands(hw, sp: Optional[int]) -> Optional[int]:
+    """The rows of each rank's band of the head's H/8 maps under a spatial
+    axis of ``sp`` (models/spegnet.py), for an input of ``hw`` pixels (an int
+    for a square input, or (H, W)): H / 8 / S where S divides H / 8, else
+    None, and the head runs whole on every rank of the group (None too for
+    no axis or S = 1).  The band at H/4, H/2 and H is 2, 4 and 8 times as
+    many rows.  It holds whatever the trunk's plan (:func:`trunk_plan`): JAX
+    H-shards the head under its axis at every dtype and grid."""
+    h = hw if isinstance(hw, int) else hw[0]
+    if sp is None or sp == 1 or (h // 8) % sp:
+        return None
+    return h // 8 // sp
 
 
 def trunk_routes(cfg: HieraConfig, hw, dtype: torch.dtype, int8: bool,

@@ -14,6 +14,20 @@ run in the compute dtype: cast at use from f32 master weights in training
 predict; LayerNorm, BatchNorm and the position embeddings stay in f32, as
 in the JAX package.  ``model.train()`` switches BatchNorm to batch
 statistics and decoder block 2 to the decomposed path.
+
+Under a spatial axis (``config.spatial_axis``, a group of S > 1 ranks) the
+head -- CFI, EFE and PED -- runs on row bands where
+models/hiera.head_bands allows (S divides H/8), as JAX's head runs H-sharded
+over its axis (its trunk's outputs constrained to P("data", sp, None,
+None), spegnet_tpu/models/hiera.py:710-724): rank s of the group computes
+rows [s h / S, (s + 1) h / S) of every head map of h rows (H/8, H/4, H/2,
+H), reading its band's source rows from the whole stage outputs and
+fetching from the other ranks only the halo rows its convolutions and
+resizes read (parallel/sharding.halo); the spatial means and the
+BatchNorm statistics sum over the bands.  The outputs are then gathered
+along H (parallel/sharding.gather_rows), so every output is whole on every
+rank, as without bands.  Elsewhere the head runs whole on every rank,
+logged once per shape.
 """
 
 from __future__ import annotations
@@ -26,10 +40,16 @@ import torch
 import torch.nn as nn
 
 from spegnet_tpu_torch.models.cfi import AdaptiveAttentionFusion, EfficientASPP
-from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, Hiera, gathered_blocks
+from spegnet_tpu_torch.models.hiera import HIERA_VARIANTS, Hiera, gathered_blocks, head_bands
 from spegnet_tpu_torch.models.ped import BoundaryAwareDecoder, EdgeDetectionModule
 from spegnet_tpu_torch.parallel.mesh import ModelShard, TokenShard
-from spegnet_tpu_torch.parallel.sharding import shard_dim, shard_param
+from spegnet_tpu_torch.parallel.sharding import (
+    RowBand,
+    gather_rows,
+    halo,
+    shard_dim,
+    shard_param,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -99,9 +119,9 @@ class SPEGNet(nn.Module):
     over the group :meth:`shard_tokens` was given (none: a spatial axis of
     size 1, JAX's routes there), and decoder block 2 takes the decomposed
     path, as JAX's ``fused_ok=cfg.spatial_axis is None``
-    (spegnet_tpu/models/spegnet.py:102-106).  Everything after the trunk
-    runs whole on every rank of the group, where JAX lets GSPMD shard the
-    decoder's H: a deliberate difference.
+    (spegnet_tpu/models/spegnet.py:102-106).  The head after the trunk runs
+    on this rank's band of rows (:meth:`head`, module docstring) where
+    models/hiera.head_bands allows, else whole.
 
     After :meth:`shard_model` (the ``model`` axis of ``parallel.mesh``) the
     encoder's qkv, attention proj, fc1 and fc2 hold this rank's shards
@@ -119,6 +139,7 @@ class SPEGNet(nn.Module):
         self.kernels = kernels
         self.token_shard: Optional[TokenShard] = None
         self.model_shard: Optional[ModelShard] = None
+        self._whole_logged = set()   # the input shapes whose head ran whole, logged
         self.encoder = HieraEncoder(config.variant)
         ch = HIERA_VARIANTS[config.variant].channels
         self.fusion = AdaptiveAttentionFusion(ch[1:4], config.fusion_channels)
@@ -180,6 +201,22 @@ class SPEGNet(nn.Module):
                         "(models/hiera.gathered_blocks)")
         return self
 
+    def head_band(self, hw) -> Optional[RowBand]:
+        """This rank's band of the head for an input of ``hw`` pixels ((H,
+        W)): None without a spatial group of more than one rank, or where
+        models/hiera.head_bands refuses (logged once per shape)."""
+        shard = self.token_shard
+        if self.config.spatial_axis is None or shard is None or shard.size == 1:
+            return None
+        if head_bands(tuple(hw), shard.size) is None:
+            if (tuple(hw), shard.size) not in self._whole_logged:
+                self._whole_logged.add((tuple(hw), shard.size))
+                logger.info(f"spatial axis of {shard.size}, input {tuple(hw)}: H/8 does not "
+                            "divide over the group; the head runs whole on every rank of "
+                            "it (models/hiera.head_bands)")
+            return None
+        return RowBand(shard.group, shard.index, shard.size)
+
     def forward(self, x: torch.Tensor) -> Dict[str, Any]:
         dt = self.config.dtype
         spatial = self.config.spatial_axis is not None
@@ -188,12 +225,29 @@ class SPEGNet(nn.Module):
                                      int8=self.config.int8_encoder and not self.training,
                                      remat=self.config.remat and self.training
                                      and torch.is_grad_enabled(), shard=shard)
-        s2, s3, s4 = (f.permute(0, 3, 1, 2) for f in feats[1:4])
-        fused = self.fusion([s2, s3, s4])
-        context = self.context(fused)
-        edge_map, edge_features = self.edge_detector(context)
-        preds = self.decoder(context, edge_features, kernels=self.kernels and not spatial,
-                             int8=self.config.int8_decoder and not self.training)
+        return self.head([f.permute(0, 3, 1, 2) for f in feats[1:4]],
+                         self.head_band(x.shape[1:3]))
+
+    def head(self, feats, band: Optional[RowBand] = None) -> Dict[str, Any]:
+        """CFI, EFE and PED on the whole stage 2-4 outputs ``feats`` (NCHW),
+        on every row, or with ``band`` on this rank's band of rows, the
+        outputs gathered: either way the model's outputs, whole."""
+        s2, s3, s4 = feats
+        if band is None:
+            fused = self.fusion([s2, s3, s4])
+            context = self.context(fused)
+            edge_map, edge_features = self.edge_detector(context)
+            preds = self.decoder(context, edge_features,
+                                 kernels=self.kernels and self.config.spatial_axis is None,
+                                 int8=self.config.int8_decoder and not self.training)
+        else:
+            fused = self.fusion([s2, s3, s4], band)
+            context = self.context(fused, band)
+            rows = halo(context, band, 1, 1)
+            edge_map, edge_features = self.edge_detector(rows, band)
+            preds = self.decoder(rows, halo(edge_features, band, 1, 1), band=band)
+            *preds, edge_map = gather_rows(preds + [edge_map], band)
+            context, fused, edge_features = gather_rows([context, fused, edge_features], band)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1)

@@ -13,14 +13,21 @@ kernel of the 2x bilinear composed with a 3x3 kernel (``_compose_kernel``
 :35), and :func:`border_strips`, the exact outermost output rows and
 columns of ``conv3x3(up2(x))`` (``_border_strips`` :57), both channels-last
 with HWIO kernels as in the JAX package.
+
+Under a spatial axis the decoder runs on a band of rows
+(parallel/sharding.RowBand): :func:`upsample_rows` resizes the band's rows
+with the source rows around it that :func:`source_rows` names, and gives
+the output rows bit-equal to those of the whole resize.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from spegnet_tpu_torch.parallel.sharding import Rows
 
 _KU = (0.25, 0.75, 0.75, 0.25)
 
@@ -29,6 +36,41 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """[B, C, H, W] -> [B, C, 2H, 2W], bilinear, align_corners=False."""
     return F.interpolate(x, size=(2 * x.shape[-2], 2 * x.shape[-1]),
                          mode="bilinear", align_corners=False)
+
+
+def source_rows(lo: int, hi: int, scale: int, h: int) -> Tuple[int, int]:
+    """The source rows [r0, r1) that the bilinear resize (align_corners=False)
+    of an ``h``-row map by an integer ``scale`` reads for its output rows
+    [lo, hi) that lie in the output (its two taps: floor of the source
+    coordinate clamped at 0, and the next row clamped at h - 1)."""
+    a, b = max(lo, 0), min(hi, scale * h)
+
+    def tap(j):   # floor(max((j + 0.5) / scale - 0.5, 0)), in integers
+        return max(2 * j + 1 - scale, 0) // (2 * scale)
+
+    return tap(a), min(tap(b - 1) + 1, h - 1) + 1
+
+
+def upsample_rows(rows: Rows, scale: int, lo: int, hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of the bilinear ``scale`` x resize (align_corners=False,
+    both dims) of the map that ``rows`` holds a part of, zero where they lie
+    outside the output (a convolution's padding).  ``rows`` must hold
+    :func:`source_rows` of them: the resize of those source rows then reads,
+    for each output row, the same two rows with the same weights as the
+    whole map's resize, since the ratio is an exact power of two and no
+    clamp at the part's own edges reaches the rows kept, so they are
+    bit-equal to the whole resize's."""
+    if scale == 1:
+        return rows.padded(lo, hi)
+    r0, r1 = source_rows(lo, hi, scale, rows.h)
+    m = rows.t.shape[2]
+    if r0 < rows.lo or r1 > rows.lo + m:
+        raise ValueError(f"output rows [{lo}, {hi}) read source rows [{r0}, {r1}), not all "
+                         f"in [{rows.lo}, {rows.lo + m})")
+    t = rows.t[:, :, r0 - rows.lo:r1 - rows.lo]
+    y = F.interpolate(t, size=(scale * (r1 - r0), scale * t.shape[3]), mode="bilinear",
+                      align_corners=False)
+    return Rows(y, scale * r0, scale * rows.h).padded(lo, hi)
 
 
 def upsample2x_conv3x3(x: torch.Tensor, weight: torch.Tensor,

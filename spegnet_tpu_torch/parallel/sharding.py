@@ -21,6 +21,12 @@ own rows and the collectives are explicit:
 * :func:`gather_in_order`: per-sample records of every rank, in dataset
   order, on every rank (pickled through the host, which gloo needs for
   anything but all-reduce and broadcast of CUDA tensors);
+* the head's row bands (models/spegnet.py): :class:`RowBand`, a rank's band
+  of rows of every head map; :func:`halo`, its band with the rows of its
+  neighbours that a convolution or a resize reads (:class:`Rows`);
+  :func:`spatial_mean`, a per-sample spatial mean over the group's bands;
+  :func:`gather_rows`, the bands joined along H; :func:`sum_stats`, the
+  BatchNorm statistics' sum;
 * the model (tensor-parallel) axis: :func:`param_spec`, JAX's
   ``_param_spec`` over the reference state-dict names; :func:`shard_param` /
   :func:`join_shards` / :func:`gather_param` between a full tensor and a
@@ -40,7 +46,8 @@ Under both axes a rank runs collectives on five groups (parallel/mesh.py):
 the token gathers on its spatial group, the weight gathers and row-parallel
 sums on its model group, the sample weights and losses on its data group,
 DDP's buckets on its replica group, and the BatchNorm statistics on the
-whole group.  Every rank runs the same program, so it calls them in the
+whole group; the head's halos, means and row gathers run on its spatial
+group.  Every rank runs the same program, so it calls them in the
 same order on every group (the recompute of a checkpointed block runs its
 forward's again, in the forward's order), and no two ranks wait for each
 other on different groups, which under gloo would hang rather than fail.
@@ -49,12 +56,14 @@ other on different groups, which under gloo would hang rather than fail.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
+from spegnet_tpu_torch.ops import wide
 from spegnet_tpu_torch.parallel.mesh import ModelShard, TokenShard, grouped
 
 
@@ -315,3 +324,217 @@ def reduce_partial(t: torch.Tensor, group: ModelShard) -> torch.Tensor:
     from torch.distributed.nn.functional import all_reduce as _all_reduce
 
     return _all_reduce(t, group=group.group)
+
+
+# -- the head's row bands -------------------------------------------------------
+#
+# Under a spatial axis JAX constrains the trunk's NHWC outputs to P("data",
+# sp, None, None) (spegnet_tpu/models/hiera.py:710-724) and GSPMD carries
+# that H-sharding through CFI, EFE and PED.  Here rank s of a spatial group
+# of S computes the head on rows [s h / S, (s + 1) h / S) of every map of h
+# rows (H/8, H/4, H/2, H), and fetches from the other ranks the rows its
+# convolutions and resizes read beyond its band.  Each primitive below is
+# differentiated as the global program (module docstring): its backward
+# sums the cotangents over the ranks it joined.  They run on two
+# collectives, all-gather and all-reduce, which gloo (CPU and CUDA tensors)
+# and NCCL both run, through :func:`_all_gather` and :func:`_all_reduce`.
+
+
+class RowBand(NamedTuple):
+    """Rank ``index`` of the ``size`` ranks of the process group ``group``
+    (a spatial group): its band of every head map, rows [index n, (index +
+    1) n) of a map of ``size`` n rows; ``stats``: the process group that the
+    BatchNorm statistics sum over (None: every rank, as without bands)."""
+
+    group: Any
+    index: int
+    size: int
+    stats: Any = None
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """This rank's rows [a, b) of a map whose bands hold ``n`` rows."""
+        return self.index * n, (self.index + 1) * n
+
+
+def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``t`` (one shape on every rank of ``group``), in index
+    order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return parts
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` (None: every rank), in place."""
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _SumOver(torch.autograd.Function):
+    """Sum over ``group``; the backward sums the cotangents over it."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce(t.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def sum_stats(t: torch.Tensor, band: Optional[RowBand] = None) -> torch.Tensor:
+    """A BatchNorm's sums of x, x^2 and its count over the ranks
+    (models/cfi.BatchNorm2d): over every rank (:func:`all_reduce`), or over
+    ``band.stats``, differentiable."""
+    if band is None:
+        return all_reduce(t)
+    return _SumOver.apply(t, band.stats)
+
+
+def spatial_mean(x: torch.Tensor, band: Optional[RowBand] = None) -> torch.Tensor:
+    """[B, C] per-sample mean over H and W of an NCHW map, or with ``band``
+    of the map whose bands the group holds (``x``: this rank's): the band's
+    sums, summed over the group, over h w.  The sums are taken in f64 and
+    the mean returned in the accumulation dtype (f32, f64 for f64), so that
+    the bands' mean rounds as the whole map's does: summed in f32, the two
+    orders of the sum differ in the last bits."""
+    s = x.sum((2, 3), dtype=torch.float64)
+    if band is not None:
+        s = _SumOver.apply(s, band.group)
+    n = x.shape[2] * x.shape[3] * (1 if band is None else band.size)
+    return (s / n).to(wide(x).dtype)
+
+
+class Rows(NamedTuple):
+    """Rows [lo, lo + t.shape[2]) of an NCHW map of ``h`` rows: a band with
+    the rows around it that :func:`halo` fetched, cut at the map's
+    border."""
+
+    t: torch.Tensor
+    lo: int
+    h: int
+
+    def padded(self, lo: int, hi: int) -> torch.Tensor:
+        """Rows [lo, hi) of the map, zero outside it (a convolution's
+        padding); they must lie in these rows where they lie in the map."""
+        a, b = max(lo, 0), min(hi, self.h)
+        if a < self.lo or b > self.lo + self.t.shape[2]:
+            raise ValueError(f"rows [{lo}, {hi}) are not in rows [{self.lo}, "
+                             f"{self.lo + self.t.shape[2]}) of {self.h}")
+        t = self.t[:, :, a - self.lo:b - self.lo]
+        return F.pad(t, (0, 0, a - lo, hi - b)) if (a - lo or hi - b) else t
+
+
+def _halo_pieces(n: int, k: int, lo: int, hi: int, index: int):
+    """(owner, its rows [l0, l1), the first row's place in its export; None
+    for rank ``index``'s own) of rows [lo, hi) of a map whose bands hold
+    ``n`` rows each, where every rank exports its band (k = n) or its first
+    and last k rows."""
+    for o in range(lo // n, (hi - 1) // n + 1):
+        l0, l1 = max(lo, o * n) - o * n, min(hi, (o + 1) * n) - o * n
+        if o == index:
+            yield o, l0, l1, None
+        elif k == n or l1 <= k:
+            yield o, l0, l1, l0
+        else:
+            assert l0 >= n - k, (n, k, lo, hi)
+            yield o, l0, l1, k + l0 - (n - k)
+
+
+def _as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``like``'s memory format (channels-last where the head's
+    maps are)."""
+    if like.dim() == 4 and like.is_contiguous(memory_format=torch.channels_last):
+        return t.contiguous(memory_format=torch.channels_last)
+    return t.contiguous()
+
+
+class _Halo(torch.autograd.Function):
+    """Rows [lo, hi) of the map whose bands (dim 2, n rows each) the group
+    holds, from this rank's band ``x``: every rank exports its band, or its
+    first and last k rows where k < n, and the exports are all-gathered.
+    The backward puts each fetched row's cotangent in its owner's export,
+    all-reduces the exports and adds this rank's to its band: the
+    cotangent goes back to the rank that owns the row."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, size, lo, hi, k):
+        n = x.shape[2]
+        ctx.meta = (group, index, size, lo, hi, k, n)
+        exp = x if k == n else torch.cat([x[:, :, :k], x[:, :, n - k:]], 2)
+        parts = _all_gather(exp.contiguous(), group)
+        pieces = [x[:, :, l0:l1] if o == index else parts[o][:, :, e0:e0 + l1 - l0]
+                  for o, l0, l1, e0 in _halo_pieces(n, k, lo, hi, index)]
+        return _as(torch.cat(pieces, 2), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, index, size, lo, hi, k, n = ctx.meta
+        b, c, _, w = g.shape
+        gx = g.new_zeros((b, c, n, w))
+        buf = g.new_zeros((size, b, c, n if k == n else 2 * k, w))
+        off = 0
+        for o, l0, l1, e0 in _halo_pieces(n, k, lo, hi, index):
+            piece = g[:, :, off:off + l1 - l0]
+            off += l1 - l0
+            if o == index:
+                gx[:, :, l0:l1] += piece
+            else:
+                buf[o][:, :, e0:e0 + l1 - l0] += piece
+        mine = _all_reduce(buf, group)[index]
+        if k == n:
+            gx += mine
+        else:
+            gx[:, :, :k] += mine[:, :, :k]
+            gx[:, :, n - k:] += mine[:, :, k:]
+        return gx, None, None, None, None, None, None
+
+
+def halo(x: torch.Tensor, band: RowBand, before: int, after: int) -> Rows:
+    """This rank's band ``x`` (NCHW, n rows) with the ``before`` rows above
+    it and the ``after`` rows below it, of any width (a neighbour's band is
+    n rows; wider halos reach further ranks), cut at the map's border:
+    rows [max(a - before, 0), min(b + after, S n)).  One all-gather; every
+    rank of the group calls it with the same widths."""
+    n = x.shape[2]
+    a, b = band.span(n)
+    lo, hi = max(a - before, 0), min(b + after, band.size * n)
+    k = min(n, max(before, after))
+    return Rows(_Halo.apply(x, band.group, band.index, band.size, lo, hi, k), lo,
+                band.size * n)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Bands of several maps joined along H on every rank, in index order,
+    from one all-gather of their flattened values; the backward sums the
+    cotangents over the group (an all-reduce) and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, group, index, *xs):
+        ctx.group, ctx.index = group, index
+        ctx.shapes = [x.shape for x in xs]
+        parts = _all_gather(torch.cat([x.reshape(-1) for x in xs]), group)
+        out, off = [], 0
+        for x in xs:
+            m = x.numel()
+            out.append(_as(torch.cat([p[off:off + m].view(x.shape) for p in parts], 2), x))
+            off += m
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = _all_reduce(torch.cat([g.reshape(-1) for g in gs]), ctx.group)
+        out, off = [], 0
+        for g, shape in zip(gs, ctx.shapes):
+            n = shape[2]
+            whole = flat[off:off + g.numel()].view(g.shape)
+            out.append(whole[:, :, ctx.index * n:(ctx.index + 1) * n])
+            off += g.numel()
+        return (None, None, *out)
+
+
+def gather_rows(xs: Sequence[torch.Tensor], band: RowBand) -> List[torch.Tensor]:
+    """The whole maps, on every rank of the group, from this rank's bands
+    ``xs`` (NCHW, one dtype), in one all-gather."""
+    return list(_GatherRows.apply(band.group, band.index, *xs))

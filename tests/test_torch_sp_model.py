@@ -13,7 +13,9 @@ which import no JAX):
   groups, against JAX's on the same mesh (its parameters placed by
   ``param_shardings``, Pallas interpreted): each output within
   tests/test_torch_bf16.py's MEAN_REL / MAX_REL, each rank's T-block and
-  front at the local shapes JAX's kernels received;
+  front at the local shapes JAX's kernels received, the head on the band of
+  the rank's spatial index (the same on both ranks of a model group), there
+  and in every step below;
 * one f64 Trainer step on ``SP_VARIANT`` down the token route
   (``torch_parallel_workers.open_morton``) at {1, 2, 2} (global batch 4,
   its tail of 3, and both again with ``training.remat``) and {2, 2, 2}
@@ -69,7 +71,7 @@ from test_torch_parallel import (  # noqa: E402,F401  (eval_workspace, jax_varia
     eval_workspace,
     jax_variables,
 )
-from test_torch_spatial import _jax_calls, _open_jax_gates  # noqa: E402
+from test_torch_spatial import _jax_calls, _open_jax_gates, assert_head_bands  # noqa: E402
 from test_torch_tensor_parallel import JAX_MODEL_AXIS_FAULT  # noqa: E402
 from test_torch_train import _port_model, train_config  # noqa: E402
 
@@ -306,6 +308,16 @@ def test_bf16_forward_on_4_ranks_matches_jax(case, output):
     assert mean_rel <= MEAN_REL and max_rel <= MAX_REL, (mean_rel, max_rel)
 
 
+def test_head_runs_on_bands(case):
+    """The bf16 forward at 64^2 on {1, 2, 2}: both ranks of a model group
+    ran the same band of the head (their spatial index's), with its halos."""
+    ranks = case["ranks"]["d1"]
+    assert [r["forward"]["sp_index"] for r in ranks] == [0, 0, 1, 1]
+    for r in ranks:
+        assert_head_bands(r["forward"]["head_rows"], 64, 2)
+        assert r["forward"]["head_rows"] == ranks[0]["forward"]["head_rows"]
+
+
 # -- (c) the f64 step -------------------------------------------------------------------
 
 def _np(d):
@@ -356,6 +368,16 @@ def test_step_equals_one_process(case, key, steps, which):
     assert got["calls"] == want + want[-1:] * (steps == "remat_steps")
     _hold_step(got, one)
     _hold_replicas(ranks, steps, which)
+
+
+@pytest.mark.parametrize("key,steps,which", STEP_CASES + [("d1", "oracle_steps", 0)],
+                         ids=["122-batch4", "122-tail3", "122-remat-batch4", "122-remat-tail3",
+                              "222-batch4", "122-oracle"])
+def test_step_runs_the_head_on_bands(case, key, steps, which):
+    """Each rank's head ran on its band of rows in the train step (the step
+    itself: test_step_equals_one_process, test_jax_step_oracle)."""
+    for r in case["ranks"][key]:
+        assert_head_bands(r[steps][which]["head_rows"], 64, 2)
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["batch4", "tail3"])

@@ -16,15 +16,17 @@ package's, on the CPU with gloo ranks that torch.multiprocessing spawns
 * the bf16 SPEGNet on 4 ranks ({"data": 2, "sp": 2}) against JAX's on the
   same mesh and weights, each output within mean |diff| / mean |JAX| <= 3%
   and max / max <= 8% (tests/test_torch_bf16.py's tolerance), each rank's
-  trunk calls those of the plan at its local shapes;
+  trunk calls those of the plan at its local shapes, and each rank's head
+  convolutions on its band of rows with their halos (models/spegnet.py);
 * one f64 Trainer step at {"data": 1, "sp": 2} and {"data": 2, "sp": 2},
   global batch 4 and its tail of 3, against the one-process f64 step: the
   loss, every reduced gradient, the BN running statistics and the updated
   parameters (tests/test_torch_parallel.py's tolerances), every rank's
-  parameters bit-equal.  The ranks send the f64 model down the token route
-  (``torch_parallel_workers.open_morton``) on a small trunk whose plan has
-  every kind of block (``SP_VARIANT``): the proof of the trainer's gradient
-  rule across both gathers and the BatchNorm all-reduce;
+  parameters bit-equal, each rank's head on its band.  The ranks send the
+  f64 model down the token route (``torch_parallel_workers.open_morton``)
+  on a small trunk whose plan has every kind of block (``SP_VARIANT``): the
+  proof of the trainer's gradient rule across both gathers, the head's
+  halos, means and row gathers, and the BatchNorm all-reduce;
 * the Evaluator over {"data": 1, "sp": 2} (f32, the token route opened the
   same way) against one process: per-sample metrics within 1e-5 and the
   same files."""
@@ -281,6 +283,42 @@ def test_tiny_routes_match_jax(sp_forward_case):
         assert r["calls"] == want
 
 
+# The head's convolutions that run as modules (models/cfi.py, models/ped.py;
+# the fusion's per-stage 1x1 projection does not): e-ASPP's reduce, four
+# branches, global branch, fusion and expand; EFE's two; each decoder block's
+# two and its logit head.
+HEAD_CONVS = 8 + 2 + 3 * 3
+
+
+def assert_head_bands(rows, size: int, sp: int) -> None:
+    """A rank's head convolutions (torch_parallel_workers.record_head_rows)
+    each ran once on its band with its halo: h / S rows of a map of h rows
+    at its resolution (H/8; decoder block i and its head at 2^(i + 1) times
+    that) and its row padding more on each side, in and out (the band's
+    rows are cut from the output); e-ASPP's global branch on the whole 1x1
+    map."""
+    n8 = thiera.head_bands(size, sp)
+    assert n8 is not None and len(rows) == HEAD_CONVS == len({r[0] for r in rows}), rows
+    for name, rows_in, rows_out, pad in rows:
+        if ".global_branch." in name:
+            assert rows_in == rows_out == 1, name
+            continue
+        scale = 2 ** (int(name.split(".")[2]) + 1) if name.startswith("decoder.") else 1
+        assert rows_in == rows_out == n8 * scale + 2 * pad, (name, rows_in, rows_out)
+
+
+def test_head_runs_on_bands_on_4_ranks(sp_forward_case):
+    """{"data": 2, "sp": 2} at 64^2: each rank's head on 4 of the 8 rows at
+    H/8 (and 8, 16, 32 of 16, 32, 64 in the decoder), with its halos;
+    every output whole on both ranks of a spatial group
+    (test_bf16_forward_on_4_ranks_matches_jax)."""
+    _, _, ranks = sp_forward_case
+    assert sorted(r["sp_index"] for r in ranks) == [0, 0, 1, 1]
+    for r in ranks:
+        assert_head_bands(r["head_rows"], 64, 2)
+        assert r["out"]["predictions"][-1].shape == (2, 64, 64, 1)
+
+
 @pytest.mark.parametrize("output", ["prediction 0", "prediction 1", "prediction 2", "edge",
                                     "context", "fused", "edge_features"])
 def test_bf16_forward_on_4_ranks_matches_jax(sp_forward_case, output):
@@ -372,6 +410,18 @@ def test_sp_train_step_matches_one_process(sp_train_case, tag, which):
             for n in a[key]:
                 assert torch.equal(a[key][n], b[key][n]), (key, n)
         assert a["metrics"] == b["metrics"]
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["batch4", "tail3"])
+@pytest.mark.parametrize("tag", ["d1s2", "d2s2"])
+def test_sp_train_step_runs_the_head_on_bands(sp_train_case, tag, which):
+    """In the train step each rank's head ran on its band of rows (the
+    step itself: test_sp_train_step_matches_one_process)."""
+    ranks, _ = sp_train_case
+    got = sorted(r[which]["sp_index"] for r in ranks[tag])
+    assert got == sorted([0, 1] * (len(ranks[tag]) // 2))
+    for r in ranks[tag]:
+        assert_head_bands(r[which]["head_rows"], 64, 2)
 
 
 # -- (5) the evaluator ----------------------------------------------------------------

@@ -71,6 +71,19 @@ def record_calls() -> list:
     return calls
 
 
+def record_head_rows(model) -> list:
+    """(module, rows in, rows out, its row padding) of every convolution of
+    ``model``'s head that runs as a module (all but the fusion's per-stage
+    1x1 projection), in call order, from now on: under row bands each runs
+    on this rank's band with its halo."""
+    rows = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Conv2d) and not name.startswith("encoder"):
+            mod.register_forward_hook(lambda m, args, out, _n=name: rows.append(
+                (_n, args[0].shape[2], out.shape[2], m.padding[0])))
+    return rows
+
+
 def spawn(fn, world: int, root: Path, join: bool = True):
     """Run ``fn(rank, world, root)`` in ``world`` processes and wait for them,
     or, without ``join``, return their torch.multiprocessing context."""
@@ -177,7 +190,8 @@ def evaluate_rank(rank: int, world: int, root: str) -> None:
 def sp_train_rank(rank: int, world: int, root: str) -> None:
     """Every batch of ``root``/job.pt through :func:`train_step_result` on the
     job's mesh (a spatial axis "sp"), the f64 model on the Morton routes
-    (:func:`open_morton`), with the trunk's calls of its first step."""
+    (:func:`open_morton`), with the trunk's calls of its first step and the
+    head's rows (:func:`record_head_rows`)."""
     _join(rank, world, root)
     try:
         job = torch.load(Path(root) / "job.pt", weights_only=False)
@@ -187,8 +201,11 @@ def sp_train_rank(rank: int, world: int, root: str) -> None:
         calls = record_calls()
         out = []
         for batch in job["batches"]:
-            out.append(train_step_result(job, batch, mesh))
+            tr = make_trainer(job, mesh)
+            head = record_head_rows(tr.model)
+            out.append(step_result(tr, batch))
             out[-1]["calls"], calls[:] = list(calls), []
+            out[-1]["head_rows"], out[-1]["sp_index"] = head, mesh.sp_index
         torch.save(out, Path(root) / f"sp_train_rank{rank}.pt")
     finally:
         destroy_distributed()
@@ -197,8 +214,8 @@ def sp_train_rank(rank: int, world: int, root: str) -> None:
 def sp_forward_result(job: dict, mesh: Mesh) -> dict:
     """The eval-mode SPEGNet of ``job`` (its variant and compute dtype,
     spatial axis "sp" over ``mesh``, its matmuls split over the mesh's model
-    axis if it has one) on this rank's rows of the job's input: its outputs
-    and the trunk's calls."""
+    axis if it has one) on this rank's rows of the job's input: its outputs,
+    the trunk's calls and the head's rows (:func:`record_head_rows`)."""
     from spegnet_tpu_torch.models.spegnet import SPEGNet, SPEGNetConfig
     from spegnet_tpu_torch.parallel.sharding import rows_of
 
@@ -207,10 +224,11 @@ def sp_forward_result(job: dict, mesh: Mesh) -> dict:
     model.load_state_dict(job["state"])
     model.to_compute().shard_tokens(mesh.token_shard).shard_model(mesh.model_shard)
     x = job["x"][rows_of(mesh.data_index, mesh.data, job["x"].shape[0])]
-    calls = record_calls()
+    calls, head = record_calls(), record_head_rows(model)
     with torch.no_grad():
         out = model(x)
-    return {"out": out, "calls": list(calls), "data_index": mesh.data_index}
+    return {"out": out, "calls": list(calls), "data_index": mesh.data_index,
+            "sp_index": mesh.sp_index, "head_rows": head}
 
 
 def sp_forward_rank(rank: int, world: int, root: str) -> None:
@@ -315,7 +333,7 @@ def sp_model_rank(rank: int, world: int, root: str) -> None:
     """The tasks of ``root``/job.pt on its mesh (the spatial axis "sp" and a
     model axis): the mesh's groups; ``steps`` (a fresh Trainer's step on
     each batch of ``SP_VARIANT``, f64 on the token route, :func:`open_morton`;
-    with the rank's own parameters and the trunk's calls); ``remat_steps``
+    with the rank's own parameters, the trunk's calls and the head's rows); ``remat_steps``
     (the same with ``training.remat``); ``oracle_steps`` (the job's
     ``oracle`` job, the same way); ``checkpoint`` (a step on batch 0, its
     checkpoint_state written by rank 0 as sp_model_ckpt.pth, a step on batch
@@ -339,8 +357,9 @@ def sp_model_rank(rank: int, world: int, root: str) -> None:
             for batch in j["batches"]:
                 tr = make_trainer(j, mesh)
                 calls[:] = []
+                head = record_head_rows(tr.model)
                 res.append(step_result(tr, batch))
-                res[-1]["calls"] = list(calls)
+                res[-1]["calls"], res[-1]["head_rows"] = list(calls), head
                 res[-1]["local"] = {n: p.detach().clone()
                                     for n, p in tr.model.named_parameters()}
             return res
